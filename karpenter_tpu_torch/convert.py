@@ -6,6 +6,10 @@ per-row compat matrices, the offering tables and the vocabulary tables.
 engine, under the reference's attribute names or this package's — and
 returns them as tensors on `device`, so the same state can feed both
 packages' kernels.
+
+`scan_operands_from_numpy` does the same for the fused scan's 27 operands
+(ops/fused.py builds them; the reference's packer.solve_scan_fn takes the
+same arrays), so the port's scan and the reference's read the same state.
 """
 
 from __future__ import annotations
@@ -55,3 +59,53 @@ def engine_state_from_numpy(arrays: dict[str, np.ndarray], device) -> dict[str, 
             arr = arr.astype(np.float64)
         out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
     return out
+
+
+# the fused scan's operands in the reference's order and dtypes
+# (karpenter_tpu/ops/packer.py _scan_program): int8 trans_kind, one byte
+# per bool, float64 resources, 0-d int32 n_pods / n_nodes
+SCAN_OPERANDS = (
+    ("pod_gi", torch.int32), ("claim_pad", torch.int32),
+    ("g_req", torch.float64), ("g_floor", torch.float64),
+    ("uniq_alloc", torch.float64), ("usage0", torch.float64),
+    ("tol", torch.bool), ("open_ok", torch.bool), ("open_fam", torch.int32),
+    ("open_uok", torch.bool), ("trans_kind", torch.int8),
+    ("trans_fam", torch.int32), ("famu_ok", torch.bool),
+    ("n_pods", torch.int32), ("n_nodes", torch.int32),
+    ("node_ok", torch.bool), ("node_rem0", torch.float64),
+    ("fam_mask", torch.bool), ("tmpl_mask", torch.bool),
+    ("open_cand", torch.bool), ("uid_onehot", torch.bool),
+    ("uid_of_type", torch.int32), ("cap_f", torch.float64),
+    ("pool_of_t", torch.int32), ("pool_rem0", torch.float64),
+    ("pool_has", torch.bool), ("pool_bad", torch.bool),
+)
+
+_NP_DTYPES = {
+    torch.int32: np.int32, torch.int8: np.int8, torch.float64: np.float64,
+    torch.bool: np.bool_,
+}
+
+
+def scan_operands_from_numpy(args, device) -> tuple:
+    """The 27 scan operands (numpy arrays or scalars, in the reference's
+    layout) → a tuple of contiguous tensors on `device`, each in the
+    reference's dtype. An operand that is already a tensor on `device` in
+    that dtype passes through. A value that the dtype cannot hold exactly
+    raises."""
+    if len(args) != len(SCAN_OPERANDS):
+        raise ValueError(f"expected {len(SCAN_OPERANDS)} scan operands, got {len(args)}")
+    device = torch.device(device)
+    out = []
+    for (name, dtype), a in zip(SCAN_OPERANDS, args):
+        if isinstance(a, torch.Tensor):
+            if a.dtype != dtype or a.device.type != device.type:
+                raise ValueError(f"{name}: tensor {a.dtype} on {a.device}, expected {dtype} on {device}")
+            out.append(a.contiguous())
+            continue
+        arr = np.asarray(a)
+        want = _NP_DTYPES[dtype]
+        conv = arr.astype(want)
+        if not np.array_equal(conv, arr):
+            raise ValueError(f"{name}: values not exactly representable as {dtype}")
+        out.append(torch.from_numpy(conv.copy(order="C")).to(device))
+    return tuple(out)

@@ -12,6 +12,7 @@
 //                     and the compat half of _cube_math (:265)
 //   kt_cube_offer  <- karpenter_tpu/ops/feasibility.py:265 _cube_math /
 //                     production_cube, the offering half
+//   kt_uid_project <- karpenter_tpu/ops/feasibility.py:332 uid_project
 //
 // These are boolean reductions, not float math. The JAX package counts bad
 // rows with an f32 matmul and thresholds at 0.5; here every test is exact
@@ -258,6 +259,35 @@ __global__ void cube_offer_kernel(
     out[static_cast<size_t>(p0 + j) * I + i] = (has >> j) & 1u;
 }
 
+// ---------------------------------------------------------------------------
+// B6: out[r, u] = some type i with uid_onehot[u, i] survives in mask[r, i].
+//
+// The JAX program counts surviving types per unique-allocatable row with an
+// f32 matmul and thresholds at 0.5; here it is the exact OR. One warp per
+// (row, u): the lanes read the uid's one-hot row and the mask row 32
+// consecutive bytes at a time (coalesced) and the warp votes. At the fused
+// solve's shape ([T*F, I] = [64, 1008] rows into 36 uids) that is 2304 warps
+// of 32 loads each, ~1 MB from L2: launch-bound.
+__global__ void uid_project_kernel(const uint8_t* __restrict__ onehot,
+                                   const uint8_t* __restrict__ mask,
+                                   uint8_t* __restrict__ out, int R, int U,
+                                   int I) {
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= static_cast<long long>(R) * U) return;  // whole warps exit together
+  const int r = static_cast<int>(warp / U), u = static_cast<int>(warp % U);
+  const uint8_t* oh = onehot + static_cast<size_t>(u) * I;
+  const uint8_t* m = mask + static_cast<size_t>(r) * I;
+  bool hit = false;
+  for (int i0 = 0; i0 < I; i0 += 32) {
+    const int i = i0 + lane;
+    hit = __any_sync(0xffffffffu, i < I && oh[i] && m[i]);
+    if (hit) break;
+  }
+  if (lane == 0) out[warp] = hit;
+}
+
 constexpr int MAX_GRID_Y = 65535;
 
 }  // namespace
@@ -312,6 +342,18 @@ int kt_cube_offer(const void* mem, const void* offer_ok, const void* custom_need
       static_cast<const uint8_t*>(custom_need), static_cast<const uint8_t*>(key_present),
       static_cast<const uint8_t*>(available), static_cast<const int32_t*>(owner),
       static_cast<uint8_t*>(out), P, R, O, K, I);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int kt_uid_project(const void* onehot, const void* mask, void* out, int R, int U,
+                   int I, void* stream) {
+  if (R == 0 || U == 0) return 0;
+  const long long n = static_cast<long long>(R) * U * 32;  // one warp per output
+  const dim3 block(256);
+  const dim3 grid(static_cast<unsigned>((n + 255) / 256));
+  uid_project_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(onehot), static_cast<const uint8_t*>(mask),
+      static_cast<uint8_t*>(out), R, U, I);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,6 +31,9 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # no a*b+c contraction: the fused scan's float64 results must round
+    # exactly as the reference's separate operations do
+    "--fmad=false",
     "-Xptxas", "-v",
 )
 

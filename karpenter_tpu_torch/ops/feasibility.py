@@ -31,7 +31,7 @@ from karpenter_tpu_torch.device import KernelError, kernel_library, stream_handl
 from karpenter_tpu_torch.ops.encoding import NO_GT, NO_LT, NOT_INT, WORD
 
 # kernel launches per kernel, counted where each wrapper launches
-LAUNCHES: dict[str, int] = {"row_compat": 0, "membership": 0, "cube": 0}
+LAUNCHES: dict[str, int] = {"row_compat": 0, "membership": 0, "cube": 0, "uid_project": 0}
 
 _TILE = 32  # entities per kernel thread (csrc/feasibility.cu TILE)
 _MAX_GRID_Y = 65535
@@ -123,6 +123,22 @@ def production_cube_plain(
     return compat, counts > 0
 
 
+def uid_project_plain(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tensor:
+    """[..., U]: does any type of `type_mask` map onto unique-allocatable
+    row u? The JAX program counts surviving types with an f32 matmul and
+    tests > 0.5; this is the same predicate as an exact any-reduce."""
+    return (type_mask[..., None, :] & uid_onehot).any(dim=-1)
+
+
+def uid_onehot_matrix(uid_of_type: np.ndarray, num_uniq: int) -> np.ndarray:
+    """[U, I] bool one-hot of uid_of_type — the projection operand
+    uid_project consumes (built once per engine catalog)."""
+    I = uid_of_type.shape[0]
+    out = np.zeros((num_uniq, I), dtype=bool)
+    out[uid_of_type, np.arange(I)] = True
+    return out
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
 _lib_cache: list = []
@@ -138,6 +154,8 @@ def _lib() -> ctypes.CDLL:
         lib.kt_membership.argtypes = [vp] * 3 + [ci] * 3 + [vp]
         lib.kt_cube_offer.restype = ci
         lib.kt_cube_offer.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+        lib.kt_uid_project.restype = ci
+        lib.kt_uid_project.argtypes = [vp] * 3 + [ci] * 3 + [vp]
         _lib_cache.append(lib)
     return _lib_cache[0]
 
@@ -300,6 +318,31 @@ def production_cube(
     _raise_on(rc, "cube")
     LAUNCHES["cube"] += bool(P and I)
     return compat, has_offering
+
+
+def uid_project(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tensor:
+    """surviving-unique-alloc projection: does ANY instance type in
+    `type_mask` map onto unique-allocatable row u? Builds the fused scan's
+    famu_ok operand (ops/fused.py); the scan kernel projects its own masks
+    in place (csrc/scan.cu).
+
+    uid_onehot: [U, I] bool — uid_of_type scattered one-hot
+    type_mask:  [..., I] bool
+    returns     [..., U] bool
+    """
+    if _on_cpu(uid_onehot):
+        return uid_project_plain(uid_onehot, type_mask)
+    dev = uid_onehot.device
+    U, I = uid_onehot.shape
+    lead = tuple(type_mask.shape[:-1])
+    _check("uid_onehot", uid_onehot, torch.bool, (U, I), dev)
+    _check("type_mask", type_mask, torch.bool, lead + (I,), dev)
+    R = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty(lead + (U,), dtype=torch.bool, device=dev)
+    rc = _lib().kt_uid_project(_ptr(uid_onehot), _ptr(type_mask), _ptr(out), R, U, I, stream_handle(dev))
+    _raise_on(rc, "uid_project")
+    LAUNCHES["uid_project"] += bool(R and U)
+    return out
 
 
 # -- decision provenance (observability/explain.py) ----------------------------

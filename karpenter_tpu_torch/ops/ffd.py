@@ -1,7 +1,8 @@
 """Device-accelerated first-fit-decreasing: the CUDA fast path of the
 provisioning solve, with EXACT host-decision parity. The batched
 feasibility sweep runs through CatalogEngine (ops/catalog.py) on the card;
-the walk itself runs in the native C++ driver.
+the walk itself runs as the fused scan kernel on a CUDA engine
+(ops/fused.py), else in the native C++ driver.
 
 The reference's solver is a per-pod loop — Pop → try existing nodes →
 try in-flight claims (emptiest first) → open a new claim from the weighted
@@ -38,9 +39,11 @@ in BOTH policies (Strict's per-join diversity gate; BestEffort's open-time
 relaxation into per-claim specs), reserved capacity in BOTH offering modes
 (fallback bookkeeping per join; strict's scan-aborting errors on the
 all-volatile topo driver), and PreferNoSchedule relaxation. The host loop
-remains the semantics oracle. This package has no topology-aware driver
-yet: topology-engaged, PreferNoSchedule and strict-reserved solves, and
-shapes the plain driver declines, return None and run on the host loop.
+remains the semantics oracle. On a CUDA engine the whole walk runs first as
+the fused one-dispatch scan (ops/fused.py, csrc/scan.cu); batches it
+declines by shape run on the walk here. This package has no topology-aware
+driver yet: topology-engaged, PreferNoSchedule and strict-reserved solves,
+and shapes the plain driver declines, return None and run on the host loop.
 """
 
 from __future__ import annotations
@@ -114,10 +117,10 @@ PACK_CACHE_MISSES = 0
 
 def solver_cache_counters() -> dict:
     """Snapshot of the solver's cumulative cache/dispatch counters (delta
-    two snapshots to attribute one solve). This package has no topology
-    count tensors, fused scan or delta residency yet, so only the plain
-    driver's counters appear."""
-    return {
+    two snapshots to attribute one solve): the plain driver's counters and
+    the fused scan's (solves + decline taxonomy). This package has no
+    topology count tensors or delta residency yet."""
+    out = {
         "joint_cache_hits": JOINT_CACHE_HITS,
         "joint_cache_misses": JOINT_CACHE_MISSES,
         "pack_cache_hits": PACK_CACHE_HITS,
@@ -126,6 +129,11 @@ def solver_cache_counters() -> dict:
         "device_solves": DEVICE_SOLVES,
         "device_fallbacks": DEVICE_FALLBACKS,
     }
+    # lazy import keeps the ffd<->fused module cycle one-directional at import
+    from karpenter_tpu_torch.ops import fused as _fused
+
+    out.update(_fused.fused_counters())
+    return out
 
 
 # /metrics mirror of solver_cache_counters: the module-global ints above are
@@ -223,8 +231,9 @@ def eligible(scheduler, pods: Sequence[Pod]) -> bool:
         return False
     if len(pods) < DEVICE_MIN_PODS:
         # DEVICE_MIN_PODS is a dispatch-RTT heuristic, not a correctness
-        # gate (this package has no fused scan or delta residency that
-        # would want tiny churn batches on the device)
+        # gate: tiny churn batches stay on the host loop, the fused scan
+        # included (this package has no delta residency that would want
+        # them on the device)
         return False
     if len(scheduler.existing_nodes) > DEVICE_MAX_EXISTING:
         return False
@@ -2195,6 +2204,8 @@ def solve_device(scheduler, pods: Sequence[Pod], timeout: Optional[float] = 60.0
         DEVICE_FALLBACKS += 1
         _FALLBACKS_CTR.inc()
         return None
+    from karpenter_tpu_torch.ops import fused as fused_mod
+
     topo = scheduler.topology
     strict_reserved = _strict_reserved(scheduler)
     if (
@@ -2208,18 +2219,36 @@ def solve_device(scheduler, pods: Sequence[Pod], timeout: Optional[float] = 60.0
         # non-monotonically and aborts pod scans — volatile paths only
         or strict_reserved
     ):
+        if fused_mod.fused_enabled(scheduler.engine):
+            # the fused scan never drives the relax ladder / volatile paths
+            fused_mod.note_decline("topo")
         DEVICE_FALLBACKS += 1
         _FALLBACKS_CTR.inc()
         return None
-    # the plain driver (native kernel) only; shapes it declines fall back
-    # to the host loop, the semantics oracle. Any other error, a kernel or
-    # device fault included, fails the solve.
-    solve = _DeviceSolve(scheduler, pods)
-    try:
-        solve.run(timeout)
-        solve.emit()
-    except _Fallback:
-        solve.abort()
+    # the fused one-dispatch scan first (when enabled: on a CUDA engine by
+    # default), then the plain driver (native kernel). A scan decline or an
+    # ineligible shape moves on to the next attempt; other shapes the plain
+    # driver declines return to the host loop, the semantics oracle. Any
+    # other error, a kernel or device fault included, fails the solve.
+    attempts = list(fused_mod.maybe_attempts(scheduler)) + [_DeviceSolve]
+    done = False
+    solve = None
+    for cls in attempts:
+        solve = cls(scheduler, pods)
+        try:
+            solve.run(timeout)
+            solve.emit()
+            done = True
+            break
+        except (fused_mod._FusedDecline, _IneligibleShape):
+            # not scan-shaped — the host-walk driver is the designed slow
+            # path (a decline is already metered by taxonomy reason)
+            solve.abort()
+            continue
+        except _Fallback:
+            solve.abort()
+            break
+    if not done:
         DEVICE_FALLBACKS += 1
         _FALLBACKS_CTR.inc()
         return None

@@ -91,7 +91,8 @@ def test_launch_counts_untouched_by_plain_versions():
     args = cube_inputs(3)
     tfeas.production_cube(*(to_torch(a) for a in args))
     tfeas.req_rows_vs_sets(*(to_torch(a) for a in row_inputs(3)))
-    assert tfeas.LAUNCHES == {"row_compat": 0, "membership": 0, "cube": 0}
+    tfeas.uid_project(torch.ones((2, 5), dtype=torch.bool), torch.ones((3, 5), dtype=torch.bool))
+    assert tfeas.LAUNCHES == {"row_compat": 0, "membership": 0, "cube": 0, "uid_project": 0}
 
 
 # -- import rules --------------------------------------------------------------

@@ -73,6 +73,62 @@ def spec(seed: int) -> dict:
             "pools": pools}
 
 
+def cluster_spec(seed: int) -> dict:
+    """spec(seed) plus a fleet of existing nodes with seeded usage: each
+    node carries a single value for every key a pod shape selects on, so the
+    fused scan's static node compatibility applies."""
+    s = spec(seed)
+    rng = np.random.RandomState(1000 + seed)
+    nodes = []
+    for i in range(int(rng.randint(6, 20))):
+        cpu, mem = [("16", "64Gi"), ("32", "128Gi"), ("8", "32Gi")][rng.randint(3)]
+        used = [["500m", "1", "2", "4"][rng.randint(4)] for _ in range(rng.randint(0, 4))]
+        nodes.append({
+            "name": f"existing-{i}", "pool": s["pools"][rng.randint(len(s["pools"]))]["name"],
+            "zone": ZONES[rng.randint(4)], "arch": ["amd64", "arm64"][rng.randint(2)],
+            "capacity": {"cpu": cpu, "memory": mem, "pods": "110"}, "used": used,
+        })
+    s["nodes"] = nodes
+    return s
+
+
+def _existing_nodes(m, core, res, store, cluster, nodes):
+    """Register each node dict of cluster_spec (and its bound pods) with the
+    store and the cluster state, as the informer would."""
+    wk = m("apis.labels")
+    for n in nodes:
+        cap = res.parse_resource_list(n["capacity"])
+        node = core.Node(
+            metadata=core.ObjectMeta(name=n["name"], labels={
+                wk.NODEPOOL_LABEL_KEY: n["pool"],
+                wk.LABEL_INSTANCE_TYPE: "s-4x-amd64-linux",
+                wk.LABEL_TOPOLOGY_ZONE: n["zone"],
+                wk.LABEL_ARCH: n["arch"],
+                wk.LABEL_OS: "linux",
+                wk.CAPACITY_TYPE_LABEL_KEY: "on-demand",
+                wk.NODE_REGISTERED_LABEL_KEY: "true",
+                wk.NODE_INITIALIZED_LABEL_KEY: "true",
+                wk.LABEL_HOSTNAME: n["name"],
+            }),
+            spec=core.NodeSpec(provider_id=f"kwok://{n['name']}"),
+            status=core.NodeStatus(capacity=cap, allocatable=dict(cap)),
+        )
+        store.create(node)
+        cluster.update_node(node)
+        for j, cpu in enumerate(n["used"]):
+            pod = core.Pod(
+                metadata=core.ObjectMeta(name=f"{n['name']}-used-{j}", uid=f"{n['name']}-used-{j}"),
+                spec=core.PodSpec(
+                    node_name=n["name"],
+                    containers=[core.Container(requests=res.parse_resource_list({"cpu": cpu}))],
+                ),
+            )
+            pod.metadata.creation_timestamp = 0.0
+            pod.status.conditions.append(core.Condition(type="PodScheduled", status="True"))
+            store.create(pod)
+            cluster.update_pod(pod)
+
+
 def solve(pkg: str, s: dict):
     def m(name):
         return importlib.import_module(f"{pkg}.{name}")
@@ -116,12 +172,14 @@ def solve(pkg: str, s: dict):
         pool.set_condition("Ready", "True")
         store.create(pool)
         pools.append(pool)
+    _existing_nodes(m, core, res, store, cluster, s.get("nodes", ()))
+    state_nodes = cluster.state_nodes()
     its = {p.metadata.name: catalog for p in pools}
     kw = {"device": "cpu"} if pkg == "karpenter_tpu_torch" else {}
     engine = m("ops.catalog").CatalogEngine(catalog, **kw)
-    topology = m("scheduler.topology").Topology(store, cluster, [], pools, its, pods)
+    topology = m("scheduler.topology").Topology(store, cluster, state_nodes, pools, its, pods)
     scheduler = m("scheduler.scheduler").Scheduler(
-        store, pools, cluster, [], topology, its, [],
+        store, pools, cluster, state_nodes, topology, its, [],
         m("events.recorder").Recorder(clock=clock), clock, engine=engine,
     )
     results = scheduler.solve(pods)
@@ -138,7 +196,12 @@ def solve(pkg: str, s: dict):
         for nc in results.new_node_claims
     ]
     errors = sorted((p.metadata.uid, str(e)) for p, e in results.pod_errors.items())
-    return claims, errors
+    existing = sorted(
+        (en.name(), sorted(p.metadata.uid for p in en.pods))
+        for en in results.existing_nodes
+        if en.pods
+    )
+    return claims, errors, existing
 
 
 @pytest.fixture

@@ -94,3 +94,105 @@ def onehot(owner: np.ndarray, num_instances: int) -> np.ndarray:
     out = np.zeros((owner.shape[0], num_instances), dtype=bool)
     out[np.arange(owner.shape[0]), owner] = True
     return out
+
+
+def uid_inputs(seed: int, lead: tuple):
+    """A [U, I] one-hot of a random uid_of_type (every uid owns a type) and
+    a random [*lead, I] type mask."""
+    rng = np.random.RandomState(200 + seed)
+    U = (1, 3, 36, 40)[seed % 4]
+    I = U + int(rng.randint(0, 70))
+    uid_of_type = np.concatenate([np.arange(U), rng.randint(0, U, size=I - U)])
+    rng.shuffle(uid_of_type)
+    onehot = np.zeros((U, I), dtype=bool)
+    onehot[uid_of_type, np.arange(I)] = True
+    return onehot, rng.rand(*lead, I) < (0.02, 0.1, 0.5)[seed % 3]
+
+
+def scan_inputs(seed: int, has_nodes: bool, has_limits: bool):
+    """The fused scan's 27 operands in the reference's layout and dtypes
+    (karpenter_tpu/ops/fused.py builds them from a solve), drawn at random
+    but consistent: every index in range, padding as the builder pads
+    (groups past G carry g_floor -1e-9 and REJECT transitions, pods past
+    n_pods carry group -1), famu_ok the uid projection of tmpl_mask and
+    fam_mask. Resources are multiples of 0.5, so exact ties hit the 1e-9
+    fit edges; even seeds carry a group that fits nothing, seed 2 mod 3 a
+    claim axis too short for the batch. Returns ((T, has_nodes, has_limits), operands)."""
+    rng = np.random.RandomState(300 + seed)
+    T = int(rng.randint(1, 4))
+    Pr, Pb = int(rng.randint(40, 200)), 256
+    Gr, Gb = int(rng.randint(3, 12)), 16
+    Fr, Fb = int(rng.randint(2, 7)), 8
+    U, I, D = int(rng.randint(1, 7)), int(rng.randint(8, 40)), 3
+    C = (256, 64, 16)[seed % 3]  # 16 slots overflow: SCAN_CLAIM_OVERFLOW
+    half = lambda lo, hi, shape: rng.randint(lo, hi, size=shape) * 0.5  # noqa: E731
+
+    pod_gi = np.full(Pb, -1, np.int32)
+    pod_gi[:Pr] = rng.randint(0, Gr, size=Pr)
+    g_req = np.zeros((Gb, D))
+    g_req[:Gr] = half(0, 9, (Gr, D))
+    g_floor = np.full((Gb, D), -1e-9)
+    if seed % 2 == 0:
+        g_req[0] = half(60, 80, D)  # fits nothing: requeues, then the cycle stop
+    g_floor[:Gr] = g_req[:Gr] - 1e-9
+    uid_of_type = np.concatenate([np.arange(U), rng.randint(0, U, size=I - U)]).astype(np.int32)
+    rng.shuffle(uid_of_type)
+    uniq_alloc = half(8, 40, (U, D))
+    usage0 = half(0, 2, (T, D))
+    tol = np.zeros((T, Gb), bool)
+    tol[:, :Gr] = rng.rand(T, Gr) < 0.9
+    open_ok = np.zeros((T, Gb), bool)
+    open_ok[:, :Gr] = rng.rand(T, Gr) < 0.85
+    if seed % 2 == 0:
+        open_ok[:, 0] = False  # group 0 fits nothing (above): no template opens it
+    open_fam = np.zeros((T, Gb), np.int32)
+    open_fam[:, :Gr] = rng.randint(0, Fr, size=(T, Gr))
+    open_uok = np.zeros((T, Gb, U), bool)
+    open_uok[:, :Gr] = rng.rand(T, Gr, U) < 0.7
+    trans_kind = np.zeros((Fb, Gb), np.int8)
+    trans_kind[:Fr, :Gr] = rng.choice([0, 1, 1, 2, 2], size=(Fr, Gr))
+    trans_fam = np.zeros((Fb, Gb), np.int32)
+    same = trans_kind == 1
+    trans_fam[same] = np.nonzero(same)[0]
+    narrow = trans_kind == 2
+    trans_fam[narrow] = rng.randint(0, Fr, size=int(narrow.sum()))
+    fam_mask = np.zeros((Fb, I), bool)
+    fam_mask[:Fr] = rng.rand(Fr, I) < 0.7
+    tmpl_mask = rng.rand(T, I) < 0.8
+    onehot = np.zeros((U, I), bool)
+    onehot[uid_of_type, np.arange(I)] = True
+    famu_ok = ((tmpl_mask[:, None, :] & fam_mask[None, :, :])[:, :, None, :] & onehot).any(-1)
+
+    dummy2, dummyb = np.zeros((1, 1)), np.zeros((1, 1), bool)
+    Nr = 0
+    node_ok, node_rem0 = dummyb, dummy2
+    if has_nodes:
+        Nr, Nb = int(rng.randint(1, 12)), 16
+        node_ok = np.zeros((Nb, Gb), bool)
+        node_ok[:Nr, :Gr] = rng.rand(Nr, Gr) < 0.6
+        node_rem0 = np.zeros((Nb, D))
+        node_rem0[:Nr] = half(0, 30, (Nr, D))
+    pool_of_t = np.full(T, -1, np.int32)
+    open_cand, tmpl_maskP, cap_f = dummyb[None], dummyb, dummy2
+    uid_of_typeP = np.zeros(1, np.int32)
+    pool_rem0, pool_has, pool_bad = dummy2, dummyb, np.zeros(1, bool)
+    if has_limits:
+        L = int(rng.randint(1, 3))
+        pool_of_t = rng.randint(-1, L, size=T).astype(np.int32)
+        pool_of_t[0] = 0
+        open_cand = np.zeros((T, Gb, I), bool)
+        open_cand[:, :Gr] = rng.rand(T, Gr, I) < 0.7
+        tmpl_maskP = tmpl_mask
+        cap_f = uniq_alloc[uid_of_type] + half(0, 3, (I, D))
+        uid_of_typeP = uid_of_type
+        pool_rem0 = half(20, 400, (L, D))
+        pool_has = rng.rand(L, D) < 0.7
+        pool_bad = rng.rand(L) < 0.1
+    args = (
+        pod_gi, np.zeros(C, np.int32), g_req, g_floor, uniq_alloc, usage0,
+        tol, open_ok, open_fam, open_uok, trans_kind, trans_fam, famu_ok,
+        np.int32(Pr), np.int32(Nr), node_ok, node_rem0,
+        fam_mask, tmpl_maskP, open_cand, onehot, uid_of_typeP, cap_f,
+        pool_of_t, pool_rem0, pool_has, pool_bad,
+    )
+    return (T, has_nodes, has_limits), args
