@@ -12,10 +12,16 @@ Phases, in order; any failure exits non-zero:
   3. hold each kernel against its plain torch version on the card, bit for
      bit: the feasibility kernels at the solve's shapes, on ragged edges and
      on bounded/complement rows; uid_project on ragged type counts and U=1;
-     the fused scan on the 27 operands of four small solves this script sets
-     up (no nodes/limits; existing nodes with seeded usage; a second
-     NodePool with a cpu limit; both at once with two templates), all 10
-     outputs compared;
+     offering_reduce on ragged P/R/O/K (K=0, an offering never available);
+     solve_block and solve_block_core on random operands (all-infeasible
+     groups, zero-request dims, price ties); delta_scatter with edge-padded
+     duplicate slots and
+     delta_finalize; the fused scan on the 27 operands of four small solves
+     this script sets up (no nodes/limits; existing nodes with seeded
+     usage; a second NodePool with a cpu limit; both at once with two
+     templates): the classic outputs, the full state (solve_scan_full),
+     and solve_scan_resume from the full state of a prefix against the plain
+     resume and against solve_scan_full on the whole list;
   4. the main path: the bench workload (kwok catalog x7 = 1008 types and
      8064 offerings, 50,000 pods from 200 shapes drawn with RandomState(7),
      one `default` NodePool, empty cluster) through the port's
@@ -23,16 +29,29 @@ Phases, in order; any failure exits non-zero:
      `auto`, cold once and warm twice; launch counts are zeroed just before
      and read just after. Then the slice-1 path (scan off, the native walk)
      on the same workload, cold and warm, with the same decisions;
-  5. decision identity on a 5,000-pod prefix: CUDA with the scan, CUDA with
+  5. delta solves (KARPENTER_TPU_DELTA=on, the fused scan on, a self-check
+     every 5 warm passes) on the same workload: one cold pass, then 12
+     churn passes that each add 24 pods extending the FFD stream as an
+     exact suffix; one scan residency miss, 12 warm resumes of 24 steps
+     each, identical self-checks, the last pass's decisions equal to a
+     delta-off solve, constant residency bytes, and flat
+     torch.cuda.memory_allocated() over 3 identical warm re-solves. Then
+     the group solver on the workload's encode_pods_for_packer groups:
+     solve_block and solve_block_core there against their plain versions,
+     then the path (counts zeroed just before, the checks' own launches
+     left out): the full solve, and with delta on a cold pass, a
+     count-only pass (0 groups solved) and a pass with new shapes;
+  6. decision identity on a 5,000-pod prefix: CUDA with the scan, CUDA with
      the walk and a device="cpu" engine (walk, plain versions); and the
      nodes-and-limits solve with the scan on CUDA against the plain scan on
      the CPU;
-  6. one JSON line {"kernels": [...]}: per kernel its launches in phase 4,
-     agreement with the plain version, and CUDA-event medians of the kernel,
-     the plain version and a PyTorch yardstick on the inputs phase 4 gave it,
+  7. one JSON line {"kernels": [...]}: per kernel its launches on its path
+     (phase 4, or phase 5 for the delta and group kernels), agreement with
+     the plain version, and CUDA-event medians of the kernel, the plain
+     version and a PyTorch yardstick on the inputs its path gave it,
      beside its bound (the larger of bytes over the memory rate and
      operations over the rate for their type);
-  7. last line {"ok": true, "device": {...}}.
+  8. last line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and karpenter_tpu_torch only.
 """
@@ -67,12 +86,22 @@ NUM_PODS = 50_000
 CATALOG_REPEAT = 7
 PREFIX_PODS = 5_000
 SMALL_PODS = 2_000
+CHURN_PASSES = 12
+CHURN_PODS = 24
+SELF_CHECK_EVERY = 5
 SOURCE = {
     "row_compat": "karpenter_tpu_torch/csrc/feasibility.cu",
     "membership": "karpenter_tpu_torch/csrc/feasibility.cu",
     "cube": "karpenter_tpu_torch/csrc/feasibility.cu",
     "uid_project": "karpenter_tpu_torch/csrc/feasibility.cu",
     "solve_scan": "karpenter_tpu_torch/csrc/scan.cu",
+    "offering_reduce": "karpenter_tpu_torch/csrc/feasibility.cu",
+    "solve_block": "karpenter_tpu_torch/csrc/packer.cu",
+    "solve_block_core": "karpenter_tpu_torch/csrc/packer.cu",
+    "delta_scatter": "karpenter_tpu_torch/csrc/packer.cu",
+    "delta_finalize": "karpenter_tpu_torch/csrc/packer.cu",
+    "solve_scan_full": "karpenter_tpu_torch/csrc/scan.cu",
+    "solve_scan_resume": "karpenter_tpu_torch/csrc/scan.cu",
 }
 REPLACES = {
     "row_compat": "karpenter_tpu/ops/feasibility.py:48",
@@ -80,6 +109,13 @@ REPLACES = {
     "cube": "karpenter_tpu/ops/feasibility.py:265",
     "uid_project": "karpenter_tpu/ops/feasibility.py:332",
     "solve_scan": "karpenter_tpu/ops/packer.py:494",
+    "offering_reduce": "karpenter_tpu/ops/feasibility.py:430",
+    "solve_block": "karpenter_tpu/ops/packer.py:133",
+    "solve_block_core": "karpenter_tpu/ops/packer.py:162",
+    "delta_scatter": "karpenter_tpu/ops/packer.py:185",
+    "delta_finalize": "karpenter_tpu/ops/packer.py:196",
+    "solve_scan_full": "karpenter_tpu/ops/packer.py:833",
+    "solve_scan_resume": "karpenter_tpu/ops/packer.py:840",
 }
 
 
@@ -155,6 +191,68 @@ def random_cube_inputs(rng, P, R, I, O, K, dev):
     return tuple(_to(a, dev) for a in host)
 
 
+def random_offering_inputs(rng, P, R, O, K, I, dev):
+    """offering_reduce inputs: owner-major offerings, offering 0 never
+    available. Returns the six operands (owner indices)."""
+    owner = np.sort(rng.randint(0, I, size=O)).astype(np.int32)
+    available = rng.rand(O) < 0.9
+    available[0] = False
+    host = (
+        rng.rand(P, R) < min(1.0, 4.0 / R),
+        rng.rand(R, O) < 0.9,
+        rng.rand(O, K) < 0.05,
+        rng.rand(P, K) < 0.5,
+        available,
+        owner,
+    )
+    return tuple(_to(a, dev) for a in host)
+
+
+def random_group_inputs(rng, G, R, K, I, O, D, dev):
+    """solve_block operands: prices from a small set (ties), zero-request
+    dims, group 0 fitting no type (all-infeasible), negative allocatable
+    on a few types, types with no available offering (price inf)."""
+    owner = np.sort(rng.randint(0, I, size=O)).astype(np.int32)
+    available = rng.rand(O) < 0.9
+    offer_price = rng.choice([0.25, 0.5, 1.0, 2.0], size=O).astype(np.float32)
+    price = np.full(I, np.inf, dtype=np.float32)
+    np.minimum.at(price, owner[available], offer_price[available])
+    requests = rng.randint(0, 16, size=(G, D)).astype(np.int32)
+    requests[rng.rand(G, D) < 0.3] = 0
+    requests[0] = 1 << 20
+    alloc = rng.randint(-2, 64, size=(I, D)).astype(np.int32)
+    host = (
+        np.concatenate([rng.rand(G, R) < min(1.0, 4.0 / R), rng.rand(G, K) < 0.5], axis=1),
+        np.concatenate([requests, rng.randint(0, 500, size=(G, 1)).astype(np.int32)], axis=1),
+        rng.rand(R, I) < 0.9,
+        rng.rand(R, O) < 0.9,
+        rng.rand(O, K) < 0.05,
+        available,
+        owner,
+        alloc,
+        price,
+    )
+    return tuple(_to(a, dev) for a in host)
+
+
+def random_core_inputs(rng, cap, n, g, dev):
+    """A resident core matrix, n fresh rows for distinct slots edge-padded
+    to a multiple of 8 (duplicate slots, equal rows), and a gather order of
+    g groups edge-padded to the pow2 rung with its counts."""
+    core = np.stack([rng.randint(0, 1008, size=cap), rng.randint(0, 2, size=cap),
+                     rng.randint(0, 200, size=cap)], axis=1).astype(np.int32)
+    slots = rng.permutation(cap)[:n].astype(np.int32)
+    rows = np.stack([rng.randint(0, 1008, size=n), rng.randint(0, 2, size=n),
+                     rng.randint(0, 200, size=n)], axis=1).astype(np.int32)
+    pad = (8 - n % 8) % 8
+    slots = np.pad(slots, (0, pad), mode="edge")
+    rows = np.pad(rows, ((0, pad), (0, 0)), mode="edge")
+    gb = max(8, 1 << (g - 1).bit_length())
+    order = np.pad(rng.randint(0, cap, size=g).astype(np.int32), (0, gb - g), mode="edge")
+    counts = np.pad(rng.randint(0, 1000, size=g).astype(np.int32), (0, gb - g))
+    return tuple(_to(a, dev) for a in (core, slots, rows, order, counts))
+
+
 def _to(a: np.ndarray, dev) -> torch.Tensor:
     if a.dtype == np.uint32:
         a = a.view(np.int32)
@@ -184,9 +282,10 @@ def build_catalog():
     return catalog
 
 
-def build_pods():
+def bench_shapes():
+    """The bench's 200 pod shapes (node selector, requests) and the shape
+    of each of its NUM_PODS pods, drawn with RandomState(7)."""
     from karpenter_tpu_torch.apis import labels as wk
-    from karpenter_tpu_torch.apis.core import Condition, Container, ObjectMeta, Pod, PodSpec
     from karpenter_tpu_torch.utils.resources import parse_resource_list
 
     rng = np.random.RandomState(7)
@@ -208,20 +307,61 @@ def build_pods():
             {"cpu": cpus[rng.randint(len(cpus))], "memory": mems[rng.randint(len(mems))]}
         )
         shapes.append((sel, requests))
-    picks = rng.randint(len(shapes), size=NUM_PODS)
-    pods = []
-    for i, s in enumerate(picks):
-        sel, requests = shapes[s]
-        pod = Pod(
-            metadata=ObjectMeta(name=f"pod-{i:05d}", uid=f"uid-{i:05d}"),
-            spec=PodSpec(node_selector=dict(sel), containers=[Container(requests=dict(requests))]),
-        )
-        pod.metadata.creation_timestamp = float(i % 13)
-        pod.status.conditions.append(
-            Condition(type="PodScheduled", status="False", reason="Unschedulable")
-        )
-        pods.append(pod)
-    return pods
+    return shapes, rng.randint(len(shapes), size=NUM_PODS)
+
+
+def _pending_pod(name, uid, sel, requests, ts):
+    from karpenter_tpu_torch.apis.core import Condition, Container, ObjectMeta, Pod, PodSpec
+
+    pod = Pod(
+        metadata=ObjectMeta(name=name, uid=uid),
+        spec=PodSpec(node_selector=dict(sel), containers=[Container(requests=dict(requests))]),
+    )
+    pod.metadata.creation_timestamp = ts
+    pod.status.conditions.append(Condition(type="PodScheduled", status="False", reason="Unschedulable"))
+    return pod
+
+
+def build_pods():
+    shapes, picks = bench_shapes()
+    return [
+        _pending_pod(f"pod-{i:05d}", f"uid-{i:05d}", *shapes[s], float(i % 13))
+        for i, s in enumerate(picks)
+    ]
+
+
+def churn_pods(k: int):
+    """Churn pass k's new pods: CHURN_PODS pods of the workload's
+    last-sorting shape (least cpu, then least memory, among the shapes its
+    pods use), created after every earlier pod with later uids, so they
+    extend the FFD stream as an exact suffix."""
+    from karpenter_tpu_torch.apis import labels as wk
+
+    shapes, picks = bench_shapes()
+    last = min(set(picks.tolist()),
+               key=lambda s: (shapes[s][1][wk.RESOURCE_CPU], shapes[s][1][wk.RESOURCE_MEMORY], s))
+    return [
+        _pending_pod(f"churn-{k:02d}-{j:03d}", f"uid-churn-{k:02d}-{j:03d}", *shapes[last], 100.0 + k)
+        for j in range(CHURN_PODS)
+    ]
+
+
+def packer_workload(engine):
+    """The bench workload as the group solver's input: one Requirements
+    object per shape (its node selector), repeated by identity, and the
+    [NUM_PODS, D] requests (cpu, memory, one pod)."""
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.scheduling.requirements import Requirements
+
+    shapes, picks = bench_shapes()
+    reqs = [Requirements.from_labels(sel) for sel, _ in shapes]
+    dims = engine.resource_dims
+    per_shape = np.zeros((len(shapes), len(dims)))
+    for k, (_, requests) in enumerate(shapes):
+        per_shape[k, dims[wk.RESOURCE_CPU]] = requests[wk.RESOURCE_CPU]
+        per_shape[k, dims[wk.RESOURCE_MEMORY]] = requests[wk.RESOURCE_MEMORY]
+    per_shape[:, dims[wk.RESOURCE_PODS]] = 1.0
+    return [reqs[s] for s in picks], per_shape[picks]
 
 
 def small_case(kind: str) -> dict:
@@ -495,6 +635,31 @@ def phase_kernel_checks(dev=torch.device("cuda")):
                     feas.uid_project(onehot, mask), feas.uid_project_plain(onehot, mask))
         n += 1
     log(f"kernel checks: {n} feasibility and uid_project cases bit-identical to the plain versions")
+    n = 0
+    for P, R, O, K, I in ((256, 64, 8064, 8, 1008), (200, 16, 8064, 0, 1008), (1, 1, 1, 0, 1),
+                          (33, 3, 75, 8, 37), (45, 70, 3001, 40, 1000), (7, 33, 20, 0, 9)):
+        args = random_offering_inputs(rng, P, R, O, K, I, dev)
+        check_equal(f"offering_reduce P={P} R={R} O={O} K={K} I={I}",
+                    feas.offering_reduce(*args, I), feas.offering_reduce_plain(*args, I))
+        n += 1
+    for G, R, K, I, O, D in ((256, 64, 8, 1008, 8064, 4), (1, 1, 0, 1, 1, 4), (37, 5, 8, 40, 77, 4),
+                             (200, 16, 0, 1008, 2000, 6), (9, 33, 40, 300, 900, 2)):
+        args = random_group_inputs(rng, G, R, K, I, O, D, dev)
+        check_equal(f"solve_block G={G} R={R} K={K} I={I}",
+                    packer.solve_block(*args), packer.solve_block_plain(*args))
+        check_equal(f"solve_block_core G={G} R={R} K={K} I={I}",
+                    packer.solve_block_core(*args), packer.solve_block_core_plain(*args))
+        n += 2
+    for cap, m, g in ((256, 200, 200), (64, 1, 1), (1024, 517, 1000), (16384, 256, 250)):
+        core, slots, rows, order, counts = random_core_inputs(rng, cap, m, g, dev)
+        got = packer.delta_scatter_rows(core.clone(), slots, rows)
+        want = packer.delta_scatter_rows_plain(core.clone(), slots, rows)
+        check_equal(f"delta_scatter cap={cap} n={m}", got, want)
+        check_equal(f"delta_finalize cap={cap} G={g}", packer.delta_finalize(got, order, counts),
+                    packer.delta_finalize_plain(want, order, counts))
+        n += 2
+    log(f"kernel checks: {n} offering_reduce, solve_block(_core) and delta_scatter/finalize cases "
+        f"bit-identical to the plain versions")
     catalog = construct_instance_types()
     pods = build_pods()[:SMALL_PODS]
     for kind, want_cfg in (("plain", (1, False, False)), ("nodes", (1, True, False)),
@@ -502,13 +667,34 @@ def phase_kernel_checks(dev=torch.device("cuda")):
         engine = CatalogEngine(catalog, device=dev)
         (cfg, args), _, _ = capture_scan(engine, catalog, pods, small_case(kind))
         assert tuple(cfg) == want_cfg, f"{kind}: scan variant {cfg}, expected {want_cfg}"
-        got = packer.solve_scan(cfg, args)
-        want = packer.solve_scan_plain(cfg, args)
-        check_equal(f"solve_scan {kind}", tuple(got), tuple(want))
-        pod_seq = want[4][: int(args[13])]
-        log(f"solve_scan {kind} cfg={cfg}: {int(args[13])} pods, abort {int(want[0])}, "
-            f"{int(want[1])} claims, {int((pod_seq >= 0).sum())} placed, "
-            f"{int((want[3] >= 0).sum())} node joins: all 10 outputs bit-identical")
+        n_pods = int(args[13])
+        want = packer.solve_scan_full_plain(cfg, args)
+        check_equal(f"solve_scan {kind}", tuple(packer.solve_scan(cfg, args)),
+                    packer._scan_finals(want[:-1]) + (want[-1],))
+        full = packer.solve_scan_full(cfg, args)
+        check_equal(f"solve_scan_full {kind}", tuple(full), tuple(want))
+        # resume from the full state of the first 3/4 of the pods
+        p_lo = n_pods * 3 // 4
+        pre = list(args)
+        pre[0] = args[0].clone()
+        pre[0][p_lo:] = -1
+        pre[13] = torch.full_like(args[13], p_lo)
+        st_k = packer.solve_scan_full(cfg, tuple(pre))[:-1]
+        st_p = tuple(t.clone() for t in st_k)
+        head, tail, stop, abort = (int(v) for v in st_p[0][:4].cpu())
+        res_k = packer.solve_scan_resume(cfg, args, st_k, p_lo)
+        res_p = packer.solve_scan_resume_plain(cfg, args, st_p, p_lo)
+        check_equal(f"solve_scan_resume {kind}", tuple(res_k), tuple(res_p))
+        extendable = abort == packer.SCAN_OK and not stop and head == tail == p_lo
+        assert extendable, f"{kind}: the {p_lo}-pod prefix requeued, so no resume is sound"
+        check_equal(f"solve_scan_resume {kind} == solve_scan_full on the whole list",
+                    (res_k[0][:7],) + tuple(res_k[1:-1]), (full[0][:7],) + tuple(full[1:-1]))
+        pod_seq = want[5][:n_pods]
+        log(f"solve_scan {kind} cfg={cfg}: {n_pods} pods, abort {int(want[0][3])}, "
+            f"{int(want[0][6])} claims, {int((pod_seq >= 0).sum())} placed, "
+            f"{int((want[4] >= 0).sum())} node joins, {int(want[-1])} steps: the 10 outputs, "
+            f"the full state (23 components) and the resume from {p_lo} pods "
+            f"({int(res_k[-1])} steps) bit-identical; resume == full solve of the whole list")
 
 
 def _count_launches():
@@ -633,6 +819,214 @@ def phase_main(captured, device=None):
     return launches
 
 
+def phase_delta(captured, device=None):
+    """Delta solves on the main workload: the fused scan forced on, delta
+    on with a self-check every SELF_CHECK_EVERY warm passes. One cold pass,
+    CHURN_PASSES passes of CHURN_PODS suffix pods each; counts zeroed just
+    before the cold pass and read after the last churn pass. Then the last
+    pod list solved with delta off (same decisions) and re-solved 3 times
+    warm with the self-check off (flat memory_allocated). Records the last
+    churn pass's resume inputs in `captured`."""
+    from karpenter_tpu_torch.ops import delta, ffd, fused, packer
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    catalog = build_catalog()
+    pods = build_pods()
+    engine = CatalogEngine(catalog, device=device)
+    cuda = engine.device.type == "cuda"
+    mode0, dmode0, every0 = fused.FUSED_MODE, delta.DELTA_MODE, delta.RESOLVE_FULL_EVERY
+    real_resume = packer.solve_scan_resume
+    passes = []
+
+    def resume_shim(cfg, args, state, p_lo):
+        if len(passes) == CHURN_PASSES:  # the last churn pass: keep its inputs
+            captured["solve_scan_resume"] = (cfg, args, tuple(t.clone() for t in state), p_lo)
+        return real_resume(cfg, args, state, p_lo)
+
+    fused.FUSED_MODE = "on"
+    delta.configure(mode="on", resolve_full_every=SELF_CHECK_EVERY)
+    delta.invalidate_all("chip-smoke")
+    packer.solve_scan_resume = resume_shim
+    try:
+        c0 = delta.delta_counters()
+        fused0, declines0 = fused.FUSED_SOLVES, dict(fused.FUSED_DECLINES)
+        feas.reset_launch_counts()
+        packer.reset_launch_counts()
+        res = delta.scan_residency(engine)
+        for k in range(CHURN_PASSES + 1):
+            if k:
+                pods = pods + churn_pods(k)
+            before = _count_launches()
+            results, ms = solve(engine, catalog, pods)
+            steps = int(res.state[0][7])
+            passes.append((res.last_outcome, ms, steps, res.resident_bytes(), results,
+                           {n: v - before[n] for n, v in _count_launches().items() if v != before[n]}))
+        launches = _count_launches()
+        counters = {k: v - c0.get(k, 0) for k, v in delta.delta_counters().items() if v != c0.get(k, 0)}
+        fused_solves = fused.FUSED_SOLVES - fused0
+        declines = {k: v - declines0.get(k, 0) for k, v in fused.FUSED_DECLINES.items()
+                    if v != declines0.get(k, 0)}
+        packer.solve_scan_resume = real_resume
+        # the same pods with delta off: the classic scan must decide the same
+        delta.configure(mode="off")
+        off_results, off_ms = solve(engine, catalog, copy.deepcopy(pods))
+        # donation check: identical warm re-solves, self-check off
+        delta.configure(mode="on", resolve_full_every=0)
+        mem, mem_steps = [], []
+        for _ in range(3):
+            solve(engine, catalog, pods)
+            mem_steps.append((res.last_outcome, int(res.state[0][7])))
+            mem.append(torch.cuda.memory_allocated() if cuda else None)
+    finally:
+        packer.solve_scan_resume = real_resume
+        fused.FUSED_MODE = mode0
+        delta.configure(mode=dmode0, resolve_full_every=every0)
+    for k, (outcome, ms, steps, nbytes_res, results, per) in enumerate(passes):
+        log(f"delta pass {k} ({'cold' if k == 0 else 'churn'}): {outcome}, {ms:.1f} ms wall, "
+            f"{steps} scan steps, {len(results.new_node_claims)} nodeclaims, "
+            f"{len(results.pod_errors)} pod errors, resident {nbytes_res} bytes, launches {json.dumps(per)}")
+    warm_ms = [p[1] for p in passes[1:]]
+    log(f"delta: counters {json.dumps(counters)}, fused solves {fused_solves}, declines "
+        f"{json.dumps(declines)}, launches {json.dumps(launches)}")
+    log(f"delta: cold {passes[0][1]:.1f} ms, warm p50 {statistics.median(warm_ms):.1f} ms "
+        f"(min {min(warm_ms):.1f}, max {max(warm_ms):.1f}) over {len(warm_ms)} churn passes of "
+        f"{CHURN_PODS} pods; delta-off solve of the last list {off_ms:.1f} ms; "
+        f"re-solves {json.dumps(mem_steps)}, memory_allocated {mem}")
+    assert [p[0] for p in passes] == ["cold"] + ["warm"] * CHURN_PASSES, "a churn pass missed the residency"
+    assert counters.get("delta_scan_miss", 0) == 1 and counters.get("delta_scan_warm", 0) >= CHURN_PASSES
+    checks = counters.get("delta_selfchecks_identical", 0)
+    assert checks >= CHURN_PASSES // SELF_CHECK_EVERY >= 2, f"{checks} self-checks"
+    assert counters.get("delta_selfchecks_divergent", 0) == 0, "a self-check diverged"
+    assert fused_solves == len(passes) and not declines, "a delta pass left the scan"
+    assert launches["solve_scan_resume"] == CHURN_PASSES, "solve_scan_resume not once per churn pass"
+    assert launches["solve_scan_full"] == 1 + checks and launches["solve_scan"] == 0
+    assert all(p[2] == CHURN_PODS for p in passes[1:]), "a resume did not run one step per new pod"
+    assert len({p[3] for p in passes}) == 1, "residency bytes changed"
+    last = decisions(passes[-1][4])
+    assert not last[1], "pod errors on the last churn pass"
+    assert decisions(off_results) == last, "the last churn pass decided differently from delta off"
+    assert all(m == ("warm", 0) for m in mem_steps), f"re-solves {mem_steps}"
+    assert len(set(mem)) == 1, f"memory_allocated moved across warm re-solves: {mem}"
+    log(f"delta: 1 miss, {CHURN_PASSES} warm resumes of {CHURN_PODS} steps, {checks} identical "
+        f"self-checks, decisions equal to delta off, residency {passes[0][3]} bytes, memory flat")
+    return launches
+
+
+def uncounted(fn, *args):
+    """fn(*args) with the launch counts put back afterwards: a check's
+    launches are not its path's."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+
+    saved = dict(feas.LAUNCHES), dict(packer.LAUNCHES)
+    try:
+        return fn(*args)
+    finally:
+        feas.LAUNCHES.update(saved[0])
+        packer.LAUNCHES.update(saved[1])
+
+
+def phase_group(captured, device=None):
+    """The group solver on the workload's encode_pods_for_packer groups:
+    solve_block and solve_block_core there against their plain versions;
+    then the path, with counts zeroed just before and read just after: the
+    full solve, then delta on (a self-check every warm pass) a cold pass, a
+    count-only pass and a pass with new shapes, each held against the full
+    solve outside the counts. The kernels' inputs kept in `captured`."""
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.ops import delta, packer
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    engine = CatalogEngine(build_catalog(), device=device)
+    reqs, requests = packer_workload(engine)
+    real = (feas.offering_reduce, packer.solve_block_core, packer.delta_scatter_rows, packer.delta_finalize)
+
+    def off_shim(*args):
+        captured.setdefault("offering_reduce", args)
+        return real[0](*args)
+
+    def core_shim(*args):
+        captured.setdefault("solve_block_core", args)
+        return real[1](*args)
+
+    def scatter_shim(core, slots, rows):
+        captured.setdefault("delta_scatter", (core.clone(), slots, rows))
+        return real[2](core, slots, rows)
+
+    def finalize_shim(core, order, counts):
+        captured["delta_finalize"] = (core.clone(), order, counts)
+        return real[3](core, order, counts)
+
+    dmode0, every0 = delta.DELTA_MODE, delta.RESOLVE_FULL_EVERY
+    delta.configure(mode="off")
+    solver = packer.GroupSolver(engine)
+    grouped = packer.encode_pods_for_packer(engine, reqs, requests)
+    G = grouped.membership.shape[0]
+    group_bools, group_ints = packer._pack_groups(grouped)
+    args = (_to(group_bools, engine.device), _to(group_ints, engine.device)) + solver._catalog_args()
+    captured["solve_block"] = args
+    check_equal(f"solve_block on the workload's {G} groups", packer.solve_block(*args),
+                packer.solve_block_plain(*args))
+    check_equal(f"solve_block_core on the workload's {G} groups", packer.solve_block_core(*args),
+                packer.solve_block_core_plain(*args))
+    log(f"group solver: solve_block and solve_block_core bit-identical to the plain versions on the "
+        f"workload's groups (G={G}, R+K={group_bools.shape[1]}, I={engine.num_instances})")
+    feas.offering_reduce, packer.solve_block_core, packer.delta_scatter_rows, packer.delta_finalize = (
+        off_shim, core_shim, scatter_shim, finalize_shim)
+    try:
+        feas.reset_launch_counts()
+        packer.reset_launch_counts()
+        c0 = delta.delta_counters()
+        full = solver._solve_full(grouped)
+        delta.configure(mode="on", resolve_full_every=1)
+        delta.invalidate_all("chip-smoke")
+        res = delta.group_residency(solver)
+        extra = [reqs[0]] * 3
+        extra_req = np.tile(requests[:1], (3, 1))
+        extra_req[:, engine.resource_dims[wk.RESOURCE_CPU]] = 3.0  # a request no shape has
+        trace = []
+        for label, (r, q) in (
+            ("cold", (reqs, requests)),
+            ("count-only", (reqs + reqs[:5000], np.vstack([requests, requests[:5000]]))),
+            ("new shapes", (reqs + extra, np.vstack([requests, extra_req]))),
+        ):
+            g = packer.encode_pods_for_packer(engine, r, q)
+            s0 = delta.delta_counters()
+            got = solver.solve(g)
+            s1 = delta.delta_counters()
+            want = uncounted(solver._solve_full, g)
+            assert all(np.array_equal(a, b) for a, b in zip(got, want)), f"group {label}: delta != full"
+            trace.append((label, res.last_mode, g.membership.shape[0],
+                          s1["delta_groups_solved"] - s0["delta_groups_solved"],
+                          s1["delta_groups_reused"] - s0["delta_groups_reused"]))
+        launches = _count_launches()
+        counters = {k: v - c0.get(k, 0) for k, v in delta.delta_counters().items() if v != c0.get(k, 0)}
+    finally:
+        feas.offering_reduce, packer.solve_block_core, packer.delta_scatter_rows, packer.delta_finalize = real
+        delta.configure(mode=dmode0, resolve_full_every=every0)
+    for label, mode, groups, solved, reused in trace:
+        log(f"group pass {label}: {mode}, {groups} groups, {solved} solved, {reused} reused")
+    log(f"group solver: full solve {int(full[1].sum())}/{G} groups feasible, "
+        f"{int(full[2].sum())} nodes; counters {json.dumps(counters)}; launches {json.dumps(launches)}")
+    assert [t[1] for t in trace] == ["cold", "warm", "warm"]
+    assert trace[0][3] >= 1 and trace[1][3] == 0 and trace[2][3] >= 1
+    checks = counters.get("delta_selfchecks_identical", 0)
+    assert checks == 2 and counters.get("delta_selfchecks_divergent", 0) == 0
+    # the path's own launches: the full solve and each self-check run
+    # solve_block; each pass with a frontier solve_block_core and
+    # delta_scatter; every pass delta_finalize; each block solve one
+    # membership and one offering_reduce
+    frontier = sum(1 for t in trace if t[3])
+    want = {"solve_block": 1 + checks, "solve_block_core": frontier, "delta_scatter": frontier,
+            "delta_finalize": len(trace)}
+    want["offering_reduce"] = want["membership"] = want["solve_block"] + frontier
+    got = {name: launches[name] for name in want}
+    assert got == want, f"group path launches {got}, expected {want}"
+    return launches
+
+
 def profile_warm_solve(engine, catalog, pods):
     """One more warm solve, after the launch counts were read: its device
     busy time from torch.profiler and its host time by function from
@@ -717,8 +1111,10 @@ def phase_identity(cuda="cuda"):
 
 
 def device_kernel_ms(fn, names, reps=20) -> dict:
-    """Per-kernel device time (ms per call) from torch.profiler's CUDA
-    activity for `reps` calls of fn; None where the trace shows none."""
+    """Per-kernel device time (ms per launch) from torch.profiler's CUDA
+    activity over `reps` calls of fn: the kernel's total over the launches
+    the trace holds (a trace can miss a launch of a kernel that runs
+    hundreds of ms), None where it holds none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -729,11 +1125,12 @@ def device_kernel_ms(fn, names, reps=20) -> dict:
         torch.cuda.synchronize()
     out = {}
     for name in names:
-        total = 0.0
+        total, count = 0.0, 0
         for ev in prof.key_averages():
             if name in ev.key:
                 total += getattr(ev, "self_device_time_total", 0.0) or 0.0
-        out[name] = total / 1e3 / reps if total else None
+                count += ev.count
+        out[name] = total / 1e3 / count if total and count else None
     return out
 
 
@@ -822,8 +1219,9 @@ def scan_entries(uid_args, scan, prefix_scan, launches):
     """uid_project on the main path's famu_ok inputs (yardstick: the
     reference's f32 matmul form); solve_scan on the main path's operands
     (the wrapper's ms, the kernel's device ms, steps and us per step, the
-    bound), checked and set against its plain version on the 5k prefix's
-    operands (the plain loop at 50k pods would take minutes)."""
+    bound), checked and set against its plain version on the same operands
+    (one run of the plain loop, ~40 s at 50k pods), and timed on the 5k
+    prefix's operands too."""
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import packer
 
@@ -861,12 +1259,11 @@ def scan_entries(uid_args, scan, prefix_scan, launches):
     # (G groups x U rows x D dims), the join's fit test and the committed
     # row (U x D each)
     f64_ops = steps * (G * U * D + 2 * U * D)
+    want, plain_ms = cuda_ms_once(lambda: packer.solve_scan_plain(cfg, args))
+    check_equal("solve_scan on the main path's operands", tuple(out), tuple(want))
     pcfg, pargs = prefix_scan
-    pgot, pwant = packer.solve_scan(pcfg, pargs), packer.solve_scan_plain(pcfg, pargs)
-    check_equal("solve_scan on the prefix's operands", tuple(pgot), tuple(pwant))
     scan = _entry(
-        "solve_scan", launches, _max_abs_err(tuple(pgot), tuple(pwant)), ms,
-        cuda_ms(lambda: packer.solve_scan_plain(pcfg, pargs), reps=1, warmup=0, rounds=1),
+        "solve_scan", launches, _max_abs_err(tuple(out), tuple(want)), ms, plain_ms,
         nbytes(*args) + nbytes(*out), f64_ops, F64_OPS_PER_S, None, dev_ms,
         steps=steps, us_per_step=(dev_ms * 1e3 / steps) if dev_ms else None,
         prefix_ms=cuda_ms(lambda: packer.solve_scan(pcfg, pargs), reps=1, warmup=1, rounds=3),
@@ -875,6 +1272,202 @@ def scan_entries(uid_args, scan, prefix_scan, launches):
                 "F": int(args[10].shape[0]), "T": cfg[0], "nodes": cfg[1], "limits": cfg[2]},
     )
     return [uid, scan]
+
+
+def cuda_ms_once(fn):
+    """(fn(), its milliseconds): CUDA events around one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def resume_bytes(cfg, args, before, after, p_lo) -> int:
+    """The bytes a resume of the suffix [p_lo, n_pods) has to move, from
+    the state before and after it, each counted once: the scalars read and
+    written; per suffix pod its group id and last_len read, its queue entry
+    and pod_claim/pod_node/pod_seq written; the claim pick's reads (cfit's
+    column of each suffix group over the claims then open, the candidate
+    claims' keys); the rows of the claims it touched (rem, u_valid and the
+    three ints read and written, the key and the cfit row written); and the
+    cfit refresh's operands for those claims (the famu_ok rows, transition
+    rows and tolerations of each distinct (template, family), g_floor). For
+    the variant without nodes or limits, the one the delta phase drives."""
+    from karpenter_tpu_torch.ops import packer
+
+    assert not cfg[1] and not cfg[2], f"resume_bytes counts the plain variant, not {cfg}"
+    (pod_gi, _, _, g_floor, _, _, tol, _, _, _, trans_kind, trans_fam, famu_ok) = args[:13]
+    n_pods = int(args[13])
+    s0 = dict(zip(packer.SCAN_STATE_FIELDS, before))
+    s1 = dict(zip(packer.SCAN_STATE_FIELDS, after))
+    nsuf = max(n_pods - int(p_lo), 0)
+    groups = torch.unique(pod_gi[int(p_lo):n_pods].long())
+    nclaims0 = int(s0["scal"][6])
+    cand = s0["cfit"][:nclaims0][:, groups].any(dim=1)
+    touched = torch.nonzero(s1["claim_count"] != s0["claim_count"]).flatten()
+    pairs = {(int(s1["claim_ti"][c]), int(s1["claim_fam"][c])) for c in touched.tolist()}
+    row = lambda t: t[0].numel() * t.element_size()  # noqa: E731
+    per_claim = (2 * (row(s0["rem"]) + row(s0["u_valid"]) + 3 * 4) + 8 + row(s0["cfit"]))
+    G, U = g_floor.shape[0], famu_ok.shape[2]
+    per_pair = G * U * famu_ok.element_size() + row(trans_kind) + row(trans_fam) + row(tol)
+    return (2 * nbytes(s0["scal"]) + nsuf * (4 + 4 + 4 + 3 * 4)
+            + len(groups) * nclaims0 * s0["cfit"].element_size()
+            + int(cand.sum()) * s0["claim_key"].element_size()
+            + len(touched) * per_claim + len(pairs) * per_pair + nbytes(g_floor))
+
+
+def cuda_ms_fresh(make, run, rounds=5) -> float:
+    """Milliseconds per call of run(make()) for a function that writes its
+    inputs in place: CUDA events around each call alone, on inputs made
+    fresh before it, median over `rounds` after one warmup."""
+    run(make())
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        inp = make()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(inp)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def scan_state_entries(scan, resume, launches):
+    """solve_scan_full (B15) on the main path's operands, checked against
+    its plain version on the same operands (all 17 state tensors, float64
+    as raw bits; one run of the plain loop); and solve_scan_resume (B16) on
+    the last churn pass's inputs (the resident state before it, the 27
+    operands, p_lo), checked against the plain resume on the same inputs."""
+    from karpenter_tpu_torch.ops import packer
+
+    cfg, args = scan
+    G, D = args[2].shape
+    U = args[4].shape[0]
+    run = lambda: packer.solve_scan_full(cfg, args)  # noqa: E731
+    out = run()
+    steps = int(out[-1])
+    ms = cuda_ms(run, reps=1, warmup=1, rounds=3)
+    dev_ms = _dev_sum(device_kernel_ms(run, ["solve_scan_kernel"], reps=2))
+    want, plain_ms = cuda_ms_once(lambda: packer.solve_scan_full_plain(cfg, args))
+    check_equal("solve_scan_full on the main path's operands", tuple(out), tuple(want))
+    full = _entry(
+        "solve_scan_full", launches, _max_abs_err(tuple(out), tuple(want)), ms, plain_ms,
+        nbytes(*args) + nbytes(*out), steps * (G * U * D + 2 * U * D), F64_OPS_PER_S, None, dev_ms,
+        steps=steps, us_per_step=(dev_ms * 1e3 / steps) if dev_ms else None,
+    )
+    rcfg, rargs, state0, p_lo = resume
+    fresh = lambda: tuple(t.clone() for t in state0)  # noqa: E731
+    got = packer.solve_scan_resume(rcfg, rargs, fresh(), p_lo)
+    want = packer.solve_scan_resume_plain(rcfg, rargs, fresh(), p_lo)
+    check_equal("solve_scan_resume on the last churn pass's inputs", tuple(got), tuple(want))
+    rsteps = int(got[-1])
+    rms = cuda_ms_fresh(fresh, lambda st: packer.solve_scan_resume(rcfg, rargs, st, p_lo))
+    rdev = device_kernel_ms(lambda: packer.solve_scan_resume(rcfg, rargs, fresh(), p_lo),
+                            ["solve_scan_kernel"], reps=5)
+    rdev_ms = _dev_sum(rdev)
+    log(f"delta: the resume kernel's device time {rdev_ms} ms for the last churn pass's "
+        f"{rsteps} steps (wrapper {rms:.4f} ms, CUDA events)")
+    RG, RD = rargs[2].shape
+    RU = rargs[4].shape[0]
+    resume_entry = _entry(
+        "solve_scan_resume", launches, _max_abs_err(tuple(got), tuple(want)), rms,
+        cuda_ms_fresh(fresh, lambda st: packer.solve_scan_resume_plain(rcfg, rargs, st, p_lo), rounds=1),
+        resume_bytes(rcfg, rargs, state0, got[:-1], p_lo), rsteps * (RG * RU * RD + 2 * RU * RD),
+        F64_OPS_PER_S, None, rdev_ms, steps=rsteps,
+        us_per_step=(rdev_ms * 1e3 / rsteps) if rdev_ms and rsteps else None, p_lo=int(p_lo),
+    )
+    return [full, resume_entry]
+
+
+def group_entries(captured, launches):
+    """offering_reduce, solve_block and solve_block_core on the group
+    path's operands (the workload's groups; the cold delta pass's padded
+    frontier for the core), delta_scatter and delta_finalize on the inputs
+    the residency gave them: each matched against its plain version, then
+    timed. Bytes: each input read once and each output written once (for
+    delta_scatter the rows it writes, for delta_finalize the core rows it
+    gathers too)."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+
+    entries = []
+
+    def words(n):
+        return (n + 31) // 32
+
+    def add(name, kernel, plain, library, inputs, device_names, ops, out_bytes=None, **extra):
+        got, want = kernel(), plain()
+        check_equal(f"{name} on the group path's inputs", got, want)
+        entries.append(_entry(
+            name, launches, _max_abs_err(got, want), cuda_ms(kernel),
+            cuda_ms(plain, reps=5, warmup=1),
+            nbytes(*inputs) + (nbytes(got) if out_bytes is None else out_bytes), ops, WORD_OPS_PER_S,
+            cuda_ms(library) if library is not None else None,
+            _dev_sum(device_kernel_ms(kernel, device_names)),
+            shapes=[list(t.shape) for t in inputs], **extra,
+        ))
+
+    off = captured["offering_reduce"]
+    P, R = off[0].shape
+    O, K = off[2].shape
+
+    def offering_f32():
+        """The reference's f32 form (three matmuls), the yardstick."""
+        m, oc, cn, kp, av, ow, n = off
+        rows_ok = (m.float() @ (~oc).float()) < 0.5
+        undef_ok = ((cn.float() @ (~kp).float().T) < 0.5).T
+        onehot = torch.zeros((O, n), device=m.device)
+        onehot[torch.arange(O, device=m.device), ow.long()] = 1.0
+        return ((rows_ok & undef_ok & av[None, :]).float() @ onehot) > 0.5
+
+    add("offering_reduce", lambda: feas.offering_reduce(*off), lambda: feas.offering_reduce_plain(*off),
+        offering_f32, off[:6], ["cube_offer_kernel"], P * O * (words(R) + words(K)),
+        library_call="the reference's f32 matmul form")
+
+    for name in ("solve_block", "solve_block_core"):
+        args = captured[name]
+        G = args[0].shape[0]
+        Rr, Ii = args[2].shape
+        Oo, Kk = args[4].shape
+        Dd = args[7].shape[1]
+        mem, kp = args[0][:, :Rr], args[0][:, Rr:]
+        # the yardstick: one argmin over the masked price, on feasibility
+        # computed beforehand (no single call computes the whole solve)
+        feasible = (
+            feas.membership_all_plain(mem, args[2])
+            & feas.offering_reduce_plain(mem, args[3], args[4], kp, args[5], args[6], Ii)
+            & (args[1][:, None, :Dd] <= args[7][None, :, :]).all(dim=-1)
+        )
+        inf = torch.tensor(3.4e38, dtype=torch.float32, device=args[8].device)
+        add(name, lambda k=getattr(packer, name), a=args: k(*a),
+            lambda p=getattr(packer, f"{name}_plain"), a=args: p(*a),
+            lambda f=feasible, pr=args[8]: torch.argmin(torch.where(f, pr[None, :], inf), dim=1),
+            args, ["membership_kernel", "cube_offer_kernel", "solve_block_kernel"],
+            G * Ii * words(Rr) + G * Oo * (words(Rr) + words(Kk)) + G * Ii * (Dd + 1),
+            library_call="torch.argmin over the masked price (feasibility precomputed)")
+
+    # rewriting the same rows is idempotent, so repeated calls time it
+    core, slots, rows = captured["delta_scatter"]
+    c_k, c_p, c_l = core.clone(), core.clone(), core.clone()
+    add("delta_scatter", lambda: packer.delta_scatter_rows(c_k, slots, rows),
+        lambda: packer.delta_scatter_rows_plain(c_p, slots, rows),
+        lambda: c_l.index_put_((slots.long(),), rows), (slots, rows), ["delta_scatter_kernel"], 0,
+        out_bytes=nbytes(rows), library_call="index_put_ (core[slots] = rows)", cap=int(core.shape[0]))
+
+    fcore, order, counts = captured["delta_finalize"]
+    Gb = order.shape[0]
+    add("delta_finalize", lambda: packer.delta_finalize(fcore, order, counts),
+        lambda: packer.delta_finalize_plain(fcore, order, counts), None, (order, counts),
+        ["delta_finalize_kernel"], Gb * 8, out_bytes=Gb * 4 * 4 + Gb * 3 * 4, cap=int(fcore.shape[0]))
+    return entries
 
 
 def main() -> int:
@@ -899,6 +1492,10 @@ def main() -> int:
     if not args.quick:
         captured: dict = {}
         launches = phase_main(captured)
+        log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+        delta_launches = phase_delta(captured)
+        group_launches = phase_group(captured)
+        log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
         prefix_scan = phase_identity()
         # the sweep at the sizes a more diverse backlog reaches (256 joint
         # sets x 128 rows), beside the sizes this workload gave
@@ -917,6 +1514,12 @@ def main() -> int:
                                  "the main path's inputs")
         kernels += scan_entries(captured["uid_project"], captured["solve_scan"], prefix_scan,
                                 launches)
+        kernels += scan_state_entries(captured["solve_scan"], captured["solve_scan_resume"],
+                                      delta_launches)
+        kernels += group_entries(captured, group_launches)
+        assert len(kernels) == len(SOURCE), [k["name"] for k in kernels]
+        for k in kernels:
+            assert k["launches"] > 0, f"{k['name']} was not launched on its path"
         log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

@@ -10,6 +10,14 @@ packages' kernels.
 `scan_operands_from_numpy` does the same for the fused scan's 27 operands
 (ops/fused.py builds them; the reference's packer.solve_scan_fn takes the
 same arrays), so the port's scan and the reference's read the same state.
+
+The scan's loop state crosses over too: the reference carries 23
+components (seven scalars, then 16 arrays; `packer.solve_scan_full_fn`
+returns them, `solve_scan_resume_fn` takes them), the port the seven scalars
+in one int32 vector `scal` (its 8th entry the last launch's iteration
+count) and the same 16 arrays as tensors. `scan_state_from_numpy` and
+`scan_state_to_numpy` map between the two layouts, and
+`group_core_from_numpy` takes the group residency's [cap, 3] core matrix.
 """
 
 from __future__ import annotations
@@ -81,8 +89,8 @@ SCAN_OPERANDS = (
 )
 
 _NP_DTYPES = {
-    torch.int32: np.int32, torch.int8: np.int8, torch.float64: np.float64,
-    torch.bool: np.bool_,
+    torch.int32: np.int32, torch.int64: np.int64, torch.int8: np.int8,
+    torch.float64: np.float64, torch.bool: np.bool_,
 }
 
 
@@ -109,3 +117,62 @@ def scan_operands_from_numpy(args, device) -> tuple:
             raise ValueError(f"{name}: values not exactly representable as {dtype}")
         out.append(torch.from_numpy(conv.copy(order="C")).to(device))
     return tuple(out)
+
+
+# the 16 array components of the scan's loop state, after the seven
+# scalars, in the reference's order (karpenter_tpu/ops/packer.py _scan_init)
+SCAN_STATE_ARRAYS = (
+    ("queue", torch.int32), ("last_len", torch.int32), ("pod_claim", torch.int32),
+    ("pod_node", torch.int32), ("pod_seq", torch.int32), ("claim_ti", torch.int32),
+    ("claim_fam", torch.int32), ("claim_count", torch.int32), ("claim_key", torch.int64),
+    ("u_valid", torch.bool), ("rem", torch.float64), ("cfit", torch.bool),
+    ("nptr", torch.int32), ("node_rem", torch.float64), ("tm_st", torch.bool),
+    ("pool_rem", torch.float64),
+)
+# the seven scalars head, tail, stop, abort, seqc, done, nclaims: stop is a
+# bool in the reference, the others int32
+_SCALAR_DTYPES = (np.int32, np.int32, np.bool_, np.int32, np.int32, np.int32, np.int32)
+
+
+def _exact(name: str, arr: np.ndarray, want) -> np.ndarray:
+    conv = arr.astype(want)
+    if not np.array_equal(conv, arr):
+        raise ValueError(f"{name}: values not exactly representable as {np.dtype(want)}")
+    return conv
+
+
+def scan_state_from_numpy(state, device) -> tuple:
+    """The reference's 23 state components (numpy arrays or scalars) → the
+    port's (scal, 16 tensors) on `device`. scal's iteration count starts
+    at 0."""
+    if len(state) != 7 + len(SCAN_STATE_ARRAYS):
+        raise ValueError(f"expected {7 + len(SCAN_STATE_ARRAYS)} state components, got {len(state)}")
+    device = torch.device(device)
+    scal = np.zeros(8, dtype=np.int32)
+    for k in range(7):
+        scal[k] = _exact(f"state[{k}]", np.asarray(state[k]), np.int32)
+    out = [torch.from_numpy(scal).to(device)]
+    for (name, dtype), a in zip(SCAN_STATE_ARRAYS, state[7:]):
+        arr = _exact(name, np.asarray(a), _NP_DTYPES[dtype])
+        out.append(torch.from_numpy(np.ascontiguousarray(arr)).to(device))
+    return tuple(out)
+
+
+def scan_state_to_numpy(state) -> tuple:
+    """The port's (scal, 16 tensors) → the reference's 23 numpy components,
+    each in the reference's dtype (0-d arrays for the scalars)."""
+    if len(state) != 1 + len(SCAN_STATE_ARRAYS):
+        raise ValueError(f"expected {1 + len(SCAN_STATE_ARRAYS)} state tensors, got {len(state)}")
+    scal = state[0].cpu().numpy()
+    out = [np.asarray(scal[k]).astype(dt) for k, dt in enumerate(_SCALAR_DTYPES)]
+    out += [t.cpu().numpy() for t in state[1:]]
+    return tuple(out)
+
+
+def group_core_from_numpy(core, device) -> torch.Tensor:
+    """A resident [cap, 3] group-solve core matrix (choice, feasible,
+    pods-per-node) → an int32 tensor on `device`."""
+    arr = np.asarray(core)
+    if arr.ndim != 2 or arr.shape[1] != 3:
+        raise ValueError(f"core must be [cap, 3], got {arr.shape}")
+    return torch.from_numpy(np.ascontiguousarray(_exact("core", arr, np.int32))).to(torch.device(device))

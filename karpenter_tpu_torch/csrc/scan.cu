@@ -7,8 +7,14 @@
 //
 // What it replaces: the reference's one-dispatch scan, the lax.while_loop
 // program karpenter_tpu/ops/packer.py:494 _scan_program with its init
-// (:784 _scan_init) and finals (:822 _scan_finals), dispatched through
-// solve_scan_fn (:889).
+// (:784 _scan_init) and finals (:822 _scan_finals), in all three of its
+// variants: solve_scan_fn (:889, B14) and solve_scan_full_fn (:898, B15) are
+// the full mode of this kernel (the init, then the loop; the caller reads
+// the 10 outputs or the whole state), solve_scan_resume_fn (:909, B16) its
+// resume mode (:840 _solve_scan_resume_core: the scalars loaded from the
+// resident state, the suffix pods enqueued, then the same loop). The state
+// buffers belong to the caller and are written in place, where the
+// reference donates them to XLA.
 //
 // What bounds it on this card: the bytes it must move are the 27 operands
 // and 10 outputs, a few MB at the solve's shape (P=65536 pods, G=128
@@ -43,6 +49,7 @@ constexpr double EPS = 1e-9;
 constexpr int SCAN_OK = 0, SCAN_CLAIM_OVERFLOW = 1, SCAN_QUEUE_OVERFLOW = 2;
 constexpr int KIND_REJECT = 0;
 constexpr int NO_NODE = 0x7fffffff;
+constexpr int MODE_FULL = 0, MODE_RESUME = 1;
 
 struct ScanParams {
   // operands (the reference layout; bools one byte each)
@@ -91,6 +98,8 @@ struct ScanParams {
   double* pool_rem;    // [L, D] (limits) or [1, D]
   uint32_t* colw;      // [I, WU] scratch: uid_onehot columns as U-bit words
   int P, G, C, U, D, F, T, N, I, L, Qcap, WU, n_pods, n_nodes, has_nodes, has_limits;
+  int mode;  // MODE_FULL: init + loop; MODE_RESUME: resume the state + loop
+  int p_lo;  // resume: the first suffix pod
 };
 
 // the step's scalars, shared by the block
@@ -175,30 +184,7 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1) solve_scan_kernel(const ScanP
     s_tm = s_cand + I;
   }
 
-  // -- _scan_init --
-  const int NR = HAS_NODES ? p.N : 1;
-  const int IL = HAS_LIMITS ? I : 1;
-  const int LR = HAS_LIMITS ? p.L : 1;
-  for (int k = tid; k < p.Qcap; k += SCAN_THREADS) p.queue[k] = k < p.P ? k : 0;
-  for (int k = tid; k < p.P; k += SCAN_THREADS) {
-    p.last_len[k] = -1;
-    p.pod_claim[k] = -1;
-    p.pod_node[k] = -1;
-    p.pod_seq[k] = -1;
-  }
-  for (int k = tid; k < C; k += SCAN_THREADS) {
-    p.claim_ti[k] = 0;
-    p.claim_fam[k] = 0;
-    p.claim_count[k] = 0;
-    p.claim_key[k] = KEY_MAX;
-  }
-  for (int k = tid; k < C * U; k += SCAN_THREADS) p.u_valid[k] = 0;
-  for (size_t k = tid; k < static_cast<size_t>(C) * U * D; k += SCAN_THREADS) p.rem[k] = 0.0;
-  for (size_t k = tid; k < static_cast<size_t>(C) * G; k += SCAN_THREADS) p.cfit[k] = 0;
-  for (int k = tid; k < G; k += SCAN_THREADS) p.nptr[k] = 0;
-  for (int k = tid; k < NR * D; k += SCAN_THREADS) p.node_rem[k] = HAS_NODES ? p.node_rem0[k] : 0.0;
-  for (size_t k = tid; k < static_cast<size_t>(C) * IL; k += SCAN_THREADS) p.tm_st[k] = 0;
-  for (int k = tid; k < LR * D; k += SCAN_THREADS) p.pool_rem[k] = HAS_LIMITS ? p.pool_rem0[k] : 0.0;
+  // colw is scratch, not state: rebuilt by every launch
   if (HAS_LIMITS) {
     for (int k = tid; k < I * p.WU; k += SCAN_THREADS) {
       const int i = k / p.WU, w = k % p.WU;
@@ -208,17 +194,67 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1) solve_scan_kernel(const ScanP
       p.colw[k] = bits;
     }
   }
-  if (tid == 0) {
-    s.head = 0;
-    s.tail = p.n_pods;
-    s.stop = 0;
-    s.abort_ = SCAN_OK;
-    s.seqc = 0;
-    s.done = 0;
-    s.nclaims = 0;
-    s.steps = 0;
+  if (p.mode == MODE_RESUME) {
+    // -- _solve_scan_resume_core: the resident scalars, then the suffix
+    //    [p_lo, n_pods) enqueued at queue[tail + k], tail += nsuf --
+    if (tid == 0) {
+      s.head = p.scal[0];
+      s.tail = p.scal[1];
+      s.stop = p.scal[2];
+      s.abort_ = p.scal[3];
+      s.seqc = p.scal[4];
+      s.done = p.scal[5];
+      s.nclaims = p.scal[6];
+      s.steps = 0;  // this launch's iterations
+    }
+    __syncthreads();
+    const int tail0 = s.tail;
+    const int nsuf = p.n_pods - p.p_lo > 0 ? p.n_pods - p.p_lo : 0;
+    for (int k = tid; k < nsuf; k += SCAN_THREADS) {
+      int idx = tail0 + k;
+      idx = idx < 0 ? 0 : (idx > p.Qcap - 1 ? p.Qcap - 1 : idx);
+      p.queue[idx] = p.p_lo + k;
+    }
+    __syncthreads();
+    if (tid == 0) s.tail = tail0 + nsuf;
+    __syncthreads();
+  } else {
+    // -- _scan_init --
+    const int NR = HAS_NODES ? p.N : 1;
+    const int IL = HAS_LIMITS ? I : 1;
+    const int LR = HAS_LIMITS ? p.L : 1;
+    for (int k = tid; k < p.Qcap; k += SCAN_THREADS) p.queue[k] = k < p.P ? k : 0;
+    for (int k = tid; k < p.P; k += SCAN_THREADS) {
+      p.last_len[k] = -1;
+      p.pod_claim[k] = -1;
+      p.pod_node[k] = -1;
+      p.pod_seq[k] = -1;
+    }
+    for (int k = tid; k < C; k += SCAN_THREADS) {
+      p.claim_ti[k] = 0;
+      p.claim_fam[k] = 0;
+      p.claim_count[k] = 0;
+      p.claim_key[k] = KEY_MAX;
+    }
+    for (int k = tid; k < C * U; k += SCAN_THREADS) p.u_valid[k] = 0;
+    for (size_t k = tid; k < static_cast<size_t>(C) * U * D; k += SCAN_THREADS) p.rem[k] = 0.0;
+    for (size_t k = tid; k < static_cast<size_t>(C) * G; k += SCAN_THREADS) p.cfit[k] = 0;
+    for (int k = tid; k < G; k += SCAN_THREADS) p.nptr[k] = 0;
+    for (int k = tid; k < NR * D; k += SCAN_THREADS) p.node_rem[k] = HAS_NODES ? p.node_rem0[k] : 0.0;
+    for (size_t k = tid; k < static_cast<size_t>(C) * IL; k += SCAN_THREADS) p.tm_st[k] = 0;
+    for (int k = tid; k < LR * D; k += SCAN_THREADS) p.pool_rem[k] = HAS_LIMITS ? p.pool_rem0[k] : 0.0;
+    if (tid == 0) {
+      s.head = 0;
+      s.tail = p.n_pods;
+      s.stop = 0;
+      s.abort_ = SCAN_OK;
+      s.seqc = 0;
+      s.done = 0;
+      s.nclaims = 0;
+      s.steps = 0;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   while (true) {
     // -- the step's pod (cond, then the queue pop) --
@@ -596,11 +632,14 @@ extern "C" {
 // ptrs: the 24 operand pointers (the reference order, less claim_pad,
 // n_pods and n_nodes), the 17 state pointers and the colw scratch, as in
 // ScanParams; dims: P, G, C, U, D, F, T, N, I, L, Qcap, WU, n_pods, n_nodes,
-// has_nodes, has_limits. Returns the launch's cudaError_t.
-constexpr int N_PTRS = 42, N_DIMS = 16;
+// has_nodes, has_limits, mode (0 full, 1 resume), p_lo. Returns the
+// launch's cudaError_t.
+constexpr int N_PTRS = 42, N_DIMS = 18;
 static_assert(offsetof(ScanParams, P) == N_PTRS * sizeof(void*), "ScanParams: pointers first");
+static_assert(offsetof(ScanParams, p_lo) == N_PTRS * sizeof(void*) + (N_DIMS - 1) * sizeof(int),
+              "ScanParams: p_lo is the last int");
 static_assert(sizeof(ScanParams) == N_PTRS * sizeof(void*) + N_DIMS * sizeof(int),
-              "ScanParams: 42 pointers then 16 ints");
+              "ScanParams: 42 pointers then 18 ints");
 
 int kt_solve_scan(void* const* ptrs, const int* dims, void* stream) {
   ScanParams p;
@@ -608,6 +647,7 @@ int kt_solve_scan(void* const* ptrs, const int* dims, void* stream) {
   for (int k = 0; k < N_PTRS; ++k) f[k] = ptrs[k];
   int* d = &p.P;
   for (int k = 0; k < N_DIMS; ++k) d[k] = dims[k];
+  if (p.mode != MODE_FULL && p.mode != MODE_RESUME) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p.has_nodes) {
     return p.has_limits ? launch<true, true>(p, st) : launch<true, false>(p, st);

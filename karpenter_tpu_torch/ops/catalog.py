@@ -33,6 +33,7 @@ import torch
 from karpenter_tpu_torch.apis import labels as wk
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
 from karpenter_tpu_torch.device import device_work, resolve_device
+from karpenter_tpu_torch.ops import delta as delta_mod
 from karpenter_tpu_torch.ops import encoding as enc
 from karpenter_tpu_torch.ops import feasibility as feas
 from karpenter_tpu_torch.scheduling.requirements import Operator, Requirement, Requirements
@@ -311,10 +312,16 @@ class CatalogEngine:
                 )
             else:
                 new_off_d = torch.zeros((len(new_rows), 0), dtype=torch.bool, device=self.device)
+            # the fresh rows are appended to the resident device matrices —
+            # an O(churn) row batch per pass, never a re-upload of the
+            # catalog (the reference's delta-warm append)
+            resident = self._req_compat_d.shape[0]
             self._req_compat_d = torch.cat([self._req_compat_d, new_inst_d])
             self._offer_compat_d = torch.cat([self._offer_compat_d, new_off_d])
             new_inst = new_inst_d.cpu().numpy()
             new_off = new_off_d.cpu().numpy()
+        if delta_mod.delta_enabled() and resident:
+            delta_mod.note_rows("device_appended", len(new_rows))
         self._req_compat = np.concatenate([self._req_compat, new_inst], axis=0)
         self._offer_compat = np.concatenate([self._offer_compat, new_off], axis=0)
         # Rows that constrain NO catalog entry (all-True columns) are

@@ -31,7 +31,9 @@ from karpenter_tpu_torch.device import KernelError, kernel_library, stream_handl
 from karpenter_tpu_torch.ops.encoding import NO_GT, NO_LT, NOT_INT, WORD
 
 # kernel launches per kernel, counted where each wrapper launches
-LAUNCHES: dict[str, int] = {"row_compat": 0, "membership": 0, "cube": 0, "uid_project": 0}
+LAUNCHES: dict[str, int] = {
+    "row_compat": 0, "membership": 0, "cube": 0, "uid_project": 0, "offering_reduce": 0,
+}
 
 _TILE = 32  # entities per kernel thread (csrc/feasibility.cu TILE)
 _MAX_GRID_Y = 65535
@@ -106,21 +108,35 @@ def membership_all_plain(membership: torch.Tensor, row_ok: torch.Tensor) -> torc
     return ~(membership[:, :, None] & ~row_ok[None, :, :]).any(dim=1)
 
 
+def offering_reduce_plain(
+    membership, offer_compat, custom_need, key_present, available, offering_owner,
+    num_instances: int,
+) -> torch.Tensor:
+    """has_offering[P, I] in plain torch, mirroring the JAX offering_reduce:
+    the three offering gates, then the offering→type any-reduce by owner
+    index instead of the one-hot matmul (each offering has exactly one
+    owner). The has-offering half of the cube (production_cube_plain)."""
+    offer_rows_ok = membership_all_plain(membership, offer_compat)  # [P, O]
+    undef_ok = ~(custom_need[None, :, :] & ~key_present[:, None, :]).any(dim=-1)
+    offer_ok = offer_rows_ok & undef_ok & available[None, :]
+    counts = torch.zeros(
+        (membership.shape[0], num_instances), dtype=torch.int32, device=membership.device
+    )
+    counts.index_add_(1, offering_owner.long(), offer_ok.to(torch.int32))
+    return counts > 0
+
+
 def production_cube_plain(
     membership, req_compat, offer_compat, custom_need, key_present, available,
     offering_owner,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(compat[P, I], has_offering[P, I]) in plain torch, mirroring the JAX
-    _cube_math. The offering→type any-reduce goes by owner index instead of
-    the one-hot matmul (each offering has exactly one owner)."""
+    _cube_math: the membership reduce and offering_reduce_plain."""
     compat = membership_all_plain(membership, req_compat)
-    offer_rows_ok = membership_all_plain(membership, offer_compat)  # [P, O]
-    undef_ok = ~(custom_need[None, :, :] & ~key_present[:, None, :]).any(dim=-1)
-    offer_ok = offer_rows_ok & undef_ok & available[None, :]
-    P, I = membership.shape[0], req_compat.shape[1]
-    counts = torch.zeros((P, I), dtype=torch.int32, device=membership.device)
-    counts.index_add_(1, offering_owner.long(), offer_ok.to(torch.int32))
-    return compat, counts > 0
+    return compat, offering_reduce_plain(
+        membership, offer_compat, custom_need, key_present, available, offering_owner,
+        req_compat.shape[1],
+    )
 
 
 def uid_project_plain(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tensor:
@@ -277,6 +293,37 @@ def membership_all(membership: torch.Tensor, row_ok: torch.Tensor) -> torch.Tens
     return _membership_kernel(membership, row_ok)
 
 
+def _offering_kernel(
+    name: str, membership, offer_compat, custom_need, key_present, available,
+    offering_owner, num_instances: int,
+) -> torch.Tensor:
+    """Check the offering half's inputs and launch kt_cube_offer; the
+    caller counts the launch under its own kernel name."""
+    dev = membership.device
+    P, R = membership.shape
+    O, K = custom_need.shape
+    I = num_instances
+    _check("membership", membership, torch.bool, (P, R), dev)
+    _check("offer_compat", offer_compat, torch.bool, (R, O), dev)
+    _check("key_present", key_present, torch.bool, (P, K), dev)
+    _check("available", available, torch.bool, (O,), dev)
+    _check("offering_owner", offering_owner, torch.int32, (O,), dev)
+    _check("custom_need", custom_need, torch.bool, (O, K), dev)
+    shmem = _TILE * ((R + 31) // 32 + (K + 31) // 32) * 4
+    if shmem > _MAX_SHARED_BYTES:
+        raise KernelError(f"{name}: {R} rows x {K} keys exceed the kernel's shared memory")
+    if (P + _TILE - 1) // _TILE > _MAX_GRID_Y:
+        raise KernelError(f"{name}: {P} entities exceed the kernel's grid")
+    has_offering = torch.empty((P, I), dtype=torch.bool, device=dev)
+    rc = _lib().kt_cube_offer(
+        _ptr(membership), _ptr(offer_compat), _ptr(custom_need), _ptr(key_present),
+        _ptr(available), _ptr(offering_owner), _ptr(has_offering),
+        P, R, O, K, I, stream_handle(dev),
+    )
+    _raise_on(rc, name)
+    return has_offering
+
+
 def production_cube(
     membership: torch.Tensor,  # [P, R] bool
     req_compat: torch.Tensor,  # [R, I] bool
@@ -296,28 +343,42 @@ def production_cube(
             membership, req_compat, offer_compat, custom_need, key_present,
             available, offering_owner,
         )
-    dev = membership.device
-    P, R = membership.shape
-    I = req_compat.shape[1]
-    O, K = custom_need.shape
-    _check("offer_compat", offer_compat, torch.bool, (R, O), dev)
-    _check("key_present", key_present, torch.bool, (P, K), dev)
-    _check("available", available, torch.bool, (O,), dev)
-    _check("offering_owner", offering_owner, torch.int32, (O,), dev)
-    _check("custom_need", custom_need, torch.bool, (O, K), dev)
-    shmem = _TILE * ((R + 31) // 32 + (K + 31) // 32) * 4
-    if shmem > _MAX_SHARED_BYTES:
-        raise KernelError(f"cube: {R} rows x {K} keys exceed the kernel's shared memory")
+    P, I = membership.shape[0], req_compat.shape[1]
     compat = _membership_kernel(membership, req_compat)
-    has_offering = torch.empty((P, I), dtype=torch.bool, device=dev)
-    rc = _lib().kt_cube_offer(
-        _ptr(membership), _ptr(offer_compat), _ptr(custom_need), _ptr(key_present),
-        _ptr(available), _ptr(offering_owner), _ptr(has_offering),
-        P, R, O, K, I, stream_handle(dev),
+    has_offering = _offering_kernel(
+        "cube", membership, offer_compat, custom_need, key_present, available,
+        offering_owner, I,
     )
-    _raise_on(rc, "cube")
     LAUNCHES["cube"] += bool(P and I)
     return compat, has_offering
+
+
+def offering_reduce(
+    membership: torch.Tensor,  # [P, R] bool
+    offer_compat: torch.Tensor,  # [R, O] bool — row r compatible with offering o
+    custom_need: torch.Tensor,  # [O, K] bool — offering needs custom key k defined
+    key_present: torch.Tensor,  # [P, K] bool — query set defines key k
+    available: torch.Tensor,  # [O] bool
+    offering_owner: torch.Tensor,  # [O] int32, non-decreasing
+    num_instances: int,
+) -> torch.Tensor:
+    """has_offering[P, I]: any available, fully-compatible offering per type
+    (scheduling/nodeclaim.go:414-433 semantics) — the group solver's B8.
+    Takes owner indices where the JAX program takes the [O, I] one-hot
+    (offerings owner-major, as production_cube). On the card it launches
+    the cube's offering kernel, kt_cube_offer, counted here as
+    `offering_reduce`."""
+    if _on_cpu(membership):
+        return offering_reduce_plain(
+            membership, offer_compat, custom_need, key_present, available,
+            offering_owner, num_instances,
+        )
+    out = _offering_kernel(
+        "offering_reduce", membership, offer_compat, custom_need, key_present,
+        available, offering_owner, num_instances,
+    )
+    LAUNCHES["offering_reduce"] += bool(membership.shape[0] and num_instances)
+    return out
 
 
 def uid_project(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tensor:
@@ -343,6 +404,38 @@ def uid_project(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tens
     _raise_on(rc, "uid_project")
     LAUNCHES["uid_project"] += bool(R and U)
     return out
+
+
+# -- resource quantization (the group solver's integer units) ------------------
+
+_BYTE_SCALE_PREFIXES = ("memory", "ephemeral-storage", "hugepages-")
+
+
+def resource_scales(dims: dict[str, int]) -> np.ndarray:
+    """Per-dimension quantization multipliers keeping values in int32 range:
+    byte-denominated resources quantize to MiB, everything else to
+    milli-units (cpu "100m" stays exact; 2 PiB memory still fits int32)."""
+    scales = np.full(len(dims), 1000.0)
+    for name, i in dims.items():
+        if name.startswith(_BYTE_SCALE_PREFIXES):
+            scales[i] = 1.0 / float(2**20)
+    return scales
+
+
+def quantize_resources(
+    values: np.ndarray, ceil: bool, scales: np.ndarray | float = 1000.0
+) -> np.ndarray:
+    """float64 [., D] resources → int32-safe integer units, rounded
+    conservatively: requests round up, capacities round down, so the integer
+    comparison can only be stricter than the float64 host oracle, never
+    looser. Saturation is asymmetric for the same reason — an oversized
+    request clips ABOVE any clipped capacity, so it can never falsely fit."""
+    scaled = values * scales
+    if ceil:
+        out = np.ceil(scaled - 1e-6)
+        return np.clip(out, -(2**31) + 1, 2**31 - 1).astype(np.int64)
+    out = np.floor(scaled + 1e-6)
+    return np.clip(out, -(2**31) + 1, 2**30).astype(np.int64)
 
 
 # -- decision provenance (observability/explain.py) ----------------------------

@@ -117,9 +117,9 @@ PACK_CACHE_MISSES = 0
 
 def solver_cache_counters() -> dict:
     """Snapshot of the solver's cumulative cache/dispatch counters (delta
-    two snapshots to attribute one solve): the plain driver's counters and
-    the fused scan's (solves + decline taxonomy). This package has no
-    topology count tensors or delta residency yet."""
+    two snapshots to attribute one solve): the plain driver's counters, the
+    fused scan's (solves + decline taxonomy) and the delta residency's.
+    This package has no topology count tensors yet."""
     out = {
         "joint_cache_hits": JOINT_CACHE_HITS,
         "joint_cache_misses": JOINT_CACHE_MISSES,
@@ -133,6 +133,12 @@ def solver_cache_counters() -> dict:
     from karpenter_tpu_torch.ops import fused as _fused
 
     out.update(_fused.fused_counters())
+    # incremental-solve residency accounting (ops/delta.py): warm/cold
+    # passes, bytes re-encoded, scan resume outcomes, self-check verdicts —
+    # snapshot-and-delta attributes one solve's delta behavior the same way
+    from karpenter_tpu_torch.ops import delta as _delta
+
+    out.update(_delta.delta_counters())
     return out
 
 
@@ -231,10 +237,15 @@ def eligible(scheduler, pods: Sequence[Pod]) -> bool:
         return False
     if len(pods) < DEVICE_MIN_PODS:
         # DEVICE_MIN_PODS is a dispatch-RTT heuristic, not a correctness
-        # gate: tiny churn batches stay on the host loop, the fused scan
-        # included (this package has no delta residency that would want
-        # them on the device)
-        return False
+        # gate. An operator that forced the fused path AND incremental
+        # delta solves has opted into device-resident state — tiny churn
+        # batches are exactly the traffic that mode exists for, and
+        # bouncing them to the host walk would skip the warm scan-resume.
+        from karpenter_tpu_torch.ops import delta as delta_mod
+        from karpenter_tpu_torch.ops import fused as fused_mod
+
+        if not (delta_mod.delta_enabled() and fused_mod.FUSED_MODE == "on"):
+            return False
     if len(scheduler.existing_nodes) > DEVICE_MAX_EXISTING:
         return False
     # PreferNoSchedule pools extend the relax ladder with the wildcard

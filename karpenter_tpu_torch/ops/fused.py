@@ -9,8 +9,10 @@ passes, moves them to the engine's device, launches once and decodes the
 placement back into the standard `_DeviceSolve` claim/node structures,
 whose inherited `emit()` finishes the solve exactly like the host walk.
 
-A copy of the reference's classic dispatch (karpenter_tpu/ops/fused.py),
-without the AOT ladder, the delta residency and the mesh twin. The host
+A copy of the reference's dispatch (karpenter_tpu/ops/fused.py), the
+classic one and, with delta solves on, the scan residency's
+(`_delta_dispatch`, ops/delta.py), without the AOT ladder and the mesh
+twin. The host
 walk (ffd._DeviceSolve / the native C++ driver) remains the semantics
 oracle and the path for shapes the scan does not cover; those decline with
 a metered taxonomy reason (`karpenter_scheduler_fused_declines_total{reason=}`):
@@ -45,6 +47,7 @@ import torch
 from karpenter_tpu_torch import convert
 from karpenter_tpu_torch.device import KernelError, device_work
 from karpenter_tpu_torch.metrics import global_registry
+from karpenter_tpu_torch.ops import delta as delta_mod
 from karpenter_tpu_torch.ops import ffd
 from karpenter_tpu_torch.ops import feasibility as feas
 from karpenter_tpu_torch.ops import packer
@@ -426,34 +429,42 @@ class _FusedSolve(ffd._DeviceSolve):
 
         dev = self.engine.device
         cfg = (T, has_nodes, has_limits)
+        # the operands as host arrays, in the reference's layout. famu_ok
+        # is built on the card below (B6) from tmpl_mask, fam_mask (slot 17)
+        # and uid_onehot (slot 20); its slot here holds tmpl_mask, so the
+        # delta fingerprint of these host arrays covers everything famu_ok
+        # depends on without copying it back
+        host_ops = (
+            pod_gi, np.zeros(Cb, dtype=np.int32), g_req, g_floor,
+            self.uniq_alloc, self.usage0_f,
+            tolP, open_okP, open_famP, open_uokP,
+            tkP, tfP, np.ascontiguousarray(self.tmpl_mask),
+            np.int32(P_real), np.int32(N_real),
+            node_okP, node_remP,
+            fam_maskP, tmpl_maskP, open_candP,
+            uid_onehot, uid_of_typeP, cap_fP,
+            pool_of_t, pool_rem0, pool_has, pool_bad,
+        )
         with device_work("fused scan"):
             uid_onehot_d = torch.from_numpy(uid_onehot).to(dev)
             fam_mask_d = torch.from_numpy(fam_maskP).to(dev)
-            tmpl_mask_d = torch.from_numpy(np.ascontiguousarray(self.tmpl_mask)).to(dev)
+            tmpl_mask_d = torch.from_numpy(host_ops[12]).to(dev)
             # uid survival per (template, fam): any instance type in
             # tmpl_mask ∧ fam_mask maps onto the unique-alloc row (B6)
             famu_ok = feas.uid_project(
                 uid_onehot_d, tmpl_mask_d[:, None, :] & fam_mask_d[None, :, :]
             )
-            args = convert.scan_operands_from_numpy(
-                (
-                    pod_gi, np.zeros(Cb, dtype=np.int32), g_req, g_floor,
-                    self.uniq_alloc, self.usage0_f,
-                    tolP, open_okP, open_famP, open_uokP,
-                    tkP, tfP, famu_ok,
-                    np.int32(P_real), np.int32(N_real),
-                    node_okP, node_remP,
-                    fam_mask_d, tmpl_maskP, open_candP,
-                    uid_onehot_d, uid_of_typeP, cap_fP,
-                    pool_of_t, pool_rem0, pool_has, pool_bad,
-                ),
-                dev,
-            )
-            out = packer.solve_scan(cfg, args)
+            dev_ops = list(host_ops)
+            dev_ops[12], dev_ops[17], dev_ops[20] = famu_ok, fam_mask_d, uid_onehot_d
+            args = convert.scan_operands_from_numpy(dev_ops, dev)
+            if delta_mod.delta_enabled():
+                out = self._delta_dispatch(args, host_ops, cfg, P_real)
+            else:
+                out = packer.solve_scan(cfg, args)[: packer.SCAN_N_OUT]
             (
                 abort, nclaims, pod_claim, pod_node, pod_seq,
                 claim_ti, claim_fam, u_valid, tm_st, pool_rem,
-            ) = (t.cpu().numpy() for t in out[: packer.SCAN_N_OUT])
+            ) = (t.cpu().numpy() for t in out)
         abort = int(abort)
         if abort == packer.SCAN_CLAIM_OVERFLOW:
             raise _FusedDecline("claim-overflow")
@@ -467,6 +478,72 @@ class _FusedSolve(ffd._DeviceSolve):
             (pools, pool_rem) if has_limits else None,
         )
         global_fused_solved()
+
+    # -- delta residency dispatch --------------------------------------------
+
+    def _delta_dispatch(self, args, host_ops, cfg, p_real):
+        """Residency-aware scan dispatch (ops/delta.py): a cold pass runs
+        the full-state scan and commits its final state as the engine's
+        residency; an eligible follow-up pass RESUMES the scan against the
+        resident state, written in place (the suffix pods are the only new
+        work). Every N warm passes the warm result is also re-solved from
+        scratch and compared bit-for-bit — divergence fires a typed event,
+        drops the residency, and the cold result wins. Returns the classic
+        10-output decode subset."""
+        res = delta_mod.scan_residency(self.engine)
+        shape_key = tuple(tuple(a.shape) for a in args)
+        ops_fp = delta_mod.operand_fingerprint(host_ops, skip=(0, 13))
+        pod_gi = host_ops[0]
+        miss = res.eligibility(cfg, shape_key, ops_fp, pod_gi, p_real)
+        mode = "cold"
+        if miss == "":
+            check_due = (
+                delta_mod.RESOLVE_FULL_EVERY > 0
+                and (res.warm_passes + 1) % delta_mod.RESOLVE_FULL_EVERY == 0
+            )
+            # the resident tensors are written in place by this launch —
+            # clear the residency first so a failed launch can never leave
+            # half-written state installed
+            prev_state, prev_lo = res.state, res.p_real
+            res.state = None
+            delta_mod.note_scan("warm")
+            state = packer.solve_scan_resume(cfg, args, prev_state, prev_lo)[:-1]
+            res.warm_passes += 1
+            res.last_outcome = mode = "warm"
+            if check_due:
+                cold = packer.solve_scan_full(cfg, args)[:-1]
+                identical = all(
+                    torch.equal(packer.scan_component(state, i), packer.scan_component(cold, i))
+                    for i in packer._SCAN_OUT_IDX
+                )
+                if identical:
+                    delta_mod.note_selfcheck("identical")
+                    delta_mod.note_pass("warm-check")
+                else:
+                    delta_mod._emit_divergence(
+                        "packer.solve_scan",
+                        f"warm resume diverged from the from-scratch "
+                        f"re-solve (P={p_real}, warm_pass={res.warm_passes})",
+                    )
+                    res.invalidate("selfcheck-divergence")
+                    state = cold
+                    mode = "cold"
+        else:
+            delta_mod.note_scan(miss)
+            res.last_outcome = miss
+            state = packer.solve_scan_full(cfg, args)[:-1]
+        delta_mod.note_pass(mode)
+        # one 8-int copy: head, tail, stop, abort, seqc, done, nclaims, steps
+        scal = state[0].cpu()
+        head, tail, stop, abort = (int(v) for v in scal[:4])
+        extendable = (
+            abort == packer.SCAN_OK
+            and not stop
+            and head == tail
+            and tail == p_real
+        )
+        res.commit(state, cfg, shape_key, ops_fp, pod_gi, p_real, extendable)
+        return (scal[3], scal[6]) + packer._scan_finals(state)[2:]
 
     # -- decode --------------------------------------------------------------
 

@@ -1,36 +1,484 @@
-"""The fused FFD scan (the one-dispatch solve) on the card.
+"""The group solver and the fused FFD scan (the one-dispatch solve) on the card.
 
-`solve_scan` is the monotone FFD scan itself — the host walk's queue,
-emptiest-first claim heap, existing-node scan pointers, claim opening and
-nodepool-limit tracking — run as ONE kernel launch over the count tensors,
-requirement-family transition tables and per-claim headroom matrices that
-ops/fused.py builds. It replaces the reference's `lax.while_loop` program
-(karpenter_tpu/ops/packer.py `_scan_program`, `_scan_init`, `_scan_finals`,
-dispatched through `solve_scan_fn`); the group solver, the delta variants
-and the mesh twins of that module are not ported here.
+Two device solvers, each a port of the reference's
+karpenter_tpu/ops/packer.py, with a hand-written kernel per JAX program:
 
-Decision parity is bit-for-bit: every float comparison runs in float64,
-subtractions happen per join in the host's exact order, and claim
+1. **The group solver** (`GroupSolver`): pods deduplicated into groups by
+   (requirement rows, quantized requests); one device pass computes the
+   feasibility cube compat ∧ fits ∧ offering over [G groups × I types],
+   picks each group's cheapest feasible type and its per-group node count
+   by integer packing math. `solve_block` (B9, the reference's
+   `solve_block_jit`) and `solve_block_core` (B10) launch kt_membership (B2)
+   and kt_cube_offer (B8) for the cube's halves and kt_solve_block
+   (csrc/packer.cu) for the rest; `delta_scatter_rows` (B11) and
+   `delta_finalize` (B12) serve the delta residency (ops/delta.py). The
+   mesh twin (`solve_sharded`) is not ported: a solver with a mesh raises.
+
+2. **The fused scan**: the monotone FFD scan itself — the host walk's
+   queue, emptiest-first claim heap, existing-node scan pointers, claim
+   opening and nodepool-limit tracking — as ONE launch of kt_solve_scan
+   (csrc/scan.cu) over the count tensors, requirement-family transition
+   tables and per-claim headroom matrices ops/fused.py builds. Three
+   variants share the kernel and the plain loop: `solve_scan` (B14,
+   `solve_scan_fn`: the reference's 10 outputs), `solve_scan_full` (B15,
+   the full loop state, the delta residency's seed) and `solve_scan_resume`
+   (B16: continues a resident state with a suffix of new pods, writing the
+   state tensors in place where the reference donates them).
+
+Decision parity is bit-for-bit: every float comparison of the scan runs in
+float64, subtractions happen per join in the host's exact order, and claim
 selection reproduces the host heap's (count, rank, claim-index) order as an
-argmin over a packed int64 key.
+argmin over a packed int64 key; the group solver is integer and bool math
+plus a float32 argmin with the first index winning ties.
 
-`solve_scan(cfg, args)` is a wrapper: given CUDA tensors it allocates the
-loop state and launches the hand-written kernel (csrc/scan.cu), given CPU
-tensors it runs `solve_scan_plain`, a Python loop over float64/int64
-tensors written from the reference program. Both return the reference's
-10 outputs followed by `steps`, the number of loop iterations the scan ran.
-`LAUNCHES` counts kernel launches only.
+Every public solve function is a wrapper: given CUDA tensors it checks them
+and launches its kernel, given CPU tensors it runs the `*_plain` version
+beside it, written from the reference program. `LAUNCHES` counts kernel
+launches only.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from karpenter_tpu_torch.convert import SCAN_OPERANDS
-from karpenter_tpu_torch.device import KernelError, kernel_library, stream_handle
+from karpenter_tpu_torch.device import KernelError, device_work, kernel_library, stream_handle
+from karpenter_tpu_torch.ops import feasibility as feas
+from karpenter_tpu_torch.ops.catalog import CatalogEngine
 from karpenter_tpu_torch.ops.feasibility import uid_project_plain
+from karpenter_tpu_torch.scheduling.requirements import Requirements
+
+LAUNCHES: dict[str, int] = {
+    "solve_scan": 0, "solve_scan_full": 0, "solve_scan_resume": 0,
+    "solve_block": 0, "solve_block_core": 0, "delta_scatter": 0, "delta_finalize": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+_check, _on_cpu, _ptr = feas._check, feas._on_cpu, feas._ptr
+
+
+# == the group solver ==========================================================
+
+INF_PRICE = 3.4e38  # held in float32, as the reference's jnp.float32(3.4e38)
+_INT32_MAX = 2**31 - 1
+
+
+@dataclass
+class GroupedPods:
+    """Pod batch collapsed to distinct shapes."""
+
+    membership: np.ndarray  # [G, R] bool — requirement rows per group
+    requests_q: np.ndarray  # [G, D] int64 milli-units (rounded up)
+    key_present: np.ndarray  # [G, K] bool
+    counts: np.ndarray  # [G] int32 — pods per group
+    group_of_pod: np.ndarray  # [P] int32
+
+
+# -- plain torch versions ------------------------------------------------------
+
+
+def _solve_rest_plain(compat, has_offering, group_ints, alloc_q, price):
+    """What kt_solve_block computes from the cube's two halves: fits,
+    the cheapest-feasible-type argmin and pods-per-node (the rest of the
+    reference's `_solve_parts`)."""
+    D = alloc_q.shape[1]
+    requests_q = group_ints[:, :D]
+    counts = group_ints[:, D]
+    fits = (requests_q[:, None, :] <= alloc_q[None, :, :]).all(dim=-1)  # [G, I]
+    feasible = compat & fits & has_offering
+    inf = torch.tensor(INF_PRICE, dtype=torch.float32, device=price.device)
+    score = torch.where(feasible, price[None, :], inf)
+    choice = torch.argmin(score, dim=-1).to(torch.int32)  # first index wins ties
+    feasible_any = feasible.any(dim=-1)
+    # pods-per-node for the chosen type: min over resource dims of
+    # floor(alloc / request); request==0 dims don't constrain
+    chosen_alloc = alloc_q[choice.long()]
+    per_dim = torch.where(
+        requests_q > 0,
+        torch.div(chosen_alloc, requests_q.clamp(min=1), rounding_mode="floor"),
+        _INT32_MAX,
+    )
+    pods_per_node = per_dim.min(dim=-1).values.clamp(min=0)
+    return choice, feasible_any, pods_per_node, counts
+
+
+def _count_finalize_plain(choice, feasible_any, pods_per_node, counts) -> torch.Tensor:
+    """Fold a pass's group counts over the count-independent core: nodes via
+    ceil division, unschedulable as the infeasible remainder; [G, 4] int32
+    in the reference's packed order."""
+    ok = feasible_any & (pods_per_node > 0)
+    nodes = torch.where(
+        ok, -torch.div(-counts, pods_per_node.clamp(min=1), rounding_mode="floor"), 0
+    )
+    unschedulable = torch.where(ok, 0, counts)
+    return torch.stack(
+        [choice.int(), feasible_any.int(), nodes.int(), unschedulable.int()], dim=1
+    )
+
+
+def _solve_parts_plain(
+    group_bools, group_ints, req_compat, offer_compat, custom_need, available,
+    offering_owner, alloc_q, price,
+):
+    """The count-INDEPENDENT solve math of the reference's `_solve_parts`:
+    feasibility cube → cheapest-type argmin → pods-per-node."""
+    R, I = req_compat.shape
+    membership = group_bools[:, :R]
+    key_present = group_bools[:, R:]
+    compat = feas.membership_all_plain(membership, req_compat)
+    has_offering = feas.offering_reduce_plain(
+        membership, offer_compat, custom_need, key_present, available, offering_owner, I
+    )
+    return _solve_rest_plain(compat, has_offering, group_ints, alloc_q, price)
+
+
+def solve_block_plain(*args) -> torch.Tensor:
+    """[G, 4] int32 (choice, feasible, nodes, unschedulable) — the
+    reference's `_solve_block`."""
+    return _count_finalize_plain(*_solve_parts_plain(*args))
+
+
+def solve_block_core_plain(*args) -> torch.Tensor:
+    """[G, 3] int32 core rows (choice, feasible, pods-per-node) — the
+    reference's `_solve_block_core`, counts ignored."""
+    choice, feasible_any, pods_per_node, _ = _solve_parts_plain(*args)
+    return torch.stack([choice.int(), feasible_any.int(), pods_per_node.int()], dim=1)
+
+
+def delta_scatter_rows_plain(core, slots, rows) -> torch.Tensor:
+    """core[slots[j]] = rows[j], in place; padding entries duplicate the
+    last slot with the same row values."""
+    core[slots.long()] = rows
+    return core
+
+
+def delta_finalize_plain(core, order, counts) -> torch.Tensor:
+    """Gather this pass's group order from the resident core and fold in its
+    counts — the reference's `_delta_finalize`."""
+    rows = core[order.long()]
+    return _count_finalize_plain(rows[:, 0], rows[:, 1].bool(), rows[:, 2], counts)
+
+
+# -- kernel wrappers -----------------------------------------------------------
+
+_lib_cache: list = []
+
+
+def _group_lib() -> ctypes.CDLL:
+    if not _lib_cache:
+        lib = kernel_library("packer")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.kt_solve_block.restype = ci
+        lib.kt_solve_block.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+        lib.kt_delta_scatter.restype = ci
+        lib.kt_delta_scatter.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+        lib.kt_delta_finalize.restype = ci
+        lib.kt_delta_finalize.argtypes = [vp] * 4 + [ci] * 2 + [vp]
+        _lib_cache.append(lib)
+    return _lib_cache[0]
+
+
+def _solve_block_kernel(
+    name: str, finalize: bool, group_bools, group_ints, req_compat, offer_compat,
+    custom_need, available, offering_owner, alloc_q, price,
+) -> torch.Tensor:
+    dev = group_bools.device
+    R, I = req_compat.shape
+    K = custom_need.shape[1]
+    D = alloc_q.shape[1]
+    G = group_bools.shape[0]
+    _check(f"{name} group_bools", group_bools, torch.bool, (G, R + K), dev)
+    _check(f"{name} group_ints", group_ints, torch.int32, (G, D + 1), dev)
+    _check(f"{name} alloc_q", alloc_q, torch.int32, (I, D), dev)
+    _check(f"{name} price", price, torch.float32, (I,), dev)
+    membership = group_bools[:, :R].contiguous()
+    key_present = group_bools[:, R:].contiguous()
+    compat = feas.membership_all(membership, req_compat)  # B2, kt_membership
+    has_offering = feas.offering_reduce(  # B8, kt_cube_offer
+        membership, offer_compat, custom_need, key_present, available, offering_owner, I
+    )
+    out = torch.empty((G, 4 if finalize else 3), dtype=torch.int32, device=dev)
+    rc = _group_lib().kt_solve_block(
+        _ptr(compat), _ptr(has_offering), _ptr(group_ints), _ptr(alloc_q), _ptr(price),
+        _ptr(out), G, I, D, int(finalize), stream_handle(dev),
+    )
+    if rc != 0:
+        raise KernelError(f"{name}: CUDA launch failed with cudaError {rc}")
+    LAUNCHES[name] += bool(G)
+    return out
+
+
+def solve_block(
+    group_bools: torch.Tensor,  # [G, R+K] bool — membership | key_present packed
+    group_ints: torch.Tensor,  # [G, D+1] int32 — requests_q | counts packed
+    req_compat: torch.Tensor,  # [R, I] bool
+    offer_compat: torch.Tensor,  # [R, O] bool
+    custom_need: torch.Tensor,  # [O, K] bool
+    available: torch.Tensor,  # [O] bool
+    offering_owner: torch.Tensor,  # [O] int32, non-decreasing (owner-major offerings)
+    alloc_q: torch.Tensor,  # [I, D] int32
+    price: torch.Tensor,  # [I] float32 — cheapest available offering per type
+) -> torch.Tensor:
+    """The fused per-group solve (B9): feasibility cube → cheapest-type
+    argmin → integer packing; [G, 4] int32 (choice, feasible, nodes,
+    unschedulable). Takes owner indices where the reference takes the
+    [O, I] one-hot."""
+    args = (group_bools, group_ints, req_compat, offer_compat, custom_need, available,
+            offering_owner, alloc_q, price)
+    if _on_cpu(group_bools):
+        return solve_block_plain(*args)
+    return _solve_block_kernel("solve_block", True, *args)
+
+
+def solve_block_core(*args) -> torch.Tensor:
+    """[Gf, 3] int32 core rows (choice, feasible, pods-per-node) for the
+    perturbed frontier (B10) — `solve_block`'s math without the count
+    finalize. Same operands as solve_block."""
+    if _on_cpu(args[0]):
+        return solve_block_core_plain(*args)
+    return _solve_block_kernel("solve_block_core", False, *args)
+
+
+def delta_scatter_rows(core: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Scatter freshly solved frontier rows into the resident core matrix
+    (B11): core[slots[j], :] = rows[j, :], written IN PLACE (the reference
+    donates `core` to XLA). Slots must lie in [0, cap); duplicate slots
+    carry the same values. Returns `core`."""
+    if _on_cpu(core):
+        return delta_scatter_rows_plain(core, slots, rows)
+    dev = core.device
+    cap, n = core.shape[0], slots.shape[0]
+    _check("delta_scatter core", core, torch.int32, (cap, 3), dev)
+    _check("delta_scatter slots", slots, torch.int32, (n,), dev)
+    _check("delta_scatter rows", rows, torch.int32, (n, 3), dev)
+    rc = _group_lib().kt_delta_scatter(_ptr(core), _ptr(slots), _ptr(rows), n, cap, stream_handle(dev))
+    if rc != 0:
+        raise KernelError(f"delta_scatter: CUDA launch failed with cudaError {rc}")
+    LAUNCHES["delta_scatter"] += bool(n)
+    return core
+
+
+def delta_finalize(core: torch.Tensor, order: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """[Gb, 4] int32: the resident core rows gathered in this pass's group
+    order (B12), nodes and unschedulable finalized against its counts — the
+    same finalize as solve_block. Order entries must lie in [0, cap)."""
+    if _on_cpu(core):
+        return delta_finalize_plain(core, order, counts)
+    dev = core.device
+    cap, Gb = core.shape[0], order.shape[0]
+    _check("delta_finalize core", core, torch.int32, (cap, 3), dev)
+    _check("delta_finalize order", order, torch.int32, (Gb,), dev)
+    _check("delta_finalize counts", counts, torch.int32, (Gb,), dev)
+    out = torch.empty((Gb, 4), dtype=torch.int32, device=dev)
+    rc = _group_lib().kt_delta_finalize(
+        _ptr(core), _ptr(order), _ptr(counts), _ptr(out), Gb, cap, stream_handle(dev)
+    )
+    if rc != 0:
+        raise KernelError(f"delta_finalize: CUDA launch failed with cudaError {rc}")
+    LAUNCHES["delta_finalize"] += bool(Gb)
+    return out
+
+
+# -- host wrapper --------------------------------------------------------------
+
+
+def _pack_groups(grouped: GroupedPods) -> tuple[np.ndarray, np.ndarray]:
+    group_bools = np.concatenate([grouped.membership, grouped.key_present], axis=1)
+    group_ints = np.concatenate(
+        [grouped.requests_q.astype(np.int32), grouped.counts[:, None]], axis=1
+    )
+    return group_bools, group_ints
+
+
+class GroupSolver:
+    """Host wrapper: engine matrices + per-type prices, device solve."""
+
+    def __init__(self, engine: CatalogEngine, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "GroupSolver: the sharded solve over a mesh is not ported yet"
+            )
+        self.engine = engine
+        # cheapest available offering price per instance type
+        price = np.full(engine.num_instances, np.inf, dtype=np.float32)
+        for o_idx, owner in enumerate(engine.offering_owner):
+            if engine.offering_available[o_idx]:
+                price[owner] = min(price[owner], engine.offering_price[o_idx])
+        self.price = price
+        scales = feas.resource_scales(engine.resource_dims)
+        self.alloc_q = feas.quantize_resources(
+            engine.allocatable, ceil=False, scales=scales
+        ).astype(np.int32)
+        self._dev_args = None
+        self._dev_rows = -1
+
+    def _catalog_args(self) -> tuple:
+        """The catalog operands on the engine's device, gathered once per
+        row generation: the engine's resident compat matrices, its offering
+        tables, and the quantized allocatable and prices (uploaded here)."""
+        e = self.engine
+        e._ensure_rows()
+        if self._dev_args is not None and self._dev_rows == e._computed_rows:
+            return self._dev_args
+        dev = e.device
+        with device_work("group solver catalog"):
+            self._dev_args = (
+                e._req_compat_d if e._computed_rows
+                else torch.zeros((1, e.num_instances), dtype=torch.bool, device=dev),
+                e._offer_compat_d if e._computed_rows
+                else torch.zeros((1, e.num_offerings), dtype=torch.bool, device=dev),
+                e._dev("custom_need", e.offering_custom_need),
+                e._dev("available", e.offering_available),
+                e._dev("owner", e.offering_owner),
+                torch.from_numpy(self.alloc_q).to(dev),
+                torch.from_numpy(self.price).to(dev),
+            )
+        self._dev_rows = e._computed_rows
+        return self._dev_args
+
+    def solve(self, grouped: GroupedPods):
+        """Fused solve; returns host arrays (choice, feasible,
+        nodes-per-group, unschedulable-per-group).
+
+        With delta solves on (KARPENTER_TPU_DELTA / delta.configure), the
+        solve routes through the per-solver residency (ops/delta.py): only
+        the perturbed group frontier is re-solved and scattered into the
+        card-resident core matrix."""
+        from karpenter_tpu_torch.ops import delta as delta_mod
+
+        if delta_mod.delta_enabled():
+            return delta_mod.group_residency(self).solve(self, grouped)
+        return self._solve_full(grouped)
+
+    def _solve_full(self, grouped: GroupedPods):
+        """The from-scratch solve — the delta path's seed, fallback, and
+        periodic self-check oracle."""
+        args = self._catalog_args()
+        group_bools, group_ints = _pack_groups(grouped)
+        G = group_bools.shape[0]
+        dev = self.engine.device
+        with device_work("group solve"):
+            out = solve_block(
+                torch.from_numpy(np.ascontiguousarray(group_bools)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(group_ints)).to(dev),
+                *args,
+            ).cpu().numpy()[:G]
+        return out[:, 0], out[:, 1].astype(bool), out[:, 2], out[:, 3]
+
+
+def encode_pods_for_packer(
+    engine: CatalogEngine,
+    pods_requirements: Sequence[Requirements],
+    requests: np.ndarray,
+    cache=None,
+) -> GroupedPods:
+    """Requirements → engine rows → groups (the host-side encode step).
+    Requirements objects repeated by identity (one object per workload
+    shape) encode once. With a delta `EncodeCache` (ops/delta.py), shapes
+    already encoded in PREVIOUS passes reuse their interned row ids,
+    membership rows, and key-presence rows — a churn pass re-encodes only
+    the shapes it has never seen, and bytes re-encoded are metered."""
+    from karpenter_tpu_torch.ops import delta as delta_mod
+
+    if cache is None:
+        cache = delta_mod.encode_cache(engine)  # None unless delta solves are on
+    if cache is not None:
+        return _encode_pods_delta(engine, pods_requirements, requests, cache)
+    shape_of: dict[int, int] = {}
+    distinct: list[Requirements] = []
+    shape_ids = np.empty(len(pods_requirements), dtype=np.int64)
+    for p, reqs in enumerate(pods_requirements):
+        sid = shape_of.get(id(reqs))
+        if sid is None:
+            sid = len(distinct)
+            shape_of[id(reqs)] = sid
+            distinct.append(reqs)
+        shape_ids[p] = sid
+    distinct_rows = [engine.rows_for(reqs) for reqs in distinct]
+    kp_distinct = engine.key_presence(distinct)
+    engine._ensure_rows()
+
+    # Vectorized grouping: unique over (shape id, quantized request row).
+    scales = feas.resource_scales(engine.resource_dims)
+    requests_q = feas.quantize_resources(requests, ceil=True, scales=scales)
+    combined = np.column_stack([shape_ids, requests_q])
+    uniq, inverse, counts = np.unique(
+        combined, axis=0, return_inverse=True, return_counts=True
+    )
+    G = uniq.shape[0]
+    R = max(1, engine.num_rows)
+    membership = np.zeros((G, R), dtype=bool)
+    for g in range(G):
+        for rid in distinct_rows[int(uniq[g, 0])]:
+            membership[g, rid] = True
+    return GroupedPods(
+        membership=membership,
+        requests_q=uniq[:, 1:],
+        key_present=kp_distinct[uniq[:, 0].astype(np.int64)],
+        counts=counts.astype(np.int32),
+        group_of_pod=inverse.astype(np.int32),
+    )
+
+
+def _encode_pods_delta(
+    engine: CatalogEngine,
+    pods_requirements: Sequence[Requirements],
+    requests: np.ndarray,
+    cache,
+) -> GroupedPods:
+    """The incremental encode: per-shape lookups against the cross-pass
+    EncodeCache; only cache misses touch `engine.rows_for`/`key_presence`.
+    Output is bit-identical to the one-shot encode — the same dedup,
+    quantization, and np.unique grouping over the same interned rows."""
+    cache.begin_pass()
+    shape_of: dict[int, int] = {}
+    distinct: list[Requirements] = []
+    shape_ids = np.empty(len(pods_requirements), dtype=np.int64)
+    for p, reqs in enumerate(pods_requirements):
+        sid = shape_of.get(id(reqs))
+        if sid is None:
+            sid = len(distinct)
+            shape_of[id(reqs)] = sid
+            distinct.append(reqs)
+        shape_ids[p] = sid
+    entries = [cache.lookup(engine, reqs, engine.num_rows) for reqs in distinct]
+    engine._ensure_rows()
+
+    scales = feas.resource_scales(engine.resource_dims)
+    requests_q = feas.quantize_resources(requests, ceil=True, scales=scales)
+    combined = np.column_stack([shape_ids, requests_q])
+    uniq, inverse, counts = np.unique(
+        combined, axis=0, return_inverse=True, return_counts=True
+    )
+    G = uniq.shape[0]
+    R = max(1, engine.num_rows)
+    membership = np.zeros((G, R), dtype=bool)
+    key_present = np.zeros((G, entries[0][2].shape[0]) if entries else (G, 0), dtype=bool)
+    for g in range(G):
+        _, mrow, kp = entries[int(uniq[g, 0])]
+        membership[g, : mrow.shape[0]] = mrow[:R]
+        key_present[g] = kp
+    cache.end_pass()
+    return GroupedPods(
+        membership=membership,
+        requests_q=uniq[:, 1:],
+        key_present=key_present,
+        counts=counts.astype(np.int32),
+        group_of_pod=inverse.astype(np.int32),
+    )
+
+
+# == the fused FFD scan ========================================================
 
 SCAN_OK = 0
 SCAN_CLAIM_OVERFLOW = 1
@@ -50,28 +498,93 @@ _SCAN_KEY_MAX = 1 << 62
 # after them
 SCAN_N_ARGS = 27
 SCAN_N_OUT = 10
+# the reference's loop state has 23 components: seven scalars (head, tail,
+# stop, abort, seqc, done, nclaims) and 16 arrays. The port holds the
+# scalars in one int32 vector `scal` (its 8th entry counts the loop
+# iterations of the last launch), so its state is `scal` + the 16 tensors
+SCAN_N_STATE = 23
+SCAN_STATE_FIELDS = (
+    "scal", "queue", "last_len", "pod_claim", "pod_node", "pod_seq",
+    "claim_ti", "claim_fam", "claim_count", "claim_key", "u_valid", "rem",
+    "cfit", "nptr", "node_rem", "tm_st", "pool_rem",
+)
+_N_SCALARS = 7
+# final-state indices (the reference's 23-component numbering) the classic
+# 10-output solve exposes
+_SCAN_OUT_IDX = (3, 6, 9, 10, 11, 12, 13, 16, 21, 22)
 
-LAUNCHES: dict[str, int] = {"solve_scan": 0}
+
+def scan_component(state: tuple, i: int) -> torch.Tensor:
+    """Component i of the reference's 23-component state, from the port's
+    (scal, 16 tensors): scalars are 0-d int32 views of scal."""
+    return state[0][i] if i < _N_SCALARS else state[i - _N_SCALARS + 1]
 
 
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+def _scan_finals(state: tuple) -> tuple:
+    """(abort, nclaims, pod_claim, pod_node, pod_seq, claim_ti, claim_fam,
+    u_valid, tm_st, pool_rem) — the decode subset of the full state."""
+    return tuple(scan_component(state, i) for i in _SCAN_OUT_IDX)
 
 
 def _scan_key(count: int, rank: int, ci: int) -> int:
     return count * (1 << 39) + (rank + (1 << 20)) * (1 << 18) + ci
 
 
+def _scan_dims(cfg: tuple, args: tuple) -> dict:
+    T, has_nodes, has_limits = cfg
+    P = args[0].shape[0]
+    G, D = args[2].shape
+    return {
+        "P": P, "G": G, "D": D, "U": args[4].shape[0], "C": args[1].shape[0],
+        "Qcap": 4 * P + 64,
+        "N": args[15].shape[0] if has_nodes else 1,
+        "I": args[18].shape[1] if has_limits else 1,
+        "L": args[24].shape[0] if has_limits else 1,
+    }
+
+
+def _state_spec(cfg: tuple, args: tuple) -> tuple:
+    """(name, shape, dtype) of each state tensor, SCAN_STATE_FIELDS order —
+    the reference's `_scan_init` shapes."""
+    d = _scan_dims(cfg, args)
+    P, G, D, U, C = d["P"], d["G"], d["D"], d["U"], d["C"]
+    i32, i64, f64, b = torch.int32, torch.int64, torch.float64, torch.bool
+    shapes = (
+        ((8,), i32), ((d["Qcap"],), i32), ((P,), i32), ((P,), i32), ((P,), i32),
+        ((P,), i32), ((C,), i32), ((C,), i32), ((C,), i32), ((C,), i64),
+        ((C, U), b), ((C, U, D), f64), ((C, G), b), ((G,), i32),
+        ((d["N"], D), f64), ((C, d["I"]), b), ((d["L"], D), f64),
+    )
+    return tuple((name, shape, dt) for name, (shape, dt) in zip(SCAN_STATE_FIELDS, shapes))
+
+
 # -- plain torch version -------------------------------------------------------
 
 
-def solve_scan_plain(cfg: tuple, args: tuple) -> tuple:
+def _scan_init_plain(cfg: tuple, args: tuple) -> tuple:
+    """The cold-start loop state (the reference's `_scan_init`)."""
+    T, has_nodes, has_limits = cfg
+    dev = args[0].device
+    st = {name: torch.zeros(shape, dtype=dt, device=dev) for name, shape, dt in _state_spec(cfg, args)}
+    P = args[0].shape[0]
+    st["scal"][1] = int(args[13])  # tail = n_pods
+    st["queue"][:P] = torch.arange(P, dtype=torch.int32, device=dev)
+    for name in ("last_len", "pod_claim", "pod_node", "pod_seq"):
+        st[name].fill_(-1)
+    st["claim_key"].fill_(_SCAN_KEY_MAX)
+    if has_nodes:
+        st["node_rem"].copy_(args[16])
+    if has_limits:
+        st["pool_rem"].copy_(args[24])
+    return tuple(st[name] for name in SCAN_STATE_FIELDS)
+
+
+def _scan_loop_plain(cfg: tuple, args: tuple, state: tuple) -> None:
     """The scan as a Python loop over float64/int64 tensors, one queue pop
-    per iteration, mirroring the reference's (cond, body, init, finals).
-    Scalars of the loop state are Python ints; every write the reference
-    makes on a step, including the no-op ones, lands on the same cells.
-    Returns the reference's 10 outputs, then the iteration count."""
+    per iteration, mirroring the reference's (cond, body). Runs from
+    `state` and writes it in place; scal[7] gets this call's iteration
+    count. Every write the reference makes on a step, including the no-op
+    ones, lands on the same cells."""
     T, has_nodes, has_limits = cfg
     (
         pod_gi, claim_pad, g_req, g_floor, uniq_alloc, usage0, tol, open_ok,
@@ -79,36 +592,17 @@ def solve_scan_plain(cfg: tuple, args: tuple) -> tuple:
         node_ok, node_rem0, fam_mask, tmpl_mask, open_cand, uid_onehot,
         uid_of_type, cap_f, pool_of_t, pool_rem0, pool_has, pool_bad,
     ) = args
+    (
+        scal, queue, last_len, pod_claim, pod_node, pod_seq, claim_ti, claim_fam,
+        claim_count, claim_key, u_valid, rem, cfit, nptr, node_rem, tm_st, pool_rem,
+    ) = state
     dev = pod_gi.device
-    i32, f64 = torch.int32, torch.float64
-    P = pod_gi.shape[0]
-    G, D = g_req.shape
-    U = uniq_alloc.shape[0]
     C = claim_pad.shape[0]
-    Qcap = 4 * P + 64
-    I = tmpl_mask.shape[1] if has_limits else 1
-    n_pods, n_nodes = int(n_pods), int(n_nodes)
-
-    # -- _scan_init --
-    head, tail, stop, abort, seqc, done, nclaims = 0, n_pods, False, SCAN_OK, 0, 0, 0
+    Qcap = queue.shape[0]
+    n_nodes = int(n_nodes)
+    head, tail, stop, abort, seqc, done, nclaims = scal[:_N_SCALARS].tolist()
+    stop = bool(stop)
     steps = 0
-    queue = torch.zeros(Qcap, dtype=i32, device=dev)
-    queue[:P] = torch.arange(P, dtype=i32, device=dev)
-    last_len = torch.full((P,), -1, dtype=i32, device=dev)
-    pod_claim = torch.full((P,), -1, dtype=i32, device=dev)
-    pod_node = torch.full((P,), -1, dtype=i32, device=dev)
-    pod_seq = torch.full((P,), -1, dtype=i32, device=dev)
-    claim_ti = torch.zeros(C, dtype=i32, device=dev)
-    claim_fam = torch.zeros(C, dtype=i32, device=dev)
-    claim_count = torch.zeros(C, dtype=i32, device=dev)
-    claim_key = torch.full((C,), _SCAN_KEY_MAX, dtype=torch.int64, device=dev)
-    u_valid = torch.zeros((C, U), dtype=torch.bool, device=dev)
-    rem = torch.zeros((C, U, D), dtype=f64, device=dev)
-    cfit = torch.zeros((C, G), dtype=torch.bool, device=dev)
-    nptr = torch.zeros(G, dtype=i32, device=dev)
-    node_rem = node_rem0.clone() if has_nodes else torch.zeros((1, D), dtype=f64, device=dev)
-    tm_st = torch.zeros((C, I), dtype=torch.bool, device=dev)
-    pool_rem = pool_rem0.clone() if has_limits else torch.zeros((1, D), dtype=f64, device=dev)
     claim_idx = torch.arange(C, device=dev)
     node_idx = torch.arange(node_ok.shape[0], device=dev) if has_nodes else None
     key_max = torch.tensor(_SCAN_KEY_MAX, dtype=torch.int64, device=dev)
@@ -227,7 +721,7 @@ def solve_scan_plain(cfg: tuple, args: tuple) -> tuple:
             claim_key[row] = _scan_key(1, seq2, row)
             if has_limits:
                 tm_st[row] = sel_tm
-                pool_rem = pool_rem - sel_sub
+                pool_rem.sub_(sel_sub)
         if opening:
             nclaims += 1
         # cfit row refresh for the touched claim (a pure function of the
@@ -259,51 +753,70 @@ def solve_scan_plain(cfg: tuple, args: tuple) -> tuple:
         stop = stop or stop_now
         head, tail, seqc = head2, tail2, seq2
 
-    scalar = lambda v: torch.tensor(v, dtype=i32, device=dev)  # noqa: E731
-    return (
-        scalar(abort), scalar(nclaims), pod_claim, pod_node, pod_seq,
-        claim_ti, claim_fam, u_valid, tm_st, pool_rem, scalar(steps),
-    )
+    scal.copy_(torch.tensor(
+        [head, tail, int(stop), abort, seqc, done, nclaims, steps], dtype=torch.int32, device=dev
+    ))
+
+
+def _enqueue_suffix_plain(args: tuple, state: tuple, p_lo: int) -> None:
+    """Resume's enqueue (the reference's `_solve_scan_resume_core`): queue
+    positions [tail, tail+nsuf) take pod ids p_lo+k, then tail += nsuf."""
+    scal, queue = state[0], state[1]
+    tail = int(scal[1])
+    nsuf = max(int(args[13]) - int(p_lo), 0)
+    k = torch.arange(nsuf, dtype=torch.int64, device=queue.device)
+    queue[(tail + k).clamp(0, queue.shape[0] - 1)] = (int(p_lo) + k).to(torch.int32)
+    scal[1] = tail + nsuf
+
+
+def solve_scan_full_plain(cfg: tuple, args: tuple) -> tuple:
+    """The cold scan returning its whole final state (SCAN_STATE_FIELDS),
+    then the iteration count."""
+    state = _scan_init_plain(cfg, args)
+    _scan_loop_plain(cfg, args, state)
+    return state + (state[0][7],)
+
+
+def solve_scan_plain(cfg: tuple, args: tuple) -> tuple:
+    """The classic scan in plain torch: the reference's 10 outputs, then
+    the iteration count."""
+    out = solve_scan_full_plain(cfg, args)
+    return _scan_finals(out[:-1]) + (out[-1],)
+
+
+def solve_scan_resume_plain(cfg: tuple, args: tuple, state: tuple, p_lo: int) -> tuple:
+    """Continue `state` (written in place) with the suffix pods
+    [p_lo, n_pods) enqueued; returns the state, then this call's iteration
+    count."""
+    _enqueue_suffix_plain(args, state, p_lo)
+    _scan_loop_plain(cfg, args, state)
+    return tuple(state) + (state[0][7],)
 
 
 # -- kernel wrapper ------------------------------------------------------------
 
-_lib_cache: list = []
+_scan_lib_cache: list = []
 
 # the kernel's parameter block (csrc/scan.cu ScanParams)
 _N_PTRS = 24 + 17 + 1  # operands (less claim_pad, n_pods, n_nodes), state, scratch
-_N_DIMS = 16
+_N_DIMS = 18
+_MODE_FULL, _MODE_RESUME = 0, 1
 
 
-def _lib() -> ctypes.CDLL:
-    if not _lib_cache:
+def _scan_lib() -> ctypes.CDLL:
+    if not _scan_lib_cache:
         lib = kernel_library("scan")
         lib.kt_solve_scan.restype = ctypes.c_int
         lib.kt_solve_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        _lib_cache.append(lib)
-    return _lib_cache[0]
+        _scan_lib_cache.append(lib)
+    return _scan_lib_cache[0]
 
 
-def solve_scan(cfg: tuple, args: tuple) -> tuple:
-    """Run the fused scan. cfg = (T, has_nodes, has_limits), the static
-    variant; args = the 27 operands (convert.scan_operands_from_numpy).
-    Returns (abort, nclaims, pod_claim, pod_node, pod_seq, claim_ti,
-    claim_fam, u_valid, tm_st, pool_rem, steps)."""
+def _check_scan_operands(cfg: tuple, args: tuple) -> None:
     if len(args) != SCAN_N_ARGS:
         raise ValueError(f"solve_scan takes {SCAN_N_ARGS} operands, got {len(args)}")
-    first = args[0]
-    if first.device.type == "cpu":
-        return solve_scan_plain(cfg, args)
-    if first.device.type != "cuda":
-        raise ValueError(f"unsupported device {first.device}")
     T, has_nodes, has_limits = cfg
-    dev = first.device
-    (
-        pod_gi, claim_pad, g_req, g_floor, uniq_alloc, usage0, tol, open_ok,
-        open_fam, open_uok, trans_kind, trans_fam, famu_ok, n_pods, n_nodes,
-        node_ok, node_rem0, fam_mask, tmpl_mask, open_cand, uid_onehot,
-        uid_of_type, cap_f, pool_of_t, pool_rem0, pool_has, pool_bad,
-    ) = args
+    dev = args[0].device
     for k, (t, (_, dt)) in enumerate(zip(args, SCAN_OPERANDS)):
         if t.device != dev:
             raise KernelError(f"solve_scan: operand {k} on {t.device}, expected {dev}")
@@ -311,17 +824,9 @@ def solve_scan(cfg: tuple, args: tuple) -> tuple:
             raise KernelError(f"solve_scan: operand {k} dtype {t.dtype}, expected {dt}")
         if not t.is_contiguous():
             raise KernelError(f"solve_scan: operand {k} not contiguous")
-    P = pod_gi.shape[0]
-    G, D = g_req.shape
-    U = uniq_alloc.shape[0]
-    C = claim_pad.shape[0]
-    F = trans_kind.shape[0]
-    I = fam_mask.shape[1]
-    N = node_ok.shape[0] if has_nodes else 1
-    L = pool_rem0.shape[0] if has_limits else 1
-    Il = I if has_limits else 1
-    WU = (U + 31) // 32
-    Qcap = 4 * P + 64
+    d = _scan_dims(cfg, args)
+    G, D, U, I = d["G"], d["D"], d["U"], args[17].shape[1]
+    F = args[10].shape[0]
     if not 0 < T <= 8:
         raise KernelError(f"solve_scan: {T} templates, the kernel takes 1..8")
     expect = {
@@ -329,60 +834,106 @@ def solve_scan(cfg: tuple, args: tuple) -> tuple:
         10: (F, G), 11: (F, G), 12: (T, F, U), 13: (), 14: (), 20: (U, I), 23: (T,),
     }
     if has_nodes:
-        expect.update({15: (N, G), 16: (N, D)})
+        expect.update({15: (d["N"], G), 16: (d["N"], D)})
     if has_limits:
+        L = d["L"]
         expect.update({18: (T, I), 19: (T, G, I), 21: (I,), 22: (I, D), 24: (L, D),
                        25: (L, D), 26: (L,)})
     for k, shape in expect.items():
         if tuple(args[k].shape) != shape:
             raise KernelError(f"solve_scan: operand {k} shape {tuple(args[k].shape)}, expected {shape}")
-    if C >= 1 << 18 or Qcap >= 1 << 20:
-        raise KernelError(f"solve_scan: C={C} or queue {Qcap} exceeds the int64 key packing")
+    if d["C"] >= 1 << 18 or d["Qcap"] >= 1 << 20:
+        raise KernelError(f"solve_scan: C={d['C']} or queue {d['Qcap']} exceeds the int64 key packing")
+
+
+def _alloc_state(cfg: tuple, args: tuple) -> tuple:
+    dev = args[0].device
+    return tuple(torch.empty(shape, dtype=dt, device=dev) for _, shape, dt in _state_spec(cfg, args))
+
+
+def _launch_scan(cfg: tuple, args: tuple, state: tuple, mode: int, p_lo: int = 0) -> None:
+    """One kt_solve_scan launch: `_MODE_FULL` initializes `state` and runs
+    the loop; `_MODE_RESUME` loads the scalars from state[0], enqueues the
+    suffix [p_lo, n_pods) and runs the loop. Either writes `state` in
+    place."""
+    T, has_nodes, has_limits = cfg
+    (
+        pod_gi, claim_pad, g_req, g_floor, uniq_alloc, usage0, tol, open_ok,
+        open_fam, open_uok, trans_kind, trans_fam, famu_ok, n_pods, n_nodes,
+        node_ok, node_rem0, fam_mask, tmpl_mask, open_cand, uid_onehot,
+        uid_of_type, cap_f, pool_of_t, pool_rem0, pool_has, pool_bad,
+    ) = args
+    dev = pod_gi.device
+    d = _scan_dims(cfg, args)
+    P, N = d["P"], d["N"]
+    I = fam_mask.shape[1]
+    WU = (d["U"] + 31) // 32
     n_pods_v, n_nodes_v = int(n_pods), int(n_nodes)
     if not 0 <= n_pods_v <= P or (has_nodes and not 0 <= n_nodes_v <= N):
         raise KernelError(f"solve_scan: n_pods={n_pods_v} / n_nodes={n_nodes_v} outside the operands")
-
-    def empty(*shape, dtype=torch.int32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    # the 23-component loop state (the reference's _scan_init layout; the
-    # seven scalars head, tail, stop, abort, seqc, done, nclaims in one
-    # int32 vector, followed by the kernel's iteration count), initialized
-    # by the kernel
-    scal = empty(8)
-    queue = empty(Qcap)
-    last_len, pod_claim, pod_node, pod_seq = empty(P), empty(P), empty(P), empty(P)
-    claim_ti, claim_fam, claim_count = empty(C), empty(C), empty(C)
-    claim_key = empty(C, dtype=torch.int64)
-    u_valid = empty(C, U, dtype=torch.bool)
-    rem = empty(C, U, D, dtype=torch.float64)
-    cfit = empty(C, G, dtype=torch.bool)
-    nptr = empty(G)
-    node_rem = empty(N, D, dtype=torch.float64)
-    tm_st = empty(C, Il, dtype=torch.bool)
-    pool_rem = empty(L, D, dtype=torch.float64)
-    colw = empty(I * WU if has_limits else 1)  # packed uid_onehot columns
-
+    # scratch, rebuilt by every launch: uid_onehot's columns as U-bit words
+    colw = torch.empty(I * WU if has_limits else 1, dtype=torch.int32, device=dev)
     ptrs = [
         pod_gi, g_req, g_floor, uniq_alloc, usage0, tol, open_ok, open_fam,
         open_uok, trans_kind, trans_fam, famu_ok, node_ok, node_rem0, fam_mask,
         tmpl_mask, open_cand, uid_onehot, uid_of_type, cap_f, pool_of_t,
-        pool_rem0, pool_has, pool_bad,
-        scal, queue, last_len, pod_claim, pod_node, pod_seq, claim_ti,
-        claim_fam, claim_count, claim_key, u_valid, rem, cfit, nptr, node_rem,
-        tm_st, pool_rem, colw,
+        pool_rem0, pool_has, pool_bad, *state, colw,
     ]
     assert len(ptrs) == _N_PTRS
-    dims = [P, G, C, U, D, F, T, N, I, L, Qcap, WU, n_pods_v, n_nodes_v,
-            int(bool(has_nodes)), int(bool(has_limits))]
+    dims = [P, d["G"], d["C"], d["U"], d["D"], trans_kind.shape[0], T, N, I, d["L"], d["Qcap"], WU,
+            n_pods_v, n_nodes_v, int(bool(has_nodes)), int(bool(has_limits)), mode, int(p_lo)]
     assert len(dims) == _N_DIMS
     ptr_arr = (ctypes.c_void_p * _N_PTRS)(*(t.data_ptr() for t in ptrs))
     dim_arr = (ctypes.c_int * _N_DIMS)(*dims)
-    rc = _lib().kt_solve_scan(ptr_arr, dim_arr, stream_handle(dev))
+    rc = _scan_lib().kt_solve_scan(ptr_arr, dim_arr, stream_handle(dev))
     if rc != 0:
         raise KernelError(f"solve_scan: CUDA launch failed with cudaError {rc}")
-    LAUNCHES["solve_scan"] += 1
-    return (
-        scal[3], scal[6], pod_claim, pod_node, pod_seq,
-        claim_ti, claim_fam, u_valid, tm_st, pool_rem, scal[7],
-    )
+
+
+def _solve_scan_full(cfg: tuple, args: tuple, name: str) -> tuple:
+    """One full-mode launch on fresh state, counted under `name`; returns
+    the state, then `steps`."""
+    _check_scan_operands(cfg, args)
+    state = _alloc_state(cfg, args)
+    _launch_scan(cfg, args, state, _MODE_FULL)
+    LAUNCHES[name] += 1
+    return state + (state[0][7],)
+
+
+def solve_scan(cfg: tuple, args: tuple) -> tuple:
+    """Run the fused scan (B14). cfg = (T, has_nodes, has_limits), the
+    static variant; args = the 27 operands (convert.scan_operands_from_numpy).
+    Returns (abort, nclaims, pod_claim, pod_node, pod_seq, claim_ti,
+    claim_fam, u_valid, tm_st, pool_rem, steps)."""
+    if _on_cpu(args[0]):
+        return solve_scan_plain(cfg, args)
+    out = _solve_scan_full(cfg, args, "solve_scan")
+    return _scan_finals(out[:-1]) + (out[-1],)
+
+
+def solve_scan_full(cfg: tuple, args: tuple) -> tuple:
+    """The cold scan returning its full final state (B15): the
+    SCAN_STATE_FIELDS tensors (`scal` then 16 tensors; the reference's 23
+    components, convert.scan_state_to_numpy), then `steps`."""
+    if _on_cpu(args[0]):
+        return solve_scan_full_plain(cfg, args)
+    return _solve_scan_full(cfg, args, "solve_scan_full")
+
+
+def solve_scan_resume(cfg: tuple, args: tuple, state: tuple, p_lo: int) -> tuple:
+    """Warm resume (B16): continue the scan from a resident final state
+    with the suffix pods [p_lo, n_pods) enqueued. Sound ONLY under the
+    residency eligibility contract (ops/delta.py). The state tensors are
+    written in place — a warm pass allocates no new state. Returns the
+    state, then this launch's `steps`."""
+    if len(state) != len(SCAN_STATE_FIELDS):
+        raise ValueError(f"solve_scan_resume takes {len(SCAN_STATE_FIELDS)} state tensors, got {len(state)}")
+    if _on_cpu(args[0]):
+        return solve_scan_resume_plain(cfg, args, state, p_lo)
+    _check_scan_operands(cfg, args)
+    dev = args[0].device
+    for t, (name, shape, dt) in zip(state, _state_spec(cfg, args)):
+        _check(f"solve_scan_resume state {name}", t, dt, shape, dev)
+    _launch_scan(cfg, args, state, _MODE_RESUME, p_lo)
+    LAUNCHES["solve_scan_resume"] += 1
+    return tuple(state) + (state[0][7],)

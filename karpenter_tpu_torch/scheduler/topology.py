@@ -1007,8 +1007,12 @@ class Topology:
             tg.domains = domains
             tg.empty_domains = empty
             tg._gen = next(_count_gen)
-        # (this package keeps no solver residency across solves, so a
-        # rollback has nothing further to invalidate)
+        # the rollback rewound count state out-of-band of the solve stream:
+        # any solver residency (ops/delta.py) seeded by the aborted solve
+        # describes placements that no longer exist and must not warm-resume
+        from karpenter_tpu_torch.ops import delta
+
+        delta.invalidate_all("rollback-restore")
 
     def register(self, topology_key: str, domain: str) -> None:
         for tg in self.topology_groups.values():

@@ -92,7 +92,10 @@ def test_launch_counts_untouched_by_plain_versions():
     tfeas.production_cube(*(to_torch(a) for a in args))
     tfeas.req_rows_vs_sets(*(to_torch(a) for a in row_inputs(3)))
     tfeas.uid_project(torch.ones((2, 5), dtype=torch.bool), torch.ones((3, 5), dtype=torch.bool))
-    assert tfeas.LAUNCHES == {"row_compat": 0, "membership": 0, "cube": 0, "uid_project": 0}
+    tfeas.offering_reduce(*(to_torch(a) for a in args[:1] + args[2:]), args[1].shape[1])
+    assert tfeas.LAUNCHES == {
+        "row_compat": 0, "membership": 0, "cube": 0, "uid_project": 0, "offering_reduce": 0,
+    }
 
 
 # -- import rules --------------------------------------------------------------

@@ -21,7 +21,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from karpenter_tpu_torch import convert  # noqa: E402
 from karpenter_tpu_torch.ops import feasibility as tfeas  # noqa: E402
 from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
-from torch_inputs import cube_inputs, row_inputs, scan_inputs, to_torch, uid_inputs  # noqa: E402
+from torch_inputs import (  # noqa: E402
+    core_inputs, cube_inputs, group_inputs, offering_inputs, row_inputs, scan_inputs, to_torch,
+    uid_inputs,
+)
 
 SEEDS = range(8)
 
@@ -73,3 +76,55 @@ def test_solve_scan_matches_plain_on_card(cuda_device, variant, seed):
         if g.dtype == torch.float64:
             g, w = g.view(torch.int64), w.view(torch.int64)
         assert torch.equal(g, w)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", SEEDS)
+def test_group_kernels_match_plain_on_card(cuda_device, seed):
+    """B8 (kt_cube_offer as offering_reduce), B9/B10 (kt_solve_block) and
+    B11/B12 (kt_delta_scatter, kt_delta_finalize), bit for bit."""
+    args, I = offering_inputs(seed)
+    off = [to_torch(a).to(cuda_device) for a in args]
+    assert torch.equal(tfeas.offering_reduce(*off, I), tfeas.offering_reduce_plain(*off, I))
+    grp = [to_torch(a).to(cuda_device) for a in group_inputs(seed)]
+    assert torch.equal(tpacker.solve_block(*grp), tpacker.solve_block_plain(*grp))
+    assert torch.equal(tpacker.solve_block_core(*grp), tpacker.solve_block_core_plain(*grp))
+    core, slots, rows, order, counts = (to_torch(a).to(cuda_device) for a in core_inputs(seed))
+    got = tpacker.delta_scatter_rows(core.clone(), slots, rows)
+    want = tpacker.delta_scatter_rows_plain(core.clone(), slots, rows)
+    assert torch.equal(got, want)
+    assert torch.equal(tpacker.delta_finalize(got, order, counts),
+                       tpacker.delta_finalize_plain(want, order, counts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "nodes", "limits", "both"])
+@pytest.mark.parametrize("seed", range(3))
+def test_solve_scan_full_and_resume_match_plain_on_card(cuda_device, variant, seed):
+    """B15 (kt_solve_scan, full mode) against the plain full solve, and B16
+    (resume mode) from the plain state of a prefix against the plain
+    resume: every state tensor and the step count bit for bit."""
+    cfg, args = scan_inputs(seed, variant in ("nodes", "both"), variant in ("limits", "both"))
+    ops = convert.scan_operands_from_numpy(args, cuda_device)
+    n_pods = int(args[13])
+    p_lo = n_pods * 2 // 3
+    pre = list(args)
+    pre[0] = args[0].copy()
+    pre[0][p_lo:] = -1
+    pre[13] = type(args[13])(p_lo)
+    pre_ops = convert.scan_operands_from_numpy(pre, cuda_device)
+    got = tpacker.solve_scan_full(cfg, ops)
+    want = tpacker.solve_scan_full_plain(cfg, ops)
+    state_k = tpacker.solve_scan_full(cfg, pre_ops)[:-1]
+    state_p = tuple(t.clone() for t in state_k)
+    res_k = tpacker.solve_scan_resume(cfg, ops, state_k, p_lo)
+    res_p = tpacker.solve_scan_resume_plain(cfg, ops, state_p, p_lo)
+    torch.cuda.synchronize()
+    for g, w in list(zip(got, want)) + list(zip(res_k, res_p)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(_bits(g), _bits(w))
+    assert all(a is b for a, b in zip(res_k[:-1], state_k))  # written in place

@@ -196,3 +196,92 @@ def scan_inputs(seed: int, has_nodes: bool, has_limits: bool):
         pool_of_t, pool_rem0, pool_has, pool_bad,
     )
     return (T, has_nodes, has_limits), args
+
+
+def offering_inputs(seed: int):
+    """Random offering_reduce inputs (owner-major offerings): ragged P/R/O,
+    K=0 on every third seed, and offering 0 never available. Returns the
+    six operands with owner indices, then the type count."""
+    rng = np.random.RandomState(500 + seed)
+    P = (1, 5, 16, 33)[seed % 4]
+    R = (1, 3, 8, 40)[(seed // 2) % 4]
+    K = (0, 4, 8)[seed % 3]
+    I = (1, 9, 40)[(seed // 3) % 3]
+    O = I + int(rng.randint(0, 2 * I + 1))
+    owner = np.sort(rng.randint(0, I, size=O)).astype(np.int32)
+    available = rng.rand(O) < 0.8
+    available[0] = False
+    return (
+        rng.rand(P, R) < 0.3,
+        rng.rand(R, O) < 0.85,
+        rng.rand(O, K) < 0.15,
+        rng.rand(P, K) < 0.5,
+        available,
+        owner,
+    ), I
+
+
+def group_inputs(seed: int):
+    """Random group-solver operands in the reference's layout (group_bools
+    [G, R+K], group_ints [G, D+1] int32, then the seven catalog operands
+    with owner indices): price ties (prices from a small set), zero and
+    negative requests, negative allocatable (floor division), an
+    all-infeasible group on even seeds, types without an available offering
+    (price inf, as GroupSolver builds it)."""
+    rng = np.random.RandomState(600 + seed)
+    G = (1, 5, 16, 33)[seed % 4]
+    R = (1, 3, 8)[seed % 3]
+    K = (0, 4, 8)[(seed // 2) % 3]
+    I = (1, 9, 40)[(seed // 3) % 3]
+    D = 4
+    O = I + int(rng.randint(0, 2 * I + 1))
+    owner = np.sort(rng.randint(0, I, size=O)).astype(np.int32)
+    available = rng.rand(O) < 0.8
+    offer_price = rng.choice([0.5, 1.0, 1.25, 2.0], size=O).astype(np.float32)
+    price = np.full(I, np.inf, dtype=np.float32)
+    for o in range(O):
+        if available[o]:
+            price[owner[o]] = min(price[owner[o]], offer_price[o])
+    membership = rng.rand(G, R) < 0.3
+    key_present = rng.rand(G, K) < 0.5
+    requests_q = rng.randint(-1, 12, size=(G, D)).astype(np.int32)
+    requests_q[rng.rand(G, D) < 0.3] = 0
+    if seed % 2 == 0:
+        requests_q[0] = 1000  # fits no type: all-infeasible
+    alloc_q = rng.randint(-3, 40, size=(I, D)).astype(np.int32)
+    counts = rng.randint(0, 50, size=G).astype(np.int32)
+    return (
+        np.concatenate([membership, key_present], axis=1),
+        np.concatenate([requests_q, counts[:, None]], axis=1),
+        rng.rand(R, I) < 0.85,
+        rng.rand(R, O) < 0.85,
+        rng.rand(O, K) < 0.15,
+        available,
+        owner,
+        alloc_q,
+        price,
+    )
+
+
+def core_inputs(seed: int):
+    """A resident [cap, 3] core matrix (feasible entries other than 0/1
+    too, pods-per-node down to -1), edge-padded scatter slots and rows, and
+    a padded gather order with counts."""
+    rng = np.random.RandomState(700 + seed)
+    cap = (8, 64, 128)[seed % 3]
+    core = np.stack([
+        rng.randint(0, 50, size=cap), rng.randint(0, 3, size=cap), rng.randint(-1, 12, size=cap),
+    ], axis=1).astype(np.int32)
+    n = int(rng.randint(1, cap + 1))
+    slots = rng.permutation(cap)[:n].astype(np.int32)
+    pad = (8 - n % 8) % 8
+    rows = np.stack([
+        rng.randint(0, 50, size=n), rng.randint(0, 2, size=n), rng.randint(0, 12, size=n),
+    ], axis=1).astype(np.int32)
+    slots = np.pad(slots, (0, pad), mode="edge")
+    rows = np.pad(rows, ((0, pad), (0, 0)), mode="edge")
+    g = int(rng.randint(1, cap + 1))
+    gb = max(8, 1 << (g - 1).bit_length())
+    order = np.pad(rng.randint(0, cap, size=g).astype(np.int32), (0, gb - g), mode="edge")
+    counts = np.pad(rng.randint(0, 100, size=g).astype(np.int32), (0, gb - g))
+    return core, slots, rows, order, counts
