@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # phases 1-3 only (build + kernel checks)
+    python3 chip_smoke.py --mesh     # phases 1-2, 4 and 5b (two or more cards)
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -12,6 +13,9 @@ Phases, in order; any failure exits non-zero:
   3. hold each kernel against its plain torch version on the card, bit for
      bit: the feasibility kernels at the solve's shapes, on ragged edges and
      on bounded/complement rows; uid_project on ragged type counts and U=1;
+     fits_matrix (int32 and float32) and stage_plane on random inputs
+     (phase 7 checks them again on the workload's inputs; those launches
+     are the only ones they have: no path of the reference runs them);
      offering_reduce on ragged P/R/O/K (K=0, an offering never available);
      solve_block and solve_block_core on random operands (all-infeasible
      groups, zero-request dims, price ties); delta_scatter with edge-padded
@@ -41,12 +45,24 @@ Phases, in order; any failure exits non-zero:
      then the path (counts zeroed just before, the checks' own launches
      left out): the full solve, and with delta on a cold pass, a
      count-only pass (0 groups solved) and a pass with new shapes;
+  5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
+     mesh and on a 2-shard mesh (two cards when the machine has them, else
+     cuda:0 twice): a scan solve cold and warm (decisions equal to phase
+     4's), a delta churn of 6 passes with one self-check (1 miss, then
+     warm, decisions equal to delta off, one resident state per shard),
+     the group solver's sharded solve of the 200 groups (equal to the
+     unsharded solve_block); every replica's scan outputs equal to each
+     other, and exact launch counts per shard;
   6. decision identity on a 5,000-pod prefix: CUDA with the scan, CUDA with
      the walk and a device="cpu" engine (walk, plain versions); and the
      nodes-and-limits solve with the scan on CUDA against the plain scan on
      the CPU;
   7. one JSON line {"kernels": [...]}: per kernel its launches on its path
-     (phase 4, or phase 5 for the delta and group kernels), agreement with
+     (phase 4, phase 5 for the delta and group kernels, phase 5b for the
+     sharded twins, phase 3 and the workload checks for fits_matrix and
+     stage_plane: fits of the 50k pods' quantized requests against the
+     1008 allocatables, the stage plane of a sweep of the 200 shapes),
+     agreement with
      the plain version, and CUDA-event medians of the kernel, the plain
      version and a PyTorch yardstick on the inputs its path gave it,
      beside its bound (the larger of bytes over the memory rate and
@@ -89,6 +105,7 @@ SMALL_PODS = 2_000
 CHURN_PASSES = 12
 CHURN_PODS = 24
 SELF_CHECK_EVERY = 5
+MESH_CHURN_PASSES = 5  # the mesh phase's churn passes; the last one self-checks
 SOURCE = {
     "row_compat": "karpenter_tpu_torch/csrc/feasibility.cu",
     "membership": "karpenter_tpu_torch/csrc/feasibility.cu",
@@ -102,6 +119,13 @@ SOURCE = {
     "delta_finalize": "karpenter_tpu_torch/csrc/packer.cu",
     "solve_scan_full": "karpenter_tpu_torch/csrc/scan.cu",
     "solve_scan_resume": "karpenter_tpu_torch/csrc/scan.cu",
+    "fits_matrix": "karpenter_tpu_torch/csrc/feasibility.cu",
+    "stage_plane": "karpenter_tpu_torch/csrc/feasibility.cu",
+    "sharded_cube": "karpenter_tpu_torch/csrc/feasibility.cu",
+    "sharded_solve_block": "karpenter_tpu_torch/csrc/packer.cu",
+    "sharded_solve_scan": "karpenter_tpu_torch/csrc/scan.cu",
+    "sharded_solve_scan_full": "karpenter_tpu_torch/csrc/scan.cu",
+    "sharded_solve_scan_resume": "karpenter_tpu_torch/csrc/scan.cu",
 }
 REPLACES = {
     "row_compat": "karpenter_tpu/ops/feasibility.py:48",
@@ -116,7 +140,17 @@ REPLACES = {
     "delta_finalize": "karpenter_tpu/ops/packer.py:196",
     "solve_scan_full": "karpenter_tpu/ops/packer.py:833",
     "solve_scan_resume": "karpenter_tpu/ops/packer.py:840",
+    "fits_matrix": "karpenter_tpu/ops/feasibility.py:222",
+    "stage_plane": "karpenter_tpu/ops/feasibility.py:384",
+    "sharded_cube": "karpenter_tpu/ops/feasibility.py:305",
+    "sharded_solve_block": "karpenter_tpu/ops/packer.py:217",
+    "sharded_solve_scan": "karpenter_tpu/ops/packer.py:930",
+    "sharded_solve_scan_full": "karpenter_tpu/ops/packer.py:954",
+    "sharded_solve_scan_resume": "karpenter_tpu/ops/packer.py:975",
 }
+# float32 operations per second outside the tensor cores (H100 SXM data
+# sheet: 67 TFLOP/s FP32), the rate of fits_matrix's float32 compares
+F32_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -568,6 +602,7 @@ def check_equal(name: str, got, want) -> None:
         for i, (g, w) in enumerate(zip(got, want)):
             check_equal(f"{name}[{i}]", g, w)
         return
+    want = want.to(got.device)  # a replica on another card than its reference
     if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(_bits(got), _bits(want)):
         bad = int((got != want).sum()) if got.shape == want.shape else -1
         raise AssertionError(f"{name}: kernel disagrees with plain version ({bad} cells)")
@@ -697,6 +732,38 @@ def phase_kernel_checks(dev=torch.device("cuda")):
             f"({int(res_k[-1])} steps) bit-identical; resume == full solve of the whole list")
 
 
+def fits_stage_checks(captured, dev=torch.device("cuda")):
+    """B4 (fits_matrix, int32 and float32) and B7 (stage_plane) against
+    their plain versions, bit for bit, on random inputs with zero
+    capacities and ragged shapes. Their launches here and in
+    fits_stage_entries' workload checks are their only ones."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    rng = np.random.RandomState(2)
+    n0 = {k: feas.LAUNCHES[k] for k in ("fits_matrix", "stage_plane")}
+    n = 0
+    for P, I, D in ((1, 1, 1), (37, 1008, 4), (256, 1008, 4), (5, 33, 6), (300, 7, 0), (70000, 9, 4),
+                    (9, 40, 11), (2049, 300, 8)):
+        for dtype in (np.int32, np.float32):
+            alloc = rng.randint(0, 8, size=(I, D)).astype(dtype)
+            alloc[rng.rand(I, D) < 0.2] = 0
+            req = rng.randint(0, 8, size=(P, D)).astype(dtype)
+            req[rng.rand(P, D) < 0.3] = 0
+            if dtype == np.float32:
+                req += rng.choice([0.0, 0.25, -0.5], size=(P, D)).astype(np.float32)
+            r, a = _to(req, dev), _to(alloc, dev)
+            check_equal(f"fits_matrix {np.dtype(dtype).name} P={P} I={I} D={D}",
+                        feas.fits_matrix(r, a), feas.fits_matrix_plain(r, a))
+            n += 1
+    for shape in ((1,), (7, 1008), (256, 1008), (3, 5, 77), (1 << 20,)):
+        planes = [_to(rng.rand(*shape) < q, dev) for q in (0.8, 0.7, 0.6)]
+        check_equal(f"stage_plane {shape}", feas.stage_plane(*planes), feas.stage_plane_plain(*planes))
+        n += 1
+    captured["phase3_launches"] = {k: feas.LAUNCHES[k] - n0[k] for k in n0}
+    log(f"kernel checks: {n} fits_matrix and stage_plane cases bit-identical to the plain "
+        f"versions; launches {json.dumps(captured['phase3_launches'])}")
+
+
 def _count_launches():
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import packer
@@ -805,7 +872,7 @@ def phase_main(captured, device=None):
     assert walk_launches["solve_scan"] == 0, "the scan launched on the walk path"
     for name in ("row_compat", "membership", "cube"):
         assert walk_launches[name] > 0, f"{name} never launched on the walk path"
-    first = decisions(runs[0][2])
+    first = captured["decisions"] = decisions(runs[0][2])
     for label, _, results in [r[:3] for r in runs] + walk_runs:
         claims, errors, _ = decisions(results)
         assert not errors, f"{label}: {len(errors)} pod errors"
@@ -913,6 +980,192 @@ def phase_delta(captured, device=None):
     return launches
 
 
+def solver_meshes(device=None):
+    """The meshes phase_mesh drives: one device, and two shards — two
+    cards when the machine has them, else the first card twice (a
+    repeated device, the shards run one after the other)."""
+    from karpenter_tpu_torch.mesh import Mesh
+
+    if device == "cpu":
+        d0 = d1 = torch.device("cpu")
+    else:
+        d0 = torch.device("cuda", 0)
+        d1 = torch.device("cuda", 1) if torch.cuda.device_count() >= 2 else d0
+    two = "two cards" if d1 != d0 else f"{d0} twice"
+    return [("1-device", Mesh([d0])), (f"2-shard ({two})", Mesh([d0, d1]))]
+
+
+def phase_mesh(captured, device=None):
+    """The solver mesh on the main workload, per mesh of solver_meshes: the
+    scan solve cold and warm (decisions equal to phase 4's); delta on, one
+    cold pass and MESH_CHURN_PASSES churn passes, the last a self-check
+    (1 miss, then warm, decisions equal to delta off, one resident state
+    per shard); the group solver's sharded solve of the 200 groups against
+    the unsharded solve_block. Every replica's scan outputs are compared
+    with each other on the path; counts are zeroed before the first mesh
+    and read after the last, and must be exact per shard. The 2-shard
+    mesh's inputs are kept in `captured` for timing."""
+    from karpenter_tpu_torch.ops import delta, fused, packer
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    catalog = build_catalog()
+    pods = build_pods()
+    want = captured["decisions"]
+    real = (feas.sharded_cube, packer.sharded_solve_block, packer.replicate_scan)
+    real_launch = feas.launch
+    sweeps, blocks, replicas = [], [], []
+    per_device: dict = {}  # (device, C entry point) -> launches, seen where they launch
+
+    def launch_shim(dev, entry, *args):
+        key = (str(dev), entry.__name__)
+        per_device[key] = per_device.get(key, 0) + 1
+        return real_launch(dev, entry, *args)
+
+    def keep(name, value, size, latest=False):
+        """The first call of the largest size (the latest with `latest`)."""
+        if name not in captured or size > captured[name][0] or (latest and size == captured[name][0]):
+            captured[name] = (size, value)
+
+    def cube_factory(mesh):
+        fn = real[0](mesh)
+
+        def run(*args):
+            sweeps.append(mesh.size)
+            keep("sharded_cube", (mesh, args), mesh.size * 10**9 + args[0].numel())
+            return fn(*args)
+
+        return run
+
+    def block_factory(mesh):
+        fn = real[1](mesh)
+
+        def run(*args):
+            blocks.append(mesh.size)
+            keep("sharded_solve_block", (mesh, args), mesh.size)
+            return fn(*args)
+
+        return run
+
+    def replicate_shim(mesh, mode, cfg, args, states=None, p_lo=0):
+        if mode == "resume":
+            keep("sharded_solve_scan_resume",
+                 (mesh, cfg, args, [tuple(t.clone() for t in st) for st in states], p_lo), mesh.size,
+                 latest=True)
+        else:
+            keep(f"sharded_solve_scan_{mode}", (mesh, cfg, args), mesh.size)
+        outs = real[2](mesh, mode, cfg, args, states, p_lo)
+        agree = all(
+            all(torch.equal(_bits(a).to(b.device), _bits(b)) for a, b in zip(out, outs[0]))
+            for out in outs[1:]
+        )
+        replicas.append((mode, len(outs), agree))
+        return outs
+
+    mode0, dmode0, every0 = fused.FUSED_MODE, delta.DELTA_MODE, delta.RESOLVE_FULL_EVERY
+    feas.sharded_cube, packer.sharded_solve_block, packer.replicate_scan = (
+        cube_factory, block_factory, replicate_shim)
+    feas.launch = packer.launch = launch_shim
+    feas.reset_launch_counts()
+    packer.reset_launch_counts()
+    expect = dict.fromkeys(("sharded_cube", "sharded_solve_block", "sharded_solve_scan",
+                            "sharded_solve_scan_full", "sharded_solve_scan_resume"), 0)
+    try:
+        for label, mesh in solver_meshes(device):
+            n = mesh.size
+            engine = CatalogEngine(catalog, device=mesh.devices[0], mesh=mesh)
+            assert fused.fused_enabled(engine), "the fused scan is not on for the mesh engine"
+            before, s0, d0 = _count_launches(), len(sweeps), dict(per_device)
+            delta.configure(mode="off")
+            scan_ms = []
+            for _ in ("cold", "warm"):
+                results, ms = solve(engine, catalog, copy.deepcopy(pods))
+                assert decisions(results) == want, f"{label}: the scan solve decided unlike phase 4"
+                scan_ms.append(ms)
+            delta.configure(mode="on", resolve_full_every=MESH_CHURN_PASSES)
+            delta.invalidate_all("chip-smoke")
+            res = delta.scan_residency(engine)
+            c0 = delta.delta_counters()
+            cur, passes = pods, []
+            for k in range(MESH_CHURN_PASSES + 1):
+                if k:
+                    cur = cur + churn_pods(k)
+                results, ms = solve(engine, catalog, cur)
+                passes.append((res.last_outcome, ms, int(res.state[0][7]), res.resident_bytes(),
+                               len(res.replica_states()), results))
+            single = sum(t.numel() * t.element_size() for t in res.state)
+            counters = {k: v - c0.get(k, 0) for k, v in delta.delta_counters().items()
+                        if v != c0.get(k, 0)}
+            delta.configure(mode="off")
+            off_results, off_ms = solve(engine, catalog, copy.deepcopy(cur))
+            solver = packer.GroupSolver(engine)
+            assert solver.mesh is mesh
+            reqs, requests = packer_workload(engine)
+            grouped = packer.encode_pods_for_packer(engine, reqs, requests)
+            got = solver.solve(grouped)
+            seen = dict(per_device)
+            unsharded = uncounted(solver._solve_full, grouped)
+            per_device.clear()
+            per_device.update(seen)
+            assert all(np.array_equal(a, b) for a, b in zip(got, unsharded)), \
+                f"{label}: the sharded group solve differs from solve_block"
+            moved = {k: v - before[k] for k, v in _count_launches().items() if v != before[k]}
+            mesh_sweeps = len(sweeps) - s0
+            checks = counters.get("delta_selfchecks_identical", 0)
+            on_device = {k: v - d0.get(k, 0) for k, v in per_device.items() if v != d0.get(k, 0)}
+            by_device = {str(d): {e: c for (dv, e), c in sorted(on_device.items()) if dv == str(d)}
+                         for d in dict.fromkeys(mesh.devices)}
+            log(f"mesh {label} {[str(d) for d in mesh.devices]}: scan solves {scan_ms[0]:.1f} "
+                f"{scan_ms[1]:.1f} ms, decisions equal to phase 4; delta passes "
+                f"{[(p[0], round(p[1], 1), p[2]) for p in passes]}, resident {passes[-1][3]} bytes "
+                f"({passes[-1][4]} states of {single}), counters {json.dumps(counters)}, delta off "
+                f"{off_ms:.1f} ms; group solve of {grouped.membership.shape[0]} groups equal to "
+                f"solve_block; {mesh_sweeps} sharded sweeps; launches {json.dumps(moved)}; "
+                f"kernel launches per device {json.dumps(by_device)}")
+            assert [p[0] for p in passes] == ["cold"] + ["warm"] * MESH_CHURN_PASSES, \
+                f"{label}: outcomes {[p[0] for p in passes]}"
+            assert counters.get("delta_scan_miss", 0) == 1 and checks == 1, counters
+            assert counters.get("delta_selfchecks_divergent", 0) == 0
+            assert all(p[2] == CHURN_PODS for p in passes[1:]), "a resume did not run one step per new pod"
+            assert all(p[4] == n and p[3] == n * single for p in passes), "not one state per shard"
+            last = decisions(passes[-1][5])
+            assert not last[1] and decisions(off_results) == last, f"{label}: delta != delta off"
+            expect["sharded_cube"] += 2 * n * mesh_sweeps
+            expect["sharded_solve_block"] += n
+            expect["sharded_solve_scan"] += 3 * n
+            expect["sharded_solve_scan_full"] += n * (1 + checks)
+            expect["sharded_solve_scan_resume"] += n * MESH_CHURN_PASSES
+            if mesh.devices[0].type == "cuda":
+                # every shard's launches land on its own card: per shard
+                # each scan replica, one block solve, and a membership and
+                # an offering kernel per sweep and in the block solve
+                scans = 3 + 1 + checks + MESH_CHURN_PASSES
+                for d in dict.fromkeys(mesh.devices):
+                    k = mesh.devices.count(d)
+                    want_d = {"kt_solve_scan": k * scans, "kt_solve_block": k,
+                              "kt_membership": k * (mesh_sweeps + 1),
+                              "kt_cube_offer": k * (mesh_sweeps + 1)}
+                    got_d = {e: by_device[str(d)].get(e, 0) for e in want_d}
+                    assert got_d == want_d, f"{label}: launches on {d} {got_d}, expected {want_d}"
+        launches = _count_launches()
+    finally:
+        feas.launch = packer.launch = real_launch
+        feas.sharded_cube, packer.sharded_solve_block, packer.replicate_scan = real
+        fused.FUSED_MODE = mode0
+        delta.configure(mode=dmode0, resolve_full_every=every0)
+    got = {k: launches[k] for k in expect}
+    assert got == expect, f"mesh path launches {got}, expected {expect}"
+    assert launches["cube"] * 2 == launches["sharded_cube"], "an unsharded sweep ran on a mesh engine"
+    assert launches["solve_scan"] == launches["sharded_solve_scan"]
+    assert launches["solve_scan_full"] == launches["sharded_solve_scan_full"]
+    assert launches["solve_scan_resume"] == launches["sharded_solve_scan_resume"]
+    assert len(blocks) == len(solver_meshes(device)) and all(r[2] for r in replicas), \
+        f"replicas disagree: {[r for r in replicas if not r[2]]}"
+    log(f"mesh: {len(replicas)} replicated scans, every replica equal to shard 0's; "
+        f"launches {json.dumps(got)} as expected")
+    return launches
+
+
 def uncounted(fn, *args):
     """fn(*args) with the launch counts put back afterwards: a check's
     launches are not its path's."""
@@ -941,6 +1194,7 @@ def phase_group(captured, device=None):
 
     engine = CatalogEngine(build_catalog(), device=device)
     reqs, requests = packer_workload(engine)
+    captured["workload"] = (engine, reqs, requests)
     real = (feas.offering_reduce, packer.solve_block_core, packer.delta_scatter_rows, packer.delta_finalize)
 
     def off_shim(*args):
@@ -1215,7 +1469,7 @@ def timing_entries(rows, cube, launches, label):
     return entries
 
 
-def scan_entries(uid_args, scan, prefix_scan, launches):
+def scan_entries(uid_args, scan, prefix_scan, launches, plain):
     """uid_project on the main path's famu_ok inputs (yardstick: the
     reference's f32 matmul form); solve_scan on the main path's operands
     (the wrapper's ms, the kernel's device ms, steps and us per step, the
@@ -1252,7 +1506,8 @@ def scan_entries(uid_args, scan, prefix_scan, launches):
     steps = int(out[packer.SCAN_N_OUT])  # the kernel's own count of loop iterations
     assert steps >= n_pods, f"solve_scan: {steps} steps for {n_pods} placed pods"
     ms = cuda_ms(run, reps=1, warmup=1, rounds=3)
-    dev_ms = _dev_sum(device_kernel_ms(run, ["solve_scan_kernel"], reps=2))
+    prof_ms = _dev_sum(device_kernel_ms(run, ["solve_scan_kernel"], reps=2))
+    dev_ms = scan_launch_ms(cfg, args)
     G, D = args[2].shape
     U = args[4].shape[0]
     # float64 compares and subtractions per step: the refreshed cfit row
@@ -1261,12 +1516,13 @@ def scan_entries(uid_args, scan, prefix_scan, launches):
     f64_ops = steps * (G * U * D + 2 * U * D)
     want, plain_ms = cuda_ms_once(lambda: packer.solve_scan_plain(cfg, args))
     check_equal("solve_scan on the main path's operands", tuple(out), tuple(want))
+    plain["solve_scan"] = (args, want, plain_ms)
     pcfg, pargs = prefix_scan
     scan = _entry(
         "solve_scan", launches, _max_abs_err(tuple(out), tuple(want)), ms, plain_ms,
         nbytes(*args) + nbytes(*out), f64_ops, F64_OPS_PER_S, None, dev_ms,
-        steps=steps, us_per_step=(dev_ms * 1e3 / steps) if dev_ms else None,
-        prefix_ms=cuda_ms(lambda: packer.solve_scan(pcfg, pargs), reps=1, warmup=1, rounds=3),
+        steps=steps, us_per_step=dev_ms * 1e3 / steps, device_ms_profiler=prof_ms,
+        device_ms_by="CUDA events around the bare launch", prefix_ms=cuda_ms(lambda: packer.solve_scan(pcfg, pargs), reps=1, warmup=1, rounds=3),
         prefix_pods=int(pargs[13]),
         shapes={"P": int(args[0].shape[0]), "G": G, "C": int(args[1].shape[0]), "U": U, "D": D,
                 "F": int(args[10].shape[0]), "T": cfg[0], "nodes": cfg[1], "limits": cfg[2]},
@@ -1284,6 +1540,70 @@ def cuda_ms_once(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def scan_launch_ms(cfg, args, rounds=3) -> float:
+    """Device ms of one bare kt_solve_scan launch in full mode on `args`
+    (state allocated beforehand, no operand checks): CUDA events
+    bracketing the launch alone, median over `rounds` after one warmup.
+    The profiler's trace can hold none of a launch this long, so the
+    scans' device time is read this way."""
+    from karpenter_tpu_torch.ops import packer
+
+    state = packer._alloc_state(cfg, args)
+    return cuda_ms(lambda: packer._launch_scan(cfg, args, state, packer._MODE_FULL),
+                   reps=1, warmup=1, rounds=rounds)
+
+
+def replicated_launch_ms(mesh, cfg, args, rounds=3):
+    """Device ms of one replicated scan call's bare kt_solve_scan launches
+    in full mode (every shard's operands copied and its state allocated
+    beforehand, no operand checks): a start event on every distinct
+    device's current stream, then each shard's launch, then an end event on
+    every device. Per device the span from its start to its end, median
+    over `rounds` after one warmup; returns (the largest span, the span per
+    device). On one card the replicas run one after the other inside its
+    span; on distinct cards they overlap."""
+    from karpenter_tpu_torch import mesh as mesh_mod
+    from karpenter_tpu_torch.ops import packer
+
+    rep = [mesh_mod.per_shard(a, mesh) for a in args]
+    shards = [tuple(r[s] for r in rep) for s in range(mesh.size)]
+    states = [packer._alloc_state(cfg, a) for a in shards]
+    devs = list(dict.fromkeys(mesh.devices))
+    spans: dict = {str(d): [] for d in devs}
+    for k in range(rounds + 1):
+        for d in devs:
+            torch.cuda.synchronize(d)
+        events = {}
+        for d in devs:
+            with torch.cuda.device(d):
+                events[d] = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                events[d][0].record()
+        for a, st in zip(shards, states):
+            packer._launch_scan(cfg, a, st, packer._MODE_FULL)
+        for d in devs:
+            with torch.cuda.device(d):
+                events[d][1].record()
+        for d in devs:
+            events[d][1].synchronize()
+            if k:
+                spans[str(d)].append(events[d][0].elapsed_time(events[d][1]))
+    per_device = {d: statistics.median(v) for d, v in spans.items()}
+    return max(per_device.values()), per_device
+
+
+def plain_scans(captured, plain):
+    """The plain loop on phase 4's scan operands, once: its full state for
+    solve_scan_full and its decode subset for solve_scan (what
+    solve_scan_plain returns), for mesh_entries when phase 7's scan entries
+    do not run (--mesh)."""
+    from karpenter_tpu_torch.ops import packer
+
+    cfg, args = captured["solve_scan"]
+    want, ms = cuda_ms_once(lambda: packer.solve_scan_full_plain(cfg, args))
+    plain["solve_scan_full"] = (args, want, ms)
+    plain["solve_scan"] = (args, packer._scan_finals(want[:-1]) + (want[-1],), ms)
 
 
 def resume_bytes(cfg, args, before, after, p_lo) -> int:
@@ -1340,7 +1660,7 @@ def cuda_ms_fresh(make, run, rounds=5) -> float:
     return statistics.median(times)
 
 
-def scan_state_entries(scan, resume, launches):
+def scan_state_entries(scan, resume, launches, plain):
     """solve_scan_full (B15) on the main path's operands, checked against
     its plain version on the same operands (all 17 state tensors, float64
     as raw bits; one run of the plain loop); and solve_scan_resume (B16) on
@@ -1355,13 +1675,16 @@ def scan_state_entries(scan, resume, launches):
     out = run()
     steps = int(out[-1])
     ms = cuda_ms(run, reps=1, warmup=1, rounds=3)
-    dev_ms = _dev_sum(device_kernel_ms(run, ["solve_scan_kernel"], reps=2))
+    prof_ms = _dev_sum(device_kernel_ms(run, ["solve_scan_kernel"], reps=2))
+    dev_ms = scan_launch_ms(cfg, args)
     want, plain_ms = cuda_ms_once(lambda: packer.solve_scan_full_plain(cfg, args))
     check_equal("solve_scan_full on the main path's operands", tuple(out), tuple(want))
+    plain["solve_scan_full"] = (args, want, plain_ms)
     full = _entry(
         "solve_scan_full", launches, _max_abs_err(tuple(out), tuple(want)), ms, plain_ms,
         nbytes(*args) + nbytes(*out), steps * (G * U * D + 2 * U * D), F64_OPS_PER_S, None, dev_ms,
-        steps=steps, us_per_step=(dev_ms * 1e3 / steps) if dev_ms else None,
+        steps=steps, us_per_step=dev_ms * 1e3 / steps, device_ms_profiler=prof_ms,
+        device_ms_by="CUDA events around the bare launch",
     )
     rcfg, rargs, state0, p_lo = resume
     fresh = lambda: tuple(t.clone() for t in state0)  # noqa: E731
@@ -1470,9 +1793,210 @@ def group_entries(captured, launches):
     return entries
 
 
+def fits_stage_entries(captured):
+    """fits_matrix on the workload's quantized requests against its 1008
+    allocatables (int32, the exact path's units; float32 beside it) and
+    stage_plane on the planes of its 200 shapes' sweep (phase 5's group
+    engine): checked, then timed. Launches: phase 3's and these checks',
+    their only ones (no path of the reference runs them)."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    engine, reqs, requests = captured["workload"]
+    dev = engine.device
+    n0 = {k: feas.LAUNCHES[k] for k in ("fits_matrix", "stage_plane")}
+    scales = feas.resource_scales(engine.resource_dims)
+    req_q = feas.quantize_resources(requests, ceil=True, scales=scales).astype(np.int32)
+    alloc_q = feas.quantize_resources(engine.allocatable, ceil=False, scales=scales).astype(np.int32)
+    inputs, checked = {}, {}
+    for dtype in (np.int32, np.float32):
+        dt = np.dtype(dtype).name
+        r, a = inputs[dt] = _to(req_q.astype(dtype), dev), _to(alloc_q.astype(dtype), dev)
+        checked[dt] = feas.fits_matrix(r, a), feas.fits_matrix_plain(r, a)
+        check_equal(f"fits_matrix {dt} on the workload's {len(req_q)} pods", *checked[dt])
+    distinct: dict = {}
+    for r, q in zip(reqs, requests):
+        distinct.setdefault(id(r), (r, q))
+    shape_reqs = [r for r, _ in distinct.values()]
+    f = engine.feasibility([engine.rows_for(r) for r in shape_reqs],
+                           np.stack([q for _, q in distinct.values()]), engine.key_presence(shape_reqs))
+    planes = tuple(_to(np.ascontiguousarray(a), dev) for a in (f.compat, f.fits, f.has_offering))
+    got_plane, want_plane = feas.stage_plane(*planes), feas.stage_plane_plain(*planes)
+    check_equal(f"stage_plane on the sweep of the workload's {len(shape_reqs)} shapes", got_plane, want_plane)
+    assert np.array_equal(got_plane.cpu().numpy(), feas.stage_plane_np(f.compat, f.fits, f.has_offering))
+    launches = {k: captured["phase3_launches"][k] + feas.LAUNCHES[k] - n0[k] for k in n0}
+    log(f"fits_matrix and stage_plane bit-identical to the plain versions on the workload's "
+        f"{len(req_q)} x {len(alloc_q)} fits (int32, float32) and its {len(shape_reqs)} shapes' "
+        f"stage plane {json.dumps(feas.stage_counts(got_plane.cpu().numpy()))}; launches with "
+        f"phase 3's {json.dumps(launches)}")
+    entries = []
+    timed = {}
+    for dt in ("int32", "float32"):
+        r, a = inputs[dt]
+        got, want = checked[dt]
+        (P, D), I = r.shape, a.shape[0]
+        rate = WORD_OPS_PER_S if dt == "int32" else F32_OPS_PER_S
+        timed[dt] = (
+            _max_abs_err(got, want), cuda_ms(lambda: feas.fits_matrix(r, a)),
+            cuda_ms(lambda: feas.fits_matrix_plain(r, a), reps=5, warmup=1),
+            nbytes(r, a, got), P * I * D, rate,
+            _dev_sum(device_kernel_ms(lambda: feas.fits_matrix(r, a), ["fits_matrix_kernel"])),
+            [list(r.shape), list(a.shape)],
+        )
+    err, ms, pms, nb, ops, rate, dev_ms, shapes = timed["int32"]
+    f32 = timed["float32"]
+    entries.append(_entry(
+        "fits_matrix", launches, err, ms, pms, nb, ops, rate, None, dev_ms, shapes=shapes,
+        dtype="int32", ms_float32=f32[1], plain_ms_float32=f32[2], device_ms_float32=f32[6],
+        bound_ms_float32=max(f32[3] / HBM_BYTES_PER_S, f32[4] / f32[5]) * 1e3,
+        max_abs_err_float32=f32[0],
+    ))
+    got, want = got_plane, want_plane
+    # up to three tests and a select per element
+    entries.append(_entry(
+        "stage_plane", launches, _max_abs_err(got, want), cuda_ms(lambda: feas.stage_plane(*planes)),
+        cuda_ms(lambda: feas.stage_plane_plain(*planes), reps=5, warmup=1), nbytes(*planes, got),
+        4 * got.numel(), WORD_OPS_PER_S, None,
+        _dev_sum(device_kernel_ms(lambda: feas.stage_plane(*planes), ["stage_plane_kernel"])),
+        shapes=[list(planes[0].shape)] * 3,
+    ))
+    return entries
+
+
+def _sharded_entry(name, mesh, launches, got, want, ms, plain_ms, shard_bytes, shard_ops, rate,
+                   library_ms, dev_ms, **extra):
+    """An entry of a sharded twin: the bound is that of the busiest card
+    (the shards it holds, each shard's bytes and operations), with the
+    bound of one shard and of all shards' work beside it."""
+    k = max(mesh.devices.count(d) for d in mesh.devices)
+
+    def bound(f):
+        return max(f * shard_bytes / HBM_BYTES_PER_S, f * shard_ops / rate) * 1e3
+
+    return _entry(
+        name, launches, _max_abs_err(got, want), ms, plain_ms, k * shard_bytes, k * shard_ops,
+        rate, library_ms, dev_ms, shards=mesh.size, devices=[str(d) for d in mesh.devices],
+        bound_ms_per_shard=bound(1), bound_ms_whole=bound(mesh.size), **extra,
+    )
+
+
+def _per_call(dev_ms, launches_per_call):
+    """The profiler's mean device ms per launch times the launches of one
+    call: the kernels' device time per call, summed over the shards."""
+    return dev_ms * launches_per_call if dev_ms else None
+
+
+def mesh_entries(captured, launches, plain):
+    """The sharded twins on the 2-shard mesh's inputs from phase 5b, each
+    against its plain version on the same inputs (the cube and the group
+    solve unsharded on the first card; the classic and full scans against
+    plain loop on phase 4's operands, which the mesh path's are checked
+    equal to; the resume against the plain resume), then timed."""
+    from karpenter_tpu_torch import mesh as mesh_mod
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+
+    def words(n):
+        return (n + 31) // 32
+
+    def flat(args):
+        return [a[0] if isinstance(a, tuple) else a for a in args]
+
+    entries = []
+    mesh, args = captured["sharded_cube"][1]
+    n, dev0 = mesh.size, mesh.devices[0]
+    card = [a.to(dev0) for a in flat(args)]
+    run = lambda: feas.sharded_cube(mesh)(*args)  # noqa: E731
+    got, want = run(), feas.production_cube_plain(*card)
+    check_equal("sharded_cube on the mesh path's inputs", got, want)
+    (P, R), I, (O, K) = card[0].shape, card[1].shape[1], card[3].shape
+    entries.append(_sharded_entry(
+        "sharded_cube", mesh, launches, got, want, cuda_ms(run),
+        cuda_ms(lambda: feas.production_cube_plain(*card), reps=5, warmup=1),
+        (nbytes(card[0], card[4]) + nbytes(*got)) / n + nbytes(card[1], card[2], card[3], card[5], card[6]),
+        (P // n) * I * words(R) + (P // n) * O * (words(R) + words(K)), WORD_OPS_PER_S,
+        cuda_ms(lambda: cube_f32(*card)),
+        _per_call(_dev_sum(device_kernel_ms(run, ["membership_kernel", "cube_offer_kernel"])), n),
+        shapes=[list(t.shape) for t in card], library_call="the reference's f32 form, unsharded",
+        device_ms_by="profiler, kernels' device time per call summed over the shards",
+    ))
+
+    mesh, args = captured["sharded_solve_block"][1]
+    n, dev0 = mesh.size, mesh.devices[0]
+    card = [a.to(dev0) for a in flat(args)]
+    run = lambda: packer.sharded_solve_block(mesh)(*args)  # noqa: E731
+    got, want = run(), packer.solve_block_plain(*card)
+    check_equal("sharded_solve_block on the mesh path's inputs", got, want)
+    G2 = card[0].shape[0]
+    (R, I), (O, K), D = card[2].shape, card[4].shape, card[7].shape[1]
+    m = G2 // n
+    entries.append(_sharded_entry(
+        "sharded_solve_block", mesh, launches, got, want, cuda_ms(run),
+        cuda_ms(lambda: packer.solve_block_plain(*card), reps=5, warmup=1),
+        (nbytes(card[0], card[1]) + nbytes(got)) / n + nbytes(*card[2:]),
+        m * I * words(R) + m * O * (words(R) + words(K)) + m * I * (D + 1), WORD_OPS_PER_S, None,
+        _per_call(_dev_sum(device_kernel_ms(
+            run, ["membership_kernel", "cube_offer_kernel", "solve_block_kernel"])), n),
+        shapes=[list(t.shape) for t in card],
+        device_ms_by="profiler, kernels' device time per call summed over the shards",
+    ))
+
+    for name, mode, factory in (("sharded_solve_scan", "classic", packer.sharded_solve_scan),
+                                ("sharded_solve_scan_full", "full", packer.sharded_solve_scan_full)):
+        mesh, cfg, args = captured[f"sharded_solve_scan_{mode}"][1]
+        pargs, want, plain_ms = plain["solve_scan" if mode == "classic" else "solve_scan_full"]
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(args, pargs)), \
+            f"{name}: the mesh path's operands differ from phase 4's"
+        run = lambda f=factory, m=mesh, c=cfg, a=args: f(m)(c, a)  # noqa: E731
+        out = run()
+        reps = [out] if mode == "classic" else out
+        for rep in reps:
+            check_equal(f"{name} replica on the main path's operands", tuple(rep), tuple(want))
+        steps = int(reps[0][-1])
+        G, D = args[2].shape
+        U = args[4].shape[0]
+        dev_ms, per_device = replicated_launch_ms(mesh, cfg, args)
+        entries.append(_sharded_entry(
+            name, mesh, launches, tuple(reps[0]), tuple(want), cuda_ms(run, reps=1, warmup=1, rounds=3),
+            plain_ms, nbytes(*args) + nbytes(*reps[0]), steps * (G * U * D + 2 * U * D), F64_OPS_PER_S,
+            None, dev_ms, steps=steps, plain_from="the plain loop on phase 4's operands",
+            device_ms_per_device=per_device,
+            replicate_ms=cuda_ms(lambda: [mesh_mod.per_shard(a, mesh) for a in args]),
+            device_ms_by="CUDA events on every card around all the replicas' bare launches; the "
+                         "largest span",
+        ))
+
+    mesh, cfg, args, states, p_lo = captured["sharded_solve_scan_resume"][1]
+    fresh = lambda: [tuple(t.clone() for t in st) for st in states]  # noqa: E731
+    run = lambda sts: packer.sharded_solve_scan_resume(mesh)(cfg, args, sts, p_lo)  # noqa: E731
+    got = run(fresh())
+    want = packer.solve_scan_resume_plain(cfg, args, fresh()[0], p_lo)
+    for rep in got:
+        check_equal("sharded_solve_scan_resume replica on the last churn pass's inputs",
+                    tuple(rep), tuple(want))
+    rsteps = int(got[0][-1])
+    G, D = args[2].shape
+    U = args[4].shape[0]
+    entries.append(_sharded_entry(
+        "sharded_solve_scan_resume", mesh, launches, tuple(got[0]), tuple(want),
+        cuda_ms_fresh(fresh, run),
+        cuda_ms_fresh(lambda: fresh()[0], lambda st: packer.solve_scan_resume_plain(cfg, args, st, p_lo),
+                      rounds=1),
+        resume_bytes(cfg, args, states[0], got[0][:-1], p_lo), rsteps * (G * U * D + 2 * U * D),
+        F64_OPS_PER_S, None,
+        _per_call(_dev_sum(device_kernel_ms(lambda: run(fresh()), ["solve_scan_kernel"], reps=5)),
+                  mesh.size),
+        steps=rsteps, p_lo=int(p_lo),
+        device_ms_by="profiler, kernels' device time per call summed over the replicas",
+    ))
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true", help="build and check kernels only")
+    parser.add_argument("--mesh", action="store_true",
+                        help="build, then phase 4 and the mesh phase alone, with the sharded "
+                             "twins' entries (for a machine with two or more cards)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card", file=sys.stderr)
@@ -1487,15 +2011,27 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build()
+    captured: dict = {}
+    if args.mesh:
+        phase_main(captured)
+        log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+        mesh_launches = phase_mesh(captured)
+        log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
+        plain: dict = {}
+        plain_scans(captured, plain)
+        log(json.dumps({"mesh_kernels": mesh_entries(captured, mesh_launches, plain)}))
+        return finish(t_start)
     phase_kernel_checks()
+    fits_stage_checks(captured)
     log(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
     if not args.quick:
-        captured: dict = {}
         launches = phase_main(captured)
         log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
         delta_launches = phase_delta(captured)
         group_launches = phase_group(captured)
         log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+        mesh_launches = phase_mesh(captured)
+        log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
         prefix_scan = phase_identity()
         # the sweep at the sizes a more diverse backlog reaches (256 joint
         # sets x 128 rows), beside the sizes this workload gave
@@ -1512,15 +2048,23 @@ def main() -> int:
             for e in wide]}))
         kernels = timing_entries(captured["row_compat"], captured["cube"], launches,
                                  "the main path's inputs")
+        plain: dict = {}
         kernels += scan_entries(captured["uid_project"], captured["solve_scan"], prefix_scan,
-                                launches)
+                                launches, plain)
         kernels += scan_state_entries(captured["solve_scan"], captured["solve_scan_resume"],
-                                      delta_launches)
+                                      delta_launches, plain)
         kernels += group_entries(captured, group_launches)
+        kernels += fits_stage_entries(captured)
+        kernels += mesh_entries(captured, mesh_launches, plain)
         assert len(kernels) == len(SOURCE), [k["name"] for k in kernels]
         for k in kernels:
             assert k["launches"] > 0, f"{k['name']} was not launched on its path"
         log(json.dumps({"kernels": kernels}))
+    return finish(t_start)
+
+
+def finish(t_start) -> int:
+    """The card's name and power limit, the total time, then the last line."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")

@@ -13,6 +13,9 @@
 //   kt_cube_offer  <- karpenter_tpu/ops/feasibility.py:265 _cube_math /
 //                     production_cube, the offering half
 //   kt_uid_project <- karpenter_tpu/ops/feasibility.py:332 uid_project
+//   kt_fits_matrix_f32 / kt_fits_matrix_i32
+//                  <- karpenter_tpu/ops/feasibility.py:222 fits_matrix
+//   kt_stage_plane <- karpenter_tpu/ops/feasibility.py:384 stage_plane
 //
 // These are boolean reductions, not float math. The JAX package counts bad
 // rows with an f32 matmul and thresholds at 0.5; here every test is exact
@@ -288,7 +291,69 @@ __global__ void uid_project_kernel(const uint8_t* __restrict__ onehot,
   if (lane == 0) out[warp] = hit;
 }
 
+// ---------------------------------------------------------------------------
+// B4: fits[p, i] = all_d(req[p, d] <= alloc[i, d]) — resources.Fits: a
+// positive request against a zero capacity fails. float32 (the reference's
+// own test passes it) and int32 (the quantized units of the exact path).
+//
+// Elementwise: one thread per type i (along x, so each bool row is written
+// coalesced) walking entity rows p = blockIdx.y, +gridDim.y, ...; the
+// type's first FITS_DMAX capacities stay in registers for the whole walk
+// (4 dims on the solve path), the request row is one broadcast load per dim.
+// Bound by bytes: P*I output bytes against P*D + I*D inputs. A thread per
+// (p, i) would spend each thread's life on one dependent load and one byte
+// store; walking ~50 rows per thread keeps the stores streaming.
+constexpr int FITS_DMAX = 8;
+constexpr int FITS_ROW_BLOCKS = 1024;  // grid.y: rows walked per thread = P / 1024
+
+template <typename T>
+__global__ void fits_matrix_kernel(const T* __restrict__ req, const T* __restrict__ alloc,
+                                   uint8_t* __restrict__ out, int P, int I, int D) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= I) return;
+  T cap[FITS_DMAX];
+#pragma unroll
+  for (int d = 0; d < FITS_DMAX; ++d)
+    if (d < D) cap[d] = alloc[static_cast<size_t>(i) * D + d];
+  for (int p = blockIdx.y; p < P; p += gridDim.y) {
+    const T* r = req + static_cast<size_t>(p) * D;
+    bool ok = true;
+#pragma unroll
+    for (int d = 0; d < FITS_DMAX; ++d)
+      if (d < D) ok &= r[d] <= cap[d];
+    for (int d = FITS_DMAX; d < D; ++d) ok &= r[d] <= alloc[static_cast<size_t>(i) * D + d];
+    out[static_cast<size_t>(p) * I + i] = ok;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B7: the uint8 first-failing-stage code of each (entity, type) pair from
+// the cube's three bool planes, in the funnel's order: requirements (1),
+// resources (2), offerings (3), survived (0) — the reference's nested
+// jnp.where. One thread per element, grid-stride; bound by bytes (3 bytes
+// read, 1 written per element).
+__global__ void stage_plane_kernel(const uint8_t* __restrict__ compat,
+                                   const uint8_t* __restrict__ fits,
+                                   const uint8_t* __restrict__ offer,
+                                   uint8_t* __restrict__ out, long long n) {
+  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; k < n;
+       k += static_cast<long long>(gridDim.x) * blockDim.x)
+    out[k] = !compat[k] ? 1 : (!fits[k] ? 2 : (!offer[k] ? 3 : 0));
+}
+
 constexpr int MAX_GRID_Y = 65535;
+
+template <typename T>
+int launch_fits(const void* req, const void* alloc, void* out, int P, int I, int D,
+                void* stream) {
+  if (P == 0 || I == 0) return 0;
+  const dim3 block(256);
+  const dim3 grid((I + 255) / 256, P < FITS_ROW_BLOCKS ? P : FITS_ROW_BLOCKS);
+  fits_matrix_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(req), static_cast<const T*>(alloc), static_cast<uint8_t*>(out),
+      P, I, D);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -354,6 +419,27 @@ int kt_uid_project(const void* onehot, const void* mask, void* out, int R, int U
   uid_project_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(onehot), static_cast<const uint8_t*>(mask),
       static_cast<uint8_t*>(out), R, U, I);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int kt_fits_matrix_f32(const void* req, const void* alloc, void* out, int P, int I, int D,
+                       void* stream) {
+  return launch_fits<float>(req, alloc, out, P, I, D, stream);
+}
+
+int kt_fits_matrix_i32(const void* req, const void* alloc, void* out, int P, int I, int D,
+                       void* stream) {
+  return launch_fits<int32_t>(req, alloc, out, P, I, D, stream);
+}
+
+int kt_stage_plane(const void* compat, const void* fits, const void* offer, void* out,
+                   long long n, void* stream) {
+  if (n == 0) return 0;
+  const long long blocks = (n + 255) / 256;
+  const dim3 grid(static_cast<unsigned>(blocks < 132 * 32 ? blocks : 132 * 32));
+  stage_plane_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(compat), static_cast<const uint8_t*>(fits),
+      static_cast<const uint8_t*>(offer), static_cast<uint8_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 

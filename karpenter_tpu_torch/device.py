@@ -163,6 +163,12 @@ def kernel_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def stream_handle(device: torch.device) -> ctypes.c_void_p:
-    """The raw cudaStream_t of torch's current stream on `device`."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def launch(device: torch.device, entry, *args) -> int:
+    """Call a kernel's C entry point with `device` made the current CUDA
+    device and the raw cudaStream_t of its current stream appended as the
+    last argument; returns the entry point's cudaError. The kernels launch
+    on the current device, so a launch for operands on another card (a
+    mesh shard) switches to it first; the wrapper has checked that every
+    operand lives on `device`."""
+    with torch.cuda.device(device):
+        return entry(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))

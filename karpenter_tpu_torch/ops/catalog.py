@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import mesh as mesh_mod
 from karpenter_tpu_torch.apis import labels as wk
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
 from karpenter_tpu_torch.device import device_work, resolve_device
@@ -78,6 +79,12 @@ class CatalogEngine:
 
     `device=None` is the current CUDA device and raises when CUDA is absent;
     `device="cpu"` runs the plain torch versions of the kernels.
+
+    With a `mesh` (karpenter_tpu_torch.mesh), the production sweep, the
+    group solver and the fused scan run sharded over its devices
+    (feasibility.sharded_cube, packer.sharded_solve_block,
+    packer.sharded_solve_scan*); row batches and the rest stay on
+    `device`, which must be of the mesh's device type.
     """
 
     def __init__(
@@ -86,8 +93,12 @@ class CatalogEngine:
         extra_resources: Sequence[str] = (),
         vocab: Optional[enc.Vocab] = None,
         device=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.devices[0].type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.devices[0].type} devices for an engine on {self.device}")
+        self.mesh = mesh
         self.instance_types = list(instance_types)
         self.vocab = vocab or enc.Vocab()
 
@@ -260,11 +271,26 @@ class CatalogEngine:
             self._device_cache[name] = t
         return t
 
-    def _to_device(self, host_array: np.ndarray) -> torch.Tensor:
+    def _mesh_dev(self, name: str, host_array: np.ndarray) -> tuple:
+        """One copy of a catalog array per mesh shard (the same tensor for
+        shards on a repeated device), uploaded once per (re)encode like
+        `_dev`."""
+        key = f"mesh:{name}"
+        copies = self._device_cache.get(key)
+        if copies is None:
+            copies = mesh_mod.replicate(torch.from_numpy(self._host_words(host_array)), self.mesh)
+            self._device_cache[key] = copies
+        return copies
+
+    @staticmethod
+    def _host_words(host_array: np.ndarray) -> np.ndarray:
         host_array = np.ascontiguousarray(host_array)
         if host_array.dtype == np.uint32:
             host_array = host_array.view(np.int32)  # same bits
-        return torch.from_numpy(host_array).to(self.device)
+        return host_array
+
+    def _to_device(self, host_array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(self._host_words(host_array)).to(self.device)
 
     def _set_args(self, prefix: str, sets: enc.EncodedReqSets) -> tuple:
         return tuple(
@@ -320,7 +346,7 @@ class CatalogEngine:
             self._offer_compat_d = torch.cat([self._offer_compat_d, new_off_d])
             new_inst = new_inst_d.cpu().numpy()
             new_off = new_off_d.cpu().numpy()
-        if delta_mod.delta_enabled() and resident:
+        if delta_mod.delta_enabled() and resident and self.mesh is None:
             delta_mod.note_rows("device_appended", len(new_rows))
         self._req_compat = np.concatenate([self._req_compat, new_inst], axis=0)
         self._offer_compat = np.concatenate([self._offer_compat, new_off], axis=0)
@@ -440,6 +466,14 @@ class CatalogEngine:
         R = max(1, len(used))
         P2 = 1 << max(0, (P - 1).bit_length())
         R2 = 1 << max(0, (R - 1).bit_length())
+        # the mesh serves the production cube (offerings present); a
+        # membership-only engine is a degenerate catalog, left unsharded
+        mesh_n = self.mesh.size if self.mesh is not None and self.num_offerings else 0
+        if mesh_n:
+            # mesh-size-INVARIANT global entity axis: the pow2 bucket
+            # aligned to lcm(n, MESH_ALIGN), the reference's padded shape
+            align = mesh_mod.mesh_multiple(mesh_n)
+            P2 = -(-max(P2, align) // align) * align
         membership = np.zeros((P2, R2), dtype=bool)
         for p, rows in enumerate(row_sets):
             for rid in rows:
@@ -469,15 +503,30 @@ class CatalogEngine:
                     fits,
                     np.zeros((P, self.num_instances), dtype=bool),
                 )
-            compat_d, offering_d = feas.production_cube(
-                self._to_device(membership),
-                req_compat,
-                self._gather_rows(self._offer_compat_d, idx, R2),
-                self._dev("custom_need", self.offering_custom_need),
-                self._to_device(key_present_p),
-                self._dev("available", self.offering_available),
-                self._dev("owner", self.offering_owner),
-            )
+            offer_compat = self._gather_rows(self._offer_compat_d, idx, R2)
+            if mesh_n:
+                # entity slabs go from the host to their shards, the
+                # gathered rows are replicated, the catalog's own arrays
+                # come from the per-shard cache
+                compat_d, offering_d = feas.sharded_cube(self.mesh)(
+                    torch.from_numpy(membership),
+                    req_compat,
+                    offer_compat,
+                    self._mesh_dev("custom_need", self.offering_custom_need),
+                    torch.from_numpy(key_present_p),
+                    self._mesh_dev("available", self.offering_available),
+                    self._mesh_dev("owner", self.offering_owner),
+                )
+            else:
+                compat_d, offering_d = feas.production_cube(
+                    self._to_device(membership),
+                    req_compat,
+                    offer_compat,
+                    self._dev("custom_need", self.offering_custom_need),
+                    self._to_device(key_present_p),
+                    self._dev("available", self.offering_available),
+                    self._dev("owner", self.offering_owner),
+                )
             return Feasibility(
                 compat_d.cpu().numpy()[:P], fits, offering_d.cpu().numpy()[:P]
             )

@@ -47,9 +47,15 @@ fingerprints) guard every residency; `invalidate_all(reason)` drops
 everything (engine rebuild, crash-recovery restart, topology
 rollback/restore), metered by reason.
 
+The fingerprint hashes the host copies of the operands the scan consumes,
+`famu_ok` (the B6 output, copied back: [T, F, U] bools) among them, as the
+reference does.
+
 A copy of the reference's module (karpenter_tpu/ops/delta.py) with its
-state in torch tensors; the AOT ladder and the mesh are not ported, so
-`_bucket_groups` always takes the pow2 rung.
+state in torch tensors. On an engine with a mesh the scan residency holds
+the replicated state, one tensor set per shard, and the group solver
+bypasses its residency (GroupSolver.solve). The AOT ladder is not ported,
+so `_bucket_groups` always takes the pow2 rung.
 """
 
 from __future__ import annotations
@@ -631,6 +637,9 @@ class ScanResidency:
 
     def __init__(self):
         self.state = None  # packer.SCAN_STATE_FIELDS tensors on the engine's device
+        # with a mesh: every shard's state, in shard order (state is the
+        # first); empty without one
+        self.replicas: tuple = ()
         self.cfg = None  # (T, has_nodes, has_limits)
         self.shape_key = None  # tuple of operand shapes
         self.ops_fp = None  # operand content hash (pods excluded)
@@ -641,14 +650,21 @@ class ScanResidency:
         self.passes = 0
         self.last_outcome = ""
 
-    def resident_bytes(self) -> int:
+    def replica_states(self) -> tuple:
+        """The resident state of every replica: one without a mesh."""
         if self.state is None:
-            return 0
-        return sum(int(t.numel()) * int(t.element_size()) for t in self.state)
+            return ()
+        return self.replicas or (self.state,)
+
+    def resident_bytes(self) -> int:
+        return sum(
+            int(t.numel()) * int(t.element_size()) for st in self.replica_states() for t in st
+        )
 
     def invalidate(self, reason: str, _registry_sweep: bool = False) -> int:
         had = 1 if self.state is not None else 0
         self.state = None
+        self.replicas = ()
         self.cfg = None
         self.shape_key = None
         self.ops_fp = None
@@ -678,9 +694,10 @@ class ScanResidency:
         return ""
 
     def commit(
-        self, state, cfg, shape_key, ops_fp, pod_gi, p_real, extendable
+        self, state, cfg, shape_key, ops_fp, pod_gi, p_real, extendable, replicas=()
     ) -> None:
         self.state = tuple(state)
+        self.replicas = tuple(tuple(r) for r in replicas)
         self.cfg = cfg
         self.shape_key = shape_key
         self.ops_fp = ops_fp

@@ -27,12 +27,13 @@ import ctypes
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.device import KernelError, kernel_library, stream_handle
+from karpenter_tpu_torch.device import KernelError, kernel_library, launch
 from karpenter_tpu_torch.ops.encoding import NO_GT, NO_LT, NOT_INT, WORD
 
 # kernel launches per kernel, counted where each wrapper launches
 LAUNCHES: dict[str, int] = {
     "row_compat": 0, "membership": 0, "cube": 0, "uid_project": 0, "offering_reduce": 0,
+    "fits_matrix": 0, "stage_plane": 0, "sharded_cube": 0,
 }
 
 _TILE = 32  # entities per kernel thread (csrc/feasibility.cu TILE)
@@ -146,6 +147,21 @@ def uid_project_plain(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torc
     return (type_mask[..., None, :] & uid_onehot).any(dim=-1)
 
 
+def fits_matrix_plain(requests: torch.Tensor, allocatable: torch.Tensor) -> torch.Tensor:
+    """fits[P, I] in plain torch, the JAX fits_matrix."""
+    return (requests[:, None, :] <= allocatable[None, :, :]).all(dim=-1)
+
+
+def stage_plane_plain(compat: torch.Tensor, fits: torch.Tensor, has_offering: torch.Tensor) -> torch.Tensor:
+    """The uint8 stage codes in plain torch, the JAX stage_plane."""
+    code = lambda c: torch.tensor(c, dtype=torch.uint8, device=compat.device)  # noqa: E731
+    return torch.where(
+        ~compat, code(STAGE_REQUIREMENTS),
+        torch.where(~fits, code(STAGE_RESOURCES),
+                    torch.where(~has_offering, code(STAGE_OFFERINGS), code(STAGE_OK))),
+    )
+
+
 def uid_onehot_matrix(uid_of_type: np.ndarray, num_uniq: int) -> np.ndarray:
     """[U, I] bool one-hot of uid_of_type — the projection operand
     uid_project consumes (built once per engine catalog)."""
@@ -172,6 +188,11 @@ def _lib() -> ctypes.CDLL:
         lib.kt_cube_offer.argtypes = [vp] * 7 + [ci] * 5 + [vp]
         lib.kt_uid_project.restype = ci
         lib.kt_uid_project.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+        for entry in (lib.kt_fits_matrix_f32, lib.kt_fits_matrix_i32):
+            entry.restype = ci
+            entry.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+        lib.kt_stage_plane.restype = ci
+        lib.kt_stage_plane.argtypes = [vp] * 4 + [ctypes.c_longlong, vp]
         _lib_cache.append(lib)
     return _lib_cache[0]
 
@@ -258,9 +279,7 @@ def req_rows_vs_sets(
     if W * 4 > _MAX_SHARED_BYTES:
         raise KernelError(f"row_compat: {W} mask words exceed the kernel's shared memory")
     out = torch.empty((R, N), dtype=torch.bool, device=dev)
-    rc = _lib().kt_row_compat(
-        *(_ptr(t) for t in args), _ptr(out), R, N, K, W, stream_handle(dev)
-    )
+    rc = launch(dev, _lib().kt_row_compat, *(_ptr(t) for t in args), _ptr(out), R, N, K, W)
     _raise_on(rc, "row_compat")
     LAUNCHES["row_compat"] += bool(R and N)  # empty inputs launch nothing
     return out
@@ -275,7 +294,7 @@ def _membership_kernel(membership: torch.Tensor, row_ok: torch.Tensor) -> torch.
     if (P + _TILE - 1) // _TILE > _MAX_GRID_Y:
         raise KernelError(f"membership: {P} entities exceed the kernel's grid")
     out = torch.empty((P, N), dtype=torch.bool, device=dev)
-    rc = _lib().kt_membership(_ptr(membership), _ptr(row_ok), _ptr(out), P, R, N, stream_handle(dev))
+    rc = launch(dev, _lib().kt_membership, _ptr(membership), _ptr(row_ok), _ptr(out), P, R, N)
     _raise_on(rc, "membership")
     LAUNCHES["membership"] += bool(P and N)
     return out
@@ -315,10 +334,11 @@ def _offering_kernel(
     if (P + _TILE - 1) // _TILE > _MAX_GRID_Y:
         raise KernelError(f"{name}: {P} entities exceed the kernel's grid")
     has_offering = torch.empty((P, I), dtype=torch.bool, device=dev)
-    rc = _lib().kt_cube_offer(
+    rc = launch(
+        dev, _lib().kt_cube_offer,
         _ptr(membership), _ptr(offer_compat), _ptr(custom_need), _ptr(key_present),
         _ptr(available), _ptr(offering_owner), _ptr(has_offering),
-        P, R, O, K, I, stream_handle(dev),
+        P, R, O, K, I,
     )
     _raise_on(rc, name)
     return has_offering
@@ -400,10 +420,96 @@ def uid_project(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tens
     _check("type_mask", type_mask, torch.bool, lead + (I,), dev)
     R = int(np.prod(lead, dtype=np.int64))
     out = torch.empty(lead + (U,), dtype=torch.bool, device=dev)
-    rc = _lib().kt_uid_project(_ptr(uid_onehot), _ptr(type_mask), _ptr(out), R, U, I, stream_handle(dev))
+    rc = launch(dev, _lib().kt_uid_project, _ptr(uid_onehot), _ptr(type_mask), _ptr(out), R, U, I)
     _raise_on(rc, "uid_project")
     LAUNCHES["uid_project"] += bool(R and U)
     return out
+
+
+def fits_matrix(requests: torch.Tensor, allocatable: torch.Tensor) -> torch.Tensor:
+    """fits[P, I]: requests[p] <= allocatable[i] element-wise (B4).
+
+    requests:    [P, D] float32 or int32 (missing resources must be 0)
+    allocatable: [I, D] the same dtype (resources the node lacks must be 0)
+    Mirrors resources.Fits: a positive request against a zero capacity
+    fails. The exact path passes integer-quantized units
+    (quantize_resources); float32 alone loses ~512B at 8GiB scale."""
+    if _on_cpu(requests):
+        return fits_matrix_plain(requests, allocatable)
+    dev = requests.device
+    entry = {torch.float32: "kt_fits_matrix_f32", torch.int32: "kt_fits_matrix_i32"}.get(requests.dtype)
+    if entry is None:
+        raise KernelError(f"fits_matrix: dtype {requests.dtype}, expected float32 or int32")
+    P, D = requests.shape
+    I = allocatable.shape[0]
+    _check("requests", requests, requests.dtype, (P, D), dev)
+    _check("allocatable", allocatable, requests.dtype, (I, D), dev)
+    out = torch.empty((P, I), dtype=torch.bool, device=dev)
+    rc = launch(dev, getattr(_lib(), entry), _ptr(requests), _ptr(allocatable), _ptr(out), P, I, D)
+    _raise_on(rc, "fits_matrix")
+    LAUNCHES["fits_matrix"] += bool(P and I)
+    return out
+
+
+def stage_plane(compat: torch.Tensor, fits: torch.Tensor, has_offering: torch.Tensor) -> torch.Tensor:
+    """[..., I] uint8 first-failing-stage codes from the cube's three bool
+    planes of one shape (B7): requirements, then resources, then offerings;
+    0 where the pair survived. The serving path decodes host-side
+    (`stage_plane_np`); this is the device twin."""
+    if _on_cpu(compat):
+        return stage_plane_plain(compat, fits, has_offering)
+    dev = compat.device
+    shape = tuple(compat.shape)
+    for name, t in (("compat", compat), ("fits", fits), ("has_offering", has_offering)):
+        _check(name, t, torch.bool, shape, dev)
+    out = torch.empty(shape, dtype=torch.uint8, device=dev)
+    n = compat.numel()
+    rc = launch(dev, _lib().kt_stage_plane, _ptr(compat), _ptr(fits), _ptr(has_offering), _ptr(out), n)
+    _raise_on(rc, "stage_plane")
+    LAUNCHES["stage_plane"] += bool(n)
+    return out
+
+
+# -- the mesh twin of the cube -------------------------------------------------
+
+
+def mesh_scope(mesh) -> str:
+    """The scope string of a mesh: device count + axis names (the
+    reference's AOT table/cache scope, in its format)."""
+    return f"mesh={mesh.size}:{','.join(mesh.axis_names)}"
+
+
+def sharded_cube(mesh):
+    """The production cube over a mesh (B5), a callable with
+    production_cube's signature: the entity axis (membership, key_present)
+    splits into one equal row slab per shard, the catalog operands are
+    replicated (one copy per distinct device; an operand may also come as
+    the per-shard tuple an engine caches), each shard runs production_cube
+    on its own device — kt_membership and kt_cube_offer there, counted
+    twice per shard under `sharded_cube`, or the plain versions on CPU
+    shards — and the two planes are gathered in shard order on the first
+    shard's device. No collective: the reference's shard_map has none
+    until results gather. The entity axis must be a multiple of the mesh
+    size (CatalogEngine pads it to mesh_multiple(n))."""
+    from karpenter_tpu_torch import mesh as mesh_mod
+
+    def run(membership, req_compat, offer_compat, custom_need, key_present, available,
+            offering_owner):
+        mem_s = mesh_mod.split_rows(membership, mesh)
+        kp_s = mesh_mod.split_rows(key_present, mesh)
+        rep = [mesh_mod.per_shard(x, mesh) for x in (
+            req_compat, offer_compat, custom_need, available, offering_owner)]
+        compat, offer = [], []
+        for s, dev in enumerate(mesh.devices):
+            rc, oc, cn, av, ow = (r[s] for r in rep)
+            c, o = production_cube(mem_s[s], rc, oc, cn, kp_s[s], av, ow)
+            if dev.type == "cuda":
+                LAUNCHES["sharded_cube"] += 2 * bool(mem_s[s].shape[0] and rc.shape[1])
+            compat.append(c)
+            offer.append(o)
+        return mesh_mod.gather_rows(compat, mesh), mesh_mod.gather_rows(offer, mesh)
+
+    return run
 
 
 # -- resource quantization (the group solver's integer units) ------------------

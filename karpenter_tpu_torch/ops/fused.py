@@ -11,8 +11,9 @@ whose inherited `emit()` finishes the solve exactly like the host walk.
 
 A copy of the reference's dispatch (karpenter_tpu/ops/fused.py), the
 classic one and, with delta solves on, the scan residency's
-(`_delta_dispatch`, ops/delta.py), without the AOT ladder and the mesh
-twin. The host
+(`_delta_dispatch`, ops/delta.py), each with its mesh twin (an engine with
+a mesh launches the scan replicated on every shard,
+packer.sharded_solve_scan*), without the AOT ladder. The host
 walk (ffd._DeviceSolve / the native C++ driver) remains the semantics
 oracle and the path for shapes the scan does not cover; those decline with
 a metered taxonomy reason (`karpenter_scheduler_fused_declines_total{reason=}`):
@@ -428,27 +429,26 @@ class _FusedSolve(ffd._DeviceSolve):
             uid_of_typeP = np.zeros(1, dtype=np.int32)
 
         dev = self.engine.device
+        mesh = self.engine.mesh
         cfg = (T, has_nodes, has_limits)
-        # the operands as host arrays, in the reference's layout. famu_ok
-        # is built on the card below (B6) from tmpl_mask, fam_mask (slot 17)
-        # and uid_onehot (slot 20); its slot here holds tmpl_mask, so the
-        # delta fingerprint of these host arrays covers everything famu_ok
-        # depends on without copying it back
-        host_ops = (
+        # the operands as host arrays, in the reference's layout; famu_ok
+        # (slot 12) is built on the card below (B6) from tmpl_mask, fam_mask
+        # (slot 17) and uid_onehot (slot 20)
+        host_ops = [
             pod_gi, np.zeros(Cb, dtype=np.int32), g_req, g_floor,
             self.uniq_alloc, self.usage0_f,
             tolP, open_okP, open_famP, open_uokP,
-            tkP, tfP, np.ascontiguousarray(self.tmpl_mask),
+            tkP, tfP, None,
             np.int32(P_real), np.int32(N_real),
             node_okP, node_remP,
             fam_maskP, tmpl_maskP, open_candP,
             uid_onehot, uid_of_typeP, cap_fP,
             pool_of_t, pool_rem0, pool_has, pool_bad,
-        )
+        ]
         with device_work("fused scan"):
             uid_onehot_d = torch.from_numpy(uid_onehot).to(dev)
             fam_mask_d = torch.from_numpy(fam_maskP).to(dev)
-            tmpl_mask_d = torch.from_numpy(host_ops[12]).to(dev)
+            tmpl_mask_d = torch.from_numpy(np.ascontiguousarray(self.tmpl_mask)).to(dev)
             # uid survival per (template, fam): any instance type in
             # tmpl_mask ∧ fam_mask maps onto the unique-alloc row (B6)
             famu_ok = feas.uid_project(
@@ -458,7 +458,13 @@ class _FusedSolve(ffd._DeviceSolve):
             dev_ops[12], dev_ops[17], dev_ops[20] = famu_ok, fam_mask_d, uid_onehot_d
             args = convert.scan_operands_from_numpy(dev_ops, dev)
             if delta_mod.delta_enabled():
+                # the delta fingerprint hashes what the scan consumes, as
+                # the reference does: famu_ok itself ([T, F, U] bools), not
+                # the template mask it was built from
+                host_ops[12] = famu_ok.cpu().numpy()
                 out = self._delta_dispatch(args, host_ops, cfg, P_real)
+            elif mesh is not None:
+                out = packer.sharded_solve_scan(mesh)(cfg, args)[: packer.SCAN_N_OUT]
             else:
                 out = packer.solve_scan(cfg, args)[: packer.SCAN_N_OUT]
             (
@@ -488,13 +494,28 @@ class _FusedSolve(ffd._DeviceSolve):
         resident state, written in place (the suffix pods are the only new
         work). Every N warm passes the warm result is also re-solved from
         scratch and compared bit-for-bit — divergence fires a typed event,
-        drops the residency, and the cold result wins. Returns the classic
-        10-output decode subset."""
+        drops the residency, and the cold result wins. On a mesh engine
+        every launch is replicated and each shard's state stays resident.
+        Returns the classic 10-output decode subset."""
         res = delta_mod.scan_residency(self.engine)
         shape_key = tuple(tuple(a.shape) for a in args)
         ops_fp = delta_mod.operand_fingerprint(host_ops, skip=(0, 13))
         pod_gi = host_ops[0]
         miss = res.eligibility(cfg, shape_key, ops_fp, pod_gi, p_real)
+        # both launches return one state per replica: one without a mesh,
+        # one per shard with it (the residency keeps them all)
+        mesh = self.engine.mesh
+
+        def full():
+            if mesh is None:
+                return (packer.solve_scan_full(cfg, args)[:-1],)
+            return tuple(r[:-1] for r in packer.sharded_solve_scan_full(mesh)(cfg, args))
+
+        def resume(states, p_lo):
+            if mesh is None:
+                return (packer.solve_scan_resume(cfg, args, states[0], p_lo)[:-1],)
+            return tuple(r[:-1] for r in packer.sharded_solve_scan_resume(mesh)(cfg, args, states, p_lo))
+
         mode = "cold"
         if miss == "":
             check_due = (
@@ -504,16 +525,16 @@ class _FusedSolve(ffd._DeviceSolve):
             # the resident tensors are written in place by this launch —
             # clear the residency first so a failed launch can never leave
             # half-written state installed
-            prev_state, prev_lo = res.state, res.p_real
-            res.state = None
+            prev_states, prev_lo = res.replica_states(), res.p_real
+            res.state, res.replicas = None, ()
             delta_mod.note_scan("warm")
-            state = packer.solve_scan_resume(cfg, args, prev_state, prev_lo)[:-1]
+            states = resume(prev_states, prev_lo)
             res.warm_passes += 1
             res.last_outcome = mode = "warm"
             if check_due:
-                cold = packer.solve_scan_full(cfg, args)[:-1]
+                cold = full()
                 identical = all(
-                    torch.equal(packer.scan_component(state, i), packer.scan_component(cold, i))
+                    torch.equal(packer.scan_component(states[0], i), packer.scan_component(cold[0], i))
                     for i in packer._SCAN_OUT_IDX
                 )
                 if identical:
@@ -526,14 +547,16 @@ class _FusedSolve(ffd._DeviceSolve):
                         f"re-solve (P={p_real}, warm_pass={res.warm_passes})",
                     )
                     res.invalidate("selfcheck-divergence")
-                    state = cold
+                    states = cold
                     mode = "cold"
         else:
             delta_mod.note_scan(miss)
             res.last_outcome = miss
-            state = packer.solve_scan_full(cfg, args)[:-1]
+            states = full()
         delta_mod.note_pass(mode)
-        # one 8-int copy: head, tail, stop, abort, seqc, done, nclaims, steps
+        # shard 0's state is the result (every replica agrees); one 8-int
+        # copy: head, tail, stop, abort, seqc, done, nclaims, steps
+        state = states[0]
         scal = state[0].cpu()
         head, tail, stop, abort = (int(v) for v in scal[:4])
         extendable = (
@@ -542,7 +565,8 @@ class _FusedSolve(ffd._DeviceSolve):
             and head == tail
             and tail == p_real
         )
-        res.commit(state, cfg, shape_key, ops_fp, pod_gi, p_real, extendable)
+        res.commit(state, cfg, shape_key, ops_fp, pod_gi, p_real, extendable,
+                   replicas=states if mesh is not None else ())
         return (scal[3], scal[6]) + packer._scan_finals(state)[2:]
 
     # -- decode --------------------------------------------------------------

@@ -11,8 +11,9 @@ karpenter_tpu/ops/packer.py, with a hand-written kernel per JAX program:
    `solve_block_jit`) and `solve_block_core` (B10) launch kt_membership (B2)
    and kt_cube_offer (B8) for the cube's halves and kt_solve_block
    (csrc/packer.cu) for the rest; `delta_scatter_rows` (B11) and
-   `delta_finalize` (B12) serve the delta residency (ops/delta.py). The
-   mesh twin (`solve_sharded`) is not ported: a solver with a mesh raises.
+   `delta_finalize` (B12) serve the delta residency (ops/delta.py). With a
+   mesh, `solve_sharded` runs `sharded_solve_block` (B13): solve_block per
+   shard on equal group slabs, the catalog replicated, the rows gathered.
 
 2. **The fused scan**: the monotone FFD scan itself — the host walk's
    queue, emptiest-first claim heap, existing-node scan pointers, claim
@@ -23,7 +24,10 @@ karpenter_tpu/ops/packer.py, with a hand-written kernel per JAX program:
    `solve_scan_fn`: the reference's 10 outputs), `solve_scan_full` (B15,
    the full loop state, the delta residency's seed) and `solve_scan_resume`
    (B16: continues a resident state with a suffix of new pods, writing the
-   state tensors in place where the reference donates them).
+   state tensors in place where the reference donates them). Their mesh
+   twins (`sharded_solve_scan{,_full,_resume}`, B17) replicate: every
+   shard runs the same launch on its own copy and shard 0's result is
+   taken.
 
 Decision parity is bit-for-bit: every float comparison of the scan runs in
 float64, subtractions happen per join in the host's exact order, and claim
@@ -46,8 +50,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import mesh as mesh_mod
 from karpenter_tpu_torch.convert import SCAN_OPERANDS
-from karpenter_tpu_torch.device import KernelError, device_work, kernel_library, stream_handle
+from karpenter_tpu_torch.device import KernelError, device_work, kernel_library, launch
 from karpenter_tpu_torch.ops import feasibility as feas
 from karpenter_tpu_torch.ops.catalog import CatalogEngine
 from karpenter_tpu_torch.ops.feasibility import uid_project_plain
@@ -56,6 +61,8 @@ from karpenter_tpu_torch.scheduling.requirements import Requirements
 LAUNCHES: dict[str, int] = {
     "solve_scan": 0, "solve_scan_full": 0, "solve_scan_resume": 0,
     "solve_block": 0, "solve_block_core": 0, "delta_scatter": 0, "delta_finalize": 0,
+    "sharded_solve_block": 0, "sharded_solve_scan": 0, "sharded_solve_scan_full": 0,
+    "sharded_solve_scan_resume": 0,
 }
 
 
@@ -208,9 +215,10 @@ def _solve_block_kernel(
         membership, offer_compat, custom_need, key_present, available, offering_owner, I
     )
     out = torch.empty((G, 4 if finalize else 3), dtype=torch.int32, device=dev)
-    rc = _group_lib().kt_solve_block(
+    rc = launch(
+        dev, _group_lib().kt_solve_block,
         _ptr(compat), _ptr(has_offering), _ptr(group_ints), _ptr(alloc_q), _ptr(price),
-        _ptr(out), G, I, D, int(finalize), stream_handle(dev),
+        _ptr(out), G, I, D, int(finalize),
     )
     if rc != 0:
         raise KernelError(f"{name}: CUDA launch failed with cudaError {rc}")
@@ -261,7 +269,7 @@ def delta_scatter_rows(core: torch.Tensor, slots: torch.Tensor, rows: torch.Tens
     _check("delta_scatter core", core, torch.int32, (cap, 3), dev)
     _check("delta_scatter slots", slots, torch.int32, (n,), dev)
     _check("delta_scatter rows", rows, torch.int32, (n, 3), dev)
-    rc = _group_lib().kt_delta_scatter(_ptr(core), _ptr(slots), _ptr(rows), n, cap, stream_handle(dev))
+    rc = launch(dev, _group_lib().kt_delta_scatter, _ptr(core), _ptr(slots), _ptr(rows), n, cap)
     if rc != 0:
         raise KernelError(f"delta_scatter: CUDA launch failed with cudaError {rc}")
     LAUNCHES["delta_scatter"] += bool(n)
@@ -280,13 +288,36 @@ def delta_finalize(core: torch.Tensor, order: torch.Tensor, counts: torch.Tensor
     _check("delta_finalize order", order, torch.int32, (Gb,), dev)
     _check("delta_finalize counts", counts, torch.int32, (Gb,), dev)
     out = torch.empty((Gb, 4), dtype=torch.int32, device=dev)
-    rc = _group_lib().kt_delta_finalize(
-        _ptr(core), _ptr(order), _ptr(counts), _ptr(out), Gb, cap, stream_handle(dev)
+    rc = launch(
+        dev, _group_lib().kt_delta_finalize, _ptr(core), _ptr(order), _ptr(counts), _ptr(out), Gb, cap
     )
     if rc != 0:
         raise KernelError(f"delta_finalize: CUDA launch failed with cudaError {rc}")
     LAUNCHES["delta_finalize"] += bool(Gb)
     return out
+
+
+def sharded_solve_block(mesh):
+    """solve_block over a mesh (B13), a callable with solve_block's
+    signature: the groups split into one equal slab per shard (the caller
+    pads them to a multiple of the mesh size), the seven catalog operands
+    replicated (or given as per-shard tuples), solve_block on each shard's
+    device — counted once per shard under `sharded_solve_block` on the
+    card — and the [G, 4] rows gathered in shard order. No collective
+    inside the solve, as in the reference's shard_map."""
+
+    def run(group_bools, group_ints, *catalog):
+        gb_s = mesh_mod.split_rows(group_bools, mesh)
+        gi_s = mesh_mod.split_rows(group_ints, mesh)
+        rep = [mesh_mod.per_shard(x, mesh) for x in catalog]
+        parts = []
+        for s, dev in enumerate(mesh.devices):
+            parts.append(solve_block(gb_s[s], gi_s[s], *(r[s] for r in rep)))
+            if dev.type == "cuda":
+                LAUNCHES["sharded_solve_block"] += bool(gb_s[s].shape[0])
+        return mesh_mod.gather_rows(parts, mesh)
+
+    return run
 
 
 # -- host wrapper --------------------------------------------------------------
@@ -304,11 +335,15 @@ class GroupSolver:
     """Host wrapper: engine matrices + per-type prices, device solve."""
 
     def __init__(self, engine: CatalogEngine, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GroupSolver: the sharded solve over a mesh is not ported yet"
-            )
         self.engine = engine
+        # an explicit mesh wins; otherwise inherit the engine's — a solver
+        # built on a mesh engine serves sharded solves without every call
+        # site knowing about meshes
+        self.mesh = mesh if mesh is not None else engine.mesh
+        if self.mesh is not None and self.mesh.devices[0].type != engine.device.type:
+            raise ValueError(
+                f"a mesh of {self.mesh.devices[0].type} devices for an engine on {engine.device}"
+            )
         # cheapest available offering price per instance type
         price = np.full(engine.num_instances, np.inf, dtype=np.float32)
         for o_idx, owner in enumerate(engine.offering_owner):
@@ -321,6 +356,8 @@ class GroupSolver:
         ).astype(np.int32)
         self._dev_args = None
         self._dev_rows = -1
+        self._mesh_args = None
+        self._mesh_args_key = None
 
     def _catalog_args(self) -> tuple:
         """The catalog operands on the engine's device, gathered once per
@@ -346,16 +383,46 @@ class GroupSolver:
         self._dev_rows = e._computed_rows
         return self._dev_args
 
+    def _mesh_catalog_args(self, mesh) -> tuple:
+        """The catalog operands as per-shard tuples, replicated from the
+        HOST copies once per (mesh, row-set) — the _catalog_args analogue
+        for sharded solves."""
+        e = self.engine
+        e._ensure_rows()
+        key = (mesh, e._computed_rows)
+        if self._mesh_args_key == key:
+            return self._mesh_args
+        host = (
+            e._req_compat if e._computed_rows else np.zeros((1, e.num_instances), bool),
+            e._offer_compat if e._computed_rows else np.zeros((1, e.num_offerings), bool),
+            e.offering_custom_need,
+            e.offering_available,
+            e.offering_owner,
+            self.alloc_q,
+            self.price,
+        )
+        with device_work("group solver mesh catalog"):
+            self._mesh_args = tuple(
+                mesh_mod.replicate(torch.from_numpy(np.ascontiguousarray(a)), mesh) for a in host
+            )
+        self._mesh_args_key = key
+        return self._mesh_args
+
     def solve(self, grouped: GroupedPods):
         """Fused solve; returns host arrays (choice, feasible,
         nodes-per-group, unschedulable-per-group).
 
-        With delta solves on (KARPENTER_TPU_DELTA / delta.configure), the
-        solve routes through the per-solver residency (ops/delta.py): only
-        the perturbed group frontier is re-solved and scattered into the
-        card-resident core matrix."""
+        With a mesh (GroupSolver(mesh=) or the engine's), the group axis
+        shards across its devices through solve_sharded, ahead of the
+        delta check: a mesh bypasses the group residency, as in the
+        reference. Otherwise, with delta solves on (KARPENTER_TPU_DELTA /
+        delta.configure), the solve routes through the per-solver residency
+        (ops/delta.py): only the perturbed group frontier is re-solved and
+        scattered into the card-resident core matrix."""
         from karpenter_tpu_torch.ops import delta as delta_mod
 
+        if self.mesh is not None:
+            return self.solve_sharded(grouped, self.mesh)
         if delta_mod.delta_enabled():
             return delta_mod.group_residency(self).solve(self, grouped)
         return self._solve_full(grouped)
@@ -374,6 +441,32 @@ class GroupSolver:
                 *args,
             ).cpu().numpy()[:G]
         return out[:, 0], out[:, 1].astype(bool), out[:, 2], out[:, 3]
+
+    def solve_sharded(self, grouped: GroupedPods, mesh):
+        """The solve over a mesh: groups sharded over its one axis, the
+        catalog replicated. The group axis pads to the reference's mesh-size-
+        INVARIANT global shape, pow2 aligned to lcm(n, MESH_ALIGN); padding
+        rows carry counts 0, pack to 0 nodes / 0 unschedulable on whatever
+        shard they land on (a shard of padding only computes zeros) and are
+        sliced off."""
+        n = mesh.size
+        G = grouped.membership.shape[0]
+        group_bools, group_ints = _pack_groups(grouped)
+        align = mesh_mod.mesh_multiple(n)
+        G2 = max(1 << max(0, (G - 1).bit_length()), align)
+        G2 = -(-G2 // align) * align
+        if G2 > G:
+            pad = G2 - G
+            group_bools = np.pad(group_bools, ((0, pad), (0, 0)))
+            group_ints = np.pad(group_ints, ((0, pad), (0, 0)))
+        args = self._mesh_catalog_args(mesh)
+        with device_work("sharded group solve"):
+            out = sharded_solve_block(mesh)(
+                torch.from_numpy(np.ascontiguousarray(group_bools)),
+                torch.from_numpy(np.ascontiguousarray(group_ints)),
+                *args,
+            ).cpu().numpy()
+        return out[:G, 0], out[:G, 1].astype(bool), out[:G, 2], out[:G, 3]
 
 
 def encode_pods_for_packer(
@@ -885,7 +978,7 @@ def _launch_scan(cfg: tuple, args: tuple, state: tuple, mode: int, p_lo: int = 0
     assert len(dims) == _N_DIMS
     ptr_arr = (ctypes.c_void_p * _N_PTRS)(*(t.data_ptr() for t in ptrs))
     dim_arr = (ctypes.c_int * _N_DIMS)(*dims)
-    rc = _scan_lib().kt_solve_scan(ptr_arr, dim_arr, stream_handle(dev))
+    rc = launch(dev, _scan_lib().kt_solve_scan, ptr_arr, dim_arr)
     if rc != 0:
         raise KernelError(f"solve_scan: CUDA launch failed with cudaError {rc}")
 
@@ -937,3 +1030,58 @@ def solve_scan_resume(cfg: tuple, args: tuple, state: tuple, p_lo: int) -> tuple
     _launch_scan(cfg, args, state, _MODE_RESUME, p_lo)
     LAUNCHES["solve_scan_resume"] += 1
     return tuple(state) + (state[0][7],)
+
+
+# -- the mesh twins: replicated -------------------------------------------------
+
+
+def replicate_scan(mesh, mode: str, cfg: tuple, args: tuple, states=None, p_lo: int = 0) -> list:
+    """Run one scan variant on every shard of `mesh` — `mode` is
+    "classic" (solve_scan), "full" (solve_scan_full) or "resume"
+    (solve_scan_resume of states[s], written in place) — each on its own
+    device under that device's current stream, on the 27 operands
+    replicated there (one copy per distinct device). Returns every
+    replica's outputs, in shard order; on the card each launch counts once
+    under `sharded_solve_scan{,_full,_resume}`. Shards on a repeated device
+    run one after the other, each on its own state."""
+    name, fn = {
+        "classic": ("sharded_solve_scan", solve_scan),
+        "full": ("sharded_solve_scan_full", solve_scan_full),
+        "resume": ("sharded_solve_scan_resume", solve_scan_resume),
+    }[mode]
+    if mode == "resume" and len(states) != mesh.size:
+        raise ValueError(f"{len(states)} resident states for a {mesh.size}-device mesh")
+    rep = [mesh_mod.per_shard(a, mesh) for a in args]
+    outs = []
+    for s, dev in enumerate(mesh.devices):
+        shard_args = tuple(r[s] for r in rep)
+        if mode == "resume":
+            outs.append(fn(cfg, shard_args, states[s], p_lo))
+        else:
+            outs.append(fn(cfg, shard_args))
+        if dev.type == "cuda":
+            LAUNCHES[name] += 1
+    return outs
+
+
+def sharded_solve_scan(mesh):
+    """The classic scan over a mesh (B17): a callable with solve_scan's
+    signature. The scan is a sequential loop, so the mesh twin replicates
+    it: every shard runs the same launch on replicated operands and shard
+    0's outputs are returned (all replicas agree by construction)."""
+    return lambda cfg, args: replicate_scan(mesh, "classic", cfg, args)[0]
+
+
+def sharded_solve_scan_full(mesh):
+    """The full-state scan over a mesh (B17): a callable (cfg, args) that
+    returns every replica's `solve_scan_full` result, in shard order — the
+    residency keeps one state per shard."""
+    return lambda cfg, args: replicate_scan(mesh, "full", cfg, args)
+
+
+def sharded_solve_scan_resume(mesh):
+    """The warm resume over a mesh (B17): a callable (cfg, args, states,
+    p_lo) resuming each shard's resident state in place on its own device
+    (the counterpart of the reference's donated replicated buffers);
+    returns every replica's result, in shard order."""
+    return lambda cfg, args, states, p_lo: replicate_scan(mesh, "resume", cfg, args, states, p_lo)

@@ -323,6 +323,44 @@ def test_outcome_sequence_matches_reference(delta_fused):
     assert moved[delta]["delta_selfchecks_divergent"] == 0
 
 
+def _doubled_catalog(pkg: str) -> list:
+    """The kwok catalog and a copy of every type under another name (same
+    requirements, offerings and capacity): each copy shares its original's
+    unique-allocatable row."""
+    InstanceType = _m(pkg, "cloudprovider.types").InstanceType
+    base = _m(pkg, "cloudprovider.kwok.instance_types").construct_instance_types()
+    return base + [
+        InstanceType(name=f"{it.name}-r1", requirements=it.requirements, offerings=it.offerings,
+                     capacity=it.capacity, overhead=it.overhead)
+        for it in base
+    ]
+
+
+def test_template_mask_change_with_same_famu_ok_resumes_warm(delta_fused):
+    """The NodePool's instance types drop half of the copies between two
+    passes: the template mask changes, famu_ok (the uid survival the scan
+    consumes) does not, since every dropped copy's original stays. The
+    reference fingerprints famu_ok and resumes; the port must too, not miss
+    with `operands`."""
+    seen = {}
+    for pkg in (JAX, PORT):
+        catalog = _doubled_catalog(pkg)
+        env = PkgEnv(pkg, catalog)
+        trace = []
+        for pods, its in ((96, catalog), (128, [it for i, it in enumerate(catalog)
+                                                if not (it.name.endswith("-r1") and i % 2)])):
+            env.its = {"default": its}
+            r = env.schedule(plain_pods(pkg, pods, cpus=("1",)))
+            trace.append((env.residency.last_outcome, canon(r)))
+        seen[pkg] = trace
+    assert [t[0] for t in seen[JAX]] == ["cold", "warm"]
+    assert seen[PORT] == seen[JAX]
+    # the premise: the first pass's options hold copies the second drops
+    dropped = {it.name for i, it in enumerate(_doubled_catalog(PORT)) if it.name.endswith("-r1") and i % 2}
+    first, second = ({n for _, opts in seen[PORT][k][1][0] for n in opts} for k in (0, 1))
+    assert first & dropped and not second & dropped
+
+
 def test_scan_selfcheck_divergence_drops_residency(delta_fused):
     """Corrupt the resident scan state; the every-pass self-check fires the
     divergence event, falls back to the cold result, and drops the

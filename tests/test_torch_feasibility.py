@@ -22,11 +22,12 @@ import torch
 
 from karpenter_tpu.ops import encoding as jenc
 from karpenter_tpu.ops import feasibility as jfeas
+from karpenter_tpu_torch.mesh import Mesh
 from karpenter_tpu_torch.ops import encoding as tenc
 from karpenter_tpu_torch.ops import feasibility as tfeas
 
 import torch_inputs
-from torch_inputs import cube_inputs, onehot, row_inputs, to_torch
+from torch_inputs import cube_inputs, fits_inputs, onehot, row_inputs, stage_inputs, to_torch
 
 torch.set_num_threads(1)
 
@@ -71,6 +72,37 @@ def test_cube_matches_jax(seed):
     np.testing.assert_array_equal(got_o.numpy(), want_o)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fits_matrix_matches_jax(seed, dtype):
+    req, alloc = fits_inputs(seed, dtype)
+    want = np.asarray(jfeas.fits_matrix(jnp.asarray(req), jnp.asarray(alloc)))
+    got = tfeas.fits_matrix(to_torch(req), to_torch(alloc))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fits_matrix_positive_request_against_zero_capacity():
+    """resources.Fits: 1 against a zero capacity fails, 0 against it fits."""
+    for dtype in (np.float32, np.int32):
+        req = np.array([[1, 0], [0, 0], [0, 1]], dtype=dtype)
+        alloc = np.array([[0, 4], [4, 0]], dtype=dtype)
+        want = np.asarray(jfeas.fits_matrix(jnp.asarray(req), jnp.asarray(alloc)))
+        got = tfeas.fits_matrix(to_torch(req), to_torch(alloc)).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, [[False, True], [True, True], [True, False]])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_stage_plane_matches_jax(seed):
+    planes = stage_inputs(seed)
+    want = np.asarray(jfeas.stage_plane(*(jnp.asarray(a) for a in planes)))
+    got = tfeas.stage_plane(*(to_torch(a) for a in planes))
+    assert got.dtype == torch.uint8 and want.dtype == np.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), tfeas.stage_plane_np(*planes))
+
+
 def test_unpack_mask_high_bit():
     """Bit 31 of a word survives the int32 view (arithmetic shift)."""
     words = np.array([[0x80000001, 0x00000002]], dtype=np.uint32)
@@ -93,8 +125,17 @@ def test_launch_counts_untouched_by_plain_versions():
     tfeas.req_rows_vs_sets(*(to_torch(a) for a in row_inputs(3)))
     tfeas.uid_project(torch.ones((2, 5), dtype=torch.bool), torch.ones((3, 5), dtype=torch.bool))
     tfeas.offering_reduce(*(to_torch(a) for a in args[:1] + args[2:]), args[1].shape[1])
+    tfeas.fits_matrix(torch.zeros((3, 4)), torch.ones((5, 4)))
+    planes = torch.ones((3, 5), dtype=torch.bool)
+    tfeas.stage_plane(planes, planes, planes)
+    mesh = Mesh([torch.device("cpu")] * 2)
+    cube = [to_torch(a) for a in args]
+    cube[0] = torch.zeros((8, cube[0].shape[1]), dtype=torch.bool)
+    cube[4] = torch.zeros((8, cube[4].shape[1]), dtype=torch.bool)
+    tfeas.sharded_cube(mesh)(*cube)
     assert tfeas.LAUNCHES == {
         "row_compat": 0, "membership": 0, "cube": 0, "uid_project": 0, "offering_reduce": 0,
+        "fits_matrix": 0, "stage_plane": 0, "sharded_cube": 0,
     }
 
 

@@ -27,6 +27,7 @@ from karpenter_tpu.ops import delta as jdelta  # noqa: E402
 from karpenter_tpu.ops import feasibility as jfeas  # noqa: E402
 from karpenter_tpu.ops import packer as jpacker  # noqa: E402
 from karpenter_tpu_torch import convert  # noqa: E402
+from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from karpenter_tpu_torch.ops import delta as tdelta  # noqa: E402
 from karpenter_tpu_torch.ops import feasibility as tfeas  # noqa: E402
 from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
@@ -247,10 +248,13 @@ def test_group_solver_delta_stream_matches_jax(delta_both):
     assert any(t[0] == "warm" for t in seen["karpenter_tpu_torch"])
 
 
-def test_group_solver_with_a_mesh_raises():
+def test_group_solver_with_a_mesh_raises(monkeypatch):
+    """A mesh of another device type than the engine's is refused (a mesh
+    of the engine's type solves sharded: tests/test_torch_mesh.py)."""
     engine = engine_for("karpenter_tpu_torch")
-    with pytest.raises(NotImplementedError):
-        tpacker.GroupSolver(engine, mesh=object())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="mesh of cuda devices"):
+        tpacker.GroupSolver(engine, mesh=Mesh([torch.device("cuda", 0)]))
 
 
 def test_group_residency_core_is_resident_int32(delta_both):

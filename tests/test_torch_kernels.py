@@ -13,6 +13,7 @@ from __future__ import annotations
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,9 +22,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from karpenter_tpu_torch import convert  # noqa: E402
 from karpenter_tpu_torch.ops import feasibility as tfeas  # noqa: E402
 from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
+from karpenter_tpu_torch.device import KernelError  # noqa: E402
+from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    core_inputs, cube_inputs, group_inputs, offering_inputs, row_inputs, scan_inputs, to_torch,
-    uid_inputs,
+    core_inputs, cube_inputs, fits_inputs, group_inputs, offering_inputs, row_inputs, scan_inputs,
+    stage_inputs, to_torch, uid_inputs,
 )
 
 SEEDS = range(8)
@@ -128,3 +131,78 @@ def test_solve_scan_full_and_resume_match_plain_on_card(cuda_device, variant, se
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(_bits(g), _bits(w))
     assert all(a is b for a, b in zip(res_k[:-1], state_k))  # written in place
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fits_matrix_and_stage_plane_match_plain_on_card(cuda_device, seed):
+    """B4 (kt_fits_matrix, float32 and int32) and B7 (kt_stage_plane), bit
+    for bit; an operand on another device raises."""
+    n0 = dict(tfeas.LAUNCHES)
+    for dtype in (np.float32, np.int32):
+        req, alloc = (to_torch(a).to(cuda_device) for a in fits_inputs(seed, dtype))
+        assert torch.equal(tfeas.fits_matrix(req, alloc), tfeas.fits_matrix_plain(req, alloc))
+    planes = [to_torch(a).to(cuda_device) for a in stage_inputs(seed)]
+    got = tfeas.stage_plane(*planes)
+    assert got.dtype == torch.uint8 and torch.equal(got, tfeas.stage_plane_plain(*planes))
+    torch.cuda.synchronize()
+    assert tfeas.LAUNCHES["fits_matrix"] == n0["fits_matrix"] + 2
+    assert tfeas.LAUNCHES["stage_plane"] == n0["stage_plane"] + 1
+    with pytest.raises(KernelError):
+        tfeas.fits_matrix(req, alloc.cpu())
+
+
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    return np.pad(a, ((0, -a.shape[0] % n),) + ((0, 0),) * (a.ndim - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("seed", range(4))
+def test_sharded_wrappers_match_unsharded_on_card(cuda_device, n, seed):
+    """B5, B13 and B17 on a mesh that repeats the card n times against the
+    unsharded launches: the cube and the group rows (entity axis padded to
+    a multiple of n with rows that decide nothing), every replica of the
+    classic, full and resume scans; exact launch counts per shard."""
+    mesh = Mesh([cuda_device] * n)
+    l0 = {**tfeas.LAUNCHES, **tpacker.LAUNCHES}
+    cube = list(cube_inputs(seed))
+    P = cube[0].shape[0]
+    cube[0], cube[4] = _pad_rows(cube[0], n), _pad_rows(cube[4], n)
+    cube = [to_torch(a).to(cuda_device) for a in cube]
+    got = tfeas.sharded_cube(mesh)(*cube)
+    want = tfeas.production_cube(*cube)
+    assert all(torch.equal(g[:P], w[:P]) for g, w in zip(got, want))
+    grp = list(group_inputs(seed))
+    G = grp[0].shape[0]
+    grp[0], grp[1] = _pad_rows(grp[0], n), _pad_rows(grp[1], n)
+    grp = [to_torch(a).to(cuda_device) for a in grp]
+    assert torch.equal(tpacker.sharded_solve_block(mesh)(*grp)[:G], tpacker.solve_block(*grp)[:G])
+    cfg, args = scan_inputs(seed, seed % 2 == 1, seed >= 2)
+    ops = convert.scan_operands_from_numpy(args, cuda_device)
+    classic = tpacker.sharded_solve_scan(mesh)(cfg, ops)
+    want = tpacker.solve_scan(cfg, ops)
+    assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(classic, want))
+    full = tpacker.sharded_solve_scan_full(mesh)(cfg, ops)
+    want = tpacker.solve_scan_full(cfg, ops)
+    assert len(full) == n
+    for rep in full:
+        assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(rep, want))
+    p_lo = int(args[13]) // 2
+    pre = list(args)
+    pre[0] = args[0].copy()
+    pre[0][p_lo:] = -1
+    pre[13] = type(args[13])(p_lo)
+    pre_ops = convert.scan_operands_from_numpy(pre, cuda_device)
+    states = [st[:-1] for st in tpacker.sharded_solve_scan_full(mesh)(cfg, pre_ops)]
+    ref_state = tuple(t.clone() for t in states[0])
+    res = tpacker.sharded_solve_scan_resume(mesh)(cfg, ops, states, p_lo)
+    want = tpacker.solve_scan_resume(cfg, ops, ref_state, p_lo)
+    for rep, st in zip(res, states):
+        assert all(a is b for a, b in zip(rep[:-1], st))  # each replica in place
+        assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(rep, want))
+    torch.cuda.synchronize()
+    moved = {k: v - l0[k] for k, v in {**tfeas.LAUNCHES, **tpacker.LAUNCHES}.items()}
+    assert moved["sharded_cube"] == 2 * n and moved["sharded_solve_block"] == n
+    assert moved["sharded_solve_scan"] == n and moved["sharded_solve_scan_full"] == 2 * n
+    assert moved["sharded_solve_scan_resume"] == n

@@ -285,3 +285,26 @@ def core_inputs(seed: int):
     order = np.pad(rng.randint(0, cap, size=g).astype(np.int32), (0, gb - g), mode="edge")
     counts = np.pad(rng.randint(0, 100, size=g).astype(np.int32), (0, gb - g))
     return core, slots, rows, order, counts
+
+
+def fits_inputs(seed: int, dtype):
+    """Requests and allocatables in float32 or int32, with zero capacities
+    (a positive request against one fails, a zero request passes) and
+    requests equal to a capacity."""
+    rng = np.random.RandomState(200 + seed)
+    P, I, D = (1, 5, 17, 1100)[seed % 4], (1, 9, 33)[seed % 3], (1, 4, 11)[seed % 3]
+    alloc = rng.randint(0, 8, size=(I, D)).astype(dtype)
+    alloc[rng.rand(I, D) < 0.2] = 0
+    req = rng.randint(0, 8, size=(P, D)).astype(dtype)
+    req[rng.rand(P, D) < 0.3] = 0
+    req[0, 0] = 1
+    if dtype == np.float32:
+        req += rng.choice([0.0, 0.25, -0.5], size=(P, D)).astype(np.float32)
+    return req, alloc
+
+
+def stage_inputs(seed: int):
+    """Three bool planes of one shape for stage_plane."""
+    rng = np.random.RandomState(400 + seed)
+    shape = ((3, 17), (1, 1), (2, 5, 33), (64,))[seed % 4]
+    return tuple(rng.rand(*shape) < p for p in (0.8, 0.7, 0.6))
