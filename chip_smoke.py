@@ -23,16 +23,22 @@ Phases, in order; any failure exits non-zero:
      delta_finalize; the fused scan on the 27 operands of four small solves
      this script sets up (no nodes/limits; existing nodes with seeded
      usage; a second NodePool with a cpu limit; both at once with two
-     templates): the classic outputs, the full state (solve_scan_full),
-     and solve_scan_resume from the full state of a prefix against the plain
-     resume and against solve_scan_full on the whole list;
+     templates), in both of the kernel's designs (resident, which the
+     wrapper takes for these shapes, and global, forced): the classic
+     outputs, the full state (solve_scan_full), and solve_scan_resume from
+     the full state of a prefix against the plain resume and against
+     solve_scan_full on the whole list; the plain solve again with a claim
+     axis past the resident design's shared-memory budget, which the public
+     entry point must launch in the global design;
   4. the main path: the bench workload (kwok catalog x7 = 1008 types and
      8064 offerings, 50,000 pods from 200 shapes drawn with RandomState(7),
      one `default` NodePool, empty cluster) through the port's
      Scheduler.solve with a CUDA CatalogEngine and the fused scan left at
      `auto`, cold once and warm twice; launch counts are zeroed just before
-     and read just after. Then the slice-1 path (scan off, the native walk)
-     on the same workload, cold and warm, with the same decisions;
+     and read just after, and every scan launch must have taken the
+     resident design (here, in phase 5 and in phase 5b). Then the slice-1
+     path (scan off, the native walk) on the same workload, cold and warm,
+     with the same decisions;
   5. delta solves (KARPENTER_TPU_DELTA=on, the fused scan on, a self-check
      every 5 warm passes) on the same workload: one cold pass, then 12
      churn passes that each add 24 pods extending the FFD stream as an
@@ -66,7 +72,11 @@ Phases, in order; any failure exits non-zero:
      the plain version, and CUDA-event medians of the kernel, the plain
      version and a PyTorch yardstick on the inputs its path gave it,
      beside its bound (the larger of bytes over the memory rate and
-     operations over the rate for their type);
+     operations over the rate for their type); the scan's entry also holds
+     both designs on phase 4's operands (each against the plain loop), their
+     device times taken in turns (resident, global, global, resident), the
+     resident design at 256, 512 and 1024 threads, and ptxas's registers,
+     shared memory and spills for both kernels;
   8. last line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and karpenter_tpu_torch only.
@@ -151,6 +161,10 @@ REPLACES = {
 # float32 operations per second outside the tensor cores (H100 SXM data
 # sheet: 67 TFLOP/s FP32), the rate of fits_matrix's float32 compares
 F32_OPS_PER_S = 67e12
+# the fused scan's two kernels (csrc/scan.cu), as the profiler names them
+SCAN_KERNELS = ["solve_scan_resident_kernel", "solve_scan_kernel"]
+SCAN_BLOCK_SIZES = (256, 512, 1024)
+PTXAS: dict = {}  # scan kernel -> ptxas's report, filled by phase_build
 
 
 def log(msg: str) -> None:
@@ -588,6 +602,38 @@ def phase_build():
             if ("registers" in line or "error" in line.lower() or "spill" in line
                     or "entry function" in line):
                 log(f"  {name}: {line.strip()}")
+    PTXAS.update(ptxas_report(device.BUILD_LOG.get("scan", ""), SCAN_KERNELS))
+    for fn, rep in PTXAS.items():
+        log(f"ptxas {fn}: {json.dumps(rep)}")
+    assert any("resident" in fn for fn in PTXAS) and any("resident" not in fn for fn in PTXAS), \
+        f"ptxas reported no scan kernel of one design: {sorted(PTXAS)}"
+
+
+def ptxas_report(text: str, names) -> dict:
+    """Registers, shared memory (bytes, static), stack and spills per
+    compiled function whose mangled name holds one of `names`, from
+    `nvcc -Xptxas -v` output."""
+    import re
+
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([A-Za-z0-9_]+)", line)
+        if m:
+            fn = m.group(1) if any(n in m.group(1) for n in names) else None
+            if fn:
+                out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem_static"] = int(s.group(1)) if s else 0
+    return out
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -697,39 +743,71 @@ def phase_kernel_checks(dev=torch.device("cuda")):
         f"bit-identical to the plain versions")
     catalog = construct_instance_types()
     pods = build_pods()[:SMALL_PODS]
+    d0 = {k: packer.LAUNCHES[k] for k in ("scan_resident", "scan_global")}
+    plain_case = None
     for kind, want_cfg in (("plain", (1, False, False)), ("nodes", (1, True, False)),
                            ("limits", (2, False, True)), ("both", (2, True, True))):
         engine = CatalogEngine(catalog, device=dev)
         (cfg, args), _, _ = capture_scan(engine, catalog, pods, small_case(kind))
         assert tuple(cfg) == want_cfg, f"{kind}: scan variant {cfg}, expected {want_cfg}"
+        assert packer.scan_design(cfg, args) == "resident", f"{kind}: the resident set does not fit"
+        check_resident_bytes(cfg, args)
+        plain_case = plain_case or (cfg, args)
         n_pods = int(args[13])
         want = packer.solve_scan_full_plain(cfg, args)
-        check_equal(f"solve_scan {kind}", tuple(packer.solve_scan(cfg, args)),
-                    packer._scan_finals(want[:-1]) + (want[-1],))
-        full = packer.solve_scan_full(cfg, args)
-        check_equal(f"solve_scan_full {kind}", tuple(full), tuple(want))
         # resume from the full state of the first 3/4 of the pods
         p_lo = n_pods * 3 // 4
         pre = list(args)
         pre[0] = args[0].clone()
         pre[0][p_lo:] = -1
         pre[13] = torch.full_like(args[13], p_lo)
-        st_k = packer.solve_scan_full(cfg, tuple(pre))[:-1]
-        st_p = tuple(t.clone() for t in st_k)
+        st_p = packer.solve_scan_full_plain(cfg, tuple(pre))[:-1]
         head, tail, stop, abort = (int(v) for v in st_p[0][:4].cpu())
-        res_k = packer.solve_scan_resume(cfg, args, st_k, p_lo)
-        res_p = packer.solve_scan_resume_plain(cfg, args, st_p, p_lo)
-        check_equal(f"solve_scan_resume {kind}", tuple(res_k), tuple(res_p))
         extendable = abort == packer.SCAN_OK and not stop and head == tail == p_lo
         assert extendable, f"{kind}: the {p_lo}-pod prefix requeued, so no resume is sound"
-        check_equal(f"solve_scan_resume {kind} == solve_scan_full on the whole list",
-                    (res_k[0][:7],) + tuple(res_k[1:-1]), (full[0][:7],) + tuple(full[1:-1]))
+        res_p = packer.solve_scan_resume_plain(cfg, args, tuple(t.clone() for t in st_p), p_lo)
+        for design in ("resident", "global"):
+            force = None if design == "resident" else design
+            check_equal(f"solve_scan {kind} ({design})", tuple(packer.solve_scan(cfg, args, _design=force)),
+                        packer._scan_finals(want[:-1]) + (want[-1],))
+            full = packer.solve_scan_full(cfg, args, _design=force)
+            check_equal(f"solve_scan_full {kind} ({design})", tuple(full), tuple(want))
+            st_k = packer.solve_scan_full(cfg, tuple(pre), _design=force)[:-1]
+            check_equal(f"solve_scan_full {kind} prefix ({design})", tuple(st_k), tuple(st_p))
+            res_k = packer.solve_scan_resume(cfg, args, st_k, p_lo, _design=force)
+            check_equal(f"solve_scan_resume {kind} ({design})", tuple(res_k), tuple(res_p))
+            check_equal(f"solve_scan_resume {kind} == solve_scan_full on the whole list ({design})",
+                        (res_k[0][:7],) + tuple(res_k[1:-1]), (full[0][:7],) + tuple(full[1:-1]))
         pod_seq = want[5][:n_pods]
         log(f"solve_scan {kind} cfg={cfg}: {n_pods} pods, abort {int(want[0][3])}, "
             f"{int(want[0][6])} claims, {int((pod_seq >= 0).sum())} placed, "
-            f"{int((want[4] >= 0).sum())} node joins, {int(want[-1])} steps: the 10 outputs, "
-            f"the full state (23 components) and the resume from {p_lo} pods "
+            f"{int((want[4] >= 0).sum())} node joins, {int(want[-1])} steps: in both designs the 10 "
+            f"outputs, the full state (23 components) and the resume from {p_lo} pods "
             f"({int(res_k[-1])} steps) bit-identical; resume == full solve of the whole list")
+    # past the budget: the plain solve with a claim axis of 8192 slots
+    cfg, args = plain_case
+    wide = (args[0], torch.zeros(8192, dtype=args[1].dtype, device=dev)) + tuple(args[2:])
+    assert packer.scan_design(cfg, wide) == "global", "a claim axis of 8192 still fits the resident set"
+    check_resident_bytes(cfg, wide)
+    g0 = packer.LAUNCHES["scan_global"]
+    check_equal("solve_scan with 8192 claim slots", tuple(packer.solve_scan(cfg, wide)),
+                tuple(packer.solve_scan_plain(cfg, wide)))
+    assert packer.LAUNCHES["scan_global"] == g0 + 1, "the past-budget solve did not take the global design"
+    moved = {k: packer.LAUNCHES[k] - v for k, v in d0.items()}
+    # per variant: its capture's solve, then four launches in each design
+    assert moved == {"scan_resident": 4 * 5, "scan_global": 4 * 4 + 1}, moved
+    log(f"kernel checks: scan launches by design {json.dumps(moved)}; 8192 claim slots need "
+        f"{packer.scan_resident_bytes(packer._scan_dims(cfg, wide))} bytes of shared memory: global design")
+
+
+def check_resident_bytes(cfg, args) -> None:
+    """ops/packer.py's count of the resident set's bytes equals the
+    kernel's own (csrc/scan.cu res_layout) for these operands' dims."""
+    from karpenter_tpu_torch.ops import packer
+
+    d = packer._scan_dims(cfg, args)
+    got, want = packer.scan_resident_bytes(d), packer.scan_resident_bytes_kernel(d)
+    assert got == want, f"scan_resident_bytes {got} != the kernel's {want} for {d}"
 
 
 def fits_stage_checks(captured, dev=torch.device("cuda")):
@@ -762,6 +840,15 @@ def fits_stage_checks(captured, dev=torch.device("cuda")):
     captured["phase3_launches"] = {k: feas.LAUNCHES[k] - n0[k] for k in n0}
     log(f"kernel checks: {n} fits_matrix and stage_plane cases bit-identical to the plain "
         f"versions; launches {json.dumps(captured['phase3_launches'])}")
+
+
+def assert_resident(launches, label) -> None:
+    """Every scan launch the phase counted took the resident design."""
+    scans = launches["solve_scan"] + launches["solve_scan_full"] + launches["solve_scan_resume"]
+    assert scans > 0 and launches["scan_resident"] == scans and launches["scan_global"] == 0, \
+        f"{label}: {scans} scan launches, {launches['scan_resident']} resident, " \
+        f"{launches['scan_global']} global"
+    log(f"{label}: all {scans} scan launches took the resident design")
 
 
 def _count_launches():
@@ -867,6 +954,7 @@ def phase_main(captured, device=None):
     assert fused_solves == len(runs) and not declines, "a main-path solve left the scan"
     assert scan_native == 0 and len(native_runs) == len(walk_runs), "the walk ran on the wrong path"
     assert launches["solve_scan"] == len(runs), "solve_scan did not launch once per solve"
+    assert_resident(launches, "phase 4")
     for name in ("row_compat", "membership", "cube", "uid_project"):
         assert launches[name] > 0, f"{name} never launched on the main path"
     assert walk_launches["solve_scan"] == 0, "the scan launched on the walk path"
@@ -968,6 +1056,7 @@ def phase_delta(captured, device=None):
     assert fused_solves == len(passes) and not declines, "a delta pass left the scan"
     assert launches["solve_scan_resume"] == CHURN_PASSES, "solve_scan_resume not once per churn pass"
     assert launches["solve_scan_full"] == 1 + checks and launches["solve_scan"] == 0
+    assert_resident(launches, "phase 5")
     assert all(p[2] == CHURN_PODS for p in passes[1:]), "a resume did not run one step per new pod"
     assert len({p[3] for p in passes}) == 1, "residency bytes changed"
     last = decisions(passes[-1][4])
@@ -1159,6 +1248,7 @@ def phase_mesh(captured, device=None):
     assert launches["solve_scan"] == launches["sharded_solve_scan"]
     assert launches["solve_scan_full"] == launches["sharded_solve_scan_full"]
     assert launches["solve_scan_resume"] == launches["sharded_solve_scan_resume"]
+    assert_resident(launches, "phase 5b")
     assert len(blocks) == len(solver_meshes(device)) and all(r[2] for r in replicas), \
         f"replicas disagree: {[r for r in replicas if not r[2]]}"
     log(f"mesh: {len(replicas)} replicated scans, every replica equal to shard 0's; "
@@ -1497,8 +1587,11 @@ def scan_entries(uid_args, scan, prefix_scan, launches, plain):
     )
 
     cfg, args = scan
+    assert packer.scan_design(cfg, args) == "resident", "the main path's scan does not fit the resident set"
+    check_resident_bytes(cfg, args)
     run = lambda: packer.solve_scan(cfg, args)  # noqa: E731
     out = run()
+    out_global = packer.solve_scan(cfg, args, _design="global")
     torch.cuda.synchronize()
     n_pods = int(args[13])
     placed = int((out[4][:n_pods] >= 0).sum())
@@ -1506,8 +1599,8 @@ def scan_entries(uid_args, scan, prefix_scan, launches, plain):
     steps = int(out[packer.SCAN_N_OUT])  # the kernel's own count of loop iterations
     assert steps >= n_pods, f"solve_scan: {steps} steps for {n_pods} placed pods"
     ms = cuda_ms(run, reps=1, warmup=1, rounds=3)
-    prof_ms = _dev_sum(device_kernel_ms(run, ["solve_scan_kernel"], reps=2))
-    dev_ms = scan_launch_ms(cfg, args)
+    global_ms = cuda_ms(lambda: packer.solve_scan(cfg, args, _design="global"), reps=1, warmup=1, rounds=3)
+    prof_ms = _dev_sum(device_kernel_ms(run, SCAN_KERNELS, reps=2))
     G, D = args[2].shape
     U = args[4].shape[0]
     # float64 compares and subtractions per step: the refreshed cfit row
@@ -1515,14 +1608,40 @@ def scan_entries(uid_args, scan, prefix_scan, launches, plain):
     # row (U x D each)
     f64_ops = steps * (G * U * D + 2 * U * D)
     want, plain_ms = cuda_ms_once(lambda: packer.solve_scan_plain(cfg, args))
-    check_equal("solve_scan on the main path's operands", tuple(out), tuple(want))
+    check_equal("solve_scan on the main path's operands (resident)", tuple(out), tuple(want))
+    check_equal("solve_scan on the main path's operands (global)", tuple(out_global), tuple(want))
     plain["solve_scan"] = (args, want, plain_ms)
+    # the two designs' device time in turns on one card, then the resident
+    # design at each block size, each held against the plain loop first
+    turns = []
+    for design in ("resident", "global", "global", "resident"):
+        t = scan_launch_ms(cfg, args, design=design)
+        turns.append({"design": design, "device_ms": t, "us_per_step": t * 1e3 / steps})
+    blocks = []
+    for threads in SCAN_BLOCK_SIZES:
+        state = packer._alloc_state(cfg, args)
+        packer._launch_scan(cfg, args, state, packer._MODE_FULL, design="resident", threads=threads)
+        check_equal(f"solve_scan resident at {threads} threads", packer._scan_finals(state) + (state[0][7],),
+                    tuple(want))
+        t = scan_launch_ms(cfg, args, design="resident", threads=threads)
+        blocks.append({"threads": threads, "device_ms": t, "us_per_step": t * 1e3 / steps})
+    dev_ms = statistics.mean(t["device_ms"] for t in turns if t["design"] == "resident")
+    global_dev_ms = statistics.mean(t["device_ms"] for t in turns if t["design"] == "global")
+    log(f"solve_scan designs in turns: {json.dumps(turns)}; resident by block size {json.dumps(blocks)} "
+        f"(default {packer.SCAN_THREADS})")
     pcfg, pargs = prefix_scan
     scan = _entry(
         "solve_scan", launches, _max_abs_err(tuple(out), tuple(want)), ms, plain_ms,
         nbytes(*args) + nbytes(*out), f64_ops, F64_OPS_PER_S, None, dev_ms,
         steps=steps, us_per_step=dev_ms * 1e3 / steps, device_ms_profiler=prof_ms,
-        device_ms_by="CUDA events around the bare launch", prefix_ms=cuda_ms(lambda: packer.solve_scan(pcfg, pargs), reps=1, warmup=1, rounds=3),
+        device_ms_by="CUDA events around the bare launch, mean of the two resident turns",
+        design="resident", threads=packer.SCAN_THREADS,
+        launches_by_design={k: launches[k] for k in ("scan_resident", "scan_global")},
+        resident_bytes=packer.scan_resident_bytes(packer._scan_dims(cfg, args)),
+        global_ms=global_ms, global_device_ms=global_dev_ms, global_us_per_step=global_dev_ms * 1e3 / steps,
+        max_abs_err_global=_max_abs_err(tuple(out_global), tuple(want)),
+        design_turns=turns, block_sizes=blocks, ptxas=PTXAS,
+        prefix_ms=cuda_ms(lambda: packer.solve_scan(pcfg, pargs), reps=1, warmup=1, rounds=3),
         prefix_pods=int(pargs[13]),
         shapes={"P": int(args[0].shape[0]), "G": G, "C": int(args[1].shape[0]), "U": U, "D": D,
                 "F": int(args[10].shape[0]), "T": cfg[0], "nodes": cfg[1], "limits": cfg[2]},
@@ -1542,16 +1661,19 @@ def cuda_ms_once(fn):
     return out, start.elapsed_time(end)
 
 
-def scan_launch_ms(cfg, args, rounds=3) -> float:
+def scan_launch_ms(cfg, args, rounds=3, design=None, threads=None) -> float:
     """Device ms of one bare kt_solve_scan launch in full mode on `args`
-    (state allocated beforehand, no operand checks): CUDA events
-    bracketing the launch alone, median over `rounds` after one warmup.
-    The profiler's trace can hold none of a launch this long, so the
-    scans' device time is read this way."""
+    (state allocated beforehand, no operand checks) in `design` (None: the
+    wrapper's choice) at `threads` (the resident design's block size; None:
+    the wrapper's): CUDA events bracketing the launch alone, median over
+    `rounds` after one warmup. The profiler's trace can hold none of a
+    launch this long, so the scans' device time is read this way."""
     from karpenter_tpu_torch.ops import packer
 
     state = packer._alloc_state(cfg, args)
-    return cuda_ms(lambda: packer._launch_scan(cfg, args, state, packer._MODE_FULL),
+    threads = threads or packer.SCAN_THREADS
+    return cuda_ms(lambda: packer._launch_scan(cfg, args, state, packer._MODE_FULL, design=design,
+                                               threads=threads),
                    reps=1, warmup=1, rounds=rounds)
 
 
@@ -1673,31 +1795,40 @@ def scan_state_entries(scan, resume, launches, plain):
     U = args[4].shape[0]
     run = lambda: packer.solve_scan_full(cfg, args)  # noqa: E731
     out = run()
+    out_global = packer.solve_scan_full(cfg, args, _design="global")
     steps = int(out[-1])
     ms = cuda_ms(run, reps=1, warmup=1, rounds=3)
-    prof_ms = _dev_sum(device_kernel_ms(run, ["solve_scan_kernel"], reps=2))
+    prof_ms = _dev_sum(device_kernel_ms(run, SCAN_KERNELS, reps=2))
     dev_ms = scan_launch_ms(cfg, args)
     want, plain_ms = cuda_ms_once(lambda: packer.solve_scan_full_plain(cfg, args))
-    check_equal("solve_scan_full on the main path's operands", tuple(out), tuple(want))
+    check_equal("solve_scan_full on the main path's operands (resident)", tuple(out), tuple(want))
+    check_equal("solve_scan_full on the main path's operands (global)", tuple(out_global), tuple(want))
     plain["solve_scan_full"] = (args, want, plain_ms)
     full = _entry(
         "solve_scan_full", launches, _max_abs_err(tuple(out), tuple(want)), ms, plain_ms,
         nbytes(*args) + nbytes(*out), steps * (G * U * D + 2 * U * D), F64_OPS_PER_S, None, dev_ms,
         steps=steps, us_per_step=dev_ms * 1e3 / steps, device_ms_profiler=prof_ms,
-        device_ms_by="CUDA events around the bare launch",
+        device_ms_by="CUDA events around the bare launch", design="resident",
+        max_abs_err_global=_max_abs_err(tuple(out_global), tuple(want)),
     )
     rcfg, rargs, state0, p_lo = resume
     fresh = lambda: tuple(t.clone() for t in state0)  # noqa: E731
     got = packer.solve_scan_resume(rcfg, rargs, fresh(), p_lo)
+    got_global = packer.solve_scan_resume(rcfg, rargs, fresh(), p_lo, _design="global")
     want = packer.solve_scan_resume_plain(rcfg, rargs, fresh(), p_lo)
-    check_equal("solve_scan_resume on the last churn pass's inputs", tuple(got), tuple(want))
+    check_equal("solve_scan_resume on the last churn pass's inputs (resident)", tuple(got), tuple(want))
+    check_equal("solve_scan_resume on the last churn pass's inputs (global)", tuple(got_global), tuple(want))
     rsteps = int(got[-1])
     rms = cuda_ms_fresh(fresh, lambda st: packer.solve_scan_resume(rcfg, rargs, st, p_lo))
+    rms_global = cuda_ms_fresh(fresh, lambda st: packer.solve_scan_resume(rcfg, rargs, st, p_lo, _design="global"))
     rdev = device_kernel_ms(lambda: packer.solve_scan_resume(rcfg, rargs, fresh(), p_lo),
-                            ["solve_scan_kernel"], reps=5)
+                            SCAN_KERNELS, reps=5)
     rdev_ms = _dev_sum(rdev)
+    rdev_global = _dev_sum(device_kernel_ms(
+        lambda: packer.solve_scan_resume(rcfg, rargs, fresh(), p_lo, _design="global"), SCAN_KERNELS, reps=5))
     log(f"delta: the resume kernel's device time {rdev_ms} ms for the last churn pass's "
-        f"{rsteps} steps (wrapper {rms:.4f} ms, CUDA events)")
+        f"{rsteps} steps (wrapper {rms:.4f} ms, CUDA events); global design {rdev_global} ms "
+        f"(wrapper {rms_global:.4f} ms)")
     RG, RD = rargs[2].shape
     RU = rargs[4].shape[0]
     resume_entry = _entry(
@@ -1706,6 +1837,7 @@ def scan_state_entries(scan, resume, launches, plain):
         resume_bytes(rcfg, rargs, state0, got[:-1], p_lo), rsteps * (RG * RU * RD + 2 * RU * RD),
         F64_OPS_PER_S, None, rdev_ms, steps=rsteps,
         us_per_step=(rdev_ms * 1e3 / rsteps) if rdev_ms and rsteps else None, p_lo=int(p_lo),
+        design="resident", global_ms=rms_global, global_device_ms=rdev_global,
     )
     return [full, resume_entry]
 
@@ -1983,7 +2115,7 @@ def mesh_entries(captured, launches, plain):
                       rounds=1),
         resume_bytes(cfg, args, states[0], got[0][:-1], p_lo), rsteps * (G * U * D + 2 * U * D),
         F64_OPS_PER_S, None,
-        _per_call(_dev_sum(device_kernel_ms(lambda: run(fresh()), ["solve_scan_kernel"], reps=5)),
+        _per_call(_dev_sum(device_kernel_ms(lambda: run(fresh()), SCAN_KERNELS, reps=5)),
                   mesh.size),
         steps=rsteps, p_lo=int(p_lo),
         device_ms_by="profiler, kernels' device time per call summed over the replicas",

@@ -60,6 +60,9 @@ from karpenter_tpu_torch.scheduling.requirements import Requirements
 
 LAUNCHES: dict[str, int] = {
     "solve_scan": 0, "solve_scan_full": 0, "solve_scan_resume": 0,
+    # every kt_solve_scan launch again, by the design it took (beside the
+    # totals above, which count them by variant)
+    "scan_resident": 0, "scan_global": 0,
     "solve_block": 0, "solve_block_core": 0, "delta_scatter": 0, "delta_finalize": 0,
     "sharded_solve_block": 0, "sharded_solve_scan": 0, "sharded_solve_scan_full": 0,
     "sharded_solve_scan_resume": 0,
@@ -633,7 +636,51 @@ def _scan_dims(cfg: tuple, args: tuple) -> dict:
         "N": args[15].shape[0] if has_nodes else 1,
         "I": args[18].shape[1] if has_limits else 1,
         "L": args[24].shape[0] if has_limits else 1,
+        "T": T, "F": args[10].shape[0], "limits": bool(has_limits),
     }
+
+
+# the kernel's two designs (csrc/scan.cu): "resident" keeps the claim state
+# and the constant tables in shared memory for the whole launch, "global"
+# keeps the loop state in the caller's global buffers. The wrapper takes
+# the resident one whenever its set fits the shared memory a block may use.
+SCAN_SMEM_PER_BLOCK = 232448  # bytes a block may use on sm_90 (227 KB)
+SCAN_STATIC_RESERVE = 1024  # of them, the resident kernel's static scalars (ResShared)
+# the resident design's block size: the fastest bit-identical one of 256,
+# 512 and 1024 threads on the H100 (PERF.md, the kernel table)
+SCAN_THREADS = 256
+
+
+def scan_resident_bytes(d: dict) -> int:
+    """The resident design's dynamic shared memory in bytes for the scan
+    dims `d` (C, G, U, D, T, F, I and limits, as `_scan_dims` gives them):
+    csrc/scan.cu `res_layout`, array by array, widest elements first. Per
+    claim its key (8 bytes), claim_ti, claim_count and claim_fam (4 each),
+    u_valid as ceil(U/32) words; per group g_req and g_floor (8 D each) and
+    a cfit bit row of ceil(C/32) words, padded to an odd count; per
+    (family, group) trans_fam (int16) and trans_kind (1 byte); per (template,
+    group) open_fam (4), open_uok words, tol and open_ok (1 each); famu_ok as
+    T F words; uniq_alloc and the step's committed rem row (8 U D each),
+    usage0 (8 T D), one dirty bit per claim, a join's misses as U D bits;
+    the limits variant adds its pool charge (8
+    D), two uid words, the taken template's uids (U bytes) and three type
+    masks (I bytes each). Rounded up to 16."""
+    C, G, U, D, T, F, I, lim = (d[k] for k in ("C", "G", "U", "D", "T", "F", "I", "limits"))
+    wc, wu = -(-C // 32), -(-U // 32)
+    n = 8 * (C + 2 * G * D + 2 * U * D + T * D + (D if lim else 0))
+    n += 4 * (G * (wc | 1) + C * wu + 3 * C + T * F * wu + T * G * wu + T * G + wc + -(-U * D // 32)
+              + (2 * wu if lim else 0))
+    n += 2 * F * G + F * G + 2 * T * G + ((U + 3 * I) if lim else 0)
+    return -(-n // 16) * 16
+
+
+def scan_design(cfg: tuple, args: tuple) -> str:
+    """"resident" when the resident set of these operands' dims fits (and
+    trans_fam fits int16), else "global": a function of the shapes alone,
+    never of the values or of a failed launch."""
+    d = _scan_dims(cfg, args)
+    fits = scan_resident_bytes(d) + SCAN_STATIC_RESERVE <= SCAN_SMEM_PER_BLOCK and d["F"] <= 32767
+    return "resident" if fits else "global"
 
 
 def _state_spec(cfg: tuple, args: tuple) -> tuple:
@@ -892,8 +939,9 @@ _scan_lib_cache: list = []
 
 # the kernel's parameter block (csrc/scan.cu ScanParams)
 _N_PTRS = 24 + 17 + 1  # operands (less claim_pad, n_pods, n_nodes), state, scratch
-_N_DIMS = 18
+_N_DIMS = 20
 _MODE_FULL, _MODE_RESUME = 0, 1
+_DESIGNS = {"global": 0, "resident": 1}
 
 
 def _scan_lib() -> ctypes.CDLL:
@@ -901,8 +949,17 @@ def _scan_lib() -> ctypes.CDLL:
         lib = kernel_library("scan")
         lib.kt_solve_scan.restype = ctypes.c_int
         lib.kt_solve_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.kt_scan_resident_bytes.restype = ctypes.c_longlong
+        lib.kt_scan_resident_bytes.argtypes = [ctypes.c_void_p]
         _scan_lib_cache.append(lib)
     return _scan_lib_cache[0]
+
+
+def scan_resident_bytes_kernel(d: dict) -> int:
+    """The kernel's own count of `scan_resident_bytes(d)` (builds the
+    library), for the card checks that the two agree."""
+    dims = (ctypes.c_int * 8)(*(int(d[k]) for k in ("C", "G", "U", "D", "T", "F", "I", "limits")))
+    return int(_scan_lib().kt_scan_resident_bytes(dims))
 
 
 def _check_scan_operands(cfg: tuple, args: tuple) -> None:
@@ -944,11 +1001,14 @@ def _alloc_state(cfg: tuple, args: tuple) -> tuple:
     return tuple(torch.empty(shape, dtype=dt, device=dev) for _, shape, dt in _state_spec(cfg, args))
 
 
-def _launch_scan(cfg: tuple, args: tuple, state: tuple, mode: int, p_lo: int = 0) -> None:
+def _launch_scan(cfg: tuple, args: tuple, state: tuple, mode: int, p_lo: int = 0,
+                 design: Optional[str] = None, threads: int = SCAN_THREADS) -> str:
     """One kt_solve_scan launch: `_MODE_FULL` initializes `state` and runs
     the loop; `_MODE_RESUME` loads the scalars from state[0], enqueues the
     suffix [p_lo, n_pods) and runs the loop. Either writes `state` in
-    place."""
+    place. `design` None takes `scan_design`'s; `threads` is the resident
+    design's block size. Returns the design launched; a refused launch
+    raises KernelError."""
     T, has_nodes, has_limits = cfg
     (
         pod_gi, claim_pad, g_req, g_floor, uniq_alloc, usage0, tol, open_ok,
@@ -973,52 +1033,61 @@ def _launch_scan(cfg: tuple, args: tuple, state: tuple, mode: int, p_lo: int = 0
         pool_rem0, pool_has, pool_bad, *state, colw,
     ]
     assert len(ptrs) == _N_PTRS
+    if design is None:
+        design = scan_design(cfg, args)
     dims = [P, d["G"], d["C"], d["U"], d["D"], trans_kind.shape[0], T, N, I, d["L"], d["Qcap"], WU,
-            n_pods_v, n_nodes_v, int(bool(has_nodes)), int(bool(has_limits)), mode, int(p_lo)]
+            n_pods_v, n_nodes_v, int(bool(has_nodes)), int(bool(has_limits)), mode, int(p_lo),
+            _DESIGNS[design], int(threads)]
     assert len(dims) == _N_DIMS
     ptr_arr = (ctypes.c_void_p * _N_PTRS)(*(t.data_ptr() for t in ptrs))
     dim_arr = (ctypes.c_int * _N_DIMS)(*dims)
     rc = launch(dev, _scan_lib().kt_solve_scan, ptr_arr, dim_arr)
     if rc != 0:
-        raise KernelError(f"solve_scan: CUDA launch failed with cudaError {rc}")
+        raise KernelError(f"solve_scan: CUDA launch of the {design} design failed with cudaError {rc}")
+    return design
 
 
-def _solve_scan_full(cfg: tuple, args: tuple, name: str) -> tuple:
-    """One full-mode launch on fresh state, counted under `name`; returns
-    the state, then `steps`."""
+def _solve_scan_full(cfg: tuple, args: tuple, name: str, design: Optional[str]) -> tuple:
+    """One full-mode launch on fresh state, counted under `name` and its
+    design; returns the state, then `steps`."""
     _check_scan_operands(cfg, args)
     state = _alloc_state(cfg, args)
-    _launch_scan(cfg, args, state, _MODE_FULL)
+    design = _launch_scan(cfg, args, state, _MODE_FULL, design=design)
     LAUNCHES[name] += 1
+    LAUNCHES[f"scan_{design}"] += 1
     return state + (state[0][7],)
 
 
-def solve_scan(cfg: tuple, args: tuple) -> tuple:
+def solve_scan(cfg: tuple, args: tuple, _design: Optional[str] = None) -> tuple:
     """Run the fused scan (B14). cfg = (T, has_nodes, has_limits), the
     static variant; args = the 27 operands (convert.scan_operands_from_numpy).
     Returns (abort, nclaims, pod_claim, pod_node, pod_seq, claim_ti,
-    claim_fam, u_valid, tm_st, pool_rem, steps)."""
+    claim_fam, u_valid, tm_st, pool_rem, steps). `_design` forces a kernel
+    design ("global" or "resident"), for the card checks only; the design
+    otherwise follows the dims (`scan_design`)."""
     if _on_cpu(args[0]):
         return solve_scan_plain(cfg, args)
-    out = _solve_scan_full(cfg, args, "solve_scan")
+    out = _solve_scan_full(cfg, args, "solve_scan", _design)
     return _scan_finals(out[:-1]) + (out[-1],)
 
 
-def solve_scan_full(cfg: tuple, args: tuple) -> tuple:
+def solve_scan_full(cfg: tuple, args: tuple, _design: Optional[str] = None) -> tuple:
     """The cold scan returning its full final state (B15): the
     SCAN_STATE_FIELDS tensors (`scal` then 16 tensors; the reference's 23
-    components, convert.scan_state_to_numpy), then `steps`."""
+    components, convert.scan_state_to_numpy), then `steps`. `_design` as
+    for solve_scan."""
     if _on_cpu(args[0]):
         return solve_scan_full_plain(cfg, args)
-    return _solve_scan_full(cfg, args, "solve_scan_full")
+    return _solve_scan_full(cfg, args, "solve_scan_full", _design)
 
 
-def solve_scan_resume(cfg: tuple, args: tuple, state: tuple, p_lo: int) -> tuple:
+def solve_scan_resume(cfg: tuple, args: tuple, state: tuple, p_lo: int,
+                      _design: Optional[str] = None) -> tuple:
     """Warm resume (B16): continue the scan from a resident final state
     with the suffix pods [p_lo, n_pods) enqueued. Sound ONLY under the
     residency eligibility contract (ops/delta.py). The state tensors are
     written in place — a warm pass allocates no new state. Returns the
-    state, then this launch's `steps`."""
+    state, then this launch's `steps`. `_design` as for solve_scan."""
     if len(state) != len(SCAN_STATE_FIELDS):
         raise ValueError(f"solve_scan_resume takes {len(SCAN_STATE_FIELDS)} state tensors, got {len(state)}")
     if _on_cpu(args[0]):
@@ -1027,8 +1096,9 @@ def solve_scan_resume(cfg: tuple, args: tuple, state: tuple, p_lo: int) -> tuple
     dev = args[0].device
     for t, (name, shape, dt) in zip(state, _state_spec(cfg, args)):
         _check(f"solve_scan_resume state {name}", t, dt, shape, dev)
-    _launch_scan(cfg, args, state, _MODE_RESUME, p_lo)
+    design = _launch_scan(cfg, args, state, _MODE_RESUME, p_lo, design=_design)
     LAUNCHES["solve_scan_resume"] += 1
+    LAUNCHES[f"scan_{design}"] += 1
     return tuple(state) + (state[0][7],)
 
 

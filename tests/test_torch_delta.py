@@ -47,7 +47,7 @@ from karpenter_tpu_torch.ops import fused as tfused  # noqa: E402
 from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
 from karpenter_tpu_torch.scheduler import nodeclaim as tnodeclaim  # noqa: E402
 from test_torch_group import build_shapes, churn_batch, engine_for  # noqa: E402
-from torch_inputs import scan_inputs  # noqa: E402
+from torch_inputs import SCAN_EDGE_CASES, scan_edge_inputs, scan_inputs  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -121,6 +121,44 @@ def test_scan_full_and_resume_plain_match_jax(monkeypatch, variant, seed):
     if abort == 0 and not stop and head == tail == p_lo:
         _assert_state_equal(convert.scan_state_to_numpy(res[:-1]), want_full)
         assert int(res[-1]) == n_pods - p_lo or int(want_full[1]) > n_pods
+
+
+@pytest.mark.parametrize("case", SCAN_EDGE_CASES)
+def test_scan_edges_plain_match_jax(monkeypatch, case):
+    """The edges the card tests hold the kernel's designs to
+    (tests/torch_inputs.py scan_edge_inputs): the plain full solve, or for
+    queue_overflow the plain resume from the JAX prefix state with head and
+    tail moved to Qcap - 4, equals the JAX program's, and the edge is
+    really reached."""
+    monkeypatch.setattr(jpacker, "scan_x64", _x64)
+    cfg, args, p_lo = scan_edge_inputs(case)
+    n_pods = int(args[13])
+    ops = convert.scan_operands_from_numpy(args, "cpu")
+    if p_lo is None:
+        with jpacker.scan_x64():
+            want = tuple(np.asarray(a) for a in jpacker.solve_scan_full_fn(*cfg)(*args))
+        got = tpacker.solve_scan_full(cfg, ops)
+    else:
+        with jpacker.scan_x64():
+            pre = [np.asarray(a) for a in jpacker.solve_scan_full_fn(*cfg)(*_prefix_args(args, p_lo))]
+            assert int(pre[0]) == int(pre[1]) == p_lo  # the prefix drained
+            pre[0] = pre[1] = np.int32(pre[7].shape[0] - (n_pods - p_lo) - 1)  # head = tail = Qcap - 4
+            want = tuple(np.asarray(a) for a in jpacker.solve_scan_resume_fn(*cfg)(
+                *args, *(jnp.asarray(a) for a in pre), np.int32(p_lo)))
+        got = tpacker.solve_scan_resume(cfg, ops, convert.scan_state_from_numpy(pre, "cpu"), p_lo)
+    _assert_state_equal(convert.scan_state_to_numpy(got[:-1]), want)
+    head, tail, stop, abort, steps = (int(got[0][k]) for k in (0, 1, 2, 3, 7))
+    if case == "requeue_last":  # one requeue at head + 1 == tail, then the cycle stop
+        assert (head, tail, stop, abort, steps) == (n_pods, n_pods + 1, 1, 0, n_pods + 1)
+    elif case == "cycle_stop":
+        assert stop == 1 and abort == 0 and tail > n_pods + 1
+    elif case == "claim_overflow":
+        assert abort == tpacker.SCAN_CLAIM_OVERFLOW
+    elif case == "keys_max":  # every pod of group 1 opened a claim of its own
+        n1 = int((args[0][:n_pods] == 1).sum())
+        assert n1 > 1 and abort == 0 and int(got[0][6]) >= n1
+    else:  # one requeue into the last slot, then the queue is full
+        assert abort == tpacker.SCAN_QUEUE_OVERFLOW and tail == want[7].shape[0] and steps == 2
 
 
 def test_scan_state_round_trip():

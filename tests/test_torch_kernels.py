@@ -25,11 +25,14 @@ from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
 from karpenter_tpu_torch.device import KernelError  # noqa: E402
 from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    core_inputs, cube_inputs, fits_inputs, group_inputs, offering_inputs, row_inputs, scan_inputs,
-    stage_inputs, to_torch, uid_inputs,
+    SCAN_EDGE_CASES, core_inputs, cube_inputs, fits_inputs, group_inputs, offering_inputs, row_inputs,
+    scan_edge_inputs, scan_inputs, stage_inputs, to_torch, uid_inputs,
 )
 
 SEEDS = range(8)
+# the scan kernel's two designs (csrc/scan.cu): the wrapper takes the
+# resident one for every shape below whose set fits; "global" is forced
+SCAN_DESIGNS = ["resident", "global"]
 
 
 @pytest.fixture
@@ -61,24 +64,93 @@ def test_uid_project_matches_plain_on_card(cuda_device, seed):
         assert torch.equal(tfeas.uid_project(onehot, mask), tfeas.uid_project_plain(onehot, mask))
 
 
+def _force(design: str):
+    """The wrapper's internal design argument: None (its own choice) for
+    the resident design, which these shapes fit, "global" to force it."""
+    return None if design == "resident" else design
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", SCAN_DESIGNS)
 @pytest.mark.parametrize("variant", ["plain", "nodes", "limits", "both"])
 @pytest.mark.parametrize("seed", range(3))
-def test_solve_scan_matches_plain_on_card(cuda_device, variant, seed):
+def test_solve_scan_matches_plain_on_card(cuda_device, variant, seed, design):
     """All 10 outputs and the step count bit for bit (float64 compared
-    as raw bits)."""
+    as raw bits), in each design."""
     cfg, args = scan_inputs(seed, variant in ("nodes", "both"), variant in ("limits", "both"))
     ops = convert.scan_operands_from_numpy(args, cuda_device)
-    n0 = tpacker.LAUNCHES["solve_scan"]
-    got = tpacker.solve_scan(cfg, ops)
+    assert tpacker.scan_design(cfg, ops) == "resident"
+    n0, d0 = tpacker.LAUNCHES["solve_scan"], tpacker.LAUNCHES[f"scan_{design}"]
+    got = tpacker.solve_scan(cfg, ops, _design=_force(design))
     want = tpacker.solve_scan_plain(cfg, ops)
     torch.cuda.synchronize()
     assert tpacker.LAUNCHES["solve_scan"] == n0 + 1
+    assert tpacker.LAUNCHES[f"scan_{design}"] == d0 + 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         if g.dtype == torch.float64:
             g, w = g.view(torch.int64), w.view(torch.int64)
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "nodes", "limits", "both"])
+def test_solve_scan_past_the_budget_takes_the_global_design_on_card(cuda_device, variant):
+    """scan_inputs(3): 16384 claim slots, past the resident set's shared
+    memory, so the public entry point launches the global design; the
+    outputs still equal the plain loop's."""
+    cfg, args = scan_inputs(3, variant in ("nodes", "both"), variant in ("limits", "both"))
+    ops = convert.scan_operands_from_numpy(args, cuda_device)
+    assert tpacker.scan_design(cfg, ops) == "global"
+    d0 = {k: tpacker.LAUNCHES[k] for k in ("scan_resident", "scan_global")}
+    got = tpacker.solve_scan(cfg, ops)
+    want = tpacker.solve_scan_plain(cfg, ops)
+    torch.cuda.synchronize()
+    assert {k: tpacker.LAUNCHES[k] - v for k, v in d0.items()} == {"scan_resident": 0, "scan_global": 1}
+    assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", SCAN_DESIGNS)
+@pytest.mark.parametrize("case", SCAN_EDGE_CASES)
+def test_solve_scan_edges_match_plain_on_card(cuda_device, case, design):
+    """The loop's edges (tests/torch_inputs.py scan_edge_inputs): a requeue
+    when head + 1 == tail, the cycle stop, claim overflow, only KEY_MAX keys
+    with claims open, and (resumed at Qcap - 4) queue overflow; the whole
+    state bit for bit against the plain loop, in each design."""
+    cfg, args, p_lo = scan_edge_inputs(case)
+    ops = convert.scan_operands_from_numpy(args, cuda_device)
+    if p_lo is None:
+        got = tpacker.solve_scan_full(cfg, ops, _design=_force(design))
+        want = tpacker.solve_scan_full_plain(cfg, ops)
+    else:
+        pre = list(args)
+        pre[0] = args[0].copy()
+        pre[0][p_lo:] = -1
+        pre[13] = type(args[13])(p_lo)
+        state = tpacker.solve_scan_full_plain(cfg, convert.scan_operands_from_numpy(pre, cuda_device))[:-1]
+        state[0][0] = state[0][1] = state[1].shape[0] - (int(args[13]) - p_lo) - 1
+        ref = tuple(t.clone() for t in state)
+        got = tpacker.solve_scan_resume(cfg, ops, state, p_lo, _design=_force(design))
+        want = tpacker.solve_scan_resume_plain(cfg, ops, ref, p_lo)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+def test_scan_resident_bytes_match_the_kernel_on_card(cuda_device):
+    """ops/packer.py's count of the resident set equals csrc/scan.cu's."""
+    for seed in range(4):
+        for nodes, limits in ((False, False), (True, True)):
+            cfg, args = scan_inputs(seed, nodes, limits)
+            d = tpacker._scan_dims(cfg, convert.scan_operands_from_numpy(args, "cpu"))
+            assert tpacker.scan_resident_bytes(d) == tpacker.scan_resident_bytes_kernel(d), (seed, d)
+    bench = {"C": 2048, "G": 128, "U": 36, "D": 4, "T": 1, "F": 64, "I": 1008, "limits": False}
+    for C in (2048, 4096, 8192):
+        d = {**bench, "C": C}
+        assert tpacker.scan_resident_bytes(d) == tpacker.scan_resident_bytes_kernel(d)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -105,12 +177,14 @@ def test_group_kernels_match_plain_on_card(cuda_device, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", SCAN_DESIGNS)
 @pytest.mark.parametrize("variant", ["plain", "nodes", "limits", "both"])
 @pytest.mark.parametrize("seed", range(3))
-def test_solve_scan_full_and_resume_match_plain_on_card(cuda_device, variant, seed):
+def test_solve_scan_full_and_resume_match_plain_on_card(cuda_device, variant, seed, design):
     """B15 (kt_solve_scan, full mode) against the plain full solve, and B16
     (resume mode) from the plain state of a prefix against the plain
-    resume: every state tensor and the step count bit for bit."""
+    resume: every state tensor and the step count bit for bit, in each
+    design."""
     cfg, args = scan_inputs(seed, variant in ("nodes", "both"), variant in ("limits", "both"))
     ops = convert.scan_operands_from_numpy(args, cuda_device)
     n_pods = int(args[13])
@@ -120,11 +194,11 @@ def test_solve_scan_full_and_resume_match_plain_on_card(cuda_device, variant, se
     pre[0][p_lo:] = -1
     pre[13] = type(args[13])(p_lo)
     pre_ops = convert.scan_operands_from_numpy(pre, cuda_device)
-    got = tpacker.solve_scan_full(cfg, ops)
+    got = tpacker.solve_scan_full(cfg, ops, _design=_force(design))
     want = tpacker.solve_scan_full_plain(cfg, ops)
-    state_k = tpacker.solve_scan_full(cfg, pre_ops)[:-1]
+    state_k = tpacker.solve_scan_full(cfg, pre_ops, _design=_force(design))[:-1]
     state_p = tuple(t.clone() for t in state_k)
-    res_k = tpacker.solve_scan_resume(cfg, ops, state_k, p_lo)
+    res_k = tpacker.solve_scan_resume(cfg, ops, state_k, p_lo, _design=_force(design))
     res_p = tpacker.solve_scan_resume_plain(cfg, ops, state_p, p_lo)
     torch.cuda.synchronize()
     for g, w in list(zip(got, want)) + list(zip(res_k, res_p)):

@@ -155,11 +155,12 @@ def test_scan_plain_matches_jax_scan(fresh, monkeypatch, kind, seed):
 
 
 @pytest.mark.parametrize("variant", ["plain", "nodes", "limits", "both"])
-@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("seed", range(4))
 def test_scan_plain_matches_jax_on_random_operands(monkeypatch, variant, seed):
     """Random consistent operands (tests/torch_inputs.py, also used on the
     card) reach requeues, cycle stops and fit-edge ties a solve rarely
-    does: the plain scan still equals the JAX scan exactly."""
+    does, and seed 3 a claim axis past the kernel's resident design: the
+    plain scan still equals the JAX scan exactly."""
     monkeypatch.setattr(jpacker, "scan_x64", _x64)
     cfg, args = scan_inputs(seed, variant in ("nodes", "both"), variant in ("limits", "both"))
     with jpacker.scan_x64():
@@ -180,6 +181,70 @@ def test_scan_operands_keep_reference_dtypes():
     bad[0] = bad[0].astype(np.float64) + 0.5  # pod_gi not integral
     with pytest.raises(ValueError):
         convert.scan_operands_from_numpy(bad, "cpu")
+
+
+# -- the kernel's design choice --------------------------------------------------------
+
+# the fused solve's scan at the bench shape (50,000 pods x 1008 types)
+BENCH_DIMS = {"C": 2048, "G": 128, "U": 36, "D": 4, "T": 1, "F": 64, "I": 1008, "limits": False}
+
+
+@pytest.mark.parametrize("dims,want", [
+    # 8-byte: keys 2048, g_req and g_floor 2*128*4, uniq_alloc and the rem row
+    # 2*36*4, usage0 1*4: 3364 -> 26912; 4-byte: cfit 128 rows of 64|1 = 65
+    # words, u_valid 2048*2 words, claim_ti/count/fam 3*2048, famu_ok 1*64*2
+    # words, open_uok 1*128*2 words, open_fam 128, dirty 64, the join's
+    # misses 144/32 -> 5: 19141 -> 76564; 2-byte: trans_fam 64*128 -> 16384;
+    # 1-byte: trans_kind 64*128, tol and open_ok 2*128: 8448. 128308 -> 128320
+    (BENCH_DIMS, 128320),
+    # C = 8192: keys 65536 + 10528; cfit 128*257, u_valid 8192*2, 3*8192,
+    # 128 + 256 + 128, dirty 256, misses 5: 74629 words -> 298516; + 16384 +
+    # 8448: 399412 -> 399424
+    ({**BENCH_DIMS, "C": 8192}, 399424),
+    # limits, small: 8-byte 16 + 96 + 30 + 6 + the pool charge 3 = 151 ->
+    # 1208; 4-byte 16 + 16 + 48 + 16 + 32 + 32 + 1 + misses 1 + two uid words
+    # 2 = 164 -> 656; 2-byte 256; 1-byte 128 + 64 + the template's uids 5 +
+    # three type masks 90 = 287; 2407 -> 2416
+    ({"C": 16, "G": 16, "U": 5, "D": 3, "T": 2, "F": 8, "I": 30, "limits": True}, 2416),
+])
+def test_scan_resident_bytes_by_hand(dims, want):
+    assert tpacker.scan_resident_bytes(dims) == want
+
+
+def _meta(cfg: tuple, ops: tuple) -> tuple:
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device="meta") for t in ops)
+
+
+def _bench_operands(C: int) -> tuple:
+    """Operands of the bench shape (P=65536, G=128, U=36, D=4, F=64, T=1, no
+    nodes or limits) as meta tensors: shapes and dtypes, no values."""
+    P, G, U, D, T, F = 65536, 128, 36, 4, 1, 64
+    shapes = [(P,), (C,), (G, D), (G, D), (U, D), (T, D), (T, G), (T, G), (T, G), (T, G, U),
+              (F, G), (F, G), (T, F, U), (), (), (1, G), (1, D), (F, 1008), (1, 1), (1, 1, 1),
+              (U, 1008), (1,), (1, 1), (T,), (1, D), (1, D), (1,)]
+    return tuple(torch.empty(s, dtype=dt, device="meta") for s, (_, dt) in zip(shapes, convert.SCAN_OPERANDS))
+
+
+def test_scan_design_fits_the_bench_shape_and_not_8192_claims():
+    cfg = (1, False, False)
+    d = tpacker._scan_dims(cfg, _bench_operands(2048))
+    assert all(d[k] == v for k, v in BENCH_DIMS.items() if k != "I")  # I counts with limits only
+    assert tpacker.scan_design(cfg, _bench_operands(2048)) == "resident"
+    assert tpacker.scan_design(cfg, _bench_operands(4096)) == "resident"
+    assert tpacker.scan_design(cfg, _bench_operands(8192)) == "global"
+
+
+@pytest.mark.parametrize("variant", ["plain", "nodes", "limits", "both"])
+@pytest.mark.parametrize("seed", range(4))
+def test_scan_design_depends_on_the_dims_alone(variant, seed):
+    """The design of real operands is that of meta tensors of the same
+    shapes (which hold no values); seed 3's 16384 claim slots take the
+    global design, the others the resident one."""
+    cfg, args = scan_inputs(seed, variant in ("nodes", "both"), variant in ("limits", "both"))
+    ops = convert.scan_operands_from_numpy(args, "cpu")
+    design = tpacker.scan_design(cfg, ops)
+    assert design == tpacker.scan_design(cfg, _meta(cfg, ops))
+    assert design == ("global" if seed == 3 else "resident")
 
 
 # -- whole solves --------------------------------------------------------------------

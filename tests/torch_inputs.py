@@ -117,14 +117,16 @@ def scan_inputs(seed: int, has_nodes: bool, has_limits: bool):
     n_pods carry group -1), famu_ok the uid projection of tmpl_mask and
     fam_mask. Resources are multiples of 0.5, so exact ties hit the 1e-9
     fit edges; even seeds carry a group that fits nothing, seed 2 mod 3 a
-    claim axis too short for the batch. Returns ((T, has_nodes, has_limits), operands)."""
+    claim axis too short for the batch, seed 3 a claim axis of 16384 slots,
+    past the shared-memory budget of the kernel's resident design. Returns
+    ((T, has_nodes, has_limits), operands)."""
     rng = np.random.RandomState(300 + seed)
     T = int(rng.randint(1, 4))
     Pr, Pb = int(rng.randint(40, 200)), 256
     Gr, Gb = int(rng.randint(3, 12)), 16
     Fr, Fb = int(rng.randint(2, 7)), 8
     U, I, D = int(rng.randint(1, 7)), int(rng.randint(8, 40)), 3
-    C = (256, 64, 16)[seed % 3]  # 16 slots overflow: SCAN_CLAIM_OVERFLOW
+    C = 16384 if seed == 3 else (256, 64, 16)[seed % 3]  # 16 slots overflow: SCAN_CLAIM_OVERFLOW
     half = lambda lo, hi, shape: rng.randint(lo, hi, size=shape) * 0.5  # noqa: E731
 
     pod_gi = np.full(Pb, -1, np.int32)
@@ -196,6 +198,60 @@ def scan_inputs(seed: int, has_nodes: bool, has_limits: bool):
         pool_of_t, pool_rem0, pool_has, pool_bad,
     )
     return (T, has_nodes, has_limits), args
+
+
+SCAN_EDGE_CASES = ("requeue_last", "cycle_stop", "claim_overflow", "keys_max", "queue_overflow")
+
+
+def scan_edge_inputs(case: str):
+    """Operands of the plain variant (scan_inputs(0): group 0 fits nothing
+    and no template opens it) that drive the scan's loop to one edge:
+
+    - requeue_last: every pod but the last is placed (every other group may
+      open a claim), the last is group 0: it fails when head + 1 == tail,
+      is requeued as the only pod left, and stops the loop the next step;
+    - cycle_stop: every fourth pod is group 0: the failures requeue behind
+      the placed pods and the second pass over them stops on the cycle
+      check;
+    - claim_overflow: scan_inputs(2), 16 claim slots for the batch;
+    - keys_max: group 1 may join no claim (its transitions all REJECT), so
+      each of its pods finds only KEY_MAX keys, with claims open, and opens
+      its own;
+    - queue_overflow: as requeue_last, but the last three pods are group 0;
+      the caller solves the prefix of the other pods, moves head and tail to
+      Qcap - 4 and resumes with the three: they fill the queue but for its
+      last slot, the first failure is requeued there, and the second finds
+      the queue full (the reference's resume enqueue is defined while
+      tail + the suffix stays below Qcap).
+
+    Returns ((T, False, False), operands, p_lo), p_lo the first suffix pod
+    (queue_overflow) or None."""
+    if case == "claim_overflow":
+        cfg, args = scan_inputs(2, False, False)
+        return cfg, args, None
+    cfg, args = scan_inputs(0, False, False)
+    args = list(args)
+    n_pods = int(args[13])
+    pod_gi, tol, open_ok, trans_kind = (args[k].copy() for k in (0, 6, 7, 10))
+    real = pod_gi[:n_pods]
+    real[real == 0] = 1
+    groups = np.unique(real)
+    tol[:, groups] = True
+    open_ok[:, groups] = True
+    p_lo = None
+    if case == "requeue_last":
+        real[-1] = 0
+    elif case == "cycle_stop":
+        real[::4] = 0
+    elif case == "keys_max":
+        trans_kind[:, 1] = 0
+    elif case == "queue_overflow":
+        real[-3:] = 0
+        p_lo = n_pods - 3
+    else:
+        raise ValueError(case)
+    args[0], args[6], args[7], args[10] = pod_gi, tol, open_ok, trans_kind
+    return cfg, tuple(args), p_lo
 
 
 def offering_inputs(seed: int):
