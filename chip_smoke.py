@@ -18,8 +18,12 @@ Phases, in order; any failure exits non-zero:
      are the only ones they have: no path of the reference runs them);
      offering_reduce on ragged P/R/O/K (K=0, an offering never available);
      solve_block and solve_block_core on random operands (all-infeasible
-     groups, zero-request dims, price ties); delta_scatter with edge-padded
-     duplicate slots and
+     groups, zero-request dims, price ties); the sharded wrappers'
+     kt_cube_fused and kt_group_solve on ragged operands (R and K past 32,
+     I past a block, shards of padding only, a type without offerings and
+     one never available) on meshes repeating the card 1-3 times, the
+     entity rows staged from the host or read in place on the card, one
+     launch per call; delta_scatter with edge-padded duplicate slots and
      delta_finalize; the fused scan on the 27 operands of four small solves
      this script sets up (no nodes/limits; existing nodes with seeded
      usage; a second NodePool with a cpu limit; both at once with two
@@ -52,13 +56,16 @@ Phases, in order; any failure exits non-zero:
      left out): the full solve, and with delta on a cold pass, a
      count-only pass (0 groups solved) and a pass with new shapes;
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
-     mesh and on a 2-shard mesh (two cards when the machine has them, else
-     cuda:0 twice): a scan solve cold and warm (decisions equal to phase
+     mesh, on a 2-shard mesh (two cards when the machine has them, else
+     cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
+     cards: a scan solve cold and warm (decisions equal to phase
      4's), a delta churn of 6 passes with one self-check (1 miss, then
      warm, decisions equal to delta off, one resident state per shard),
      the group solver's sharded solve of the 200 groups (equal to the
      unsharded solve_block); every replica's scan outputs equal to each
-     other, and exact launch counts per shard;
+     other, and exact launch counts per card: one kt_cube_fused a sweep,
+     one kt_group_solve a block solve, one kt_solve_scan per replica, and
+     no unsharded cube or block kernel;
   6. decision identity on a 5,000-pod prefix: CUDA with the scan, CUDA with
      the walk and a device="cpu" engine (walk, plain versions); and the
      nodes-and-limits solve with the scan on CUDA against the plain scan on
@@ -76,7 +83,12 @@ Phases, in order; any failure exits non-zero:
      both designs on phase 4's operands (each against the plain loop), their
      device times taken in turns (resident, global, global, resident), the
      resident design at 256, 512 and 1024 threads, and ptxas's registers,
-     shared memory and spills for both kernels;
+     shared memory and spills for both kernels; the sharded cube's and
+     group solve's entries also hold the host time of a call split by part
+     (wrapper_breakdown), the per-shard composition they replace rebuilt from public
+     pieces with its own breakdown and device time, and both timed in
+     turns (old, new, new, old); delta_scatter's holds it and index_put_
+     timed in turns;
   8. last line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and karpenter_tpu_torch only.
@@ -86,6 +98,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import itertools
 import json
 import os
@@ -157,6 +170,28 @@ REPLACES = {
     "sharded_solve_scan": "karpenter_tpu/ops/packer.py:930",
     "sharded_solve_scan_full": "karpenter_tpu/ops/packer.py:954",
     "sharded_solve_scan_resume": "karpenter_tpu/ops/packer.py:975",
+}
+# the C entry points each row launches
+ENTRY_POINTS = {
+    "row_compat": "kt_row_compat",
+    "membership": "kt_membership",
+    "cube": "kt_membership + kt_cube_offer",
+    "uid_project": "kt_uid_project",
+    "solve_scan": "kt_solve_scan",
+    "offering_reduce": "kt_cube_offer",
+    "solve_block": "kt_membership + kt_cube_offer + kt_solve_block",
+    "solve_block_core": "kt_membership + kt_cube_offer + kt_solve_block",
+    "delta_scatter": "kt_delta_scatter",
+    "delta_finalize": "kt_delta_finalize",
+    "solve_scan_full": "kt_solve_scan",
+    "solve_scan_resume": "kt_solve_scan",
+    "fits_matrix": "kt_fits_matrix_i32 / kt_fits_matrix_f32",
+    "stage_plane": "kt_stage_plane",
+    "sharded_cube": "kt_cube_fused",
+    "sharded_solve_block": "kt_group_solve",
+    "sharded_solve_scan": "kt_solve_scan",
+    "sharded_solve_scan_full": "kt_solve_scan",
+    "sharded_solve_scan_resume": "kt_solve_scan",
 }
 # float32 operations per second outside the tensor cores (H100 SXM data
 # sheet: 67 TFLOP/s FP32), the rate of fits_matrix's float32 compares
@@ -281,6 +316,80 @@ def random_group_inputs(rng, G, R, K, I, O, D, dev):
         price,
     )
     return tuple(_to(a, dev) for a in host)
+
+
+def random_mesh_inputs(rng, P, n, R, K, I, O, D):
+    """Host operands of the sharded cube and group solve on an n-shard
+    mesh: P entities padded as the engine pads them (pow2, aligned to
+    mesh_multiple(n); padding rows all-False / zero, so a shard may hold
+    only padding); owner-major offerings with type 3 owning none and type
+    5's never available; prices from a small set (ties), group 0 fitting
+    no type. Returns (P2, membership, key_present, group_ints, req_compat,
+    offer_compat, custom_need, available, owner, alloc_q, price)."""
+    from karpenter_tpu_torch.mesh import mesh_multiple
+
+    align = mesh_multiple(n)
+    P2 = -(-max(1 << max(0, (P - 1).bit_length()), align) // align) * align
+    owner = np.sort(rng.choice(np.setdiff1d(np.arange(I), [3]), size=O)).astype(np.int32)
+    available = rng.rand(O) < 0.9
+    available[owner == 5] = False
+    offer_price = rng.choice([0.25, 0.5, 1.0, 2.0], size=O).astype(np.float32)
+    price = np.full(I, np.inf, dtype=np.float32)
+    np.minimum.at(price, owner[available], offer_price[available])
+    membership = np.zeros((P2, R), dtype=bool)
+    membership[:P] = rng.rand(P, R) < min(1.0, 4.0 / R)
+    key_present = np.zeros((P2, K), dtype=bool)
+    key_present[:P] = rng.rand(P, K) < 0.5
+    group_ints = np.zeros((P2, D + 1), dtype=np.int32)
+    group_ints[:P, :D] = rng.randint(0, 16, size=(P, D)) * (rng.rand(P, D) > 0.3)
+    group_ints[0, :D] = 1 << 20
+    group_ints[:P, D] = rng.randint(1, 500, size=P)
+    return (P2, membership, key_present, group_ints, rng.rand(R, I) < 0.9, rng.rand(R, O) < 0.9,
+            rng.rand(O, K) < 0.05, available, owner,
+            rng.randint(-2, 64, size=(I, D)).astype(np.int32), price)
+
+
+def sharded_kernel_checks(dev=torch.device("cuda")):
+    """kt_cube_fused (B5) and kt_group_solve (B13) through their wrappers
+    against the plain versions, bit for bit, on ragged operands (R and K
+    past 32 and not multiples of it, I not a multiple of a block and past
+    1024, P and G not multiples of 32, a shard of padding only, a type
+    without offerings, one whose offerings are never available, price
+    ties), on meshes repeating the card 1, 2 and 3 times, with the entity
+    operands on the host (staged) and on the card (read in place): one
+    launch per call on the one card."""
+    from karpenter_tpu_torch.mesh import Mesh
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+
+    rng = np.random.RandomState(3)
+    n_checks = 0
+    for P, R, K, I, O, D in ((45, 37, 45, 1000, 6000, 4), (3, 8, 8, 1008, 8064, 4),
+                             (200, 16, 0, 1500, 3001, 2), (70, 70, 9, 130, 900, 6)):
+        for n in (1, 2, 3):
+            mesh = Mesh([dev] * n)
+            P2, mem, kp, gi, rc, oc, cn, av, ow, aq, pr = random_mesh_inputs(rng, P, n, R, K, I, O, D)
+            cat_d = [_to(a, dev) for a in (rc, oc, cn, av, ow)]
+            plain = feas.production_cube_plain(_to(mem, dev), cat_d[0], cat_d[1], cat_d[2], _to(kp, dev),
+                                               cat_d[3], cat_d[4])
+            gb = np.concatenate([mem, kp], axis=1)
+            grp_d = cat_d + [_to(aq, dev), _to(pr, dev)]
+            plain_g = packer.solve_block_plain(_to(gb, dev), _to(gi, dev), *grp_d)
+            for where in ("host", "card"):
+                ent = (lambda a: torch.from_numpy(a)) if where == "host" else (lambda a: _to(a, dev))
+                l0 = dict(_count_launches())
+                got = feas.sharded_cube(mesh)(ent(mem), cat_d[0], cat_d[1], cat_d[2], ent(kp), cat_d[3],
+                                              cat_d[4])
+                check_equal(f"kt_cube_fused P={P2} R={R} K={K} I={I} O={O} on {n} shards ({where})",
+                            got, plain)
+                got_g = packer.sharded_solve_block(mesh)(ent(gb), ent(gi), *grp_d)
+                check_equal(f"kt_group_solve G={P2} R={R} K={K} I={I} O={O} D={D} on {n} shards ({where})",
+                            got_g, plain_g)
+                moved = {k: v - l0[k] for k, v in _count_launches().items() if v != l0[k]}
+                assert moved == {"sharded_cube": 1, "sharded_solve_block": 1}, moved
+                n_checks += 2
+    log(f"kernel checks: {n_checks} kt_cube_fused and kt_group_solve cases bit-identical to the plain "
+        f"versions, one launch per call on the card")
 
 
 def random_core_inputs(rng, cap, n, g, dev):
@@ -741,6 +850,7 @@ def phase_kernel_checks(dev=torch.device("cuda")):
         n += 2
     log(f"kernel checks: {n} offering_reduce, solve_block(_core) and delta_scatter/finalize cases "
         f"bit-identical to the plain versions")
+    sharded_kernel_checks(dev)
     catalog = construct_instance_types()
     pods = build_pods()[:SMALL_PODS]
     d0 = {k: packer.LAUNCHES[k] for k in ("scan_resident", "scan_global")}
@@ -1072,7 +1182,9 @@ def phase_delta(captured, device=None):
 def solver_meshes(device=None):
     """The meshes phase_mesh drives: one device, and two shards — two
     cards when the machine has them, else the first card twice (a
-    repeated device, the shards run one after the other)."""
+    repeated device: one launch covers both shards of the sharded cube
+    and group solve, the scan replicas run one after the other) — and, on
+    a machine with four cards or more, four shards on four cards."""
     from karpenter_tpu_torch.mesh import Mesh
 
     if device == "cpu":
@@ -1081,7 +1193,10 @@ def solver_meshes(device=None):
         d0 = torch.device("cuda", 0)
         d1 = torch.device("cuda", 1) if torch.cuda.device_count() >= 2 else d0
     two = "two cards" if d1 != d0 else f"{d0} twice"
-    return [("1-device", Mesh([d0])), (f"2-shard ({two})", Mesh([d0, d1]))]
+    meshes = [("1-device", Mesh([d0])), (f"2-shard ({two})", Mesh([d0, d1]))]
+    if device != "cpu" and torch.cuda.device_count() >= 4:
+        meshes.append(("4-shard (four cards)", Mesh([torch.device("cuda", i) for i in range(4)])))
+    return meshes
 
 
 def phase_mesh(captured, device=None):
@@ -1092,8 +1207,10 @@ def phase_mesh(captured, device=None):
     per shard); the group solver's sharded solve of the 200 groups against
     the unsharded solve_block. Every replica's scan outputs are compared
     with each other on the path; counts are zeroed before the first mesh
-    and read after the last, and must be exact per shard. The 2-shard
-    mesh's inputs are kept in `captured` for timing."""
+    and read after the last, and must be exact per card: the sharded cube
+    and group solve launch once per card a call, the scan once per
+    replica. The largest mesh's inputs are kept in `captured` for
+    timing."""
     from karpenter_tpu_torch.ops import delta, fused, packer
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops.catalog import CatalogEngine
@@ -1219,21 +1336,24 @@ def phase_mesh(captured, device=None):
             assert all(p[4] == n and p[3] == n * single for p in passes), "not one state per shard"
             last = decisions(passes[-1][5])
             assert not last[1] and decisions(off_results) == last, f"{label}: delta != delta off"
-            expect["sharded_cube"] += 2 * n * mesh_sweeps
-            expect["sharded_solve_block"] += n
+            cards = len(set(mesh.devices))
+            expect["sharded_cube"] += cards * mesh_sweeps
+            expect["sharded_solve_block"] += cards
             expect["sharded_solve_scan"] += 3 * n
             expect["sharded_solve_scan_full"] += n * (1 + checks)
             expect["sharded_solve_scan_resume"] += n * MESH_CHURN_PASSES
             if mesh.devices[0].type == "cuda":
-                # every shard's launches land on its own card: per shard
-                # each scan replica, one block solve, and a membership and
-                # an offering kernel per sweep and in the block solve
+                # every launch lands on its shards' card: per shard each
+                # scan replica; per card one kt_cube_fused a sweep and one
+                # kt_group_solve for the block solve, whatever number of
+                # shards it holds; none of the unsharded cube and block
+                # kernels
                 scans = 3 + 1 + checks + MESH_CHURN_PASSES
                 for d in dict.fromkeys(mesh.devices):
                     k = mesh.devices.count(d)
-                    want_d = {"kt_solve_scan": k * scans, "kt_solve_block": k,
-                              "kt_membership": k * (mesh_sweeps + 1),
-                              "kt_cube_offer": k * (mesh_sweeps + 1)}
+                    want_d = {"kt_solve_scan": k * scans, "kt_cube_fused": mesh_sweeps,
+                              "kt_group_solve": 1, "kt_solve_block": 0, "kt_membership": 0,
+                              "kt_cube_offer": 0}
                     got_d = {e: by_device[str(d)].get(e, 0) for e in want_d}
                     assert got_d == want_d, f"{label}: launches on {d} {got_d}, expected {want_d}"
         launches = _count_launches()
@@ -1244,7 +1364,8 @@ def phase_mesh(captured, device=None):
         delta.configure(mode=dmode0, resolve_full_every=every0)
     got = {k: launches[k] for k in expect}
     assert got == expect, f"mesh path launches {got}, expected {expect}"
-    assert launches["cube"] * 2 == launches["sharded_cube"], "an unsharded sweep ran on a mesh engine"
+    unsharded = {k: launches[k] for k in ("membership", "cube", "offering_reduce", "solve_block")}
+    assert not any(unsharded.values()), f"unsharded cube or block launches on the mesh path: {unsharded}"
     assert launches["solve_scan"] == launches["sharded_solve_scan"]
     assert launches["solve_scan_full"] == launches["sharded_solve_scan_full"]
     assert launches["solve_scan_resume"] == launches["sharded_solve_scan_resume"]
@@ -1493,6 +1614,7 @@ def _entry(name, launches, err, ms, plain_ms, bytes_moved, ops, ops_rate, librar
         "name": name,
         "route": "cuda",
         "source": SOURCE[name],
+        "entry": ENTRY_POINTS[name],
         "replaces": REPLACES[name],
         "launches": launches[name],
         "max_abs_err": err,
@@ -1912,10 +2034,17 @@ def group_entries(captured, launches):
     # rewriting the same rows is idempotent, so repeated calls time it
     core, slots, rows = captured["delta_scatter"]
     c_k, c_p, c_l = core.clone(), core.clone(), core.clone()
-    add("delta_scatter", lambda: packer.delta_scatter_rows(c_k, slots, rows),
-        lambda: packer.delta_scatter_rows_plain(c_p, slots, rows),
-        lambda: c_l.index_put_((slots.long(),), rows), (slots, rows), ["delta_scatter_kernel"], 0,
-        out_bytes=nbytes(rows), library_call="index_put_ (core[slots] = rows)", cap=int(core.shape[0]))
+    scatter = lambda: packer.delta_scatter_rows(c_k, slots, rows)  # noqa: E731
+    slots_l = slots.long()  # index_put_ takes int64 indices: converted once, outside the timing
+    index_put = lambda: c_l.index_put_((slots_l,), rows)  # noqa: E731
+    # the kernel against index_put_ in turns, each the median of 41 rounds
+    turns = [{"which": w, "ms": cuda_ms(f, rounds=41)}
+             for w, f in (("kernel", scatter), ("index_put_", index_put), ("index_put_", index_put),
+                          ("kernel", scatter))]
+    add("delta_scatter", scatter, lambda: packer.delta_scatter_rows_plain(c_p, slots, rows),
+        index_put, (slots, rows), ["delta_scatter_kernel"], 0,
+        out_bytes=nbytes(rows), library_call="index_put_ (core[slots] = rows)", cap=int(core.shape[0]),
+        turns=turns)
 
     fcore, order, counts = captured["delta_finalize"]
     Gb = order.shape[0]
@@ -1995,19 +2124,23 @@ def fits_stage_entries(captured):
 
 
 def _sharded_entry(name, mesh, launches, got, want, ms, plain_ms, shard_bytes, shard_ops, rate,
-                   library_ms, dev_ms, **extra):
+                   library_ms, dev_ms, card_bytes=0, **extra):
     """An entry of a sharded twin: the bound is that of the busiest card
-    (the shards it holds, each shard's bytes and operations), with the
-    bound of one shard and of all shards' work beside it."""
+    (the shards it holds, each shard's bytes and operations, plus
+    `card_bytes` read once per card: the replicated catalog of a wrapper
+    that launches once per card), with the bound of one shard and of all
+    shards' work beside it."""
     k = max(mesh.devices.count(d) for d in mesh.devices)
 
-    def bound(f):
-        return max(f * shard_bytes / HBM_BYTES_PER_S, f * shard_ops / rate) * 1e3
+    def bound(f, cards=1):
+        return max((f * shard_bytes + cards * card_bytes) / HBM_BYTES_PER_S,
+                   f * shard_ops / rate) * 1e3
 
     return _entry(
-        name, launches, _max_abs_err(got, want), ms, plain_ms, k * shard_bytes, k * shard_ops,
-        rate, library_ms, dev_ms, shards=mesh.size, devices=[str(d) for d in mesh.devices],
-        bound_ms_per_shard=bound(1), bound_ms_whole=bound(mesh.size), **extra,
+        name, launches, _max_abs_err(got, want), ms, plain_ms, k * shard_bytes + card_bytes,
+        k * shard_ops, rate, library_ms, dev_ms, shards=mesh.size,
+        devices=[str(d) for d in mesh.devices], bound_ms_per_shard=bound(1),
+        bound_ms_whole=bound(mesh.size, len(set(mesh.devices))), **extra,
     )
 
 
@@ -2017,8 +2150,259 @@ def _per_call(dev_ms, launches_per_call):
     return dev_ms * launches_per_call if dev_ms else None
 
 
+def old_sharded_cube(mesh):
+    """The per-shard sharded cube kt_cube_fused replaces, rebuilt from
+    public pieces for the before/after turns: per shard a pageable upload
+    of each entity slab (split_rows), production_cube there (kt_membership,
+    kt_cube_offer), then gather_rows."""
+    from karpenter_tpu_torch import mesh as mesh_mod
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    def run(membership, req_compat, offer_compat, custom_need, key_present, available, owner):
+        mem_s = mesh_mod.split_rows(membership, mesh)
+        kp_s = mesh_mod.split_rows(key_present, mesh)
+        rep = [mesh_mod.per_shard(x, mesh) for x in (req_compat, offer_compat, custom_need,
+                                                     available, owner)]
+        parts = [feas.production_cube(mem_s[s], rep[0][s], rep[1][s], rep[2][s], kp_s[s], rep[3][s],
+                                      rep[4][s]) for s in range(mesh.size)]
+        return (mesh_mod.gather_rows([p[0] for p in parts], mesh),
+                mesh_mod.gather_rows([p[1] for p in parts], mesh))
+
+    return run
+
+
+def old_sharded_solve_block(mesh):
+    """The per-shard sharded group solve kt_group_solve replaces, rebuilt
+    from public pieces: per shard a
+    pageable upload of each entity slab, solve_block there (kt_membership,
+    kt_cube_offer, kt_solve_block), then gather_rows."""
+    from karpenter_tpu_torch import mesh as mesh_mod
+    from karpenter_tpu_torch.ops import packer
+
+    def run(group_bools, group_ints, *catalog):
+        gb_s = mesh_mod.split_rows(group_bools, mesh)
+        gi_s = mesh_mod.split_rows(group_ints, mesh)
+        rep = [mesh_mod.per_shard(x, mesh) for x in catalog]
+        return mesh_mod.gather_rows(
+            [packer.solve_block(gb_s[s], gi_s[s], *(r[s] for r in rep)) for s in range(mesh.size)], mesh)
+
+    return run
+
+
+# the wrapper parts wrapper_breakdown times: label -> (module, attribute)
+# pairs; a pair the module lacks is skipped, so one table serves the per-shard
+# composition and the fused wrappers. Kernel launches are timed apart, by
+# C entry point ("enqueue <entry>").
+BREAKDOWN_PARTS = {
+    "upload": [("mesh", "split_rows"), ("mesh", "stage_rows")],
+    "replicate": [("mesh", "per_shard")],
+    "plan": [("mesh", "slab_plan")],
+    "checks": [("feas", "_check"), ("packer", "_check")],
+    "gather": [("mesh", "gather_rows"), ("mesh", "gather_cards")],
+}
+
+
+def wrapper_breakdown(run, reps=50) -> dict:
+    """Host microseconds of one call of `run` split by part: every part of
+    BREAKDOWN_PARTS and every kernel launch wrapped in a timer over `reps`
+    calls (each followed by a synchronize outside the timed call, after two
+    warmup calls). `rest_us` is the call's host time outside the parts
+    (Python, allocation, slicing). Parts never nest, so they add up."""
+    from karpenter_tpu_torch import mesh as mesh_mod
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+
+    mods = {"mesh": mesh_mod, "feas": feas, "packer": packer}
+    acc: dict = {}
+
+    def timed(label, fn):
+        def shim(*a, **kw):
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[label] = acc.get(label, 0) + time.perf_counter_ns() - t0
+        return shim
+
+    def launch_timer(real):
+        def shim(dev, entry, *args):
+            t0 = time.perf_counter_ns()
+            try:
+                return real(dev, entry, *args)
+            finally:
+                label = f"enqueue {entry.__name__}"
+                acc[label] = acc.get(label, 0) + time.perf_counter_ns() - t0
+        return shim
+
+    saved = []
+    for label, targets in BREAKDOWN_PARTS.items():
+        for mod, attr in targets:
+            real = getattr(mods[mod], attr, None)
+            if real is not None:
+                saved.append((mods[mod], attr, real))
+                setattr(mods[mod], attr, timed(label, real))
+    for mod in (feas, packer):
+        saved.append((mod, "launch", mod.launch))
+        mod.launch = launch_timer(mod.launch)
+    total = 0
+    try:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        acc.clear()
+        for _ in range(reps):
+            t0 = time.perf_counter_ns()
+            run()
+            total += time.perf_counter_ns() - t0
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, real in reversed(saved):
+            setattr(mod, attr, real)
+    parts = {k: v / reps / 1e3 for k, v in sorted(acc.items())}
+    host = total / reps / 1e3
+    return {"host_us": host, "parts_us": parts, "rest_us": host - sum(parts.values())}
+
+
+# the kernels a sharded wrapper may launch, by the profiler's names: the
+# per-shard composition's and the fused ones
+CUBE_KERNELS = ["membership_kernel", "cube_offer_kernel", "cube_fused_kernel"]
+GROUP_KERNELS = ["membership_kernel", "cube_offer_kernel", "solve_block_kernel",
+                 "group_solve_kernel"]
+
+
+def device_per_call(fn, names, reps=20, rounds=3) -> dict:
+    """Device ms per call of fn by kernel, from torch.profiler's CUDA
+    activity: per round of `reps` calls (after one warmup) each kernel's
+    mean ms per launch (its total over the launches the trace holds, so a
+    trace that misses a launch does not lower it), the median over
+    `rounds` rounds, times the launches a call makes (the trace's count
+    over the calls, rounded). Kernels that did not run are left out; their
+    sum is "total"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    means: dict = {}
+    counts: dict = {}
+    for _ in range(rounds):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for name in names:
+            total, count = 0.0, 0
+            for ev in prof.key_averages():
+                if name in ev.key:
+                    total += getattr(ev, "self_device_time_total", 0.0) or 0.0
+                    count += ev.count
+            if total and count:
+                means.setdefault(name, []).append(total / 1e3 / count)
+                counts.setdefault(name, []).append(count)
+    out = {}
+    for name, m in means.items():
+        per_call = max(1, round(statistics.median(counts[name]) / reps))
+        out[name] = statistics.median(m) * per_call
+    out["total"] = sum(v for v in out.values()) if out else None
+    out["launches_seen"] = {name: [c / reps for c in cs] for name, cs in counts.items()}
+    return out
+
+
+def bare_launch_ms(run, reps=50, rounds=5):
+    """Device ms of the one kernel launch a call of `run` makes on a mesh
+    of one card: the C entry point replayed with that call's own
+    arguments (its staged rows and outputs held), `reps` times back to
+    back between CUDA events, median of `rounds`. A bare launch enqueues
+    faster than these kernels run, so the span is the kernels' and the
+    gaps between them; the profiler's trace misses some launches of a
+    short window (`launches_seen`). None when a call launches on more than
+    one card."""
+    from karpenter_tpu_torch import mesh as mesh_mod
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+
+    seen, held = [], []
+    real_launch, real_stage = feas.launch, mesh_mod.stage_rows
+
+    def launch_shim(dev, entry, *args):
+        seen.append((dev, entry, args))
+        return real_launch(dev, entry, *args)
+
+    def stage_shim(*args):
+        out = real_stage(*args)
+        held.append(out)
+        return out
+
+    feas.launch = packer.launch = launch_shim
+    mesh_mod.stage_rows = stage_shim
+    try:
+        held.append(run())
+    finally:
+        feas.launch = packer.launch = real_launch
+        mesh_mod.stage_rows = real_stage
+    if len(seen) != 1:
+        return None
+    dev, entry, args = seen[0]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    times = []
+    with torch.cuda.device(dev):
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                assert entry(*args, stream) == 0
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def card_overlap(fn, names, mesh, calls=10):
+    """Whether one call's launches on distinct cards run at once: the
+    profiler's device intervals of the kernels in `names` over `calls`
+    calls (a synchronize after each), grouped per call; per call each
+    card's [start, end] in us from the call's first start, and whether the
+    latest start precedes the earliest end. None on a mesh of one card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cards = len(set(mesh.devices))
+    if cards < 2:
+        return None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and any(n in e.name for n in names)), key=lambda e: e.time_range.start)
+    per_call = []
+    for k in range(0, len(evs) - cards + 1, cards):
+        group = evs[k:k + cards]
+        t0 = min(e.time_range.start for e in group)
+        spans = {f"cuda:{e.device_index}": [e.time_range.start - t0, e.time_range.end - t0] for e in group}
+        per_call.append({"spans_us": spans, "overlap": max(e.time_range.start for e in group)
+                         < min(e.time_range.end for e in group)})
+    return {"calls": len(per_call), "overlapping": sum(c["overlap"] for c in per_call),
+            "first": per_call[0] if per_call else None}
+
+
+def _old_wrapper(old) -> dict:
+    """The per-shard composition on the same inputs: wrapper ms, device ms by
+    kernel and the host breakdown."""
+    return {"ms": cuda_ms(old), "device_ms_by_kernel": device_per_call(old, CUBE_KERNELS + GROUP_KERNELS),
+            "breakdown": wrapper_breakdown(old)}
+
+
+def in_turns(runs: dict, order=("old", "new", "new", "old"), rounds=11) -> list:
+    """Wrapper ms per call (cuda_ms, median of `rounds`) of each labelled
+    callable, in turns on one card."""
+    return [{"which": w, "ms": cuda_ms(runs[w], rounds=rounds)} for w in order]
+
+
 def mesh_entries(captured, launches, plain):
-    """The sharded twins on the 2-shard mesh's inputs from phase 5b, each
+    """The sharded twins on the largest mesh's inputs from phase 5b, each
     against its plain version on the same inputs (the cube and the group
     solve unsharded on the first card; the classic and full scans against
     plain loop on phase 4's operands, which the mesh path's are checked
@@ -2041,15 +2425,26 @@ def mesh_entries(captured, launches, plain):
     got, want = run(), feas.production_cube_plain(*card)
     check_equal("sharded_cube on the mesh path's inputs", got, want)
     (P, R), I, (O, K) = card[0].shape, card[1].shape[1], card[3].shape
+    old = lambda: old_sharded_cube(mesh)(*args)  # noqa: E731
+    check_equal("the per-shard sharded cube on the mesh path's inputs", old(), want)
+    # the entity rows on the first card: read in place there, copied card
+    # to card for the others
+    check_equal("sharded_cube with the entity rows on the first card",
+                feas.sharded_cube(mesh)(card[0], *args[1:4], card[4], *args[5:]), want)
+    dev_new = device_per_call(run, CUBE_KERNELS)
     entries.append(_sharded_entry(
         "sharded_cube", mesh, launches, got, want, cuda_ms(run),
         cuda_ms(lambda: feas.production_cube_plain(*card), reps=5, warmup=1),
-        (nbytes(card[0], card[4]) + nbytes(*got)) / n + nbytes(card[1], card[2], card[3], card[5], card[6]),
+        (nbytes(card[0], card[4]) + nbytes(*got)) / n,
         (P // n) * I * words(R) + (P // n) * O * (words(R) + words(K)), WORD_OPS_PER_S,
-        cuda_ms(lambda: cube_f32(*card)),
-        _per_call(_dev_sum(device_kernel_ms(run, ["membership_kernel", "cube_offer_kernel"])), n),
+        cuda_ms(lambda: cube_f32(*card)), dev_new["total"],
+        card_bytes=nbytes(card[1], card[2], card[3], card[5], card[6]),
         shapes=[list(t.shape) for t in card], library_call="the reference's f32 form, unsharded",
-        device_ms_by="profiler, kernels' device time per call summed over the shards",
+        device_ms_by="profiler, kernels' device time per call summed over the launches",
+        device_ms_by_kernel=dev_new, breakdown=wrapper_breakdown(run),
+        old=_old_wrapper(old), turns=in_turns({"old": old, "new": run}),
+        overlap=card_overlap(run, ["cube_fused_kernel"], mesh),
+        bare_launch_ms=bare_launch_ms(run),
     ))
 
     mesh, args = captured["sharded_solve_block"][1]
@@ -2061,15 +2456,22 @@ def mesh_entries(captured, launches, plain):
     G2 = card[0].shape[0]
     (R, I), (O, K), D = card[2].shape, card[4].shape, card[7].shape[1]
     m = G2 // n
+    old = lambda: old_sharded_solve_block(mesh)(*args)  # noqa: E731
+    check_equal("the per-shard sharded group solve on the mesh path's inputs", old(), want)
+    check_equal("sharded_solve_block with the group rows on the first card",
+                packer.sharded_solve_block(mesh)(card[0], card[1], *args[2:]), want)
+    dev_new = device_per_call(run, GROUP_KERNELS)
     entries.append(_sharded_entry(
         "sharded_solve_block", mesh, launches, got, want, cuda_ms(run),
         cuda_ms(lambda: packer.solve_block_plain(*card), reps=5, warmup=1),
-        (nbytes(card[0], card[1]) + nbytes(got)) / n + nbytes(*card[2:]),
+        (nbytes(card[0], card[1]) + nbytes(got)) / n,
         m * I * words(R) + m * O * (words(R) + words(K)) + m * I * (D + 1), WORD_OPS_PER_S, None,
-        _per_call(_dev_sum(device_kernel_ms(
-            run, ["membership_kernel", "cube_offer_kernel", "solve_block_kernel"])), n),
-        shapes=[list(t.shape) for t in card],
-        device_ms_by="profiler, kernels' device time per call summed over the shards",
+        dev_new["total"], card_bytes=nbytes(*card[2:]), shapes=[list(t.shape) for t in card],
+        device_ms_by="profiler, kernels' device time per call summed over the launches",
+        device_ms_by_kernel=dev_new, breakdown=wrapper_breakdown(run),
+        old=_old_wrapper(old), turns=in_turns({"old": old, "new": run}),
+        overlap=card_overlap(run, ["group_solve_kernel"], mesh),
+        bare_launch_ms=bare_launch_ms(run),
     ))
 
     for name, mode, factory in (("sharded_solve_scan", "classic", packer.sharded_solve_scan),
@@ -2188,7 +2590,7 @@ def main() -> int:
         kernels += group_entries(captured, group_launches)
         kernels += fits_stage_entries(captured)
         kernels += mesh_entries(captured, mesh_launches, plain)
-        assert len(kernels) == len(SOURCE), [k["name"] for k in kernels]
+        assert len(kernels) == len(SOURCE) == len(ENTRY_POINTS), [k["name"] for k in kernels]
         for k in kernels:
             assert k["launches"] > 0, f"{k['name']} was not launched on its path"
         log(json.dumps({"kernels": kernels}))

@@ -12,6 +12,8 @@
 //                     and the compat half of _cube_math (:265)
 //   kt_cube_offer  <- karpenter_tpu/ops/feasibility.py:265 _cube_math /
 //                     production_cube, the offering half
+//   kt_cube_fused  <- karpenter_tpu/ops/feasibility.py:305-329 sharded_cube,
+//                     both halves of the cube for every shard of one card
 //   kt_uid_project <- karpenter_tpu/ops/feasibility.py:332 uid_project
 //   kt_fits_matrix_f32 / kt_fits_matrix_i32
 //                  <- karpenter_tpu/ops/feasibility.py:222 fits_matrix
@@ -32,6 +34,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -263,6 +267,95 @@ __global__ void cube_offer_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// B5: the production cube over a mesh, both halves in one launch per card.
+//
+// Replaces karpenter_tpu/ops/feasibility.py:305-329 (sharded_cube: the
+// shard_map of _cube_math over the entity axis, the catalog replicated).
+// What bounds it: at the mesh path's shapes (8 entities a shard, 8 rows,
+// 1008 types, 8064 offerings) the call moves ~0.4 MB and is bound by launch
+// latency; above them, by the bytes of the two [P, I] output planes and the
+// re-reads of the compat matrices. The design: one launch covers every
+// shard the card holds (blockIdx.z indexes a slab table: the shard's first
+// entity row in the card's entity operands, its row count and its first
+// output row, so card 0 writes straight into the gathered planes). A block
+// covers 128 types and a tile of 32 entities and computes both halves, so
+// no plane is written twice. Its entity bits are packed into shared memory
+// once, by row rather than by entity: rowent[r] holds the tile's entities
+// constrained by row r, keyent[k] those that leave custom key k undefined.
+// So one incompatible row clears all its entities with one OR, where the
+// per-entity words of kt_cube_offer cost a 32-step loop a row word. compat:
+// the OR of rowent[r] over the rows r that type i fails (req_compat).
+// has_offering, computed by offering: the block's offerings are the
+// owner-major range of its types (two threads search its two ends at once),
+// consecutive threads take consecutive offerings, and each tests available,
+// every row (offer_compat) and every custom key (custom_need) — the tests
+// of kt_cube_offer — and ORs the tile mask of the entities that may use it
+// into its owner's word in shared memory (atomicOr). No thread runs a
+// search of its own or walks its type's offerings one after another. The
+// entity operands are read with a row stride, so the group solver's
+// [G, R+K] rows would serve as they are.
+__global__ void cube_fused_kernel(
+    const uint8_t* __restrict__ mem, int mem_stride, const uint8_t* __restrict__ key_present,
+    int kp_stride, const uint8_t* __restrict__ req_ok, const uint8_t* __restrict__ offer_ok,
+    const uint8_t* __restrict__ custom_need, const uint8_t* __restrict__ available,
+    const int32_t* __restrict__ owner, uint8_t* __restrict__ compat_out,
+    uint8_t* __restrict__ offer_out, const SlabTable slabs, int R, int O, int K, int I) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* rowent = smem;      // [R]: bit j, entity j of the tile is constrained by row r
+  uint32_t* keyent = smem + R;  // [K]: bit j, entity j leaves custom key k undefined
+  __shared__ uint32_t has_tile[THREADS];  // bit j: entity j has a usable offering of type i0 + t
+  __shared__ int bounds[2];
+  const int z = blockIdx.z;
+  const int t0 = blockIdx.y * TILE;    // the tile's first row within the shard
+  const int pn = min(TILE, slabs.rows[z] - t0);
+  if (pn <= 0) return;                 // the whole block: a shorter shard
+  const size_t src = static_cast<size_t>(slabs.src[z]) + t0;
+  const uint8_t* mem_t = mem + src * mem_stride;
+  const uint8_t* kp_t = key_present + src * kp_stride;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    uint32_t bits = 0;
+    for (int j = 0; j < pn; ++j)
+      bits |= static_cast<uint32_t>(mem_t[static_cast<size_t>(j) * mem_stride + r] != 0) << j;
+    rowent[r] = bits;
+  }
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    uint32_t bits = 0;
+    for (int j = 0; j < pn; ++j)
+      bits |= static_cast<uint32_t>(kp_t[static_cast<size_t>(j) * kp_stride + k] == 0) << j;
+    keyent[k] = bits;
+  }
+  const int i0 = blockIdx.x * blockDim.x;
+  const int i1 = min(i0 + static_cast<int>(blockDim.x), I);
+  has_tile[threadIdx.x] = 0;
+  // the block's offerings: the owner-major range of its types, its two
+  // ends searched at once by two threads
+  if (threadIdx.x == 0) bounds[0] = lower_bound(owner, O, i0);
+  if (threadIdx.x == blockDim.x - 1) bounds[1] = lower_bound(owner, O, i1);
+  __syncthreads();
+  for (int o = bounds[0] + threadIdx.x; o < bounds[1]; o += blockDim.x) {
+    if (!available[o]) continue;
+    uint32_t okp = 0xffffffffu;  // bit j: offering o is usable by entity j
+    for (int r = 0; r < R; ++r)
+      if (!offer_ok[static_cast<size_t>(r) * O + o]) okp &= ~rowent[r];
+    for (int k = 0; k < K; ++k)
+      if (custom_need[static_cast<size_t>(o) * K + k]) okp &= ~keyent[k];
+    if (okp) atomicOr(&has_tile[owner[o] - i0], okp);
+  }
+  __syncthreads();
+  const int i = i0 + threadIdx.x;
+  if (i >= I) return;
+  uint32_t bad = 0;  // bit j: entity j has a row incompatible with type i
+  for (int r = 0; r < R; ++r)
+    if (!req_ok[static_cast<size_t>(r) * I + i]) bad |= rowent[r];
+  const uint32_t has = has_tile[threadIdx.x];
+  const size_t d0 = static_cast<size_t>(slabs.dst[z]) + t0;
+  for (int j = 0; j < pn; ++j) {
+    compat_out[(d0 + j) * I + i] = !((bad >> j) & 1u);
+    offer_out[(d0 + j) * I + i] = (has >> j) & 1u;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B6: out[r, u] = some type i with uid_onehot[u, i] survives in mask[r, i].
 //
 // The JAX program counts surviving types per unique-allocatable row with an
@@ -407,6 +500,31 @@ int kt_cube_offer(const void* mem, const void* offer_ok, const void* custom_need
       static_cast<const uint8_t*>(custom_need), static_cast<const uint8_t*>(key_present),
       static_cast<const uint8_t*>(available), static_cast<const int32_t*>(owner),
       static_cast<uint8_t*>(out), P, R, O, K, I);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mem [*, mem_stride] and key_present [*, kp_stride] bool rows of the
+// card's entities; req_ok [R, I], offer_ok [R, O], custom_need [O, K],
+// available [O] bool; owner [O] int32 non-decreasing; compat_out and
+// offer_out [*, I] bool. `slabs` holds n_slabs (src, rows, dst) triples,
+// one per shard on this card. Returns the launch's cudaError_t.
+int kt_cube_fused(const void* mem, int mem_stride, const void* key_present, int kp_stride,
+                  const void* req_ok, const void* offer_ok, const void* custom_need,
+                  const void* available, const void* owner, void* compat_out, void* offer_out,
+                  const int* slabs, int n_slabs, int R, int O, int K, int I, void* stream) {
+  SlabTable table;
+  int max_rows;
+  if (!read_slabs(slabs, n_slabs, table, max_rows)) return static_cast<int>(cudaErrorInvalidValue);
+  if (max_rows == 0 || I == 0) return 0;
+  const size_t shmem = static_cast<size_t>(R + K) * sizeof(uint32_t);  // rowent, keyent
+  const dim3 block(THREADS);
+  const dim3 grid((I + THREADS - 1) / THREADS, (max_rows + TILE - 1) / TILE, n_slabs);
+  cube_fused_kernel<<<grid, block, shmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mem), mem_stride, static_cast<const uint8_t*>(key_present),
+      kp_stride, static_cast<const uint8_t*>(req_ok), static_cast<const uint8_t*>(offer_ok),
+      static_cast<const uint8_t*>(custom_need), static_cast<const uint8_t*>(available),
+      static_cast<const int32_t*>(owner), static_cast<uint8_t*>(compat_out),
+      static_cast<uint8_t*>(offer_out), table, R, O, K, I);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,9 +6,9 @@ is absent. `device="cpu"` selects the plain torch versions of the kernels.
 
 `build_kernels()` compiles every `csrc/*.cu` with nvcc for sm_90a into a
 shared library with a plain C interface (one nvcc per source, all started
-together) under `_build/`, keyed by a hash of the source, and loads each
-with ctypes. It runs at first use of a kernel; nothing is built when the
-package is imported.
+together) under `_build/`, keyed by a hash of the source and the shared
+headers (`csrc/*.cuh`), and loads each with ctypes. It runs at first use
+of a kernel; nothing is built when the package is imported.
 """
 
 from __future__ import annotations
@@ -106,8 +106,12 @@ def _sources() -> dict[str, str]:
 
 
 def _so_path(name: str, src: str) -> str:
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, keyed by its source, the headers beside it
+    (csrc/*.cuh, which any source may include) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -13,9 +13,16 @@ device's current stream, device.launch); no process group.
 A `Mesh` may repeat one device (`Mesh([torch.device("cpu")] * 8)` in the
 tests, `cuda:0` twice on a one-card machine): the counterpart of the
 reference's `--xla_force_host_platform_device_count` virtual devices, a
-way to test the shard math, not a serving feature. Shards on a repeated
-device run one after the other. `build_solver_mesh` never repeats a
-device.
+way to test the shard math, not a serving feature (the scan's replicas on
+a repeated device run one after the other). `build_solver_mesh` never
+repeats a device.
+
+On the card the sharded cube and group solve launch once per card, not
+once per shard: `slab_plan` groups the shards by card, `stage_rows` moves
+a card's entity rows there in one copy, the card's kernel covers all of
+its shards, and `gather_cards` copies the other cards' rows to the first.
+On CPU meshes each shard runs the plain versions on its own slab
+(`split_rows`, `gather_rows`).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from karpenter_tpu_torch.device import resolve_device
@@ -94,36 +102,151 @@ def build_solver_mesh(n: int):
     return mesh
 
 
-def replicate(t: torch.Tensor, mesh: Mesh) -> tuple:
-    """One copy of `t` per shard: copied once per distinct device, the same
-    tensor for shards on a repeated device (and `t` itself on its own)."""
+class Replicas(tuple):
+    """One copy of a tensor per shard of a mesh, as `replicate` and
+    `per_shard` make it: copy s lies on shard s's device, and every copy is
+    contiguous and of one dtype and shape. So a kernel wrapper that checks
+    one copy's dtype and shape has checked them all, and an engine that
+    caches the copies has them checked once, where it made them."""
+
+    __slots__ = ()
+
+
+def replicate(t: torch.Tensor, mesh: Mesh) -> Replicas:
+    """One contiguous copy of `t` per shard: copied once per distinct
+    device, the same tensor for shards on a repeated device (and `t` itself
+    where it is already contiguous on that device)."""
     copies: dict = {}
     out = []
     for dev in mesh.devices:
         c = copies.get(dev)
         if c is None:
-            c = copies[dev] = t.to(dev)
+            c = copies[dev] = t.to(dev).contiguous()
         out.append(c)
-    return tuple(out)
+    return Replicas(out)
 
 
-def per_shard(x, mesh: Mesh) -> tuple:
+def per_shard(x, mesh: Mesh) -> Replicas:
     """A replicated operand as one tensor per shard: `x` is either one
     tensor (replicated here) or already a per-shard tuple (an engine's
-    cached copies)."""
+    cached copies), whose devices are checked against the mesh, and a
+    plain tuple's dtypes, shapes and contiguity against each other."""
     if isinstance(x, tuple):
         if len(x) != mesh.size:
             raise ValueError(f"{len(x)} replicas for a {mesh.size}-device mesh")
         for t, dev in zip(x, mesh.devices):
             if t.device != dev:
                 raise ValueError(f"replica on {t.device}, its shard is on {dev}")
+        if not isinstance(x, Replicas):
+            first = x[0]
+            for t in x:
+                if t.dtype != first.dtype or t.shape != first.shape or not t.is_contiguous():
+                    raise ValueError("replicas differ in dtype or shape, or are not contiguous")
+            x = Replicas(x)
         return x
     return replicate(x, mesh)
 
 
+def slab_plan(devices: Sequence, rows: int) -> list:
+    """An axis of `rows` split into len(devices) equal contiguous slabs,
+    slab s on devices[s], grouped by card: one (device, [(shard, lo, hi),
+    ...]) per distinct device, in the order the devices first appear (the
+    first is shard 0's, where results gather). Pure, for any device list,
+    repeats included. The caller pads the axis to a multiple of the mesh
+    size."""
+    n = len(devices)
+    if n == 0:
+        raise ValueError("a slab plan needs at least one device")
+    if rows % n:
+        raise ValueError(f"axis of {rows} does not split over {n} devices")
+    m = rows // n
+    plan: dict = {}
+    for s, dev in enumerate(devices):
+        plan.setdefault(torch.device(dev), []).append((s, s * m, (s + 1) * m))
+    return list(plan.items())
+
+
+def card_runs(slabs: Sequence) -> list:
+    """A card's shards (slab_plan's (shard, lo, hi), in shard order) as
+    maximal runs of adjacent rows: (lo, hi, first row in the card's compact
+    layout, which holds its shards' rows one after the other)."""
+    runs: list = []
+    at = 0
+    for _, lo, hi in slabs:
+        if runs and runs[-1][1] == lo:
+            runs[-1][1] = hi
+        else:
+            runs.append([lo, hi, at])
+        at += hi - lo
+    return [tuple(r) for r in runs]
+
+
+def staging_layout(tensors: Sequence[torch.Tensor], n: int) -> tuple:
+    """Where `n` rows of each tensor go in a card's staging buffer: each
+    tensor's rows one after the other, 16-byte aligned. Returns (offsets,
+    total bytes)."""
+    offsets, total = [], 0
+    for t in tensors:
+        offsets.append(total)
+        total += -(-n * math.prod(t.shape[1:]) * t.element_size() // 16) * 16
+    return offsets, total
+
+
+def fill_staging(buf: np.ndarray, tensors: Sequence[torch.Tensor], runs: Sequence,
+                 offsets: Sequence[int]) -> None:
+    """Copy the rows of `runs` (card_runs') of each host tensor into the
+    uint8 buffer `buf` at its offset, run after run: numpy slice copies,
+    no torch op per run."""
+    for t, off in zip(tensors, offsets):
+        rows = t.numpy().reshape(t.shape[0], math.prod(t.shape[1:])).view(np.uint8)
+        width = rows.shape[1]
+        for lo, hi, c in runs:
+            buf[off + c * width:off + (c + hi - lo) * width] = rows[lo:hi].reshape(-1)
+
+
+def stage_rows(tensors: Sequence[torch.Tensor], slabs: Sequence, dev: torch.device) -> tuple:
+    """One card's entity rows on that card, for a kernel that takes raw
+    pointers: the rows of `slabs` (slab_plan's (shard, lo, hi) of the card)
+    of every tensor of `tensors` (contiguous, on one device, the entity
+    axis leading). Returns (a device pointer per tensor, each shard's first
+    row there, the device memory to keep alive until the launch is queued,
+    or None). Tensors already on `dev` are read in place: nothing moves,
+    and a shard starts at its own lo. Host tensors go in one copy: the
+    card's rows of all of them, shard after shard, into one pinned staging
+    buffer (fill_staging), then one non-blocking upload, so the host goes
+    on while it travels. Tensors on another card go with one copy each."""
+    if tensors[0].device == dev:
+        return [t.data_ptr() for t in tensors], [lo for _, lo, _ in slabs], None
+    runs = card_runs(slabs)
+    n = sum(hi - lo for _, lo, hi in slabs)
+    starts = [k * (n // len(slabs)) for k in range(len(slabs))]
+    if tensors[0].device.type != "cpu":
+        moved = [torch.cat([t[lo:hi] for lo, hi, _ in runs]).to(dev, non_blocking=True)
+                 for t in tensors]
+        return [t.data_ptr() for t in moved], starts, moved
+    offsets, total = staging_layout(tensors, n)
+    staging = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    fill_staging(staging.numpy(), tensors, runs, offsets)
+    on_card = staging.to(dev, non_blocking=True)
+    base = on_card.data_ptr()
+    return [base + off for off in offsets], starts, on_card
+
+
+def gather_cards(out: torch.Tensor, parts: Sequence) -> None:
+    """Copy every other card's rows into `out` (on the first card, which
+    wrote its own rows there): `parts` holds (slabs, compact rows on that
+    card) per card; one non-blocking copy per run of adjacent shards, so
+    one per card when its shards are adjacent, as build_solver_mesh's
+    are."""
+    for slabs, part in parts:
+        for lo, hi, c in card_runs(slabs):
+            out[lo:hi].copy_(part[c:c + hi - lo], non_blocking=True)
+
+
 def split_rows(t: torch.Tensor, mesh: Mesh) -> tuple:
     """`t`'s leading axis in n equal contiguous slabs, slab s on shard s's
-    device. The caller pads the axis to a multiple of the mesh size."""
+    device (the CPU meshes' per-shard path). The caller pads the axis to a
+    multiple of the mesh size."""
     n = mesh.size
     if t.shape[0] % n:
         raise ValueError(f"axis of {t.shape[0]} does not split over {n} devices")

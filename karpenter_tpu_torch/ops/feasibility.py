@@ -38,6 +38,7 @@ LAUNCHES: dict[str, int] = {
 
 _TILE = 32  # entities per kernel thread (csrc/feasibility.cu TILE)
 _MAX_GRID_Y = 65535
+_MAX_SLABS = 64  # shards one launch covers on a card (csrc MAX_SLABS)
 _MAX_SHARED_BYTES = 48 * 1024
 
 
@@ -186,6 +187,8 @@ def _lib() -> ctypes.CDLL:
         lib.kt_membership.argtypes = [vp] * 3 + [ci] * 3 + [vp]
         lib.kt_cube_offer.restype = ci
         lib.kt_cube_offer.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+        lib.kt_cube_fused.restype = ci
+        lib.kt_cube_fused.argtypes = [vp, ci, vp, ci] + [vp] * 8 + [ci] * 5 + [vp]
         lib.kt_uid_project.restype = ci
         lib.kt_uid_project.argtypes = [vp] * 3 + [ci] * 3 + [vp]
         for entry in (lib.kt_fits_matrix_f32, lib.kt_fits_matrix_i32):
@@ -484,32 +487,107 @@ def sharded_cube(mesh):
     production_cube's signature: the entity axis (membership, key_present)
     splits into one equal row slab per shard, the catalog operands are
     replicated (one copy per distinct device; an operand may also come as
-    the per-shard tuple an engine caches), each shard runs production_cube
-    on its own device — kt_membership and kt_cube_offer there, counted
-    twice per shard under `sharded_cube`, or the plain versions on CPU
-    shards — and the two planes are gathered in shard order on the first
-    shard's device. No collective: the reference's shard_map has none
-    until results gather. The entity axis must be a multiple of the mesh
-    size (CatalogEngine pads it to mesh_multiple(n))."""
+    the per-shard tuple an engine caches), and the two planes are gathered
+    in shard order on the first shard's device. No collective: the
+    reference's shard_map has none until results gather. The entity axis
+    must be a multiple of the mesh size (CatalogEngine pads it to
+    mesh_multiple(n)).
+
+    On a CUDA mesh, one launch of kt_cube_fused per card covers every
+    shard the card holds (`_sharded_cube_cuda`), counted once per card
+    under `sharded_cube`. On a CPU mesh each shard runs
+    production_cube_plain on its own slab."""
     from karpenter_tpu_torch import mesh as mesh_mod
 
     def run(membership, req_compat, offer_compat, custom_need, key_present, available,
             offering_owner):
+        if mesh.devices[0].type == "cuda":
+            return _sharded_cube_cuda(mesh, membership, req_compat, offer_compat, custom_need,
+                                      key_present, available, offering_owner)
         mem_s = mesh_mod.split_rows(membership, mesh)
         kp_s = mesh_mod.split_rows(key_present, mesh)
         rep = [mesh_mod.per_shard(x, mesh) for x in (
             req_compat, offer_compat, custom_need, available, offering_owner)]
         compat, offer = [], []
-        for s, dev in enumerate(mesh.devices):
+        for s in range(mesh.size):
             rc, oc, cn, av, ow = (r[s] for r in rep)
             c, o = production_cube(mem_s[s], rc, oc, cn, kp_s[s], av, ow)
-            if dev.type == "cuda":
-                LAUNCHES["sharded_cube"] += 2 * bool(mem_s[s].shape[0] and rc.shape[1])
             compat.append(c)
             offer.append(o)
         return mesh_mod.gather_rows(compat, mesh), mesh_mod.gather_rows(offer, mesh)
 
     return run
+
+
+def slab_table(starts, slabs, dsts):
+    """The kernels' slab table for one card: a (src, rows, dst) int triple
+    per shard, as a ctypes array the C entry point copies into the
+    launch's parameters."""
+    flat = []
+    for start, (_, lo, hi), dst in zip(starts, slabs, dsts):
+        flat += (start, hi - lo, dst)
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _sharded_cube_cuda(mesh, membership, req_compat, offer_compat, custom_need, key_present,
+                       available, offering_owner):
+    """sharded_cube on the card: the entity operands checked in one pass
+    (host or device tensors, both on one device), the replicated catalog
+    as mesh.Replicas (one copy of each checked: they are alike by
+    construction); per card one upload of its entity rows
+    (mesh.stage_rows), its output allocated once (card 0's is the gathered
+    planes themselves) and one kt_cube_fused launch over its shards; every
+    card's launch is queued before the gather (mesh.gather_cards) copies
+    the other cards' rows over."""
+    from karpenter_tpu_torch import mesh as mesh_mod
+
+    rc, oc, cn, av, ow = (mesh_mod.per_shard(x, mesh) for x in (
+        req_compat, offer_compat, custom_need, available, offering_owner))
+    P, R = membership.shape
+    I = rc[0].shape[1]
+    O, K = cn[0].shape
+    src = membership.device
+    _check("membership", membership, torch.bool, (P, R), src)
+    _check("key_present", key_present, torch.bool, (P, K), src)
+    _check("req_compat", rc[0], torch.bool, (R, I), rc[0].device)
+    _check("offer_compat", oc[0], torch.bool, (R, O), oc[0].device)
+    _check("custom_need", cn[0], torch.bool, (O, K), cn[0].device)
+    _check("available", av[0], torch.bool, (O,), av[0].device)
+    _check("offering_owner", ow[0], torch.int32, (O,), ow[0].device)
+    if (R + K) * 4 > _MAX_SHARED_BYTES:
+        raise KernelError(f"sharded_cube: {R} rows x {K} keys exceed the kernel's shared memory")
+    plan = mesh_mod.slab_plan(mesh.devices, P)
+    m = P // mesh.size
+    if max(len(slabs) for _, slabs in plan) > _MAX_SLABS or -(-m // _TILE) > _MAX_GRID_Y:
+        raise KernelError(f"sharded_cube: {mesh.size} shards of {P} entities exceed the kernel's grid")
+    dev0 = mesh.devices[0]
+    compat = torch.empty((P, I), dtype=torch.bool, device=dev0)
+    offer = torch.empty((P, I), dtype=torch.bool, device=dev0)
+    if P == 0 or I == 0:
+        return compat, offer
+    others = []
+    for dev, slabs in plan:
+        s = slabs[0][0]  # a shard on this card, for its catalog copies
+        # `keep` holds staged rows until their launch is queued
+        (mem_p, kp_p), starts, keep = mesh_mod.stage_rows((membership, key_present), slabs, dev)
+        if dev == dev0:
+            c, o, dsts = compat, offer, [lo for _, lo, _ in slabs]
+        else:
+            c = torch.empty((len(slabs) * m, I), dtype=torch.bool, device=dev)
+            o = torch.empty_like(c)
+            dsts = [k * m for k in range(len(slabs))]  # compact: the card's shards in order
+            others.append((slabs, c, o))
+        table = slab_table(starts, slabs, dsts)
+        err = launch(
+            dev, _lib().kt_cube_fused, ctypes.c_void_p(mem_p), R, ctypes.c_void_p(kp_p), K,
+            _ptr(rc[s]), _ptr(oc[s]), _ptr(cn[s]), _ptr(av[s]), _ptr(ow[s]), _ptr(c), _ptr(o), table,
+            len(slabs), R, O, K, I,
+        )
+        _raise_on(err, "sharded_cube")
+        LAUNCHES["sharded_cube"] += 1
+    mesh_mod.gather_cards(compat, [(slabs, c) for slabs, c, _ in others])
+    mesh_mod.gather_cards(offer, [(slabs, o) for slabs, _, o in others])
+    return compat, offer
 
 
 # -- resource quantization (the group solver's integer units) ------------------

@@ -12,8 +12,9 @@ karpenter_tpu/ops/packer.py, with a hand-written kernel per JAX program:
    and kt_cube_offer (B8) for the cube's halves and kt_solve_block
    (csrc/packer.cu) for the rest; `delta_scatter_rows` (B11) and
    `delta_finalize` (B12) serve the delta residency (ops/delta.py). With a
-   mesh, `solve_sharded` runs `sharded_solve_block` (B13): solve_block per
-   shard on equal group slabs, the catalog replicated, the rows gathered.
+   mesh, `solve_sharded` runs `sharded_solve_block` (B13): equal group
+   slabs, the catalog replicated, one kt_group_solve launch per card for
+   the whole per-group solve of its shards, the rows gathered.
 
 2. **The fused scan**: the monotone FFD scan itself — the host walk's
    queue, emptiest-first claim heap, existing-node scan pointers, claim
@@ -190,6 +191,8 @@ def _group_lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.kt_solve_block.restype = ci
         lib.kt_solve_block.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+        lib.kt_group_solve.restype = ci
+        lib.kt_group_solve.argtypes = [vp] * 11 + [ci] * 6 + [vp]
         lib.kt_delta_scatter.restype = ci
         lib.kt_delta_scatter.argtypes = [vp] * 3 + [ci] * 2 + [vp]
         lib.kt_delta_finalize.restype = ci
@@ -304,23 +307,86 @@ def sharded_solve_block(mesh):
     """solve_block over a mesh (B13), a callable with solve_block's
     signature: the groups split into one equal slab per shard (the caller
     pads them to a multiple of the mesh size), the seven catalog operands
-    replicated (or given as per-shard tuples), solve_block on each shard's
-    device — counted once per shard under `sharded_solve_block` on the
-    card — and the [G, 4] rows gathered in shard order. No collective
-    inside the solve, as in the reference's shard_map."""
+    replicated (or given as per-shard tuples), and the [G, 4] rows gathered
+    in shard order on the first shard's device. No collective inside the
+    solve, as in the reference's shard_map.
+
+    On a CUDA mesh, one launch of kt_group_solve per card solves every
+    shard the card holds (`_sharded_solve_block_cuda`), counted once per
+    card under `sharded_solve_block`. On a CPU mesh each shard runs
+    solve_block_plain on its own slab."""
 
     def run(group_bools, group_ints, *catalog):
+        if mesh.devices[0].type == "cuda":
+            return _sharded_solve_block_cuda(mesh, group_bools, group_ints, catalog)
         gb_s = mesh_mod.split_rows(group_bools, mesh)
         gi_s = mesh_mod.split_rows(group_ints, mesh)
         rep = [mesh_mod.per_shard(x, mesh) for x in catalog]
-        parts = []
-        for s, dev in enumerate(mesh.devices):
-            parts.append(solve_block(gb_s[s], gi_s[s], *(r[s] for r in rep)))
-            if dev.type == "cuda":
-                LAUNCHES["sharded_solve_block"] += bool(gb_s[s].shape[0])
+        parts = [solve_block(gb_s[s], gi_s[s], *(r[s] for r in rep)) for s in range(mesh.size)]
         return mesh_mod.gather_rows(parts, mesh)
 
     return run
+
+
+_MAX_WORDS = 64  # mask words of R, and of K, kt_group_solve packs (csrc/packer.cu)
+_MAX_TYPES = 48 * 1024 * 8  # its per-type bitmask in 48 KB of shared memory
+
+
+def _sharded_solve_block_cuda(mesh, group_bools, group_ints, catalog) -> torch.Tensor:
+    """sharded_solve_block on the card: the entity operands checked in one
+    pass (host or device tensors, both on one device), the replicated
+    catalog as mesh.Replicas (one copy of each checked); per card one
+    upload of its group rows (group_bools and group_ints through one
+    staging buffer, mesh.stage_rows), its [rows, 4] output allocated once
+    (card 0's is the gathered result) and one kt_group_solve launch over its
+    shards, reading membership and key_present in place from group_bools;
+    every card's launch is queued before mesh.gather_cards."""
+    rc, oc, cn, av, ow, aq, pr = (mesh_mod.per_shard(x, mesh) for x in catalog)
+    R, I = rc[0].shape
+    O, K = cn[0].shape
+    D = aq[0].shape[1]
+    G = group_bools.shape[0]
+    src = group_bools.device
+    _check("sharded_solve_block group_bools", group_bools, torch.bool, (G, R + K), src)
+    _check("sharded_solve_block group_ints", group_ints, torch.int32, (G, D + 1), src)
+    for name, t, dtype, shape in (
+        ("req_compat", rc, torch.bool, (R, I)), ("offer_compat", oc, torch.bool, (R, O)),
+        ("custom_need", cn, torch.bool, (O, K)), ("available", av, torch.bool, (O,)),
+        ("offering_owner", ow, torch.int32, (O,)), ("alloc_q", aq, torch.int32, (I, D)),
+        ("price", pr, torch.float32, (I,)),
+    ):
+        _check(f"sharded_solve_block {name}", t[0], dtype, shape, t[0].device)
+    if (R + 31) // 32 > _MAX_WORDS or (K + 31) // 32 > _MAX_WORDS or not 0 < I <= _MAX_TYPES:
+        raise KernelError(f"sharded_solve_block: R={R}, K={K}, I={I} outside the kernel's limits")
+    plan = mesh_mod.slab_plan(mesh.devices, G)
+    if max(len(slabs) for _, slabs in plan) > feas._MAX_SLABS:
+        raise KernelError(f"sharded_solve_block: {mesh.size} shards exceed the kernel's slab table")
+    dev0 = mesh.devices[0]
+    out = torch.empty((G, 4), dtype=torch.int32, device=dev0)
+    if G == 0:
+        return out
+    m = G // mesh.size
+    others = []
+    for dev, slabs in plan:
+        s = slabs[0][0]  # a shard on this card, for its catalog copies
+        # `keep` holds staged rows until their launch is queued
+        (gb, gi), starts, keep = mesh_mod.stage_rows((group_bools, group_ints), slabs, dev)
+        if dev == dev0:
+            o, dsts = out, [lo for _, lo, _ in slabs]
+        else:
+            o = torch.empty((len(slabs) * m, 4), dtype=torch.int32, device=dev)
+            dsts = [k * m for k in range(len(slabs))]  # compact: the card's shards in order
+            others.append((slabs, o))
+        err = launch(
+            dev, _group_lib().kt_group_solve, ctypes.c_void_p(gb), ctypes.c_void_p(gi),
+            _ptr(rc[s]), _ptr(oc[s]), _ptr(cn[s]), _ptr(av[s]), _ptr(ow[s]), _ptr(aq[s]), _ptr(pr[s]),
+            _ptr(o), feas.slab_table(starts, slabs, dsts), len(slabs), R, K, O, I, D,
+        )
+        if err != 0:
+            raise KernelError(f"sharded_solve_block: CUDA launch failed with cudaError {err}")
+        LAUNCHES["sharded_solve_block"] += 1
+    mesh_mod.gather_cards(out, others)
+    return out
 
 
 # -- host wrapper --------------------------------------------------------------

@@ -25,8 +25,8 @@ from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
 from karpenter_tpu_torch.device import KernelError  # noqa: E402
 from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    SCAN_EDGE_CASES, core_inputs, cube_inputs, fits_inputs, group_inputs, offering_inputs, row_inputs,
-    scan_edge_inputs, scan_inputs, stage_inputs, to_torch, uid_inputs,
+    SCAN_EDGE_CASES, core_inputs, cube_inputs, fits_inputs, group_inputs, mesh_kernel_inputs,
+    offering_inputs, row_inputs, scan_edge_inputs, scan_inputs, stage_inputs, to_torch, uid_inputs,
 )
 
 SEEDS = range(8)
@@ -277,6 +277,73 @@ def test_sharded_wrappers_match_unsharded_on_card(cuda_device, n, seed):
         assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(rep, want))
     torch.cuda.synchronize()
     moved = {k: v - l0[k] for k, v in {**tfeas.LAUNCHES, **tpacker.LAUNCHES}.items()}
-    assert moved["sharded_cube"] == 2 * n and moved["sharded_solve_block"] == n
+    # one launch per card for the cube and the group solve, one per shard
+    # for the replicated scans
+    assert moved["sharded_cube"] == 1 and moved["sharded_solve_block"] == 1
     assert moved["sharded_solve_scan"] == n and moved["sharded_solve_scan_full"] == 2 * n
     assert moved["sharded_solve_scan_resume"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("entities", ["host", "card"])
+@pytest.mark.parametrize("seed", range(4))
+def test_fused_sharded_kernels_match_plain_on_card(cuda_device, n, entities, seed):
+    """kt_cube_fused (B5) and kt_group_solve (B13) through sharded_cube and
+    sharded_solve_block on a mesh repeating the card n times, against
+    production_cube_plain and solve_block_plain bit for bit, on every row
+    (padding included) at ragged shapes (tests/torch_inputs.py
+    MESH_KERNEL_SHAPES): R and K past 32, I past one block, padding-only
+    shards, a type without offerings and one whose offerings are never
+    available, price ties. The entity operands come from the host (one
+    staged upload) or lie on the card already (read in place); either way
+    one launch per call on the one card, and none of the unsharded
+    kernels."""
+    mesh = Mesh([cuda_device] * n)
+    _, cube, group = mesh_kernel_inputs(seed, n)
+    cube_d = [to_torch(a).to(cuda_device) for a in cube]
+    group_d = [to_torch(a).to(cuda_device) for a in group]
+    if entities == "host":
+        cube_in = [to_torch(cube[0])] + cube_d[1:4] + [to_torch(cube[4])] + cube_d[5:]
+        group_in = [to_torch(group[0]), to_torch(group[1])] + group_d[2:]
+    else:
+        cube_in, group_in = cube_d, group_d
+    l0 = {**tfeas.LAUNCHES, **tpacker.LAUNCHES}
+    got = tfeas.sharded_cube(mesh)(*cube_in)
+    got_g = tpacker.sharded_solve_block(mesh)(*group_in)
+    torch.cuda.synchronize()
+    want = tfeas.production_cube_plain(*cube_d)
+    assert all(g.device == mesh.devices[0] for g in got) and got_g.device == mesh.devices[0]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got_g, tpacker.solve_block_plain(*group_d))
+    moved = {k: v - l0[k] for k, v in {**tfeas.LAUNCHES, **tpacker.LAUNCHES}.items() if v != l0[k]}
+    assert moved == {"sharded_cube": 1, "sharded_solve_block": 1}
+
+
+@pytest.mark.cuda
+def test_fused_sharded_wrappers_refuse_bad_operands_on_card(cuda_device):
+    """A breach of the sharded wrappers' contract raises KernelError before
+    anything launches: entity operands on two devices, a wrong dtype, a
+    catalog operand of the wrong shape, more shards on a card than one
+    launch's slab table holds."""
+    mesh = Mesh([cuda_device] * 2)
+    _, cube, group = mesh_kernel_inputs(1, 2)
+    cube_d = [to_torch(a).to(cuda_device) for a in cube]
+    group_d = [to_torch(a).to(cuda_device) for a in group]
+    l0 = {**tfeas.LAUNCHES, **tpacker.LAUNCHES}
+    bad_cube = (
+        [to_torch(cube[0])] + cube_d[1:],  # membership on the host, key_present on the card
+        [cube_d[0].int()] + cube_d[1:],
+        cube_d[:2] + [cube_d[2][:, :-1]] + cube_d[3:],  # offer_compat one offering short
+    )
+    for args in bad_cube:
+        with pytest.raises(KernelError):
+            tfeas.sharded_cube(mesh)(*args)
+    with pytest.raises(KernelError):
+        tpacker.sharded_solve_block(mesh)(group_d[0], group_d[1].long(), *group_d[2:])
+    wide = Mesh([cuda_device] * 72)  # 72 shards on one card: past the slab table's 64
+    with pytest.raises(KernelError):
+        tpacker.sharded_solve_block(wide)(
+            torch.zeros((72, group[0].shape[1]), dtype=torch.bool),
+            torch.zeros((72, group[1].shape[1]), dtype=torch.int32), *group_d[2:])
+    assert {**tfeas.LAUNCHES, **tpacker.LAUNCHES} == l0

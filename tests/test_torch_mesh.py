@@ -177,6 +177,130 @@ def test_replicate_and_split_helpers():
         tmesh.split_rows(torch.zeros(6, 1), m)
 
 
+def test_replicas_are_checked_where_made():
+    """replicate makes contiguous copies; per_shard takes a Replicas as it
+    is and holds a plain tuple's copies to one dtype, shape and layout."""
+    m = tmesh_of(2)
+    t = torch.arange(12).reshape(3, 4).T  # not contiguous
+    reps = tmesh.replicate(t, m)
+    assert isinstance(reps, tmesh.Replicas) and reps[0] is reps[1]
+    assert reps[0].is_contiguous() and torch.equal(reps[0], t)
+    plain = (torch.zeros(3), torch.zeros(3))
+    got = tmesh.per_shard(plain, m)
+    assert isinstance(got, tmesh.Replicas) and got[0] is plain[0] and got[1] is plain[1]
+    for bad in ((torch.zeros(3), torch.zeros(4)), (torch.zeros(3), torch.zeros(3, dtype=torch.int32)),
+                (torch.zeros(3), torch.zeros(6)[::2])):
+        with pytest.raises(ValueError):
+            tmesh.per_shard(bad, m)
+
+
+# device lists of every mesh size the tests use, cards repeated in several
+# ways (torch.device("cuda", k) needs no card to exist)
+def _cards(*idx):
+    return [torch.device("cuda", k) for k in idx]
+
+
+PLAN_DEVICES = {
+    1: [_cards(0)],
+    2: [_cards(0, 0), _cards(0, 1), _cards(1, 0)],
+    3: [_cards(0, 0, 0), _cards(0, 1, 2), _cards(0, 1, 0), _cards(1, 0, 0)],
+    8: [_cards(*range(8)), _cards(*[0] * 8), _cards(0, 1) * 4, _cards(*[0] * 4, *[1] * 4)],
+}
+
+
+def _padded(count: int, n: int) -> int:
+    """The engine's padded entity axis: the pow2 bucket aligned to
+    mesh_multiple(n) (CatalogEngine.feasibility, GroupSolver.solve_sharded)."""
+    align = tmesh.mesh_multiple(n)
+    p2 = max(1 << max(0, (count - 1).bit_length()), align)
+    return -(-p2 // align) * align
+
+
+@pytest.mark.parametrize("n", sorted(PLAN_DEVICES))
+@pytest.mark.parametrize("count", [1, 3, 8, 20, 200])
+def test_slab_plan_groups_shards_by_card(n, count):
+    """slab_plan on padded entity axes: every shard once, on its own
+    device, in shard order within its card; cards in order of first
+    appearance; rows covering the axis exactly; the shards past the real
+    entities made of padding only; and card_runs merging adjacent shards
+    into one run per card when the card's shards are adjacent."""
+    rows = _padded(count, n)
+    assert rows % n == 0
+    m = rows // n
+    for devices in PLAN_DEVICES[n]:
+        plan = tmesh.slab_plan(devices, rows)
+        assert [d for d, _ in plan] == list(dict.fromkeys(devices))
+        shards = sorted(sl for _, slabs in plan for sl in slabs)
+        assert shards == [(s, s * m, (s + 1) * m) for s in range(n)]
+        for dev, slabs in plan:
+            assert [s for s, _, _ in slabs] == [s for s, d in enumerate(devices) if d == dev]
+            runs = tmesh.card_runs(slabs)
+            assert sum(hi - lo for lo, hi, _ in runs) == len(slabs) * m
+            assert [c for _, _, c in runs] == list(itertools.accumulate(
+                [0] + [hi - lo for lo, hi, _ in runs[:-1]]))
+            adjacent = all(b[0] == a[0] + 1 for a, b in zip(slabs, slabs[1:]))
+            assert (len(runs) == 1) == adjacent
+        padding_only = [s for s in range(n) if s * m >= count]
+        assert len(padding_only) == max(0, n - -(-count // m))
+    with pytest.raises(ValueError):
+        tmesh.slab_plan([], rows)
+    if n > 1:
+        with pytest.raises(ValueError):
+            tmesh.slab_plan(PLAN_DEVICES[n][0], rows + 1)
+
+
+@pytest.mark.parametrize("n", sorted(PLAN_DEVICES))
+def test_slab_layout_reassembles_the_rows(n):
+    """The sharded wrappers' layout on the card, with CPU tensors standing
+    in for the cards: the first card writes its shards at their own rows,
+    every other card into its compact rows (stage_rows' starts), and
+    gather_cards puts those back; the result is the whole axis in order,
+    for every device list, padding-only shards included."""
+    rows = _padded(3, n)
+    x = torch.arange(rows * 2, dtype=torch.int32).reshape(rows, 2)
+    for devices in PLAN_DEVICES[n]:
+        plan = tmesh.slab_plan(devices, rows)
+        out = torch.full_like(x, -1)
+        others = []
+        for k, (_, slabs) in enumerate(plan):
+            (ptr,), starts, keep = tmesh.stage_rows((x,), slabs, CPU)  # in place
+            assert ptr == x.data_ptr() and keep is None and starts == [lo for _, lo, _ in slabs]
+            if k == 0:
+                for _, lo, hi in slabs:
+                    out[lo:hi] = x[lo:hi]
+            else:
+                others.append((slabs, torch.cat([x[lo:hi] for _, lo, hi in slabs])))
+        tmesh.gather_cards(out, others)
+        assert torch.equal(out, x)
+
+
+@pytest.mark.parametrize("n", sorted(PLAN_DEVICES))
+def test_staging_buffer_holds_each_cards_rows(n):
+    """The host side of one card's upload: staging_layout places each
+    entity operand 16-byte aligned, and fill_staging writes the card's rows
+    of each, shard after shard, byte for byte as the kernels read them
+    (bool rows, int32 rows, a zero-width operand)."""
+    rows = _padded(5, n)
+    rng = np.random.RandomState(n)
+    bools = torch.from_numpy(rng.rand(rows, 15) < 0.5)
+    ints = torch.from_numpy(rng.randint(-9, 9, size=(rows, 5)).astype(np.int32))
+    empty = torch.zeros((rows, 0), dtype=torch.bool)
+    tensors = (bools, ints, empty)
+    for devices in PLAN_DEVICES[n]:
+        for _, slabs in tmesh.slab_plan(devices, rows):
+            count = sum(hi - lo for _, lo, hi in slabs)
+            offsets, total = tmesh.staging_layout(tensors, count)
+            assert all(o % 16 == 0 for o in offsets) and total % 16 == 0
+            assert total >= offsets[-1] and offsets[1] >= count * 15
+            buf = np.full(total, 0xAB, dtype=np.uint8)
+            tmesh.fill_staging(buf, tensors, tmesh.card_runs(slabs), offsets)
+            for t, off in zip(tensors, offsets):
+                want = torch.cat([t[lo:hi] for _, lo, hi in slabs]).numpy()
+                size = want.nbytes
+                got = buf[off:off + size].view(want.dtype).reshape(want.shape)
+                np.testing.assert_array_equal(got, want)
+
+
 # -- B5: the sharded cube ---------------------------------------------------------
 
 

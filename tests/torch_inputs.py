@@ -319,6 +319,49 @@ def group_inputs(seed: int):
     )
 
 
+# ragged shapes of the fused sharded kernels (kt_cube_fused, kt_group_solve):
+# (entities, R, K, I, O, D): R and K past 32 and not multiples of it, I not
+# a multiple of a block (128 for the cube, 1024 for the group solve) and past
+# 1024, entity counts that are not multiples of 32, K = 0
+MESH_KERNEL_SHAPES = ((45, 37, 45, 1000, 4000, 4), (3, 8, 8, 1008, 8064, 4),
+                      (200, 16, 0, 1500, 3001, 2), (70, 70, 9, 130, 900, 6))
+
+
+def mesh_kernel_inputs(seed: int, n: int):
+    """Operands of the sharded cube and group solve on an n-shard mesh, at
+    MESH_KERNEL_SHAPES[seed % 4]: the entity axis padded as the engine pads
+    it (pow2 aligned to lcm(n, 8); padding rows all-False and zero, so
+    at 3 entities every shard past the first is padding only); owner-major
+    offerings with type 3 owning none and type 5's never available; prices
+    from a small set (ties); group 0 fitting no type. Returns (P, the cube's
+    seven operands, the group solve's nine)."""
+    rng = np.random.RandomState(900 + seed)
+    P, R, K, I, O, D = MESH_KERNEL_SHAPES[seed % 4]
+    align = (n * 8) // np.gcd(n, 8)
+    P2 = -(-max(1 << max(0, (P - 1).bit_length()), align) // align) * align
+    owner = np.sort(rng.choice(np.setdiff1d(np.arange(I), [3]), size=O)).astype(np.int32)
+    available = rng.rand(O) < 0.9
+    available[owner == 5] = False
+    offer_price = rng.choice([0.25, 0.5, 1.0, 2.0], size=O).astype(np.float32)
+    price = np.full(I, np.inf, dtype=np.float32)
+    np.minimum.at(price, owner[available], offer_price[available])
+    membership = np.zeros((P2, R), dtype=bool)
+    membership[:P] = rng.rand(P, R) < min(1.0, 4.0 / R)
+    key_present = np.zeros((P2, K), dtype=bool)
+    key_present[:P] = rng.rand(P, K) < 0.5
+    group_ints = np.zeros((P2, D + 1), dtype=np.int32)
+    group_ints[:P, :D] = rng.randint(0, 16, size=(P, D)) * (rng.rand(P, D) > 0.3)
+    group_ints[0, :D] = 1 << 20
+    group_ints[:P, D] = rng.randint(1, 500, size=P)
+    req_compat, offer_compat = rng.rand(R, I) < 0.9, rng.rand(R, O) < 0.9
+    custom_need = rng.rand(O, K) < 0.05
+    alloc_q = rng.randint(-2, 64, size=(I, D)).astype(np.int32)
+    cube = (membership, req_compat, offer_compat, custom_need, key_present, available, owner)
+    group = (np.concatenate([membership, key_present], axis=1), group_ints, req_compat,
+             offer_compat, custom_need, available, owner, alloc_q, price)
+    return P, cube, group
+
+
 def core_inputs(seed: int):
     """A resident [cap, 3] core matrix (feasible entries other than 0/1
     too, pods-per-node down to -1), edge-padded scatter slots and rows, and
