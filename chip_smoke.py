@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # phases 1-3 only (build + kernel checks)
     python3 chip_smoke.py --mesh     # phases 1-2, 4 and 5b (two or more cards)
+    python3 chip_smoke.py --turns TREE [TREE ...]   # the group wrappers of
+                                     # each checkout, timed in turns
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -17,8 +19,11 @@ Phases, in order; any failure exits non-zero:
      (phase 7 checks them again on the workload's inputs; those launches
      are the only ones they have: no path of the reference runs them);
      offering_reduce on ragged P/R/O/K (K=0, an offering never available);
-     solve_block and solve_block_core on random operands (all-infeasible
-     groups, zero-request dims, price ties); the sharded wrappers'
+     kt_group_solve in its three modes (solve_block, solve_block_core,
+     solve_block_scatter with edge-padded duplicate, negative and dropped
+     slots) on random operands (all-infeasible groups, zero-request dims,
+     price ties, K=0, R and K past 2048, I past a chunk of 1024 types, a
+     chunk's offerings past a window of 32,768), one launch a call; the sharded wrappers'
      kt_cube_fused and kt_group_solve on ragged operands (R and K past 32,
      I past a block, shards of padding only, a type without offerings and
      one never available) on meshes repeating the card 1-3 times, the
@@ -54,7 +59,11 @@ Phases, in order; any failure exits non-zero:
      solve_block and solve_block_core there against their plain versions,
      then the path (counts zeroed just before, the checks' own launches
      left out): the full solve, and with delta on a cold pass, a
-     count-only pass (0 groups solved) and a pass with new shapes;
+     count-only pass (0 groups solved) and a pass with new shapes, each
+     with its wall ms; exact launches: one solve_block a full solve and
+     self-check, one solve_block_scatter a pass with a frontier, one
+     delta_finalize a pass, and no membership, offering_reduce,
+     solve_block_core or delta_scatter;
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
      mesh, on a 2-shard mesh (two cards when the machine has them, else
      cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
@@ -87,9 +96,26 @@ Phases, in order; any failure exits non-zero:
      group solve's entries also hold the host time of a call split by part
      (wrapper_breakdown), the per-shard composition they replace rebuilt from public
      pieces with its own breakdown and device time, and both timed in
-     turns (old, new, new, old); delta_scatter's holds it and index_put_
-     timed in turns;
+     turns (old, new, new, old); solve_block's, solve_block_core's and
+     solve_block_scatter's hold the host time by part and kt_group_solve's
+     phase split (block 0's phase timestamps: pack, offering pass, type
+     pass, reduction) and ptxas's report; delta_scatter's holds its host
+     time by part and it and index_put_ timed in turns. The kernels of no
+     path (OFF_PATH: fits_matrix, stage_plane, offering_reduce,
+     solve_block_core, delta_scatter) have 0 launches, held so, and phase
+     3's and phase 7's check launches under `check_launches`;
   8. last line {"ok": true, "device": {...}}.
+
+--turns times the group solver's wrappers of one or more checkouts of this
+repository, one after the other in the order given (parent, this, this,
+parent for a before/after), each in a process of its own that imports that
+checkout's karpenter_tpu_torch and this script's helpers, on the bench
+workload's groups: B9 solve_block on the 200 groups, B10 solve_block_core
+on the first 128, B11 delta_scatter_rows of those rows into a 256-row core
+matrix (and index_put_ beside it in turns), B13 sharded_solve_block on a
+2-shard mesh of the first card twice. Each checked against its plain
+version, then its wrapper ms, device ms by kernel, host us by part and C
+launches per call; all in chiprun_out/turns.json.
 
 Imports torch, numpy and karpenter_tpu_torch only.
 """
@@ -138,6 +164,7 @@ SOURCE = {
     "offering_reduce": "karpenter_tpu_torch/csrc/feasibility.cu",
     "solve_block": "karpenter_tpu_torch/csrc/packer.cu",
     "solve_block_core": "karpenter_tpu_torch/csrc/packer.cu",
+    "solve_block_scatter": "karpenter_tpu_torch/csrc/packer.cu",
     "delta_scatter": "karpenter_tpu_torch/csrc/packer.cu",
     "delta_finalize": "karpenter_tpu_torch/csrc/packer.cu",
     "solve_scan_full": "karpenter_tpu_torch/csrc/scan.cu",
@@ -159,6 +186,7 @@ REPLACES = {
     "offering_reduce": "karpenter_tpu/ops/feasibility.py:430",
     "solve_block": "karpenter_tpu/ops/packer.py:133",
     "solve_block_core": "karpenter_tpu/ops/packer.py:162",
+    "solve_block_scatter": "karpenter_tpu/ops/packer.py:162 + :185",
     "delta_scatter": "karpenter_tpu/ops/packer.py:185",
     "delta_finalize": "karpenter_tpu/ops/packer.py:196",
     "solve_scan_full": "karpenter_tpu/ops/packer.py:833",
@@ -179,8 +207,9 @@ ENTRY_POINTS = {
     "uid_project": "kt_uid_project",
     "solve_scan": "kt_solve_scan",
     "offering_reduce": "kt_cube_offer",
-    "solve_block": "kt_membership + kt_cube_offer + kt_solve_block",
-    "solve_block_core": "kt_membership + kt_cube_offer + kt_solve_block",
+    "solve_block": "kt_group_solve (finalize mode)",
+    "solve_block_core": "kt_group_solve (core mode)",
+    "solve_block_scatter": "kt_group_solve (scatter mode)",
     "delta_scatter": "kt_delta_scatter",
     "delta_finalize": "kt_delta_finalize",
     "solve_scan_full": "kt_solve_scan",
@@ -188,11 +217,18 @@ ENTRY_POINTS = {
     "fits_matrix": "kt_fits_matrix_i32 / kt_fits_matrix_f32",
     "stage_plane": "kt_stage_plane",
     "sharded_cube": "kt_cube_fused",
-    "sharded_solve_block": "kt_group_solve",
+    "sharded_solve_block": "kt_group_solve (finalize mode, one launch a card)",
     "sharded_solve_scan": "kt_solve_scan",
     "sharded_solve_scan_full": "kt_solve_scan",
     "sharded_solve_scan_resume": "kt_solve_scan",
 }
+# the kernels no path launches: the reference runs B4 and B7 on none, and
+# since the group solve became one kt_group_solve launch a call the
+# standalone offering_reduce (B8), solve_block_core (B10) and delta_scatter
+# (B11) wrappers run on none either. Their entries give the paths' count,
+# 0, as `launches` and phase 3's and phase 7's check launches as
+# `check_launches`; the kernels line holds them to exactly that.
+OFF_PATH = ("fits_matrix", "stage_plane", "offering_reduce", "solve_block_core", "delta_scatter")
 # float32 operations per second outside the tensor cores (H100 SXM data
 # sheet: 67 TFLOP/s FP32), the rate of fits_matrix's float32 compares
 F32_OPS_PER_S = 67e12
@@ -200,6 +236,7 @@ F32_OPS_PER_S = 67e12
 SCAN_KERNELS = ["solve_scan_resident_kernel", "solve_scan_kernel"]
 SCAN_BLOCK_SIZES = (256, 512, 1024)
 PTXAS: dict = {}  # scan kernel -> ptxas's report, filled by phase_build
+GROUP_PTXAS: dict = {}  # the same for kt_group_solve's kernel
 
 
 def log(msg: str) -> None:
@@ -316,6 +353,62 @@ def random_group_inputs(rng, G, R, K, I, O, D, dev):
         price,
     )
     return tuple(_to(a, dev) for a in host)
+
+
+# kt_group_solve's phase-3 shapes (G, R, K, I, O, D): the group solver's
+# (256 groups x 1008 types), single rows, K=0, R past 32 and not a multiple
+# of it, R and K past 2048 (past the 64 words the kernel once held), I past a block of
+# 1024 threads (one chunk of types), I past nine chunks, and one chunk's
+# offerings past a window of 32,768 usable bits (two windows)
+GROUP_CHECK_SHAPES = ((256, 64, 8, 1008, 8064, 4), (1, 1, 0, 1, 1, 4), (37, 5, 8, 40, 77, 4),
+                      (200, 16, 0, 1008, 2000, 6), (9, 33, 40, 300, 900, 2),
+                      (5, 2100, 2050, 300, 900, 4), (64, 7, 8, 1025, 8064, 4),
+                      (3, 3, 2, 9000, 30000, 4), (5, 3, 2, 100, 40000, 4))
+
+
+def scatter_inputs(rng, args, cap):
+    """The frontier as the residency hands it to solve_block_scatter: a
+    random [cap, 3] core matrix; the groups' last quarter edge-padded (rows
+    equal to the last real group's, slots repeating its slot); distinct
+    slots for the real groups, one given as slot - cap (negative, counting
+    from the end) and one past the end either way (dropped)."""
+    gb, gi = args[0].clone(), args[1].clone()
+    G = gb.shape[0]
+    real = max(1, G - G // 4)
+    gb[real:] = gb[real - 1]
+    gi[real:] = gi[real - 1]
+    slots = rng.permutation(cap)[:real].astype(np.int32)
+    if real >= 3:
+        slots[0] -= cap
+        slots[1] = cap + 3 if rng.rand() < 0.5 else -cap - 2
+    slots = np.pad(slots, (0, G - real), mode="edge")
+    core = np.stack([rng.randint(0, 1008, size=cap), rng.randint(0, 2, size=cap),
+                     rng.randint(0, 200, size=cap)], axis=1).astype(np.int32)
+    return _to(core, gb.device), _to(slots, gb.device), (gb, gi) + tuple(args[2:])
+
+
+def group_mode_checks(rng, G, R, K, I, O, D, dev) -> int:
+    """kt_group_solve in its three modes through solve_block, solve_block_core
+    and solve_block_scatter on random operands, each bit for bit against
+    its plain version and one launch a call; returns the cases checked."""
+    from karpenter_tpu_torch.ops import packer
+
+    args = random_group_inputs(rng, G, R, K, I, O, D, dev)
+    label = f"G={G} R={R} K={K} I={I} O={O} D={D}"
+    core, slots, sargs = scatter_inputs(rng, args, max(8, 2 * G))
+    for name, run, plain in (
+        ("solve_block", lambda: packer.solve_block(*args), lambda: packer.solve_block_plain(*args)),
+        ("solve_block_core", lambda: packer.solve_block_core(*args),
+         lambda: packer.solve_block_core_plain(*args)),
+        ("solve_block_scatter", lambda: packer.solve_block_scatter(core.clone(), slots, *sargs),
+         lambda: packer.delta_scatter_rows_plain(core.clone(), slots, packer.solve_block_core_plain(*sargs))),
+    ):
+        l0 = dict(_count_launches())
+        got = run()
+        moved = {k: v - l0[k] for k, v in _count_launches().items() if v != l0[k]}
+        assert moved == {name: 1}, f"{name} {label}: launches {moved}"
+        check_equal(f"{name} {label}", got, plain())
+    return 3
 
 
 def random_mesh_inputs(rng, P, n, R, K, I, O, D):
@@ -712,6 +805,8 @@ def phase_build():
                     or "entry function" in line):
                 log(f"  {name}: {line.strip()}")
     PTXAS.update(ptxas_report(device.BUILD_LOG.get("scan", ""), SCAN_KERNELS))
+    GROUP_PTXAS.update(ptxas_report(device.BUILD_LOG.get("packer", ""), ["group_solve_kernel"]))
+    log(f"ptxas group_solve_kernel: {json.dumps(GROUP_PTXAS)}")
     for fn, rep in PTXAS.items():
         log(f"ptxas {fn}: {json.dumps(rep)}")
     assert any("resident" in fn for fn in PTXAS) and any("resident" not in fn for fn in PTXAS), \
@@ -832,14 +927,8 @@ def phase_kernel_checks(dev=torch.device("cuda")):
         check_equal(f"offering_reduce P={P} R={R} O={O} K={K} I={I}",
                     feas.offering_reduce(*args, I), feas.offering_reduce_plain(*args, I))
         n += 1
-    for G, R, K, I, O, D in ((256, 64, 8, 1008, 8064, 4), (1, 1, 0, 1, 1, 4), (37, 5, 8, 40, 77, 4),
-                             (200, 16, 0, 1008, 2000, 6), (9, 33, 40, 300, 900, 2)):
-        args = random_group_inputs(rng, G, R, K, I, O, D, dev)
-        check_equal(f"solve_block G={G} R={R} K={K} I={I}",
-                    packer.solve_block(*args), packer.solve_block_plain(*args))
-        check_equal(f"solve_block_core G={G} R={R} K={K} I={I}",
-                    packer.solve_block_core(*args), packer.solve_block_core_plain(*args))
-        n += 2
+    for shape in GROUP_CHECK_SHAPES:
+        n += group_mode_checks(rng, *shape, dev)
     for cap, m, g in ((256, 200, 200), (64, 1, 1), (1024, 517, 1000), (16384, 256, 250)):
         core, slots, rows, order, counts = random_core_inputs(rng, cap, m, g, dev)
         got = packer.delta_scatter_rows(core.clone(), slots, rows)
@@ -848,8 +937,9 @@ def phase_kernel_checks(dev=torch.device("cuda")):
         check_equal(f"delta_finalize cap={cap} G={g}", packer.delta_finalize(got, order, counts),
                     packer.delta_finalize_plain(want, order, counts))
         n += 2
-    log(f"kernel checks: {n} offering_reduce, solve_block(_core) and delta_scatter/finalize cases "
-        f"bit-identical to the plain versions")
+    log(f"kernel checks: {n} offering_reduce, kt_group_solve (finalize, core and scatter modes; R and "
+        f"K past 2048, I past a chunk of types, offerings past a window) and delta_scatter/finalize cases "
+        f"bit-identical to the plain versions, one launch per call")
     sharded_kernel_checks(dev)
     catalog = construct_instance_types()
     pods = build_pods()[:SMALL_PODS]
@@ -1246,10 +1336,10 @@ def phase_mesh(captured, device=None):
     def block_factory(mesh):
         fn = real[1](mesh)
 
-        def run(*args):
+        def run(*args, **kw):
             blocks.append(mesh.size)
-            keep("sharded_solve_block", (mesh, args), mesh.size)
-            return fn(*args)
+            keep("sharded_solve_block", (mesh, args, kw), mesh.size)
+            return fn(*args, **kw)
 
         return run
 
@@ -1352,8 +1442,7 @@ def phase_mesh(captured, device=None):
                 for d in dict.fromkeys(mesh.devices):
                     k = mesh.devices.count(d)
                     want_d = {"kt_solve_scan": k * scans, "kt_cube_fused": mesh_sweeps,
-                              "kt_group_solve": 1, "kt_solve_block": 0, "kt_membership": 0,
-                              "kt_cube_offer": 0}
+                              "kt_group_solve": 1, "kt_membership": 0, "kt_cube_offer": 0}
                     got_d = {e: by_device[str(d)].get(e, 0) for e in want_d}
                     assert got_d == want_d, f"{label}: launches on {d} {got_d}, expected {want_d}"
         launches = _count_launches()
@@ -1397,7 +1486,10 @@ def phase_group(captured, device=None):
     then the path, with counts zeroed just before and read just after: the
     full solve, then delta on (a self-check every warm pass) a cold pass, a
     count-only pass and a pass with new shapes, each held against the full
-    solve outside the counts. The kernels' inputs kept in `captured`."""
+    solve outside the counts and timed (wall ms, ending in a copy to the
+    host). The kernels' inputs kept in `captured`: the workload's groups,
+    the first frontier pass's solve_block_scatter operands, and from them
+    B8's, B10's and B11's."""
     from karpenter_tpu_torch.apis import labels as wk
     from karpenter_tpu_torch.ops import delta, packer
     from karpenter_tpu_torch.ops import feasibility as feas
@@ -1406,23 +1498,15 @@ def phase_group(captured, device=None):
     engine = CatalogEngine(build_catalog(), device=device)
     reqs, requests = packer_workload(engine)
     captured["workload"] = (engine, reqs, requests)
-    real = (feas.offering_reduce, packer.solve_block_core, packer.delta_scatter_rows, packer.delta_finalize)
+    real = (packer.solve_block_scatter, packer.delta_finalize)
 
-    def off_shim(*args):
-        captured.setdefault("offering_reduce", args)
-        return real[0](*args)
-
-    def core_shim(*args):
-        captured.setdefault("solve_block_core", args)
-        return real[1](*args)
-
-    def scatter_shim(core, slots, rows):
-        captured.setdefault("delta_scatter", (core.clone(), slots, rows))
-        return real[2](core, slots, rows)
+    def scatter_shim(core, slots, *args, **kw):
+        captured.setdefault("solve_block_scatter", (core.clone(), slots) + args)
+        return real[0](core, slots, *args, **kw)
 
     def finalize_shim(core, order, counts):
         captured["delta_finalize"] = (core.clone(), order, counts)
-        return real[3](core, order, counts)
+        return real[1](core, order, counts)
 
     dmode0, every0 = delta.DELTA_MODE, delta.RESOLVE_FULL_EVERY
     delta.configure(mode="off")
@@ -1432,19 +1516,23 @@ def phase_group(captured, device=None):
     group_bools, group_ints = packer._pack_groups(grouped)
     args = (_to(group_bools, engine.device), _to(group_ints, engine.device)) + solver._catalog_args()
     captured["solve_block"] = args
+    R = args[2].shape[0]
+    captured["offering_reduce"] = (args[0][:, :R].contiguous(), args[3], args[4],
+                                   args[0][:, R:].contiguous(), args[5], args[6], args[2].shape[1])
     check_equal(f"solve_block on the workload's {G} groups", packer.solve_block(*args),
                 packer.solve_block_plain(*args))
-    check_equal(f"solve_block_core on the workload's {G} groups", packer.solve_block_core(*args),
-                packer.solve_block_core_plain(*args))
+    check_equal(f"solve_block_core on the workload's {G} groups",
+                packer.solve_block_core(*args), packer.solve_block_core_plain(*args))
     log(f"group solver: solve_block and solve_block_core bit-identical to the plain versions on the "
         f"workload's groups (G={G}, R+K={group_bools.shape[1]}, I={engine.num_instances})")
-    feas.offering_reduce, packer.solve_block_core, packer.delta_scatter_rows, packer.delta_finalize = (
-        off_shim, core_shim, scatter_shim, finalize_shim)
+    packer.solve_block_scatter, packer.delta_finalize = scatter_shim, finalize_shim
     try:
         feas.reset_launch_counts()
         packer.reset_launch_counts()
         c0 = delta.delta_counters()
+        t0 = time.perf_counter()
         full = solver._solve_full(grouped)
+        full_ms = (time.perf_counter() - t0) * 1e3
         delta.configure(mode="on", resolve_full_every=1)
         delta.invalidate_all("chip-smoke")
         res = delta.group_residency(solver)
@@ -1459,36 +1547,48 @@ def phase_group(captured, device=None):
         ):
             g = packer.encode_pods_for_packer(engine, r, q)
             s0 = delta.delta_counters()
+            l0 = _count_launches()
+            t0 = time.perf_counter()
             got = solver.solve(g)
+            ms = (time.perf_counter() - t0) * 1e3
             s1 = delta.delta_counters()
+            per = {k: v - l0[k] for k, v in _count_launches().items() if v != l0[k]}
             want = uncounted(solver._solve_full, g)
             assert all(np.array_equal(a, b) for a, b in zip(got, want)), f"group {label}: delta != full"
             trace.append((label, res.last_mode, g.membership.shape[0],
                           s1["delta_groups_solved"] - s0["delta_groups_solved"],
-                          s1["delta_groups_reused"] - s0["delta_groups_reused"]))
+                          s1["delta_groups_reused"] - s0["delta_groups_reused"], ms, per))
         launches = _count_launches()
         counters = {k: v - c0.get(k, 0) for k, v in delta.delta_counters().items() if v != c0.get(k, 0)}
     finally:
-        feas.offering_reduce, packer.solve_block_core, packer.delta_scatter_rows, packer.delta_finalize = real
+        packer.solve_block_scatter, packer.delta_finalize = real
         delta.configure(mode=dmode0, resolve_full_every=every0)
-    for label, mode, groups, solved, reused in trace:
-        log(f"group pass {label}: {mode}, {groups} groups, {solved} solved, {reused} reused")
+    for label, mode, groups, solved, reused, ms, per in trace:
+        log(f"group pass {label}: {mode}, {groups} groups, {solved} solved, {reused} reused, "
+            f"{ms:.2f} ms wall (a warm pass's self-check included), launches {json.dumps(per)}")
     log(f"group solver: full solve {int(full[1].sum())}/{G} groups feasible, "
-        f"{int(full[2].sum())} nodes; counters {json.dumps(counters)}; launches {json.dumps(launches)}")
+        f"{int(full[2].sum())} nodes, {full_ms:.2f} ms wall; counters {json.dumps(counters)}; "
+        f"launches {json.dumps(launches)}")
     assert [t[1] for t in trace] == ["cold", "warm", "warm"]
     assert trace[0][3] >= 1 and trace[1][3] == 0 and trace[2][3] >= 1
     checks = counters.get("delta_selfchecks_identical", 0)
     assert checks == 2 and counters.get("delta_selfchecks_divergent", 0) == 0
-    # the path's own launches: the full solve and each self-check run
-    # solve_block; each pass with a frontier solve_block_core and
-    # delta_scatter; every pass delta_finalize; each block solve one
-    # membership and one offering_reduce
+    # the path's own launches: the full solve and each self-check one
+    # solve_block; each pass with a frontier one solve_block_scatter (B10
+    # and B11 in one launch); every pass delta_finalize; nothing else of
+    # the group kernels: no membership or offering_reduce beside a block
+    # solve, no solve_block_core, no delta_scatter
     frontier = sum(1 for t in trace if t[3])
-    want = {"solve_block": 1 + checks, "solve_block_core": frontier, "delta_scatter": frontier,
-            "delta_finalize": len(trace)}
-    want["offering_reduce"] = want["membership"] = want["solve_block"] + frontier
+    want = {"solve_block": 1 + checks, "solve_block_scatter": frontier, "delta_finalize": len(trace),
+            "solve_block_core": 0, "delta_scatter": 0, "membership": 0, "offering_reduce": 0,
+            "cube": 0}
     got = {name: launches[name] for name in want}
     assert got == want, f"group path launches {got}, expected {want}"
+    # B10's and B11's operands on the path: the frontier's group rows, and
+    # the core rows they solve to scattered at its slots
+    core, slots, gb, gi, *cat = captured["solve_block_scatter"]
+    captured["solve_block_core"] = (gb, gi, *cat)
+    captured["delta_scatter"] = (core, slots, packer.solve_block_core_plain(gb, gi, *cat))
     return launches
 
 
@@ -1964,27 +2064,93 @@ def scan_state_entries(scan, resume, launches, plain):
     return [full, resume_entry]
 
 
-def group_entries(captured, launches):
-    """offering_reduce, solve_block and solve_block_core on the group
-    path's operands (the workload's groups; the cold delta pass's padded
-    frontier for the core), delta_scatter and delta_finalize on the inputs
-    the residency gave them: each matched against its plain version, then
-    timed. Bytes: each input read once and each output written once (for
-    delta_scatter the rows it writes, for delta_finalize the core rows it
-    gathers too)."""
+GROUP_SPLIT_PARTS = ("pack", "offerings", "types", "reduce")
+
+
+def group_phase_split(args, mode, reps=50, warmup=5) -> dict:
+    """Where one kt_group_solve launch spends its device time: `reps`
+    launches (after `warmup`) with the kernel's timestamp buffer,
+    uncounted. Per launch block 0's microseconds by phase (%globaltimer:
+    the pack of the group's words, the first window of usable offerings,
+    the type pass, the reduction) and its SM cycles by phase (clock64); the
+    launch's span from the first block's start to the last block's end, the
+    latest block start, every block's duration (median, 90th percentile,
+    longest), the SMs the blocks ran on and the most blocks on one SM, and
+    the mean duration of blocks that shared their SM and of those alone on
+    it. Medians over the launches."""
+    from karpenter_tpu_torch.ops import packer
+
+    dev = args[0].device
+    G = args[0].shape[0]
+    name = "solve_block" if mode == "finalize" else "solve_block_core"
+    H = packer.GROUP_STAMPS
+    stamps = torch.zeros((warmup + reps, H + 3 * G), dtype=torch.int64, device=dev)
+    stamps[:, 10] = -1  # the least start, folded with an unsigned atomicMin
+    for k in range(warmup + reps):
+        uncounted(lambda s=stamps[k]: packer._group_solve(name, mode, args[0], args[1], args[2:],
+                                                          stamps=s))
+    torch.cuda.synchronize()
+    st = stamps.cpu().numpy()[warmup:].astype(np.float64)
+    ns, cyc = st[:, 0:5], st[:, 5:10]
+    out = {f"{part}_us": float(np.median(ns[:, k + 1] - ns[:, k])) / 1e3
+           for k, part in enumerate(GROUP_SPLIT_PARTS)}
+    out.update({f"{part}_cycles": float(np.median(cyc[:, k + 1] - cyc[:, k]))
+                for k, part in enumerate(GROUP_SPLIT_PARTS)})
+    out["block0_us"] = float(np.median(ns[:, 4] - ns[:, 0])) / 1e3
+    out["span_us"] = float(np.median(st[:, 11] - st[:, 10])) / 1e3
+    out["latest_start_us"] = float(np.median(st[:, 12] - st[:, 10])) / 1e3
+    blocks = st[:, H:].reshape(reps, G, 3)
+    dur = (blocks[:, :, 1] - blocks[:, :, 0]) / 1e3
+    out["block_us"] = {"median": float(np.median(np.median(dur, axis=1))),
+                       "p90": float(np.median(np.percentile(dur, 90, axis=1))),
+                       "longest": float(np.median(dur.max(axis=1)))}
+    shared, alone, per_sm = [], [], []
+    for k in range(reps):
+        sms, counts = np.unique(blocks[k, :, 2], return_counts=True)
+        per_sm.append((len(sms), int(counts.max())))
+        n_on = dict(zip(sms, counts))
+        on = np.array([n_on[v] for v in blocks[k, :, 2]])
+        shared += list(dur[k][on > 1])
+        alone += list(dur[k][on == 1])
+    out["sms"] = int(np.median([p[0] for p in per_sm]))
+    out["most_blocks_on_an_sm"] = int(np.median([p[1] for p in per_sm]))
+    out["shared_sm_block_us"] = float(np.mean(shared)) if shared else None
+    out["alone_sm_block_us"] = float(np.mean(alone)) if alone else None
+    out["launches"] = reps
+    return out
+
+
+def group_entries(captured, launches, phase3):
+    """offering_reduce on the workload's groups' planes; solve_block on the
+    workload's groups and solve_block_core on the first frontier's rows
+    (device-resident operands); solve_block_scatter on that frontier as the
+    residency gave it; delta_scatter on its slots and core rows;
+    delta_finalize on the inputs the residency gave it: each matched
+    against its plain version, then timed. B9, B10 and the scatter mode
+    also get their host time by part (wrapper_breakdown), kt_group_solve's
+    phase split (group_phase_split) and ptxas's report; B11 its turns
+    against index_put_. Bytes: each input read once and each output
+    written once (for the scatters the rows they write, for
+    delta_finalize the core rows it gathers too). `launches`: the group
+    path's counts; `phase3`: phase 3's launches of the OFF_PATH wrappers,
+    to which these checks add theirs as `check_launches`."""
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import packer
 
     entries = []
+    counts = dict(launches)
 
     def words(n):
         return (n + 31) // 32
 
     def add(name, kernel, plain, library, inputs, device_names, ops, out_bytes=None, **extra):
+        l0 = _count_launches()[name]
         got, want = kernel(), plain()
         check_equal(f"{name} on the group path's inputs", got, want)
+        if name in OFF_PATH:
+            extra["check_launches"] = phase3[name] + _count_launches()[name] - l0
         entries.append(_entry(
-            name, launches, _max_abs_err(got, want), cuda_ms(kernel),
+            name, counts, _max_abs_err(got, want), cuda_ms(kernel),
             cuda_ms(plain, reps=5, warmup=1),
             nbytes(*inputs) + (nbytes(got) if out_bytes is None else out_bytes), ops, WORD_OPS_PER_S,
             cuda_ms(library) if library is not None else None,
@@ -2009,27 +2175,44 @@ def group_entries(captured, launches):
         offering_f32, off[:6], ["cube_offer_kernel"], P * O * (words(R) + words(K)),
         library_call="the reference's f32 matmul form")
 
-    for name in ("solve_block", "solve_block_core"):
-        args = captured[name]
+    def solve_ops(args):
         G = args[0].shape[0]
         Rr, Ii = args[2].shape
         Oo, Kk = args[4].shape
         Dd = args[7].shape[1]
+        return G * Ii * words(Rr) + G * Oo * (words(Rr) + words(Kk)) + G * Ii * (Dd + 1)
+
+    def yardstick(args):
+        """One argmin over the masked price, on feasibility computed
+        beforehand (no single call computes the whole solve)."""
+        Rr, Ii = args[2].shape
+        Dd = args[7].shape[1]
         mem, kp = args[0][:, :Rr], args[0][:, Rr:]
-        # the yardstick: one argmin over the masked price, on feasibility
-        # computed beforehand (no single call computes the whole solve)
         feasible = (
             feas.membership_all_plain(mem, args[2])
             & feas.offering_reduce_plain(mem, args[3], args[4], kp, args[5], args[6], Ii)
             & (args[1][:, None, :Dd] <= args[7][None, :, :]).all(dim=-1)
         )
         inf = torch.tensor(3.4e38, dtype=torch.float32, device=args[8].device)
-        add(name, lambda k=getattr(packer, name), a=args: k(*a),
-            lambda p=getattr(packer, f"{name}_plain"), a=args: p(*a),
-            lambda f=feasible, pr=args[8]: torch.argmin(torch.where(f, pr[None, :], inf), dim=1),
-            args, ["membership_kernel", "cube_offer_kernel", "solve_block_kernel"],
-            G * Ii * words(Rr) + G * Oo * (words(Rr) + words(Kk)) + G * Ii * (Dd + 1),
-            library_call="torch.argmin over the masked price (feasibility precomputed)")
+        return lambda f=feasible, pr=args[8]: torch.argmin(torch.where(f, pr[None, :], inf), dim=1)
+
+    ptxas = GROUP_PTXAS
+    for name, mode in (("solve_block", "finalize"), ("solve_block_core", "core")):
+        args = captured[name]
+        run = lambda k=getattr(packer, name), a=args: k(*a)  # noqa: E731
+        add(name, run, lambda p=getattr(packer, f"{name}_plain"), a=args: p(*a), yardstick(args), args,
+            ["group_solve_kernel"], solve_ops(args),
+            library_call="torch.argmin over the masked price (feasibility precomputed)",
+            breakdown=wrapper_breakdown(run), phase_split=group_phase_split(args, mode),
+            bare_launch_ms=bare_launch_ms(run), ptxas=ptxas)
+
+    core, slots, *sargs = captured["solve_block_scatter"]
+    c_k, c_p = core.clone(), core.clone()
+    run = lambda: packer.solve_block_scatter(c_k, slots, *sargs)  # noqa: E731
+    add("solve_block_scatter", run, lambda: packer.solve_block_scatter_plain(c_p, slots, *sargs), None,
+        [slots] + list(sargs), ["group_solve_kernel"], solve_ops(sargs), out_bytes=slots.shape[0] * 12,
+        breakdown=wrapper_breakdown(run), bare_launch_ms=bare_launch_ms(run), cap=int(core.shape[0]),
+        replaces_composition="solve_block_core then delta_scatter_rows (B10 + B11)")
 
     # rewriting the same rows is idempotent, so repeated calls time it
     core, slots, rows = captured["delta_scatter"]
@@ -2044,22 +2227,23 @@ def group_entries(captured, launches):
     add("delta_scatter", scatter, lambda: packer.delta_scatter_rows_plain(c_p, slots, rows),
         index_put, (slots, rows), ["delta_scatter_kernel"], 0,
         out_bytes=nbytes(rows), library_call="index_put_ (core[slots] = rows)", cap=int(core.shape[0]),
-        turns=turns)
+        turns=turns, breakdown=wrapper_breakdown(scatter), bare_launch_ms=bare_launch_ms(scatter))
 
-    fcore, order, counts = captured["delta_finalize"]
+    fcore, order, counts_ = captured["delta_finalize"]
     Gb = order.shape[0]
-    add("delta_finalize", lambda: packer.delta_finalize(fcore, order, counts),
-        lambda: packer.delta_finalize_plain(fcore, order, counts), None, (order, counts),
+    add("delta_finalize", lambda: packer.delta_finalize(fcore, order, counts_),
+        lambda: packer.delta_finalize_plain(fcore, order, counts_), None, (order, counts_),
         ["delta_finalize_kernel"], Gb * 8, out_bytes=Gb * 4 * 4 + Gb * 3 * 4, cap=int(fcore.shape[0]))
     return entries
 
 
-def fits_stage_entries(captured):
+def fits_stage_entries(captured, launches):
     """fits_matrix on the workload's quantized requests against its 1008
     allocatables (int32, the exact path's units; float32 beside it) and
     stage_plane on the planes of its 200 shapes' sweep (phase 5's group
-    engine): checked, then timed. Launches: phase 3's and these checks',
-    their only ones (no path of the reference runs them)."""
+    engine): checked, then timed. `launches`: the main path's counts (0:
+    no path of the reference runs them); phase 3's and these checks'
+    launches go in `check_launches`."""
     from karpenter_tpu_torch.ops import feasibility as feas
 
     engine, reqs, requests = captured["workload"]
@@ -2084,11 +2268,11 @@ def fits_stage_entries(captured):
     got_plane, want_plane = feas.stage_plane(*planes), feas.stage_plane_plain(*planes)
     check_equal(f"stage_plane on the sweep of the workload's {len(shape_reqs)} shapes", got_plane, want_plane)
     assert np.array_equal(got_plane.cpu().numpy(), feas.stage_plane_np(f.compat, f.fits, f.has_offering))
-    launches = {k: captured["phase3_launches"][k] + feas.LAUNCHES[k] - n0[k] for k in n0}
+    checks = {k: captured["phase3_launches"][k] + feas.LAUNCHES[k] - n0[k] for k in n0}
     log(f"fits_matrix and stage_plane bit-identical to the plain versions on the workload's "
         f"{len(req_q)} x {len(alloc_q)} fits (int32, float32) and its {len(shape_reqs)} shapes' "
         f"stage plane {json.dumps(feas.stage_counts(got_plane.cpu().numpy()))}; launches with "
-        f"phase 3's {json.dumps(launches)}")
+        f"phase 3's {json.dumps(checks)}")
     entries = []
     timed = {}
     for dt in ("int32", "float32"):
@@ -2107,7 +2291,7 @@ def fits_stage_entries(captured):
     f32 = timed["float32"]
     entries.append(_entry(
         "fits_matrix", launches, err, ms, pms, nb, ops, rate, None, dev_ms, shapes=shapes,
-        dtype="int32", ms_float32=f32[1], plain_ms_float32=f32[2], device_ms_float32=f32[6],
+        check_launches=checks["fits_matrix"], dtype="int32", ms_float32=f32[1], plain_ms_float32=f32[2], device_ms_float32=f32[6],
         bound_ms_float32=max(f32[3] / HBM_BYTES_PER_S, f32[4] / f32[5]) * 1e3,
         max_abs_err_float32=f32[0],
     ))
@@ -2118,7 +2302,7 @@ def fits_stage_entries(captured):
         cuda_ms(lambda: feas.stage_plane_plain(*planes), reps=5, warmup=1), nbytes(*planes, got),
         4 * got.numel(), WORD_OPS_PER_S, None,
         _dev_sum(device_kernel_ms(lambda: feas.stage_plane(*planes), ["stage_plane_kernel"])),
-        shapes=[list(planes[0].shape)] * 3,
+        shapes=[list(planes[0].shape)] * 3, check_launches=checks["stage_plane"],
     ))
     return entries
 
@@ -2172,10 +2356,11 @@ def old_sharded_cube(mesh):
 
 
 def old_sharded_solve_block(mesh):
-    """The per-shard sharded group solve kt_group_solve replaces, rebuilt
-    from public pieces: per shard a
-    pageable upload of each entity slab, solve_block there (kt_membership,
-    kt_cube_offer, kt_solve_block), then gather_rows."""
+    """The per-shard sharded group solve the one launch a card replaces,
+    rebuilt from public pieces: per shard a pageable upload of each entity
+    slab, solve_block there (one kt_group_solve launch on the card's
+    catalog copy, packed once, as every path reads it), then
+    gather_rows."""
     from karpenter_tpu_torch import mesh as mesh_mod
     from karpenter_tpu_torch.ops import packer
 
@@ -2266,18 +2451,17 @@ def wrapper_breakdown(run, reps=50) -> dict:
 # the kernels a sharded wrapper may launch, by the profiler's names: the
 # per-shard composition's and the fused ones
 CUBE_KERNELS = ["membership_kernel", "cube_offer_kernel", "cube_fused_kernel"]
-GROUP_KERNELS = ["membership_kernel", "cube_offer_kernel", "solve_block_kernel",
-                 "group_solve_kernel"]
+GROUP_KERNELS = ["membership_kernel", "cube_offer_kernel", "group_solve_kernel"]
 
 
-def device_per_call(fn, names, reps=20, rounds=3) -> dict:
+def device_per_call(fn, names=None, reps=20, rounds=3) -> dict:
     """Device ms per call of fn by kernel, from torch.profiler's CUDA
     activity: per round of `reps` calls (after one warmup) each kernel's
     mean ms per launch (its total over the launches the trace holds, so a
     trace that misses a launch does not lower it), the median over
     `rounds` rounds, times the launches a call makes (the trace's count
-    over the calls, rounded). Kernels that did not run are left out; their
-    sum is "total"."""
+    over the calls, rounded). `names` None: every kernel in the trace.
+    Kernels that did not run are left out; their sum is "total"."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2289,7 +2473,9 @@ def device_per_call(fn, names, reps=20, rounds=3) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        for name in names:
+        seen = names or sorted({ev.key for ev in prof.key_averages()
+                                if (getattr(ev, "self_device_time_total", 0.0) or 0.0) > 0})
+        for name in seen:
             total, count = 0.0, 0
             for ev in prof.key_averages():
                 if name in ev.key:
@@ -2447,10 +2633,10 @@ def mesh_entries(captured, launches, plain):
         bare_launch_ms=bare_launch_ms(run),
     ))
 
-    mesh, args = captured["sharded_solve_block"][1]
+    mesh, args, kw = captured["sharded_solve_block"][1]
     n, dev0 = mesh.size, mesh.devices[0]
     card = [a.to(dev0) for a in flat(args)]
-    run = lambda: packer.sharded_solve_block(mesh)(*args)  # noqa: E731
+    run = lambda: packer.sharded_solve_block(mesh)(*args, **kw)  # noqa: E731
     got, want = run(), packer.solve_block_plain(*card)
     check_equal("sharded_solve_block on the mesh path's inputs", got, want)
     G2 = card[0].shape[0]
@@ -2459,7 +2645,7 @@ def mesh_entries(captured, launches, plain):
     old = lambda: old_sharded_solve_block(mesh)(*args)  # noqa: E731
     check_equal("the per-shard sharded group solve on the mesh path's inputs", old(), want)
     check_equal("sharded_solve_block with the group rows on the first card",
-                packer.sharded_solve_block(mesh)(card[0], card[1], *args[2:]), want)
+                packer.sharded_solve_block(mesh)(card[0], card[1], *args[2:], **kw), want)
     dev_new = device_per_call(run, GROUP_KERNELS)
     entries.append(_sharded_entry(
         "sharded_solve_block", mesh, launches, got, want, cuda_ms(run),
@@ -2525,16 +2711,119 @@ def mesh_entries(captured, launches, plain):
     return entries
 
 
+def turns_of(tree: str) -> dict:
+    """One checkout's group wrappers on the bench workload (see --turns),
+    timed by this script's helpers; the checkout's karpenter_tpu_torch is
+    first on sys.path."""
+    import karpenter_tpu_torch
+    from karpenter_tpu_torch import device
+    from karpenter_tpu_torch.mesh import Mesh
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    assert os.path.dirname(karpenter_tpu_torch.__file__).startswith(tree), karpenter_tpu_torch.__file__
+    dev = torch.device("cuda", 0)
+    device.build_kernels()
+    engine = CatalogEngine(build_catalog(), device=dev)
+    reqs, requests = packer_workload(engine)
+    solver = packer.GroupSolver(engine)
+    gb, gi = packer._pack_groups(packer.encode_pods_for_packer(engine, reqs, requests))
+    cat = solver._catalog_args()
+    full = (_to(gb, dev), _to(gi, dev)) + cat
+    F, cap = 128, 256
+    front = (full[0][:F].contiguous(), full[1][:F].contiguous()) + cat
+    rows = packer.solve_block_core_plain(*front)
+    slots = _to(np.random.RandomState(5).permutation(cap)[:F].astype(np.int32), dev)
+    core0 = torch.zeros((cap, 3), dtype=torch.int32, device=dev)
+    mesh = Mesh([dev, dev])
+    pad = ((0, cap - gb.shape[0]), (0, 0))
+    mesh_rows = (torch.from_numpy(np.pad(gb, pad)), torch.from_numpy(np.pad(gi, pad)))
+    mesh_cat = solver._mesh_catalog_args(mesh)
+    c_k, c_l = core0.clone(), core0.clone()
+    runs = {
+        "B9 solve_block": (lambda: packer.solve_block(*full), lambda: packer.solve_block_plain(*full)),
+        "B10 solve_block_core": (lambda: packer.solve_block_core(*front),
+                                 lambda: packer.solve_block_core_plain(*front)),
+        "B11 delta_scatter_rows": (lambda: packer.delta_scatter_rows(c_k, slots, rows),
+                                   lambda: packer.delta_scatter_rows_plain(core0.clone(), slots, rows)),
+        "B13 sharded_solve_block": (lambda: packer.sharded_solve_block(mesh)(*mesh_rows, *mesh_cat),
+                                    lambda: packer.solve_block_plain(*(t.to(dev) for t in mesh_rows),
+                                                                     *cat)),
+    }
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0), "kernels": {}}
+    real = feas.launch
+    for name, (run, plain) in runs.items():
+        check_equal(f"{name} on the workload", run(), plain())
+        counts: dict = {}
+
+        def shim(d, entry, *a):
+            counts[entry.__name__] = counts.get(entry.__name__, 0) + 1
+            return real(d, entry, *a)
+
+        feas.launch = packer.launch = shim
+        try:
+            run()
+        finally:
+            feas.launch = packer.launch = real
+        torch.cuda.synchronize()
+        out["kernels"][name] = {"ms": cuda_ms(run), "launches_per_call": counts,
+                                "device_ms_by_kernel": device_per_call(run),
+                                "breakdown": wrapper_breakdown(run)}
+    scatter = runs["B11 delta_scatter_rows"][0]
+    slots_l = slots.long()  # index_put_ takes int64 indices: converted once, outside the timing
+    index_put = lambda: c_l.index_put_((slots_l,), rows)  # noqa: E731
+    out["kernels"]["B11 delta_scatter_rows"]["turns"] = [
+        {"which": w, "ms": cuda_ms(f, rounds=41)}
+        for w, f in (("kernel", scatter), ("index_put_", index_put), ("index_put_", index_put),
+                     ("kernel", scatter))]
+    return out
+
+
+def run_turns(trees) -> int:
+    """--turns: each checkout in a process of its own, in the order given."""
+    here = os.path.abspath(__file__)
+    results = []
+    for k, tree in enumerate(trees):
+        proc = subprocess.run([sys.executable, here, "--turns-of", os.path.abspath(tree)],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            return 1
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["turn"] = k
+        results.append(res)
+        log(json.dumps(res))
+    os.makedirs(os.path.join(os.path.dirname(here), "chiprun_out"), exist_ok=True)
+    with open(os.path.join(os.path.dirname(here), "chiprun_out", "turns.json"), "w") as f:
+        json.dump(results, f, indent=1)
+    for name in results[0]["kernels"]:
+        log(f"{name}: " + json.dumps([(r["turn"], r["kernels"][name]["ms"],
+                                       r["kernels"][name]["device_ms_by_kernel"]["total"],
+                                       r["kernels"][name]["breakdown"]["host_us"]) for r in results]))
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true", help="build and check kernels only")
     parser.add_argument("--mesh", action="store_true",
                         help="build, then phase 4 and the mesh phase alone, with the sharded "
                              "twins' entries (for a machine with two or more cards)")
+    parser.add_argument("--turns", nargs="+", metavar="TREE",
+                        help="time the group wrappers of each checkout in turns, in the order given")
+    parser.add_argument("--turns-of", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card", file=sys.stderr)
         return 2
+    if args.turns_of:
+        sys.path.insert(0, args.turns_of)
+        print(json.dumps(turns_of(args.turns_of)), flush=True)
+        return 0
+    if args.turns:
+        phase_device()
+        return run_turns(args.turns)
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "karpenter_tpu_torch")):
         print(f"chip_smoke: no karpenter_tpu_torch package beside {__file__}", file=sys.stderr)
@@ -2555,7 +2844,11 @@ def main() -> int:
         plain_scans(captured, plain)
         log(json.dumps({"mesh_kernels": mesh_entries(captured, mesh_launches, plain)}))
         return finish(t_start)
+    l0 = _count_launches()
     phase_kernel_checks()
+    # phase 3's launches of the wrappers no path runs, for their phase-7
+    # entries' check_launches
+    phase3 = {k: _count_launches()[k] - l0[k] for k in OFF_PATH}
     fits_stage_checks(captured)
     log(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
     if not args.quick:
@@ -2587,12 +2880,18 @@ def main() -> int:
                                 launches, plain)
         kernels += scan_state_entries(captured["solve_scan"], captured["solve_scan_resume"],
                                       delta_launches, plain)
-        kernels += group_entries(captured, group_launches)
-        kernels += fits_stage_entries(captured)
+        kernels += group_entries(captured, group_launches, phase3)
+        kernels += fits_stage_entries(captured, launches)
         kernels += mesh_entries(captured, mesh_launches, plain)
         assert len(kernels) == len(SOURCE) == len(ENTRY_POINTS), [k["name"] for k in kernels]
         for k in kernels:
-            assert k["launches"] > 0, f"{k['name']} was not launched on its path"
+            if k["name"] in OFF_PATH:
+                # no path runs it: none of its launches may come from a path,
+                # and its checks must have launched it
+                assert k["launches"] == 0 and k["check_launches"] > 0, \
+                    f"{k['name']}: {k['launches']} launches on a path, {k['check_launches']} checked"
+            else:
+                assert k["launches"] > 0, f"{k['name']} was not launched on its path"
         log(json.dumps({"kernels": kernels}))
     return finish(t_start)
 

@@ -6,31 +6,32 @@
 // karpenter_tpu_torch/ops/packer.py.
 //
 // What they replace (karpenter_tpu/ops/packer.py):
-//   kt_solve_block     the rest of _solve_parts (:65) after the two cube
-//                      halves, and _count_finalize (:109): solve_block_jit
-//                      (:148, B9) with the finalize on, _solve_block_core
-//                      (:162, B10) with it off. The cube's halves come from
-//                      kt_membership (B2) and kt_cube_offer (B8,
-//                      feasibility.offering_reduce) in csrc/feasibility.cu.
-//   kt_group_solve     sharded_solve_block (:217-240, B13): the whole
-//                      per-group solve of every shard on one card, the
-//                      cube's halves included, in one launch.
-//   kt_delta_scatter   delta_scatter_rows (:185, B11): core[slots] = rows,
-//                      in place where the reference donates `core`.
-//   kt_delta_finalize  delta_finalize (:196, B12): core[order], then the
-//                      same finalize as kt_solve_block (one __device__
+//   kt_group_solve     the whole per-group solve, the feasibility cube's two
+//                      halves (feasibility.membership_all and
+//                      offering_reduce, B8) included, in one launch, in
+//                      three output modes: finalized rows for
+//                      solve_block_jit (:133-148, B9) and sharded_solve_block
+//                      (:217-240, B13: every shard of one card in one
+//                      launch); core rows for _solve_block_core (:162-182,
+//                      B10); core rows scattered into the delta residency's
+//                      core matrix for the frontier pass, which the
+//                      reference runs as B10 then delta_scatter_rows
+//                      (:185-193, B11).
+//   kt_delta_scatter   delta_scatter_rows (B11) on its own: core[slots] =
+//                      rows, in place where the reference donates `core`.
+//   kt_delta_finalize  delta_finalize (:196-208, B12): core[order], then the
+//                      same finalize as kt_group_solve (one __device__
 //                      helper, so B9 and B12 cannot drift apart).
 //
-// What bounds them on this card: bytes. At the group solver's shape (G=256
-// groups x I=1008 types, D=4) kt_solve_block reads the two [G, I] bool
-// planes, the [I, D] allocatable and the [I] prices once (~0.5 MB, 0.16 us at
-// 3.35 TB/s) and does ~G*I*(D+3) integer and float compares; the delta
-// kernels move a few KB. All three are launch-bound at these sizes. The
-// design: one block per group walks the type axis with coalesced loads and
-// reduces (price, index) pairs with warp shuffles and one shared-memory
-// pass, the least price and then the least index winning, as argmin does.
-// Integer division rounds toward minus infinity (floor_div), as the
-// reference's `//` does, not toward zero as C's `/`.
+// What bounds them on this card: launch latency and, inside a group
+// solve's block, its chain of dependent loads from L2 (every group reads
+// the packed offering tables whole). At the group solver's shape (G=200
+// groups, R+K=15, I=1008 types, O=8064 offerings, D=4) the bytes a call
+// must move are ~0.1 MB and the word operations ~4.4 M: 0.03 and 0.27 us;
+// a block takes ~7 us, two to four L2 round trips a phase. The delta
+// kernels move a few KB. Integer division rounds toward minus
+// infinity (floor_div), as the reference's `//` does, not toward zero as
+// C's `/`.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -39,8 +40,6 @@
 
 namespace {
 
-constexpr int BLOCK_THREADS = 256;
-constexpr int NWARPS = BLOCK_THREADS / 32;
 constexpr float INF_PRICE = 3.4e38f;  // the reference's jnp.float32(3.4e38)
 constexpr int INT32_MAX_V = 0x7fffffff;
 
@@ -61,184 +60,285 @@ __device__ __forceinline__ void finalize_row(int choice, bool feasible, int ppn,
   out4[3] = ok ? 0 : count;
 }
 
-__device__ __forceinline__ void better(float& v, int& i, float v2, int i2) {
+// (v, i, p) takes (v2, i2, p2) when v2 is the lower price, or the same
+// price at a lower index: argmin's order, pods-per-node riding along
+__device__ __forceinline__ void better(float& v, int& i, int& p, float v2, int i2, int p2) {
   if (v2 < v || (v2 == v && i2 < i)) {
     v = v2;
     i = i2;
+    p = p2;
   }
 }
 
-// The block's choice for one group, from each thread's least (price,
-// index) and any-feasible over the types it walked: warp shuffles, then one
-// shared-memory pass, the least price and then the least index winning, as
-// argmin does. Thread 0 then takes pods-per-node of the chosen type (the
-// least floor(alloc / request) over the requested dims, 0 at the least) and
-// returns true with (choice, feasible, ppn); every other thread returns
-// false. Shared by kt_solve_block and kt_group_solve.
-template <int WARPS>
-__device__ __forceinline__ bool block_choice(float best_v, int best_i, int any,
-                                             const int32_t* __restrict__ req,
-                                             const int32_t* __restrict__ alloc_q, int D,
-                                             int& choice, bool& feasible, int& ppn) {
-  __shared__ float s_v[WARPS];
-  __shared__ int s_i[WARPS];
-  __shared__ int s_any[WARPS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// A warp's least (price, index) with its pods-per-node, and any-feasible,
+// in every lane (xor shuffles: the order is a total one, so every lane ends
+// with the same winner)
+__device__ __forceinline__ void warp_choice(float& v, int& i, int& p, int& any) {
   for (int o = 16; o; o >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, best_v, o);
-    const int i2 = __shfl_xor_sync(0xffffffffu, best_i, o);
-    better(best_v, best_i, v2, i2);
+    const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
+    const int i2 = __shfl_xor_sync(0xffffffffu, i, o);
+    const int p2 = __shfl_xor_sync(0xffffffffu, p, o);
+    better(v, i, p, v2, i2, p2);
     any |= __shfl_xor_sync(0xffffffffu, any, o);
-  }
-  if (lane == 0) {
-    s_v[warp] = best_v;
-    s_i[warp] = best_i;
-    s_any[warp] = any;
-  }
-  __syncthreads();
-  if (tid != 0) return false;
-  for (int w = 1; w < WARPS; ++w) {
-    better(best_v, best_i, s_v[w], s_i[w]);
-    any |= s_any[w];
-  }
-  choice = best_i;
-  int m = INT32_MAX_V;
-  for (int d = 0; d < D; ++d) {
-    const int r = req[d];
-    const int per = r > 0 ? floor_div(alloc_q[static_cast<size_t>(choice) * D + d], r) : INT32_MAX_V;
-    m = per < m ? per : m;
-  }
-  ppn = m > 0 ? m : 0;
-  feasible = any != 0;
-  return true;
-}
-
-// One block per group g: feasible[i] = compat & has_offering & fits, the
-// least (price, index) over the feasible types (3.4e38 for the others),
-// pods-per-node of the chosen type; then the core row or the finalized row.
-__global__ void __launch_bounds__(BLOCK_THREADS) solve_block_kernel(
-    const uint8_t* __restrict__ compat, const uint8_t* __restrict__ has_offering,
-    const int32_t* __restrict__ group_ints, const int32_t* __restrict__ alloc_q,
-    const float* __restrict__ price, int32_t* __restrict__ out, int I, int D, int finalize) {
-  const int g = blockIdx.x;
-  const int32_t* req = group_ints + static_cast<size_t>(g) * (D + 1);
-  const uint8_t* cg = compat + static_cast<size_t>(g) * I;
-  const uint8_t* hg = has_offering + static_cast<size_t>(g) * I;
-  float best_v = __int_as_float(0x7f800000);  // +inf: every real type beats it on index
-  int best_i = INT32_MAX_V;
-  int any = 0;
-  for (int i = threadIdx.x; i < I; i += BLOCK_THREADS) {
-    bool f = cg[i] && hg[i];
-    for (int d = 0; d < D && f; ++d) f = req[d] <= alloc_q[static_cast<size_t>(i) * D + d];
-    any |= f;
-    better(best_v, best_i, f ? price[i] : INF_PRICE, i);
-  }
-  int choice, ppn;
-  bool feasible;
-  if (!block_choice<NWARPS>(best_v, best_i, any, req, alloc_q, D, choice, feasible, ppn)) return;
-  if (finalize) {
-    finalize_row(choice, feasible, ppn, req[D], out + static_cast<size_t>(g) * 4);
-  } else {
-    int32_t* o3 = out + static_cast<size_t>(g) * 3;
-    o3[0] = choice;
-    o3[1] = feasible ? 1 : 0;
-    o3[2] = ppn;
   }
 }
 
 // ---------------------------------------------------------------------------
-// B13: the group solve over a mesh, one launch per card.
+// kt_group_solve: B9, B10, B13 and the frontier scatter, one launch a call.
 //
-// Replaces karpenter_tpu/ops/packer.py:217-240 (sharded_solve_block: the
-// shard_map of _solve_block over the group axis, the catalog replicated).
-// What bounds it: at the mesh path's shapes (128 groups a shard, R+K=15,
-// 1008 types, 8064 offerings, D=4) launch latency and the dependent loads
-// inside a block; above them, the reads of the offering tables from L2
-// (every group reads available, owner and custom_need whole, and the
-// offer_compat rows it is a member of). The design: the whole per-group
-// solve in one kernel, with no [G, I] plane in device memory. blockIdx.z
-// indexes the slab table (csrc/common.cuh), as in kt_cube_fused. One block
-// of 1024 threads per group packs the group's membership (columns [0, R)
-// of group_bools, read in place) and its absent custom keys (columns
-// [R, R+K)) into shared memory. Then has_offering, one thread per
-// offering: offering o is usable when it is available, compatible with
-// every row of the group and needs no custom key the group leaves
-// undefined (the tests of kt_cube_offer), and sets its owner's bit in a
-// shared-memory bitmask (atomicOr). Consecutive threads read consecutive
-// offerings, every load is independent, and no search runs: the owner
-// index is read, not looked up. Then one thread per type: compat, the AND
-// of req_ok[r, i] over the group's rows (its set bits), the alloc_q fit and
-// the owner bit; the choice and finalize are block_choice and finalize_row.
+// One block of GROUP_THREADS per group (blockIdx.x), blockIdx.z indexing the
+// slab table (csrc/common.cuh): one slab of every row for B9, B10 and the
+// scatter, one per shard on the card for B13. No [G, I] plane reaches device
+// memory. The catalog comes packed, built once per catalog generation by
+// ops/packer.py pack_catalog: req_words [WR, I] and offer_words [WR, O]
+// hold the requirement rows' compatibility with each type and offering as
+// bits (bit b of word w: row 32 w + b), need_words [WK, O] each offering's
+// custom keys, type_start [I + 1] each type's offering range (offerings are
+// owner-major). So a test of a row set or a key set is one coalesced word
+// load and an AND a word, where it was one byte load a row or a key.
+//   1. pack: each warp turns 32 columns of the group's row (read in place
+//      from group_bools) into one word with a ballot: the rows it is
+//      constrained by (columns [0, R)) and the custom keys it leaves
+//      undefined (columns [R, R+K)); its requests and count to shared
+//      memory;
+//   then, GROUP_THREADS types at a time (one chunk at the solver's shapes),
+//   one type a thread:
+//   2. the usable offerings of the chunk's offering range, a window of at
+//      most WINDOW_WORDS * 32 at a time, UNROLL a thread with all their
+//      loads issued before any test: available, compatible with every row
+//      of the group (memw & ~offer_word == 0), needing no key the group
+//      leaves undefined (absw & need_word == 0); a ballot makes each warp's
+//      32 results one word of a shared bitmask; the type's has_offering is
+//      the bits of its range (a word or two of shared memory);
+//   3. the type: compat (its words), the alloc_q fit and pods-per-node in
+//      one pass over the dims, its price; the thread keeps its least
+//      (price, index) and that type's pods-per-node. These loads come after
+//      the window pass, so nothing of the type is held in registers across
+//      it (the cap is 32 a thread, for two blocks of 1024 on an SM);
+//   4. reduction: warp shuffles, one shared-memory row of warp results,
+//      warp 0 shuffles again; its lane 0 writes the row. Nothing is loaded
+//      from global memory after the reduction.
+// Why this shape: the phase splits of two earlier designs (PERF.md): one
+// thread an offering setting its owner's bit with shared atomics spent
+// 71% of a block in that pass, and one thread a type walking its own
+// offerings one at a time, a byte load a row and a key each, still 80%.
+//
+// Output modes: MODE_FINALIZE writes out[row] = (choice, feasible, nodes,
+// unschedulable), MODE_CORE out[row] = (choice, feasible, pods-per-node),
+// MODE_SCATTER the core row at out[slots[row]] of the [cap, 3] core matrix:
+// a negative slot counts from the end and a slot outside [0, cap) is
+// dropped (the reference's core.at[slots].set(rows)); edge-padded duplicate
+// slots carry rows that solve to equal values, so their writes agree.
+//
+// `stamps`, null on every solve path, else STAMP_HEAD + 3 G uint64: block 0
+// writes %globaltimer (ns) at its start and after phases 1, 2 (the first
+// window), 3 (every chunk) and 4 into [0, 5), clock64 at the same points
+// into [5, 10); every block's writing thread folds its start and end into
+// [10] (least start), [11] (greatest end), [12] (greatest start) and [13]
+// (longest block), and writes its start, end and SM into
+// [STAMP_HEAD + 3 row, + 3).
 constexpr int GROUP_THREADS = 1024;
-constexpr int MAX_WORDS = 64;  // R and K each up to 2048
+constexpr int GROUP_WARPS = GROUP_THREADS / 32;
+constexpr int WINDOW_WORDS = 1024;  // offerings whose usable bits a block holds: 32,768
+constexpr int UNROLL = 4;           // offerings a thread tests at once in a window
+constexpr int STAMP_HEAD = 16;
+constexpr int MODE_FINALIZE = 0, MODE_CORE = 1, MODE_SCATTER = 2;
+// the most dynamic shared memory a block may take on sm_90 (227 KB), less
+// the static arrays
+constexpr size_t MAX_DYNAMIC_SMEM = 232448 - 1024 - WINDOW_WORDS * sizeof(uint32_t);
 
-__global__ void __launch_bounds__(GROUP_THREADS) group_solve_kernel(
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned sm_id() {
+  unsigned id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
+}
+
+__device__ __forceinline__ void stamp(unsigned long long* stamps, bool timer, int k) {
+  if (timer) {
+    stamps[k] = global_ns();
+    stamps[5 + k] = static_cast<unsigned long long>(clock64());
+  }
+}
+
+// Any set bit of bits[a, e), a bitmask of 32-bit words
+__device__ __forceinline__ bool any_bit(const uint32_t* bits, int a, int e) {
+  for (int k = a; k < e;) {
+    const int sh = k & 31, take = min(32 - sh, e - k);
+    uint32_t v = bits[k >> 5] >> sh;
+    if (take < 32) v &= (1u << take) - 1u;
+    if (v) return true;
+    k += take;
+  }
+  return false;
+}
+
+__global__ void __launch_bounds__(GROUP_THREADS, 2) group_solve_kernel(
     const uint8_t* __restrict__ group_bools, const int32_t* __restrict__ group_ints,
-    const uint8_t* __restrict__ req_ok, const uint8_t* __restrict__ offer_ok,
-    const uint8_t* __restrict__ custom_need, const uint8_t* __restrict__ available,
-    const int32_t* __restrict__ owner, const int32_t* __restrict__ alloc_q,
-    const float* __restrict__ price, int32_t* __restrict__ out, const SlabTable slabs, int R,
-    int K, int O, int I, int D) {
-  extern __shared__ uint32_t has_bits[];  // [(I + 31) / 32]: type i has a usable offering
-  __shared__ uint32_t memw[MAX_WORDS];    // the group's rows
-  __shared__ uint32_t absw[MAX_WORDS];    // the custom keys it does not define
+    const uint32_t* __restrict__ req_words, const uint32_t* __restrict__ offer_words,
+    const uint32_t* __restrict__ need_words, const uint8_t* __restrict__ available,
+    const int32_t* __restrict__ type_start, const int32_t* __restrict__ alloc_q,
+    const float* __restrict__ price, int32_t* __restrict__ out, const int32_t* __restrict__ slots,
+    int cap, int mode, const SlabTable slabs, int R, int K, int O, int I, int D,
+    unsigned long long* __restrict__ stamps) {
+  extern __shared__ int32_t smem[];
+  __shared__ uint32_t bits[WINDOW_WORDS];  // usable offerings of the window
+  __shared__ float s_v[GROUP_WARPS];
+  __shared__ int s_i[GROUP_WARPS], s_p[GROUP_WARPS], s_any[GROUP_WARPS];
   const int z = blockIdx.z;
   if (static_cast<int>(blockIdx.x) >= slabs.rows[z]) return;  // the whole block
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ unsigned long long s_start;  // the block's start, for the stamps (not a live register)
+  const bool timer = stamps != nullptr && blockIdx.x == 0 && z == 0 && tid == 0;
+  if (stamps != nullptr && tid == 0) s_start = global_ns();
+  stamp(stamps, timer, 0);
   const size_t g = static_cast<size_t>(slabs.src[z]) + blockIdx.x;
-  const int WR = (R + 31) / 32, WK = (K + 31) / 32, WI = (I + 31) / 32;
+  const int WR = (R + 31) / 32, WK = (K + 31) / 32;
+  uint32_t* memw = reinterpret_cast<uint32_t*>(smem);  // [WR] the group's rows
+  uint32_t* absw = memw + WR;                          // [WK] the keys it leaves undefined
+  int32_t* req = smem + WR + WK;                       // [D + 1] requests_q, then the count
+
+  // 1. pack
   const uint8_t* row = group_bools + g * (R + K);
-  for (int w = threadIdx.x; w < WR + WK; w += GROUP_THREADS) {
-    uint32_t bits = 0;
-    if (w < WR) {
-      const int rn = min(32, R - w * 32);
-      for (int b = 0; b < rn; ++b) bits |= static_cast<uint32_t>(row[w * 32 + b] != 0) << b;
-      memw[w] = bits;
-    } else {
-      const int k0 = (w - WR) * 32, kn = min(32, K - k0);
-      for (int b = 0; b < kn; ++b) bits |= static_cast<uint32_t>(row[R + k0 + b] == 0) << b;
-      absw[w - WR] = bits;
+  for (int w = warp; w < WR + WK; w += GROUP_WARPS) {  // warp-uniform: the ballot's mask is full
+    const bool is_row = w < WR;
+    const int col = is_row ? w * 32 + lane : R + (w - WR) * 32 + lane;
+    const bool bit = col < (is_row ? R : R + K) && ((row[col] != 0) == is_row);
+    const uint32_t word = __ballot_sync(0xffffffffu, bit);
+    if (lane == 0) {
+      if (is_row) memw[w] = word;
+      else absw[w - WR] = word;
     }
   }
-  for (int w = threadIdx.x; w < WI; w += GROUP_THREADS) has_bits[w] = 0;
+  for (int d = tid; d <= D; d += GROUP_THREADS) req[d] = group_ints[g * (D + 1) + d];
   __syncthreads();
-  for (int o = threadIdx.x; o < O; o += GROUP_THREADS) {  // has_offering, by offering
-    bool ok = available[o] != 0;
-    for (int w = 0; w < WR; ++w) {
-      for (uint32_t c = memw[w]; c; c &= c - 1)
-        ok &= offer_ok[static_cast<size_t>(w * 32 + __ffs(c) - 1) * O + o] != 0;
-    }
-    for (int w = 0; w < WK; ++w) {
-      const int kn = min(32, K - w * 32);
-      const uint8_t* cn = custom_need + static_cast<size_t>(o) * K + w * 32;
-      uint32_t need = 0;
-      for (int b = 0; b < kn; ++b) need |= static_cast<uint32_t>(cn[b] != 0) << b;
-      ok &= (need & absw[w]) == 0;
-    }
-    const int t = owner[o];
-    if (ok && static_cast<unsigned>(t) < static_cast<unsigned>(I))
-      atomicOr(&has_bits[t >> 5], 1u << (t & 31));
-  }
-  __syncthreads();
-  const int32_t* req = group_ints + g * (D + 1);
+  stamp(stamps, timer, 1);
+
   float best_v = __int_as_float(0x7f800000);  // +inf: every real type beats it on index
-  int best_i = INT32_MAX_V;
-  int any = 0;
-  for (int i = threadIdx.x; i < I; i += GROUP_THREADS) {
-    bool f = (has_bits[i >> 5] >> (i & 31)) & 1u;
-    for (int w = 0; w < WR; ++w) {  // compat: every row of the group
-      for (uint32_t c = memw[w]; c; c &= c - 1)
-        f &= req_ok[static_cast<size_t>(w * 32 + __ffs(c) - 1) * I + i] != 0;
+  int best_i = INT32_MAX_V, best_p = 0, any = 0;
+  for (int c0 = 0; c0 < I; c0 += GROUP_THREADS) {
+    // 2. the usable offerings of the chunk's offering range
+    const int lo = type_start[c0], hi = type_start[min(c0 + GROUP_THREADS, I)];
+    const int t = c0 + tid;
+    const bool valid = t < I;
+    const int my_lo = valid ? type_start[t] : 0, my_hi = valid ? type_start[t + 1] : 0;
+    bool has = false;
+    for (int w0 = lo; w0 < hi; w0 += WINDOW_WORDS * 32) {
+      const int wend = min(w0 + WINDOW_WORDS * 32, hi);
+      __syncthreads();  // the last window's bits are read
+      // UNROLL offerings a thread at a time, every load of them issued
+      // before any is tested (no test waits on another's load)
+      for (int ob = w0 + warp * 32; ob < wend; ob += GROUP_THREADS * UNROLL) {  // warp-uniform
+        bool ok[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int o = ob + u * GROUP_THREADS + lane;
+          ok[u] = o < wend && available[o] != 0;
+        }
+        for (int w = 0; w < WR; ++w) {
+          const uint32_t mw = memw[w];
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int o = ob + u * GROUP_THREADS + lane;
+            if (o < wend) ok[u] &= (mw & ~offer_words[static_cast<size_t>(w) * O + o]) == 0;
+          }
+        }
+        for (int w = 0; w < WK; ++w) {
+          const uint32_t aw = absw[w];
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int o = ob + u * GROUP_THREADS + lane;
+            if (o < wend) ok[u] &= (aw & need_words[static_cast<size_t>(w) * O + o]) == 0;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const uint32_t word = __ballot_sync(0xffffffffu, ok[u]);
+          const int base = ob + u * GROUP_THREADS;  // the warp's first offering of this step
+          if (lane == 0 && base < wend) bits[(base - w0) >> 5] = word;
+        }
+      }
+      __syncthreads();
+      if (c0 == 0 && w0 == lo) stamp(stamps, timer, 2);
+      if (!has) has = any_bit(bits, max(my_lo, w0) - w0, min(my_hi, wend) - w0);
     }
-    for (int d = 0; d < D; ++d) f &= req[d] <= alloc_q[static_cast<size_t>(i) * D + d];
-    any |= f;
-    better(best_v, best_i, f ? price[i] : INF_PRICE, i);
+    // 3. the type: compat, the fit, pods-per-node, then its price
+    if (valid) {
+      const float pr = price[t];  // loaded with the type's other loads, not after its tests
+      bool f = has;
+      for (int w = 0; w < WR; ++w)  // compat: every row of the group
+        f &= (memw[w] & ~req_words[static_cast<size_t>(w) * I + t]) == 0;
+      int m = INT32_MAX_V;  // pods-per-node: the least floor(alloc / request) over requested dims
+      for (int d = 0; d < D; ++d) {
+        const int a = alloc_q[static_cast<size_t>(t) * D + d], r = req[d];
+        f &= r <= a;
+        const int per = r > 0 ? floor_div(a, r) : INT32_MAX_V;
+        m = per < m ? per : m;
+      }
+      any |= f;
+      better(best_v, best_i, best_p, f ? pr : INF_PRICE, t, m > 0 ? m : 0);
+    }
   }
-  int choice, ppn;
-  bool feasible;
-  if (!block_choice<GROUP_THREADS / 32>(best_v, best_i, any, req, alloc_q, D, choice, feasible, ppn))
-    return;
-  finalize_row(choice, feasible, ppn, req[D],
-               out + (static_cast<size_t>(slabs.dst[z]) + blockIdx.x) * 4);
+  if (stamps != nullptr) __syncthreads();
+  stamp(stamps, timer, 3);
+
+  // 4. reduction
+  warp_choice(best_v, best_i, best_p, any);
+  if (lane == 0) {
+    s_v[warp] = best_v;
+    s_i[warp] = best_i;
+    s_p[warp] = best_p;
+    s_any[warp] = any;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  best_v = lane < GROUP_WARPS ? s_v[lane] : __int_as_float(0x7f800000);
+  best_i = lane < GROUP_WARPS ? s_i[lane] : INT32_MAX_V;
+  best_p = lane < GROUP_WARPS ? s_p[lane] : 0;
+  any = lane < GROUP_WARPS ? s_any[lane] : 0;
+  warp_choice(best_v, best_i, best_p, any);
+  if (lane != 0) return;
+  stamp(stamps, timer, 4);
+  const int choice = best_i, ppn = best_p;
+  const bool feasible = any != 0;
+  const size_t r = static_cast<size_t>(slabs.dst[z]) + blockIdx.x;
+  if (mode == MODE_FINALIZE) {
+    finalize_row(choice, feasible, ppn, req[D], out + r * 4);
+  } else {
+    int32_t* o3 = out + r * 3;
+    if (mode == MODE_SCATTER) {
+      int slot = slots[r];
+      if (slot < 0) slot += cap;
+      o3 = (slot >= 0 && slot < cap) ? out + static_cast<size_t>(slot) * 3 : nullptr;
+    }
+    if (o3 != nullptr) {
+      o3[0] = choice;
+      o3[1] = feasible ? 1 : 0;
+      o3[2] = ppn;
+    }
+  }
+  if (stamps != nullptr) {
+    const unsigned long long t_start = s_start, t_end = global_ns();
+    atomicMin(&stamps[10], t_start);
+    atomicMax(&stamps[11], t_end);
+    atomicMax(&stamps[12], t_start);
+    atomicMax(&stamps[13], t_end - t_start);
+    unsigned long long* mine = stamps + STAMP_HEAD + 3 * r;
+    mine[0] = t_start;
+    mine[1] = t_end;
+    mine[2] = sm_id();
+  }
+}
+
+// Dynamic shared memory of one group_solve_kernel block: the group's row
+// and absent-key words, its requests and count.
+size_t group_smem_bytes(int R, int K, int D) {
+  return (static_cast<size_t>((R + 31) / 32) + (K + 31) / 32 + D + 1) * sizeof(int32_t);
 }
 
 // core[slots[j], c] = rows[j, c]; a negative slot counts from the end, a
@@ -275,47 +375,44 @@ __global__ void delta_finalize_kernel(const int32_t* __restrict__ core,
 
 extern "C" {
 
-// compat, has_offering: [G, I] bool; group_ints [G, D+1] int32 (requests_q
-// then counts); alloc_q [I, D] int32; price [I] float32; out [G, 4] int32
-// when finalize, else [G, 3]. Returns the launch's cudaError_t.
-int kt_solve_block(const void* compat, const void* has_offering, const void* group_ints,
-                   const void* alloc_q, const void* price, void* out, int G, int I, int D,
-                   int finalize, void* stream) {
-  if (G == 0) return 0;
-  if (I <= 0 || D < 0) return static_cast<int>(cudaErrorInvalidValue);
-  solve_block_kernel<<<G, BLOCK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(compat), static_cast<const uint8_t*>(has_offering),
-      static_cast<const int32_t*>(group_ints), static_cast<const int32_t*>(alloc_q),
-      static_cast<const float*>(price), static_cast<int32_t*>(out), I, D, finalize);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// group_bools [*, R+K] bool and group_ints [*, D+1] int32 rows of the
-// card's groups (membership | key_present, requests_q | counts); req_ok
-// [R, I], offer_ok [R, O], custom_need [O, K], available [O] bool; owner [O]
-// int32 in [0, I); alloc_q [I, D] int32; price [I] float32; out [*, 4]
-// int32 finalized rows. `slabs` holds n_slabs (src, rows, dst) triples, one
-// per shard on this card. Returns the launch's cudaError_t.
-int kt_group_solve(const void* group_bools, const void* group_ints, const void* req_ok,
-                   const void* offer_ok, const void* custom_need, const void* available,
-                   const void* owner, const void* alloc_q, const void* price, void* out,
-                   const int* slabs, int n_slabs, int R, int K, int O, int I, int D,
-                   void* stream) {
-  if (I <= 0 || D < 0 || R < 0 || K < 0 || (R + 31) / 32 > MAX_WORDS || (K + 31) / 32 > MAX_WORDS)
+// group_bools [*, R+K] bool and group_ints [*, D+1] int32 group rows
+// (membership | key_present, requests_q | counts); the packed catalog:
+// req_words [WR, I], offer_words [WR, O], need_words [WK, O] uint32 (held
+// in int32), available [O] bool, type_start [I+1] int32 (non-decreasing,
+// type_start[I] <= O); alloc_q [I, D] int32; price [I] float32. mode 0: out
+// [*, 4] finalized rows; mode 1: out [*, 3] core rows; mode 2: out the
+// [cap, 3] core matrix, row j written at slots[j]. `slabs` holds n_slabs
+// (src, rows, dst) triples. stamps: null, or STAMP_HEAD + 3 * (rows
+// written) uint64 (see group_solve_kernel). Returns the launch's
+// cudaError_t.
+int kt_group_solve(const void* group_bools, const void* group_ints, const void* req_words,
+                   const void* offer_words, const void* need_words, const void* available,
+                   const void* type_start, const void* alloc_q, const void* price, void* out,
+                   const void* slots, int cap, int mode, const int* slabs, int n_slabs, int R,
+                   int K, int O, int I, int D, void* stamps, void* stream) {
+  if (I <= 0 || D < 0 || R < 0 || K < 0 || O < 0 || mode < MODE_FINALIZE || mode > MODE_SCATTER ||
+      (mode == MODE_SCATTER && (slots == nullptr || cap < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   SlabTable table;
   int max_rows;
   if (!read_slabs(slabs, n_slabs, table, max_rows)) return static_cast<int>(cudaErrorInvalidValue);
   if (max_rows == 0) return 0;
-  const size_t shmem = static_cast<size_t>((I + 31) / 32) * sizeof(uint32_t);
-  if (shmem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shmem = group_smem_bytes(R, K, D);
+  if (shmem > MAX_DYNAMIC_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  if (shmem > 48 * 1024 - WINDOW_WORDS * sizeof(uint32_t) - 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        group_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid(max_rows, 1, n_slabs);
   group_solve_kernel<<<grid, GROUP_THREADS, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(group_bools), static_cast<const int32_t*>(group_ints),
-      static_cast<const uint8_t*>(req_ok), static_cast<const uint8_t*>(offer_ok),
-      static_cast<const uint8_t*>(custom_need), static_cast<const uint8_t*>(available),
-      static_cast<const int32_t*>(owner), static_cast<const int32_t*>(alloc_q),
-      static_cast<const float*>(price), static_cast<int32_t*>(out), table, R, K, O, I, D);
+      static_cast<const uint32_t*>(req_words), static_cast<const uint32_t*>(offer_words),
+      static_cast<const uint32_t*>(need_words), static_cast<const uint8_t*>(available),
+      static_cast<const int32_t*>(type_start), static_cast<const int32_t*>(alloc_q),
+      static_cast<const float*>(price), static_cast<int32_t*>(out),
+      static_cast<const int32_t*>(slots), cap, mode, table, R, K, O, I, D,
+      static_cast<unsigned long long*>(stamps));
   return static_cast<int>(cudaGetLastError());
 }
 

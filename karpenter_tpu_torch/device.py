@@ -168,11 +168,22 @@ def kernel_library(name: str) -> ctypes.CDLL:
 
 
 def launch(device: torch.device, entry, *args) -> int:
-    """Call a kernel's C entry point with `device` made the current CUDA
-    device and the raw cudaStream_t of its current stream appended as the
-    last argument; returns the entry point's cudaError. The kernels launch
-    on the current device, so a launch for operands on another card (a
-    mesh shard) switches to it first; the wrapper has checked that every
-    operand lives on `device`."""
-    with torch.cuda.device(device):
-        return entry(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    """Call a kernel's C entry point with `device` the current CUDA device
+    and the raw cudaStream_t of its current stream appended as the last
+    argument; returns the entry point's cudaError. The kernels launch on
+    the current device, so a launch for operands on another card (a mesh
+    shard) switches to it first and switches back after; the wrapper has
+    checked that every operand lives on `device`. The stream is read anew
+    every call (torch's own raw-stream accessor, which honours
+    `torch.cuda.stream(...)` contexts); nothing is cached between calls.
+    Pointer arguments may be plain ints: the entry points declare them
+    c_void_p."""
+    idx = device.index
+    C = torch._C
+    if C._cuda_getDevice() == idx:
+        return entry(*args, C._cuda_getCurrentRawStream(idx))
+    prev = C._cuda_exchangeDevice(idx)
+    try:
+        return entry(*args, C._cuda_getCurrentRawStream(idx))
+    finally:
+        C._cuda_maybeExchangeDevice(prev)

@@ -22,7 +22,9 @@ once per shard: `slab_plan` groups the shards by card, `stage_rows` moves
 a card's entity rows there in one copy, the card's kernel covers all of
 its shards, and `gather_cards` copies the other cards' rows to the first.
 On CPU meshes each shard runs the plain versions on its own slab
-(`split_rows`, `gather_rows`).
+(`split_rows`, `gather_rows`). `upload_rows` is the one-card case for
+callers that want tensors back: the group solver's rows and the delta
+frontier's rows and slots, each in one staged upload.
 """
 
 from __future__ import annotations
@@ -213,8 +215,8 @@ def stage_rows(tensors: Sequence[torch.Tensor], slabs: Sequence, dev: torch.devi
     or None). Tensors already on `dev` are read in place: nothing moves,
     and a shard starts at its own lo. Host tensors go in one copy: the
     card's rows of all of them, shard after shard, into one pinned staging
-    buffer (fill_staging), then one non-blocking upload, so the host goes
-    on while it travels. Tensors on another card go with one copy each."""
+    buffer, one non-blocking upload (_staged_upload). Tensors on another
+    card go with one copy each."""
     if tensors[0].device == dev:
         return [t.data_ptr() for t in tensors], [lo for _, lo, _ in slabs], None
     runs = card_runs(slabs)
@@ -224,12 +226,44 @@ def stage_rows(tensors: Sequence[torch.Tensor], slabs: Sequence, dev: torch.devi
         moved = [torch.cat([t[lo:hi] for lo, hi, _ in runs]).to(dev, non_blocking=True)
                  for t in tensors]
         return [t.data_ptr() for t in moved], starts, moved
+    on_card, offsets = _staged_upload(tensors, runs, n, dev)
+    base = on_card.data_ptr()
+    return [base + off for off in offsets], starts, on_card
+
+
+def _staged_upload(tensors: Sequence[torch.Tensor], runs: Sequence, n: int, dev: torch.device) -> tuple:
+    """The rows of `runs` (card_runs') of every host tensor, `n` in all, in
+    one pinned staging buffer (staging_layout, fill_staging) and one
+    non-blocking upload to `dev`, so the host goes on while it travels:
+    (the buffer on `dev`, each tensor's byte offset in it)."""
     offsets, total = staging_layout(tensors, n)
     staging = torch.empty(total, dtype=torch.uint8, pin_memory=True)
     fill_staging(staging.numpy(), tensors, runs, offsets)
-    on_card = staging.to(dev, non_blocking=True)
-    base = on_card.data_ptr()
-    return [base + off for off in offsets], starts, on_card
+    return staging.to(dev, non_blocking=True), offsets
+
+
+def upload_rows(arrays: Sequence[np.ndarray], dev: torch.device) -> tuple:
+    """Host arrays sharing one leading row axis on `dev` in one copy: the
+    one-card case of stage_rows that hands back tensors: one staged upload
+    (_staged_upload), each returned tensor a view of its part of it
+    (16-byte aligned). On a CPU device: the arrays as tensors, with no
+    copy."""
+    tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if dev.type == "cpu":
+        return tuple(tensors)
+    n = tensors[0].shape[0]
+    if any(t.shape[0] != n for t in tensors):
+        raise ValueError(f"upload_rows: row counts differ {[t.shape[0] for t in tensors]}")
+    on_card, offsets = _staged_upload(tensors, [(0, n, 0)], n, dev)
+    return staged_views(on_card, tensors, offsets)
+
+
+def staged_views(buf: torch.Tensor, tensors: Sequence[torch.Tensor], offsets: Sequence[int]) -> tuple:
+    """Each tensor's rows in a uint8 staging buffer (or its upload), laid
+    out by staging_layout for the tensors' full row counts, as a tensor of
+    the tensor's dtype and shape: views, no copy."""
+    return tuple(buf[off:off + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+                 for t, off in zip(tensors, offsets))
 
 
 def gather_cards(out: torch.Tensor, parts: Sequence) -> None:

@@ -16,9 +16,10 @@ DEVICE RESIDENCY that passes update in place instead of rebuilding:
    (choice, feasibility, pods-per-node — the count-INDEPENDENT outputs)
    stay resident on the engine's device, keyed by group content
    fingerprint. A pass solves only the perturbed frontier (new/changed
-   groups) through the core kernel, scatters the rows into the resident
-   [cap, 3] int32 tensor IN PLACE (kt_delta_scatter writes the resident
-   buffer), and finalizes nodes/unschedulable from this pass's counts.
+   groups) and writes their core rows into the resident [cap, 3] int32
+   tensor IN PLACE, in one launch (`packer.solve_block_scatter`:
+   kt_group_solve's scatter mode; its rows and slots go up in one staged
+   upload), and finalizes nodes/unschedulable from this pass's counts.
    Group count changes — the dominant churn signal — cost zero solve work.
 
 3. **Warm scan residency** (`ScanResidency`): the fused one-dispatch FFD
@@ -495,10 +496,11 @@ class GroupResidency:
         return fps
 
     def solve(self, solver, grouped):
-        """The delta group solve: frontier-only core solves + in-place
-        scatter into residency + counts finalize. Bit-identical to
+        """The delta group solve: frontier-only core solves scattered in
+        place into residency (one launch) + counts finalize. Bit-identical to
         solver._solve_full by construction (same math on the same inputs;
         the periodic self-check enforces it anyway)."""
+        from karpenter_tpu_torch import mesh as mesh_mod
         from karpenter_tpu_torch.device import device_work
         from karpenter_tpu_torch.ops import packer
 
@@ -558,10 +560,10 @@ class GroupResidency:
                     sub_bools = np.pad(sub_bools, ((0, pad), (0, 0)), mode="edge")
                     sub_ints = np.pad(sub_ints, ((0, pad), (0, 0)), mode="edge")
                     slots = np.pad(slots, (0, pad), mode="edge")
-                rows = packer.solve_block_core(
-                    _upload(sub_bools, dev), _upload(sub_ints, dev), *solver._catalog_args()
-                )
-                packer.delta_scatter_rows(self.core, _upload(slots, dev), rows)
+                # the rows and slots in one staged upload; one launch solves
+                # the frontier's core rows into their slots (B10 + B11)
+                gb, gi, sl = mesh_mod.upload_rows((sub_bools, sub_ints, slots), dev)
+                packer.solve_block_scatter(self.core, sl, gb, gi, *solver._catalog_args())
             note_groups("solved", len(missing))
             note_groups("reused", G - len(missing))
 

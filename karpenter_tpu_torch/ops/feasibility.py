@@ -201,28 +201,34 @@ def _lib() -> ctypes.CDLL:
 
 
 def _on_cpu(first: torch.Tensor) -> bool:
+    if first.is_cuda:
+        return False
     if first.device.type == "cpu":
         return True
-    if first.device.type != "cuda":
-        raise ValueError(f"unsupported device {first.device}")
-    return False
+    raise ValueError(f"unsupported device {first.device}")
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
     """A kernel's input contract; a breach is a KernelError like a failed
-    launch, so the solve path never falls back past it."""
+    launch, so the solve path never falls back past it. The common case,
+    every test passing, costs four attribute reads and compares."""
+    if t.dtype is not dtype or t.shape != shape or t.device != device or not t.is_contiguous():
+        _refuse(name, t, dtype, shape, device)
+
+
+def _refuse(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
     if t.device != device:
         raise KernelError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise KernelError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise KernelError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise KernelError(f"{name}: not contiguous")
+    raise KernelError(f"{name}: not contiguous")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor) -> int:
+    """A tensor's device address for an entry point's c_void_p argument."""
+    return t.data_ptr()
 
 
 def _raise_on(rc: int, kernel: str) -> None:

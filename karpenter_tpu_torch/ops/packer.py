@@ -8,13 +8,16 @@ karpenter_tpu/ops/packer.py, with a hand-written kernel per JAX program:
    feasibility cube compat ∧ fits ∧ offering over [G groups × I types],
    picks each group's cheapest feasible type and its per-group node count
    by integer packing math. `solve_block` (B9, the reference's
-   `solve_block_jit`) and `solve_block_core` (B10) launch kt_membership (B2)
-   and kt_cube_offer (B8) for the cube's halves and kt_solve_block
-   (csrc/packer.cu) for the rest; `delta_scatter_rows` (B11) and
-   `delta_finalize` (B12) serve the delta residency (ops/delta.py). With a
-   mesh, `solve_sharded` runs `sharded_solve_block` (B13): equal group
-   slabs, the catalog replicated, one kt_group_solve launch per card for
-   the whole per-group solve of its shards, the rows gathered.
+   `solve_block_jit`) and `solve_block_core` (B10) each launch
+   kt_group_solve (csrc/packer.cu) once: the whole per-group solve, the
+   cube's halves included, in its finalize and core modes. The delta
+   residency (ops/delta.py) solves its frontier with `solve_block_scatter`,
+   the kernel's scatter mode: the core rows go straight into the resident
+   core matrix, B10 and `delta_scatter_rows` (B11) in one launch; B11's own
+   kernel serves the standalone wrapper, and `delta_finalize` (B12) the
+   gather. With a mesh, `solve_sharded` runs `sharded_solve_block` (B13):
+   equal group slabs, the catalog replicated, one kt_group_solve launch per
+   card for the whole per-group solve of its shards, the rows gathered.
 
 2. **The fused scan**: the monotone FFD scan itself — the host walk's
    queue, emptiest-first claim heap, existing-node scan pointers, claim
@@ -45,8 +48,10 @@ launches only.
 from __future__ import annotations
 
 import ctypes
+import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -64,7 +69,8 @@ LAUNCHES: dict[str, int] = {
     # every kt_solve_scan launch again, by the design it took (beside the
     # totals above, which count them by variant)
     "scan_resident": 0, "scan_global": 0,
-    "solve_block": 0, "solve_block_core": 0, "delta_scatter": 0, "delta_finalize": 0,
+    "solve_block": 0, "solve_block_core": 0, "solve_block_scatter": 0, "delta_scatter": 0,
+    "delta_finalize": 0,
     "sharded_solve_block": 0, "sharded_solve_scan": 0, "sharded_solve_scan_full": 0,
     "sharded_solve_scan_resume": 0,
 }
@@ -99,7 +105,7 @@ class GroupedPods:
 
 
 def _solve_rest_plain(compat, has_offering, group_ints, alloc_q, price):
-    """What kt_solve_block computes from the cube's two halves: fits,
+    """The solve from the cube's two halves: fits,
     the cheapest-feasible-type argmin and pods-per-node (the rest of the
     reference's `_solve_parts`)."""
     D = alloc_q.shape[1]
@@ -167,10 +173,23 @@ def solve_block_core_plain(*args) -> torch.Tensor:
 
 
 def delta_scatter_rows_plain(core, slots, rows) -> torch.Tensor:
-    """core[slots[j]] = rows[j], in place; padding entries duplicate the
+    """core[slots[j]] = rows[j], in place, with the reference's scatter
+    semantics (`core.at[slots].set(rows)`): a negative slot counts from the
+    end, a slot outside [0, cap) is dropped; padding entries duplicate the
     last slot with the same row values."""
-    core[slots.long()] = rows
+    cap = core.shape[0]
+    s = slots.long()
+    s = torch.where(s < 0, s + cap, s)
+    keep = (s >= 0) & (s < cap)
+    core[s[keep]] = rows[keep]
     return core
+
+
+def solve_block_scatter_plain(core, slots, group_bools, group_ints, *catalog) -> torch.Tensor:
+    """The frontier pass in plain torch: the core rows of the groups
+    (solve_block_core_plain) scattered into `core` at `slots`
+    (delta_scatter_rows_plain), in place. Returns `core`."""
+    return delta_scatter_rows_plain(core, slots, solve_block_core_plain(group_bools, group_ints, *catalog))
 
 
 def delta_finalize_plain(core, order, counts) -> torch.Tensor:
@@ -189,10 +208,8 @@ def _group_lib() -> ctypes.CDLL:
     if not _lib_cache:
         lib = kernel_library("packer")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.kt_solve_block.restype = ci
-        lib.kt_solve_block.argtypes = [vp] * 6 + [ci] * 4 + [vp]
         lib.kt_group_solve.restype = ci
-        lib.kt_group_solve.argtypes = [vp] * 11 + [ci] * 6 + [vp]
+        lib.kt_group_solve.argtypes = [vp] * 11 + [ci] * 2 + [vp] + [ci] * 6 + [vp] * 2
         lib.kt_delta_scatter.restype = ci
         lib.kt_delta_scatter.argtypes = [vp] * 3 + [ci] * 2 + [vp]
         lib.kt_delta_finalize.restype = ci
@@ -201,34 +218,142 @@ def _group_lib() -> ctypes.CDLL:
     return _lib_cache[0]
 
 
-def _solve_block_kernel(
-    name: str, finalize: bool, group_bools, group_ints, req_compat, offer_compat,
-    custom_need, available, offering_owner, alloc_q, price,
-) -> torch.Tensor:
+# kt_group_solve's output modes (csrc/packer.cu): finalized [*, 4] rows (B9,
+# B13), core [*, 3] rows (B10), core rows scattered into the residency's
+# core matrix at their slots (the delta frontier: B10 and B11 in one launch)
+GROUP_MODES = {"finalize": 0, "core": 1, "scatter": 2}
+# uint64 entries at the head of kt_group_solve's timestamp buffer (the
+# kernel's STAMP_HEAD): block 0's %globaltimer at its start and after the
+# pack, the first window of usable offerings, the type pass and the
+# reduction ([0, 5)), clock64 at the same points ([5, 10)), the least
+# block start, greatest end, greatest start and longest block ([10, 14));
+# then (start, end, SM) of each block. Null on every solve path;
+# chip_smoke.py passes one.
+GROUP_STAMPS = 16
+
+
+class PackedCatalog(NamedTuple):
+    """The group solver's catalog as kt_group_solve reads it, built once per
+    catalog generation (pack_catalog): the requirement rows' compatibility
+    with each type and each offering, and each offering's custom keys, as
+    32-bit words (bit b of word w: row or key 32 w + b; uint32 bits held in
+    int32), and each type's offering range (offerings are owner-major)."""
+
+    req_words: torch.Tensor  # [WR, I] int32 — req_compat packed over rows
+    offer_words: torch.Tensor  # [WR, O] int32 — offer_compat packed over rows
+    need_words: torch.Tensor  # [WK, O] int32 — custom_need packed over keys
+    type_start: torch.Tensor  # [I + 1] int32 — type i's offerings: [type_start[i], type_start[i+1])
+
+
+def pack_rows(bits: torch.Tensor) -> torch.Tensor:
+    """[N, M] bool → [ceil(N / 32), M] int32 words: bit b of word w is
+    bits[32 w + b] (rows past N are 0)."""
+    N, M = bits.shape
+    W = (N + 31) // 32
+    padded = torch.zeros((W * 32, M), dtype=torch.int64, device=bits.device)
+    padded[:N] = bits
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = (padded.view(W, 32, M) << shifts[None, :, None]).sum(dim=1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def pack_catalog(req_compat: torch.Tensor, offer_compat: torch.Tensor, custom_need: torch.Tensor,
+                 offering_owner: torch.Tensor) -> PackedCatalog:
+    """kt_group_solve's packed catalog from the solver's catalog operands,
+    on their device (a few torch ops: a caller that solves again on the
+    same catalog keeps it, as GroupSolver does per catalog generation).
+    `offering_owner` must be non-decreasing; owners outside [0, I) fall in
+    no type's range."""
+    I = req_compat.shape[1]
+    types = torch.arange(I + 1, dtype=torch.int32, device=offering_owner.device)
+    return PackedCatalog(
+        pack_rows(req_compat), pack_rows(offer_compat), pack_rows(custom_need.T),
+        torch.searchsorted(offering_owner, types).to(torch.int32),
+    )
+
+
+# the packed catalogs of the last few catalogs solved on: (the source
+# tensors' weak references, their PackedCatalog) by the sources' (id,
+# _version)
+_PACKED_KEEP = 8
+_packed_cache: OrderedDict = OrderedDict()
+
+
+def _packed(rc, oc, cn, ow) -> PackedCatalog:
+    """The catalog's PackedCatalog, packed on its first solve and reused
+    while the four source tensors are the same objects, unchanged in place
+    (their `_version`): a catalog that grows is a new tensor (the engine
+    concatenates its rows), so it packs anew."""
+    srcs = (rc, oc, cn, ow)
+    key = tuple((id(t), t._version) for t in srcs)
+    hit = _packed_cache.get(key)
+    if hit is not None and all(ref() is t for ref, t in zip(hit[0], srcs)):
+        _packed_cache.move_to_end(key)
+        return hit[1]
+    packed = pack_catalog(rc, oc, cn, ow)
+    _packed_cache[key] = (tuple(weakref.ref(t) for t in srcs), packed)
+    while len(_packed_cache) > _PACKED_KEEP:
+        _packed_cache.popitem(last=False)
+    return packed
+
+
+def _group_operands(name: str, catalog: Sequence[torch.Tensor], dev) -> tuple:
+    """kt_group_solve's catalog operands, checked on `dev`: (R, K, O, I,
+    D), the seven pointers it reads, and the PackedCatalog they point into,
+    which the caller keeps until the launch is queued. Shapes the kernel
+    cannot take (no types; more row and key words than its shared memory
+    holds) it refuses at launch, and the caller raises that as a
+    KernelError."""
+    rc, oc, cn, av, ow, aq, pr = catalog
+    R, I = rc.shape
+    O, K = cn.shape
+    D = aq.shape[1]
+    _check(f"{name} req_compat", rc, torch.bool, (R, I), dev)
+    _check(f"{name} offer_compat", oc, torch.bool, (R, O), dev)
+    _check(f"{name} custom_need", cn, torch.bool, (O, K), dev)
+    _check(f"{name} available", av, torch.bool, (O,), dev)
+    _check(f"{name} offering_owner", ow, torch.int32, (O,), dev)
+    _check(f"{name} alloc_q", aq, torch.int32, (I, D), dev)
+    _check(f"{name} price", pr, torch.float32, (I,), dev)
+    packed = _packed(rc, oc, cn, ow)
+    ptrs = (_ptr(packed.req_words), _ptr(packed.offer_words), _ptr(packed.need_words), _ptr(av),
+            _ptr(packed.type_start), _ptr(aq), _ptr(pr))
+    return (R, K, O, I, D), ptrs, packed
+
+
+def _group_solve(name: str, mode: str, group_bools, group_ints, catalog, out=None, slots=None,
+                 stamps=None) -> torch.Tensor:
+    """One kt_group_solve launch over every group row (a one-slab table),
+    reading membership and key_present in place from group_bools. `mode`
+    "finalize" and "core" allocate the [G, 4] / [G, 3] output; "scatter"
+    writes the core rows into `out`, the [cap, 3] core matrix, at `slots`.
+    `stamps`: None, or a [GROUP_STAMPS + 3 G] int64 tensor on the card for
+    the kernel's timestamps. Counted under `name`."""
     dev = group_bools.device
-    R, I = req_compat.shape
-    K = custom_need.shape[1]
-    D = alloc_q.shape[1]
+    # `packed` stays referenced until the launch is queued
+    (R, K, O, I, D), cat, packed = _group_operands(name, catalog, dev)
     G = group_bools.shape[0]
     _check(f"{name} group_bools", group_bools, torch.bool, (G, R + K), dev)
     _check(f"{name} group_ints", group_ints, torch.int32, (G, D + 1), dev)
-    _check(f"{name} alloc_q", alloc_q, torch.int32, (I, D), dev)
-    _check(f"{name} price", price, torch.float32, (I,), dev)
-    membership = group_bools[:, :R].contiguous()
-    key_present = group_bools[:, R:].contiguous()
-    compat = feas.membership_all(membership, req_compat)  # B2, kt_membership
-    has_offering = feas.offering_reduce(  # B8, kt_cube_offer
-        membership, offer_compat, custom_need, key_present, available, offering_owner, I
+    if mode == "scatter":
+        cap = out.shape[0]
+        _check(f"{name} core", out, torch.int32, (cap, 3), dev)
+        _check(f"{name} slots", slots, torch.int32, (G,), dev)
+    else:
+        cap = 0
+        out = torch.empty((G, 4 if mode == "finalize" else 3), dtype=torch.int32, device=dev)
+    if stamps is not None:
+        _check(f"{name} stamps", stamps, torch.int64, (GROUP_STAMPS + 3 * G,), dev)
+    if G == 0:
+        return out
+    err = launch(
+        dev, _group_lib().kt_group_solve, _ptr(group_bools), _ptr(group_ints), *cat, _ptr(out),
+        None if slots is None else _ptr(slots), cap, GROUP_MODES[mode], (ctypes.c_int * 3)(0, G, 0), 1,
+        R, K, O, I, D, None if stamps is None else _ptr(stamps),
     )
-    out = torch.empty((G, 4 if finalize else 3), dtype=torch.int32, device=dev)
-    rc = launch(
-        dev, _group_lib().kt_solve_block,
-        _ptr(compat), _ptr(has_offering), _ptr(group_ints), _ptr(alloc_q), _ptr(price),
-        _ptr(out), G, I, D, int(finalize),
-    )
-    if rc != 0:
-        raise KernelError(f"{name}: CUDA launch failed with cudaError {rc}")
-    LAUNCHES[name] += bool(G)
+    if err != 0:
+        raise KernelError(f"{name}: CUDA launch failed with cudaError {err}")
+    LAUNCHES[name] += 1
     return out
 
 
@@ -246,28 +371,46 @@ def solve_block(
     """The fused per-group solve (B9): feasibility cube → cheapest-type
     argmin → integer packing; [G, 4] int32 (choice, feasible, nodes,
     unschedulable). Takes owner indices where the reference takes the
-    [O, I] one-hot."""
-    args = (group_bools, group_ints, req_compat, offer_compat, custom_need, available,
-            offering_owner, alloc_q, price)
+    [O, I] one-hot. On the card one kt_group_solve launch, finalize mode,
+    reading the catalog packed into words (packed on the catalog's first
+    solve and kept while its tensors stay unchanged)."""
+    catalog = (req_compat, offer_compat, custom_need, available, offering_owner, alloc_q, price)
     if _on_cpu(group_bools):
-        return solve_block_plain(*args)
-    return _solve_block_kernel("solve_block", True, *args)
+        return solve_block_plain(group_bools, group_ints, *catalog)
+    return _group_solve("solve_block", "finalize", group_bools, group_ints, catalog)
 
 
-def solve_block_core(*args) -> torch.Tensor:
+def solve_block_core(group_bools: torch.Tensor, group_ints: torch.Tensor, *catalog) -> torch.Tensor:
     """[Gf, 3] int32 core rows (choice, feasible, pods-per-node) for the
     perturbed frontier (B10) — `solve_block`'s math without the count
-    finalize. Same operands as solve_block."""
-    if _on_cpu(args[0]):
-        return solve_block_core_plain(*args)
-    return _solve_block_kernel("solve_block_core", False, *args)
+    finalize. Same operands as solve_block; on the card one kt_group_solve
+    launch, core mode."""
+    if _on_cpu(group_bools):
+        return solve_block_core_plain(group_bools, group_ints, *catalog)
+    return _group_solve("solve_block_core", "core", group_bools, group_ints, catalog)
+
+
+def solve_block_scatter(core: torch.Tensor, slots: torch.Tensor, group_bools: torch.Tensor,
+                        group_ints: torch.Tensor, *catalog) -> torch.Tensor:
+    """The delta frontier pass: the groups' core rows (B10) written into
+    the resident [cap, 3] core matrix at `slots` (B11), IN PLACE; returns
+    `core`. Slots as delta_scatter_rows takes them: a negative slot counts
+    from the end, one outside [0, cap) is dropped, edge-padded duplicates
+    must carry groups that solve alike. On the card one kt_group_solve
+    launch, scatter mode: no [Gf, 3] rows reach device memory."""
+    if _on_cpu(core):
+        return solve_block_scatter_plain(core, slots, group_bools, group_ints, *catalog)
+    return _group_solve("solve_block_scatter", "scatter", group_bools, group_ints, catalog,
+                        out=core, slots=slots)
 
 
 def delta_scatter_rows(core: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Scatter freshly solved frontier rows into the resident core matrix
     (B11): core[slots[j], :] = rows[j, :], written IN PLACE (the reference
-    donates `core` to XLA). Slots must lie in [0, cap); duplicate slots
-    carry the same values. Returns `core`."""
+    donates `core` to XLA); a negative slot counts from the end, a slot
+    outside [0, cap) is dropped, duplicate slots carry the same values.
+    Returns `core`. The delta frontier runs it inside solve_block_scatter's
+    launch; this wrapper launches kt_delta_scatter alone."""
     if _on_cpu(core):
         return delta_scatter_rows_plain(core, slots, rows)
     dev = core.device
@@ -275,7 +418,8 @@ def delta_scatter_rows(core: torch.Tensor, slots: torch.Tensor, rows: torch.Tens
     _check("delta_scatter core", core, torch.int32, (cap, 3), dev)
     _check("delta_scatter slots", slots, torch.int32, (n,), dev)
     _check("delta_scatter rows", rows, torch.int32, (n, 3), dev)
-    rc = launch(dev, _group_lib().kt_delta_scatter, _ptr(core), _ptr(slots), _ptr(rows), n, cap)
+    rc = launch(dev, _group_lib().kt_delta_scatter, core.data_ptr(), slots.data_ptr(), rows.data_ptr(),
+                n, cap)
     if rc != 0:
         raise KernelError(f"delta_scatter: CUDA launch failed with cudaError {rc}")
     LAUNCHES["delta_scatter"] += bool(n)
@@ -313,8 +457,8 @@ def sharded_solve_block(mesh):
 
     On a CUDA mesh, one launch of kt_group_solve per card solves every
     shard the card holds (`_sharded_solve_block_cuda`), counted once per
-    card under `sharded_solve_block`. On a CPU mesh each shard runs
-    solve_block_plain on its own slab."""
+    card under `sharded_solve_block`, reading each card's catalog packed
+    once per catalog (as solve_block does). On a CPU mesh each shard runs solve_block_plain on its own slab."""
 
     def run(group_bools, group_ints, *catalog):
         if mesh.devices[0].type == "cuda":
@@ -328,47 +472,38 @@ def sharded_solve_block(mesh):
     return run
 
 
-_MAX_WORDS = 64  # mask words of R, and of K, kt_group_solve packs (csrc/packer.cu)
-_MAX_TYPES = 48 * 1024 * 8  # its per-type bitmask in 48 KB of shared memory
-
-
 def _sharded_solve_block_cuda(mesh, group_bools, group_ints, catalog) -> torch.Tensor:
     """sharded_solve_block on the card: the entity operands checked in one
     pass (host or device tensors, both on one device), the replicated
-    catalog as mesh.Replicas (one copy of each checked); per card one
-    upload of its group rows (group_bools and group_ints through one
-    staging buffer, mesh.stage_rows), its [rows, 4] output allocated once
-    (card 0's is the gathered result) and one kt_group_solve launch over its
-    shards, reading membership and key_present in place from group_bools;
-    every card's launch is queued before mesh.gather_cards."""
-    rc, oc, cn, av, ow, aq, pr = (mesh_mod.per_shard(x, mesh) for x in catalog)
-    R, I = rc[0].shape
-    O, K = cn[0].shape
-    D = aq[0].shape[1]
+    catalog as mesh.Replicas, checked per card; per card one upload of its
+    group rows (group_bools and group_ints through one staging buffer,
+    mesh.stage_rows), its [rows, 4] output allocated once (card 0's is the
+    gathered result) and one kt_group_solve launch over its shards, reading
+    membership and key_present in place from group_bools; every card's
+    launch is queued before mesh.gather_cards."""
+    name = "sharded_solve_block"
+    reps = tuple(mesh_mod.per_shard(x, mesh) for x in catalog)
+    R, I = reps[0][0].shape
+    O, K = reps[2][0].shape
+    D = reps[5][0].shape[1]
     G = group_bools.shape[0]
     src = group_bools.device
-    _check("sharded_solve_block group_bools", group_bools, torch.bool, (G, R + K), src)
-    _check("sharded_solve_block group_ints", group_ints, torch.int32, (G, D + 1), src)
-    for name, t, dtype, shape in (
-        ("req_compat", rc, torch.bool, (R, I)), ("offer_compat", oc, torch.bool, (R, O)),
-        ("custom_need", cn, torch.bool, (O, K)), ("available", av, torch.bool, (O,)),
-        ("offering_owner", ow, torch.int32, (O,)), ("alloc_q", aq, torch.int32, (I, D)),
-        ("price", pr, torch.float32, (I,)),
-    ):
-        _check(f"sharded_solve_block {name}", t[0], dtype, shape, t[0].device)
-    if (R + 31) // 32 > _MAX_WORDS or (K + 31) // 32 > _MAX_WORDS or not 0 < I <= _MAX_TYPES:
-        raise KernelError(f"sharded_solve_block: R={R}, K={K}, I={I} outside the kernel's limits")
+    _check(f"{name} group_bools", group_bools, torch.bool, (G, R + K), src)
+    _check(f"{name} group_ints", group_ints, torch.int32, (G, D + 1), src)
     plan = mesh_mod.slab_plan(mesh.devices, G)
     if max(len(slabs) for _, slabs in plan) > feas._MAX_SLABS:
-        raise KernelError(f"sharded_solve_block: {mesh.size} shards exceed the kernel's slab table")
+        raise KernelError(f"{name}: {mesh.size} shards exceed the kernel's slab table")
+    cards = []  # per card: its catalog pointers and the PackedCatalog they point into
+    for dev, slabs in plan:
+        s = slabs[0][0]  # a shard on this card, for its catalog copies
+        cards.append(_group_operands(name, [r[s] for r in reps], dev)[1:])
     dev0 = mesh.devices[0]
     out = torch.empty((G, 4), dtype=torch.int32, device=dev0)
     if G == 0:
         return out
     m = G // mesh.size
     others = []
-    for dev, slabs in plan:
-        s = slabs[0][0]  # a shard on this card, for its catalog copies
+    for (dev, slabs), (cat, _) in zip(plan, cards):
         # `keep` holds staged rows until their launch is queued
         (gb, gi), starts, keep = mesh_mod.stage_rows((group_bools, group_ints), slabs, dev)
         if dev == dev0:
@@ -378,12 +513,11 @@ def _sharded_solve_block_cuda(mesh, group_bools, group_ints, catalog) -> torch.T
             dsts = [k * m for k in range(len(slabs))]  # compact: the card's shards in order
             others.append((slabs, o))
         err = launch(
-            dev, _group_lib().kt_group_solve, ctypes.c_void_p(gb), ctypes.c_void_p(gi),
-            _ptr(rc[s]), _ptr(oc[s]), _ptr(cn[s]), _ptr(av[s]), _ptr(ow[s]), _ptr(aq[s]), _ptr(pr[s]),
-            _ptr(o), feas.slab_table(starts, slabs, dsts), len(slabs), R, K, O, I, D,
+            dev, _group_lib().kt_group_solve, gb, gi, *cat, _ptr(o), None, 0, GROUP_MODES["finalize"],
+            feas.slab_table(starts, slabs, dsts), len(slabs), R, K, O, I, D, None,
         )
         if err != 0:
-            raise KernelError(f"sharded_solve_block: CUDA launch failed with cudaError {err}")
+            raise KernelError(f"{name}: CUDA launch failed with cudaError {err}")
         LAUNCHES["sharded_solve_block"] += 1
     mesh_mod.gather_cards(out, others)
     return out
@@ -471,9 +605,8 @@ class GroupSolver:
             self.price,
         )
         with device_work("group solver mesh catalog"):
-            self._mesh_args = tuple(
-                mesh_mod.replicate(torch.from_numpy(np.ascontiguousarray(a)), mesh) for a in host
-            )
+            cat = [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
+            self._mesh_args = tuple(mesh_mod.replicate(t, mesh) for t in cat)
         self._mesh_args_key = key
         return self._mesh_args
 
@@ -504,11 +637,9 @@ class GroupSolver:
         G = group_bools.shape[0]
         dev = self.engine.device
         with device_work("group solve"):
-            out = solve_block(
-                torch.from_numpy(np.ascontiguousarray(group_bools)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(group_ints)).to(dev),
-                *args,
-            ).cpu().numpy()[:G]
+            # the group rows in one staged upload (one pinned buffer, one copy)
+            gb, gi = mesh_mod.upload_rows((group_bools, group_ints), dev)
+            out = solve_block(gb, gi, *args).cpu().numpy()[:G]
         return out[:, 0], out[:, 1].astype(bool), out[:, 2], out[:, 3]
 
     def solve_sharded(self, grouped: GroupedPods, mesh):

@@ -25,8 +25,9 @@ from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
 from karpenter_tpu_torch.device import KernelError  # noqa: E402
 from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    SCAN_EDGE_CASES, core_inputs, cube_inputs, fits_inputs, group_inputs, mesh_kernel_inputs,
-    offering_inputs, row_inputs, scan_edge_inputs, scan_inputs, stage_inputs, to_torch, uid_inputs,
+    GROUP_KERNEL_SHAPES, SCAN_EDGE_CASES, core_inputs, cube_inputs, fits_inputs, frontier_inputs,
+    group_inputs, group_kernel_inputs, mesh_kernel_inputs, offering_inputs, row_inputs,
+    scan_edge_inputs, scan_inputs, stage_inputs, to_torch, uid_inputs,
 )
 
 SEEDS = range(8)
@@ -160,7 +161,7 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", SEEDS)
 def test_group_kernels_match_plain_on_card(cuda_device, seed):
-    """B8 (kt_cube_offer as offering_reduce), B9/B10 (kt_solve_block) and
+    """B8 (kt_cube_offer as offering_reduce), B9/B10 (kt_group_solve) and
     B11/B12 (kt_delta_scatter, kt_delta_finalize), bit for bit."""
     args, I = offering_inputs(seed)
     off = [to_torch(a).to(cuda_device) for a in args]
@@ -346,4 +347,131 @@ def test_fused_sharded_wrappers_refuse_bad_operands_on_card(cuda_device):
         tpacker.sharded_solve_block(wide)(
             torch.zeros((72, group[0].shape[1]), dtype=torch.bool),
             torch.zeros((72, group[1].shape[1]), dtype=torch.int32), *group_d[2:])
+    assert {**tfeas.LAUNCHES, **tpacker.LAUNCHES} == l0
+
+
+def _group_launches(before: dict) -> dict:
+    return {k: v - before[k] for k, v in {**tfeas.LAUNCHES, **tpacker.LAUNCHES}.items() if v != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(len(GROUP_KERNEL_SHAPES)))
+def test_group_solve_modes_match_plain_on_card(cuda_device, seed):
+    """kt_group_solve's three modes, bit for bit against the plain
+    versions, at ragged shapes (tests/torch_inputs.py GROUP_KERNEL_SHAPES:
+    R past 2048, K past 2048, K=0, I past a block; group 0 all-infeasible,
+    price ties): solve_block (B9, finalize), solve_block_core (B10, core)
+    and solve_block_scatter (the frontier: edge-padded duplicate, negative
+    and dropped slots, core written in place); exactly one launch a call,
+    counted under its own name, and nothing else launched; then again on
+    the same catalog, its packed words reused, and after an in-place change
+    to a catalog plane, which the next call packs anew."""
+    args = group_kernel_inputs(seed)
+    grp = [to_torch(a).to(cuda_device) for a in args]
+    core, slots, fargs = frontier_inputs(args, seed)
+    fgrp = [to_torch(a).to(cuda_device) for a in fargs]
+    core_d, slots_d = to_torch(core).to(cuda_device), to_torch(slots).to(cuda_device)
+    want_core = tpacker.solve_block_scatter_plain(core_d.clone(), slots_d, *fgrp)
+    for name, run, want in (
+        ("solve_block", lambda: tpacker.solve_block(*grp), tpacker.solve_block_plain(*grp)),
+        ("solve_block_core", lambda: tpacker.solve_block_core(*grp), tpacker.solve_block_core_plain(*grp)),
+        ("solve_block_scatter", lambda: tpacker.solve_block_scatter(core_d, slots_d, *fgrp), want_core),
+    ):
+        l0 = {**tfeas.LAUNCHES, **tpacker.LAUNCHES}
+        got = run()
+        torch.cuda.synchronize()
+        assert _group_launches(l0) == {name: 1}, name
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+    assert torch.equal(core_d, want_core)  # written in place
+    # the path's way: solved again on the same catalog, its words reused
+    packed = tpacker._packed(grp[2], grp[3], grp[4], grp[6])
+    l0 = {**tfeas.LAUNCHES, **tpacker.LAUNCHES}
+    assert torch.equal(tpacker.solve_block(*grp), tpacker.solve_block_plain(*grp))
+    assert torch.equal(tpacker.solve_block_core(*grp), tpacker.solve_block_core_plain(*grp))
+    again = to_torch(core).to(cuda_device)
+    tpacker.solve_block_scatter(again, slots_d, *fgrp)
+    assert torch.equal(again, want_core)
+    assert _group_launches(l0) == {"solve_block": 1, "solve_block_core": 1, "solve_block_scatter": 1}
+    assert tpacker._packed(grp[2], grp[3], grp[4], grp[6]) is packed
+    # a catalog plane changed in place: the next solve packs it anew
+    grp[2][:, 0] = ~grp[2][:, 0]
+    grp[3][:, 0] = ~grp[3][:, 0]
+    assert torch.equal(tpacker.solve_block(*grp), tpacker.solve_block_plain(*grp))
+    assert tpacker._packed(grp[2], grp[3], grp[4], grp[6]) is not packed
+
+
+@pytest.mark.cuda
+def test_group_wrappers_work_on_the_current_stream_on_card(cuda_device):
+    """The lean launch reads the current stream every call: with the
+    default stream held busy, B9 (solve_block), the frontier scatter and
+    B11 (delta_scatter_rows) launched under another torch.cuda.Stream
+    finish on that stream and equal the plain versions, while the default
+    stream still sleeps."""
+    args = group_kernel_inputs(3)
+    grp = [to_torch(a).to(cuda_device) for a in args]
+    core, slots, fargs = frontier_inputs(args, 3)
+    fgrp = [to_torch(a).to(cuda_device) for a in fargs]
+    core_d, slots_d = to_torch(core).to(cuda_device), to_torch(slots).to(cuda_device)
+    rows = tpacker.solve_block_core_plain(*fgrp)
+    want = (tpacker.solve_block_plain(*grp).cpu(),
+            tpacker.solve_block_scatter_plain(core_d.clone(), slots_d, *fgrp).cpu(),
+            tpacker.delta_scatter_rows_plain(core_d.clone(), slots_d, rows).cpu())
+    # warm: build and load the kernels before the clock starts
+    tpacker.solve_block(*grp)
+    tpacker.delta_scatter_rows(core_d.clone(), slots_d, rows)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=cuda_device)
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s on the default stream
+    with torch.cuda.stream(side):
+        got = (tpacker.solve_block(*grp).cpu(),
+               tpacker.solve_block_scatter(core_d.clone(), slots_d, *fgrp).cpu(),
+               tpacker.delta_scatter_rows(core_d.clone(), slots_d, rows).cpu())
+    busy = not torch.cuda.default_stream(cuda_device).query()
+    torch.cuda.synchronize()
+    assert busy, "the side stream's work waited for the default stream"
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_group_wrappers_refuse_bad_operands_on_card(cuda_device):
+    """A breach of kt_group_solve's or kt_delta_scatter's contract raises
+    KernelError before anything launches: a wrong dtype or width of the
+    group rows, a catalog operand on the host, a scatter's slots of the
+    wrong length or dtype, a core matrix of the wrong width, a stamp
+    buffer of the wrong size, and rows past the kernel's shared memory."""
+    args = group_kernel_inputs(3)
+    grp = [to_torch(a).to(cuda_device) for a in args]
+    core, slots, fargs = frontier_inputs(args, 3)
+    fgrp = [to_torch(a).to(cuda_device) for a in fargs]
+    core_d, slots_d = to_torch(core).to(cuda_device), to_torch(slots).to(cuda_device)
+    rows = tpacker.solve_block_core_plain(*fgrp)
+    l0 = {**tfeas.LAUNCHES, **tpacker.LAUNCHES}
+    bad = (
+        lambda: tpacker.solve_block(grp[0], grp[1].long(), *grp[2:]),
+        lambda: tpacker.solve_block_core(grp[0][:, :-1], *grp[1:]),
+        lambda: tpacker.solve_block(*grp[:4], grp[4].cpu(), *grp[5:]),
+        lambda: tpacker.solve_block_scatter(core_d, slots_d[:-1], *fgrp),
+        lambda: tpacker.solve_block_scatter(core_d, slots_d.long(), *fgrp),
+        lambda: tpacker.solve_block_scatter(core_d[:, :2].contiguous(), slots_d, *fgrp),
+        lambda: tpacker._group_solve("solve_block", "finalize", grp[0], grp[1], grp[2:],
+                                     stamps=torch.zeros(3, dtype=torch.int64, device=cuda_device)),
+        lambda: tpacker.delta_scatter_rows(core_d, slots_d.long(), rows),
+        lambda: tpacker.delta_scatter_rows(core_d, slots_d, rows[:, :2].contiguous()),
+    )
+    for k, call in enumerate(bad):
+        with pytest.raises(KernelError):
+            call()
+    R = 2**21  # 65,536 row words: past 227 KB of shared memory
+    wide = (torch.zeros((1, R), dtype=torch.bool, device=cuda_device),
+            torch.zeros((1, 5), dtype=torch.int32, device=cuda_device),
+            torch.ones((R, 1), dtype=torch.bool, device=cuda_device),
+            torch.ones((R, 1), dtype=torch.bool, device=cuda_device),
+            torch.zeros((1, 0), dtype=torch.bool, device=cuda_device),
+            torch.ones(1, dtype=torch.bool, device=cuda_device),
+            torch.zeros(1, dtype=torch.int32, device=cuda_device),
+            torch.ones((1, 4), dtype=torch.int32, device=cuda_device),
+            torch.ones(1, dtype=torch.float32, device=cuda_device))
+    with pytest.raises(KernelError):
+        tpacker.solve_block(*wide)
     assert {**tfeas.LAUNCHES, **tpacker.LAUNCHES} == l0

@@ -129,7 +129,10 @@ def _existing_nodes(m, core, res, store, cluster, nodes):
             cluster.update_pod(pod)
 
 
-def solve(pkg: str, s: dict):
+def build_solve(pkg: str, s: dict, extra=()):
+    """The spec's Scheduler and pending pods in `pkg`'s API, with `extra`
+    pods appended: (name, node_selector, requests) each."""
+
     def m(name):
         return importlib.import_module(f"{pkg}.{name}")
 
@@ -138,8 +141,9 @@ def solve(pkg: str, s: dict):
     NodePool = m("apis.nodepool").NodePool
     catalog = m("cloudprovider.kwok.instance_types").construct_instance_types()
     pods = []
-    for i, si in enumerate(s["picks"]):
-        sel, affinity, requests = s["shapes"][si]
+    picked = [(f"pod-{i:05d}", f"uid-{i:05d}", *s["shapes"][si]) for i, si in enumerate(s["picks"])]
+    picked += [(name, f"uid-{name}", sel, [], requests) for name, sel, requests in extra]
+    for i, (name, uid, sel, affinity, requests) in enumerate(picked):
         aff = None
         if affinity:
             aff = core.Affinity(
@@ -148,7 +152,7 @@ def solve(pkg: str, s: dict):
                 )
             )
         pod = core.Pod(
-            metadata=core.ObjectMeta(name=f"pod-{i:05d}", uid=f"uid-{i:05d}"),
+            metadata=core.ObjectMeta(name=name, uid=uid),
             spec=core.PodSpec(
                 node_selector=dict(sel), affinity=aff,
                 containers=[core.Container(requests=res.parse_resource_list(requests))],
@@ -182,7 +186,12 @@ def solve(pkg: str, s: dict):
         store, pools, cluster, state_nodes, topology, its, [],
         m("events.recorder").Recorder(clock=clock), clock, engine=engine,
     )
-    results = scheduler.solve(pods)
+    return scheduler, pods
+
+
+def decisions(results):
+    """The claims (pool, pods, instance-type options, requirements), the
+    pod errors and the existing nodes' pods of a solve."""
     claims = [
         (
             nc.nodepool_name,
@@ -202,6 +211,11 @@ def solve(pkg: str, s: dict):
         if en.pods
     )
     return claims, errors, existing
+
+
+def solve(pkg: str, s: dict):
+    scheduler, pods = build_solve(pkg, s)
+    return decisions(scheduler.solve(pods))
 
 
 @pytest.fixture

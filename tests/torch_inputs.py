@@ -407,3 +407,66 @@ def stage_inputs(seed: int):
     rng = np.random.RandomState(400 + seed)
     shape = ((3, 17), (1, 1), (2, 5, 33), (64,))[seed % 4]
     return tuple(rng.rand(*shape) < p for p in (0.8, 0.7, 0.6))
+
+
+# kt_group_solve's shapes in the card tests (G, R, K, I, O, D): R past 2048
+# (past the 64 mask words the kernel once held), K past 2048, K = 0, I past
+# a block of 1024 threads (two chunks of types), a single group and type,
+# I past four chunks, one chunk's offerings past a window of 32,768
+GROUP_KERNEL_SHAPES = ((33, 2100, 40, 300, 900, 4), (7, 3, 2100, 50, 200, 2),
+                       (16, 5, 0, 1100, 3000, 4), (40, 37, 9, 1008, 8064, 4), (1, 1, 0, 1, 1, 4),
+                       (4, 3, 2, 4500, 5000, 4), (3, 3, 2, 60, 40000, 4))
+
+
+def group_kernel_inputs(seed: int):
+    """Group-solver operands (group_inputs' layout) at
+    GROUP_KERNEL_SHAPES[seed % 7]: about four rows a group, so wide R
+    stays sparse; group 0 fitting no type (all-infeasible); prices from a
+    small set (ties); types without an available offering."""
+    rng = np.random.RandomState(1100 + seed)
+    G, R, K, I, O, D = GROUP_KERNEL_SHAPES[seed % len(GROUP_KERNEL_SHAPES)]
+    owner = np.sort(rng.randint(0, I, size=O)).astype(np.int32)
+    available = rng.rand(O) < 0.85
+    offer_price = rng.choice([0.25, 0.5, 1.0, 2.0], size=O).astype(np.float32)
+    price = np.full(I, np.inf, dtype=np.float32)
+    np.minimum.at(price, owner[available], offer_price[available])
+    requests_q = rng.randint(0, 16, size=(G, D)).astype(np.int32)
+    requests_q[rng.rand(G, D) < 0.3] = 0
+    requests_q[0] = 1 << 20
+    return (
+        np.concatenate([rng.rand(G, R) < min(1.0, 4.0 / R), rng.rand(G, K) < 0.5], axis=1),
+        np.concatenate([requests_q, rng.randint(0, 500, size=(G, 1)).astype(np.int32)], axis=1),
+        rng.rand(R, I) < 0.95,
+        rng.rand(R, O) < 0.95,
+        rng.rand(O, K) < 0.05,
+        available,
+        owner,
+        rng.randint(-2, 64, size=(I, D)).astype(np.int32),
+        price,
+    )
+
+
+def frontier_inputs(args: tuple, seed: int):
+    """The delta frontier as the residency hands it over, from group
+    operands `args`: the groups' last quarter edge-padded (rows equal to
+    the last real group's, slots repeating its slot), distinct slots for
+    the real groups in a [cap, 3] core matrix with cap = 2 G + 8, one of
+    them given negative (slot - cap, counting from the end), one past the
+    end (cap + 3) and one before the start (-cap - 2), both dropped.
+    Returns (core, slots, args with the padded group rows)."""
+    rng = np.random.RandomState(1300 + seed)
+    gb, gi = args[0].copy(), args[1].copy()
+    G = gb.shape[0]
+    cap = 2 * G + 8
+    real = max(1, G - G // 4)
+    gb[real:] = gb[real - 1]
+    gi[real:] = gi[real - 1]
+    slots = rng.permutation(cap)[:real].astype(np.int32)
+    if real >= 4:
+        slots[0] -= cap
+        slots[1] = cap + 3
+        slots[2] = -cap - 2
+    slots = np.pad(slots, (0, G - real), mode="edge")
+    core = np.stack([rng.randint(0, 50, size=cap), rng.randint(0, 3, size=cap),
+                     rng.randint(-1, 12, size=cap)], axis=1).astype(np.int32)
+    return core, slots, (gb, gi) + tuple(args[2:])
