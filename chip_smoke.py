@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # phases 1-3 only (build + kernel checks)
     python3 chip_smoke.py --mesh     # phases 1-2, 4 and 5b (two or more cards)
-    python3 chip_smoke.py --turns TREE [TREE ...]   # the group wrappers of
-                                     # each checkout, timed in turns
+    python3 chip_smoke.py --turns TREE [TREE ...]   # the group and sweep
+                                     # wrappers of each checkout, timed in turns
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -14,11 +14,19 @@ Phases, in order; any failure exits non-zero:
      spills per kernel;
   3. hold each kernel against its plain torch version on the card, bit for
      bit: the feasibility kernels at the solve's shapes, on ragged edges and
-     on bounded/complement rows; uid_project on ragged type counts and U=1;
+     on bounded/complement rows (kt_row_compat through req_rows_vs_sets
+     and through req_rows_vs_targets against both targets and one, R, K
+     and the set counts past 32 and not multiples of it; kt_cube through
+     production_cube and through cube_rows over rows read by index: P past
+     a tile, R and K past 32, I not a multiple of a block, a type with no
+     offering, an offering never available, one used row, no used row with
+     the membership padded, types of ~300 offerings); uid_project on
+     ragged type counts and U=1;
      fits_matrix (int32 and float32) and stage_plane on random inputs
      (phase 7 checks them again on the workload's inputs; those launches
      are the only ones they have: no path of the reference runs them);
-     offering_reduce on ragged P/R/O/K (K=0, an offering never available);
+     offering_reduce (kt_cube with no compat plane) on ragged P/R/O/K
+     (K=0, an offering never available);
      kt_group_solve in its three modes (solve_block, solve_block_core,
      solve_block_scatter with edge-padded duplicate, negative and dropped
      slots) on random operands (all-infeasible groups, zero-request dims,
@@ -45,9 +53,12 @@ Phases, in order; any failure exits non-zero:
      Scheduler.solve with a CUDA CatalogEngine and the fused scan left at
      `auto`, cold once and warm twice; launch counts are zeroed just before
      and read just after, and every scan launch must have taken the
-     resident design (here, in phase 5 and in phase 5b). Then the slice-1
-     path (scan off, the native walk) on the same workload, cold and warm,
-     with the same decisions;
+     resident design (here, in phase 5 and in phase 5b). Exactly one
+     kt_row_compat launch a row batch (types and offerings together) and
+     one kt_cube launch a sweep, in each solve, and no kt_membership; the
+     sweeps' shapes are logged. Then the slice-1 path (scan off, the
+     native walk) on the same workload, cold and warm, with the same
+     decisions and the same launch rule;
   5. delta solves (KARPENTER_TPU_DELTA=on, the fused scan on, a self-check
      every 5 warm passes) on the same workload: one cold pass, then 12
      churn passes that each add 24 pods extending the FFD stream as an
@@ -102,19 +113,27 @@ Phases, in order; any failure exits non-zero:
      pass, reduction) and ptxas's report; delta_scatter's holds its host
      time by part and it and index_put_ timed in turns. The kernels of no
      path (OFF_PATH: fits_matrix, stage_plane, offering_reduce,
-     solve_block_core, delta_scatter) have 0 launches, held so, and phase
-     3's and phase 7's check launches under `check_launches`;
+     solve_block_core, delta_scatter, membership) have 0 launches, held
+     so, and phase 3's and phase 7's check launches under
+     `check_launches`; row_compat's and cube's entries (on the row batch
+     and the sweep the main path gave them) also hold the host time by part
+     and ptxas's report;
   8. last line {"ok": true, "device": {...}}.
 
---turns times the group solver's wrappers of one or more checkouts of this
-repository, one after the other in the order given (parent, this, this,
-parent for a before/after), each in a process of its own that imports that
-checkout's karpenter_tpu_torch and this script's helpers, on the bench
-workload's groups: B9 solve_block on the 200 groups, B10 solve_block_core
-on the first 128, B11 delta_scatter_rows of those rows into a 256-row core
-matrix (and index_put_ beside it in turns), B13 sharded_solve_block on a
-2-shard mesh of the first card twice. Each checked against its plain
-version, then its wrapper ms, device ms by kernel, host us by part and C
+--turns times the group solver's and the catalog sweep's wrappers of one or
+more checkouts of this repository, one after the other in the order given
+(parent, this, this, parent for a before/after), each in a process of its
+own that imports that checkout's karpenter_tpu_torch and this script's
+helpers, on the bench workload: B9 solve_block on the 200 groups, B10
+solve_block_core on the first 128, B11 delta_scatter_rows of those rows
+into a 256-row core matrix (and index_put_ beside it in turns), B13
+sharded_solve_block on a 2-shard mesh of the first card twice; B1 on a
+fresh 7-row batch against the types and the offerings, B3 at phase 4's
+sweep shape (the engine's kernels: cube_rows, or where the checkout lacks
+it the two gathers and production_cube; and production_cube alone), the
+whole CatalogEngine.feasibility sweep, and CatalogEngine._ensure_rows on
+a fresh 7-row batch. Each checked against its plain version, then its
+wrapper ms, device ms by kernel, device operations, host us by part and C
 launches per call; all in chiprun_out/turns.json.
 
 Imports torch, numpy and karpenter_tpu_torch only.
@@ -201,12 +220,12 @@ REPLACES = {
 }
 # the C entry points each row launches
 ENTRY_POINTS = {
-    "row_compat": "kt_row_compat",
+    "row_compat": "kt_row_compat (types and offerings in one launch; req_rows_vs_targets)",
     "membership": "kt_membership",
-    "cube": "kt_membership + kt_cube_offer",
+    "cube": "kt_cube (both planes, the rows read by index; cube_rows)",
     "uid_project": "kt_uid_project",
     "solve_scan": "kt_solve_scan",
-    "offering_reduce": "kt_cube_offer",
+    "offering_reduce": "kt_cube (the offering plane alone)",
     "solve_block": "kt_group_solve (finalize mode)",
     "solve_block_core": "kt_group_solve (core mode)",
     "solve_block_scatter": "kt_group_solve (scatter mode)",
@@ -222,13 +241,16 @@ ENTRY_POINTS = {
     "sharded_solve_scan_full": "kt_solve_scan",
     "sharded_solve_scan_resume": "kt_solve_scan",
 }
-# the kernels no path launches: the reference runs B4 and B7 on none, and
-# since the group solve became one kt_group_solve launch a call the
-# standalone offering_reduce (B8), solve_block_core (B10) and delta_scatter
-# (B11) wrappers run on none either. Their entries give the paths' count,
-# 0, as `launches` and phase 3's and phase 7's check launches as
-# `check_launches`; the kernels line holds them to exactly that.
-OFF_PATH = ("fits_matrix", "stage_plane", "offering_reduce", "solve_block_core", "delta_scatter")
+# the kernels no path launches: the reference runs B4 and B7 on none; since
+# the group solve became one kt_group_solve launch a call the standalone
+# offering_reduce (B8), solve_block_core (B10) and delta_scatter (B11)
+# wrappers run on none either, and since the sweep became one kt_cube
+# launch neither does membership (B2: a catalog without offerings would).
+# Their entries give the paths' count, 0, as `launches` and phase 3's and
+# phase 7's check launches as `check_launches`; the kernels line holds them
+# to exactly that.
+OFF_PATH = ("fits_matrix", "stage_plane", "offering_reduce", "solve_block_core", "delta_scatter",
+            "membership")
 # float32 operations per second outside the tensor cores (H100 SXM data
 # sheet: 67 TFLOP/s FP32), the rate of fits_matrix's float32 compares
 F32_OPS_PER_S = 67e12
@@ -237,6 +259,8 @@ SCAN_KERNELS = ["solve_scan_resident_kernel", "solve_scan_kernel"]
 SCAN_BLOCK_SIZES = (256, 512, 1024)
 PTXAS: dict = {}  # scan kernel -> ptxas's report, filled by phase_build
 GROUP_PTXAS: dict = {}  # the same for kt_group_solve's kernel
+FEAS_PTXAS: dict = {}  # the same for kt_row_compat's and kt_cube's kernels
+FEAS_KERNELS = ["row_compat_kernel", "cube_kernel"]
 
 
 def log(msg: str) -> None:
@@ -326,6 +350,50 @@ def random_offering_inputs(rng, P, R, O, K, I, dev):
         owner,
     )
     return tuple(_to(a, dev) for a in host)
+
+
+def random_target_inputs(rng, R, sizes, K, W, dev, bounded=0.2, complement=0.3):
+    """A row batch (its six arrays) and one set tuple per size in `sizes`
+    (the types, then the offerings), slot_key and value_int, at the row
+    kernel's layout (random_row_inputs). req_rows_vs_targets takes the
+    batch as feasibility.row_table of the six arrays."""
+    first = random_row_inputs(rng, R, sizes[0], K, W, dev, bounded, complement)
+    targets = [first[6:12]] + [random_row_inputs(rng, 1, n, K, W, dev, bounded, complement)[6:12]
+                               for n in sizes[1:]]
+    return first[:6], targets, first[12], first[13]
+
+
+def random_sweep_inputs(rng, P, R, Rtot, I, O, K, dev):
+    """cube_rows' inputs: membership [P, pow2(R)] (columns past R padding,
+    all False), key_present, R sorted row ids out of Rtot resident rows,
+    the resident matrices, and owner-major offerings with a type that has
+    none (when I > 2) and offering 0 never available."""
+    owner = np.sort(rng.randint(0, I, size=O)).astype(np.int32)
+    if I > 2:
+        owner[owner == I // 2] = I // 2 + 1
+    available = rng.rand(O) < 0.9
+    available[0] = False
+    membership = np.zeros((P, 1 << max(0, (max(R, 1) - 1).bit_length())), dtype=bool)
+    membership[:, :R] = rng.rand(P, R) < min(1.0, 4.0 / max(R, 1))
+    rows = np.sort(rng.choice(Rtot, size=R, replace=False)).astype(np.int32)
+    host = (membership, rng.rand(P, K) < 0.5, rows, rng.rand(Rtot, I) < 0.9, rng.rand(Rtot, O) < 0.9,
+            rng.rand(O, K) < 0.05, available, owner)
+    return tuple(_to(a, dev) for a in host)
+
+
+# cube_rows' phase-3 shapes (P, R, Rtot, I, O, K): the workload's sweep; a
+# diverse backlog's; P past a tile with R and K past 32 and I not a
+# multiple of a block; one used row; all-trivial rows (R = 0, membership
+# padded); types of ~300 offerings each with K = 0; one of everything
+SWEEP_CHECK_SHAPES = ((16, 8, 40, 1008, 8064, 8), (256, 128, 300, 1008, 8064, 8),
+                      (45, 37, 50, 1000, 3001, 40), (33, 1, 5, 37, 75, 8), (40, 0, 3, 20, 400, 8),
+                      (7, 5, 9, 3, 900, 0), (1, 1, 1, 1, 1, 8))
+# req_rows_vs_targets' phase-3 shapes (R, target sizes, K, W): the
+# workload's batch against both targets and the types alone; R, K and N
+# past 32 and not multiples of it; one row against one set of each
+TARGET_CHECK_SHAPES = ((7, (1008, 8064), 8, 8), (7, (1008,), 8, 8), (128, (1008, 8064), 8, 8),
+                       (37, (45, 300), 40, 2), (70, (1000, 3001), 16, 4), (1, (1, 1), 33, 9),
+                       (33, (257,), 8, 2))
 
 
 def random_group_inputs(rng, G, R, K, I, O, D, dev):
@@ -807,10 +875,14 @@ def phase_build():
     PTXAS.update(ptxas_report(device.BUILD_LOG.get("scan", ""), SCAN_KERNELS))
     GROUP_PTXAS.update(ptxas_report(device.BUILD_LOG.get("packer", ""), ["group_solve_kernel"]))
     log(f"ptxas group_solve_kernel: {json.dumps(GROUP_PTXAS)}")
+    FEAS_PTXAS.update(ptxas_report(device.BUILD_LOG.get("feasibility", ""), FEAS_KERNELS))
+    log(f"ptxas row_compat_kernel, cube_kernel: {json.dumps(FEAS_PTXAS)}")
     for fn, rep in PTXAS.items():
         log(f"ptxas {fn}: {json.dumps(rep)}")
     assert any("resident" in fn for fn in PTXAS) and any("resident" not in fn for fn in PTXAS), \
         f"ptxas reported no scan kernel of one design: {sorted(PTXAS)}"
+    assert all(any(k in fn for fn in FEAS_PTXAS) for k in FEAS_KERNELS), \
+        f"ptxas reported no row_compat or cube kernel: {sorted(FEAS_PTXAS)}"
 
 
 def ptxas_report(text: str, names) -> dict:
@@ -918,6 +990,23 @@ def phase_kernel_checks(dev=torch.device("cuda")):
         onehot, mask = random_uid_inputs(rng, lead, U, I, dev)
         check_equal(f"uid_project lead={lead} U={U} I={I}",
                     feas.uid_project(onehot, mask), feas.uid_project_plain(onehot, mask))
+        n += 1
+    for R, sizes, K, W in TARGET_CHECK_SHAPES:
+        for bounded, complement in ((0.0, 0.0), (0.3, 0.5)):
+            rows, targets, sk, vi = random_target_inputs(rng, R, sizes, K, W, dev, bounded, complement)
+            want = torch.cat([feas.req_rows_vs_sets_plain(*rows, *t, sk, vi) for t in targets], dim=1)
+            label = f"R={R} N={sizes} K={K} W={W} bounded={bounded}"
+            table = feas.row_table(*rows)
+            check_equal(f"req_rows_vs_targets {label}", feas.req_rows_vs_targets(table, targets, sk, vi),
+                        want)
+            packs = [feas.pack_sets(*t) for t in targets]
+            check_equal(f"req_rows_vs_targets_plain {label}", feas.req_rows_vs_targets_plain(
+                table, packs, feas.key_slot_words(sk, K), vi), want)
+            n += 2
+    for P, R, Rtot, I, O, K in SWEEP_CHECK_SHAPES:
+        args = random_sweep_inputs(rng, P, R, Rtot, I, O, K, dev)
+        check_equal(f"cube_rows P={P} R={R} of {Rtot} I={I} O={O} K={K}", feas.cube_rows(*args),
+                    feas.cube_rows_plain(*args))
         n += 1
     log(f"kernel checks: {n} feasibility and uid_project cases bit-identical to the plain versions")
     n = 0
@@ -1073,19 +1162,30 @@ def phase_main(captured, device=None):
     assert fused.fused_enabled(engine), "the fused scan is not on for this engine"
 
     # record the largest inputs each kernel sees on the main path, to time
-    # the kernels on them afterwards (recording does not launch anything)
-    real = (feas.req_rows_vs_sets, feas.production_cube, feas.uid_project, packer.solve_scan)
+    # the kernels on them afterwards (recording does not launch anything);
+    # count the engine's row batches and sweeps (one call of its entry
+    # each) and the sweeps' shapes, on both paths
+    real = (feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project, packer.solve_scan)
+    recording = [True]
+    calls = {"row_batches": 0, "sweeps": 0}
+    shapes: dict = {}
 
     def keep(name, args, size):
-        if name not in captured or size(args) >= size(captured[name]):
+        if recording[0] and (name not in captured or size(args) >= size(captured[name])):
             captured[name] = args
 
     def rows_shim(*args):
-        keep("row_compat", args, lambda a: a[6].shape[0])
+        keep("row_compat", args, lambda a: a[0].shape[0])
+        calls["row_batches"] += 1
         return real[0](*args)
 
     def cube_shim(*args):
-        keep("cube", args, lambda a: a[0].numel())
+        keep("cube", args, lambda a: a[0].shape[0] * a[2].shape[0])
+        calls["sweeps"] += 1
+        if recording[0]:
+            # entities (padded), rows used, membership columns (padded)
+            shape = f"P={args[0].shape[0]} R={args[2].shape[0]} R2={args[0].shape[1]}"
+            shapes[shape] = shapes.get(shape, 0) + 1
         return real[1](*args)
 
     def uid_shim(*args):
@@ -1104,7 +1204,7 @@ def phase_main(captured, device=None):
         return real_drive(self)
 
     mode0 = fused.FUSED_MODE
-    feas.req_rows_vs_sets, feas.production_cube, feas.uid_project, packer.solve_scan = (
+    feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project, packer.solve_scan = (
         rows_shim, cube_shim, uid_shim, scan_shim)
     ffd._NativeDriver.drive = drive_shim
     try:
@@ -1113,37 +1213,49 @@ def phase_main(captured, device=None):
         packer.reset_launch_counts()
         runs = []
         for label in ("cold", "warm", "warm"):
-            before = _count_launches()
+            before, c0 = _count_launches(), dict(calls)
             results, ms = solve(engine, catalog, copy.deepcopy(pods))
             runs.append((label, ms, results,
-                         {k: v - before[k] for k, v in _count_launches().items()}))
+                         {k: v - before[k] for k, v in _count_launches().items()},
+                         {k: v - c0[k] for k, v in calls.items()}))
         launches = _count_launches()
+        scan_calls = dict(calls)
         fused_solves = fused.FUSED_SOLVES - fused0
         declines = {k: v - declines0.get(k, 0) for k, v in fused.FUSED_DECLINES.items()
                     if v != declines0.get(k, 0)}
         scan_native = len(native_runs)
         # the slice-1 path: the walk, cold on a fresh engine and warm, with
-        # its own launch counts (the recording shims are off: the timed
+        # its own launch and call counts (nothing recorded: the timed
         # inputs stay the scan path's)
-        feas.req_rows_vs_sets, feas.production_cube, feas.uid_project, packer.solve_scan = real
+        recording[0] = False
         fused.FUSED_MODE = "off"
         walk_engine = CatalogEngine(catalog, device=device)
         walk_runs = []
         feas.reset_launch_counts()
         packer.reset_launch_counts()
+        calls.update(row_batches=0, sweeps=0)
         for label, eng in (("cold", walk_engine), ("warm", walk_engine)):
             results, ms = solve(eng, catalog, copy.deepcopy(pods))
             walk_runs.append((label, ms, results))
         walk_launches = _count_launches()
+        walk_calls = dict(calls)
     finally:
         fused.FUSED_MODE = mode0
-        feas.req_rows_vs_sets, feas.production_cube, feas.uid_project, packer.solve_scan = real
+        feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project, packer.solve_scan = real
         ffd._NativeDriver.drive = real_drive
-    for label, ms, results, per_solve in runs:
+    for label, ms, results, per_solve, per_calls in runs:
         placed = sum(len(nc.pods) for nc in results.new_node_claims)
         log(f"solve {label} (scan): {ms:.1f} ms wall, {len(results.new_node_claims)} nodeclaims, "
             f"{placed} pods placed, {len(results.pod_errors)} pod errors, "
-            f"launches {json.dumps(per_solve)}")
+            f"launches {json.dumps({k: v for k, v in per_solve.items() if v})}, "
+            f"engine calls {json.dumps(per_calls)}")
+        # one kt_row_compat launch a row batch (types and offerings together)
+        # and one kt_cube launch a sweep, no kt_membership
+        assert per_solve["row_compat"] == per_calls["row_batches"] and \
+            per_solve["cube"] == per_calls["sweeps"] and per_solve["membership"] == 0, \
+            f"{label}: launches {per_solve}, engine calls {per_calls}"
+    log(f"phase 4 sweep shapes (scan path): {json.dumps(shapes)}; engine calls of the scan solves "
+        f"{json.dumps(scan_calls)}, of the walk solves {json.dumps(walk_calls)}")
     log(f"device solves {ffd.DEVICE_SOLVES - solves0}, fused solves {fused_solves}, declines "
         f"{json.dumps(declines)}, native driver runs {scan_native} with the scan and "
         f"{len(native_runs) - scan_native} with it off (library "
@@ -1155,11 +1267,15 @@ def phase_main(captured, device=None):
     assert scan_native == 0 and len(native_runs) == len(walk_runs), "the walk ran on the wrong path"
     assert launches["solve_scan"] == len(runs), "solve_scan did not launch once per solve"
     assert_resident(launches, "phase 4")
-    for name in ("row_compat", "membership", "cube", "uid_project"):
+    for name in ("row_compat", "cube", "uid_project"):
         assert launches[name] > 0, f"{name} never launched on the main path"
     assert walk_launches["solve_scan"] == 0, "the scan launched on the walk path"
-    for name in ("row_compat", "membership", "cube"):
+    for name in ("row_compat", "cube"):
         assert walk_launches[name] > 0, f"{name} never launched on the walk path"
+    # B2 runs on neither path: the sweep's compat half is kt_cube's
+    assert launches["membership"] == walk_launches["membership"] == 0, "kt_membership launched"
+    assert walk_launches["row_compat"] == walk_calls["row_batches"] and \
+        walk_launches["cube"] == walk_calls["sweeps"], (walk_launches, walk_calls)
     first = captured["decisions"] = decisions(runs[0][2])
     for label, _, results in [r[:3] for r in runs] + walk_runs:
         claims, errors, _ = decisions(results)
@@ -1442,7 +1558,7 @@ def phase_mesh(captured, device=None):
                 for d in dict.fromkeys(mesh.devices):
                     k = mesh.devices.count(d)
                     want_d = {"kt_solve_scan": k * scans, "kt_cube_fused": mesh_sweeps,
-                              "kt_group_solve": 1, "kt_membership": 0, "kt_cube_offer": 0}
+                              "kt_group_solve": 1, "kt_membership": 0, "kt_cube": 0}
                     got_d = {e: by_device[str(d)].get(e, 0) for e in want_d}
                     assert got_d == want_d, f"{label}: launches on {d} {got_d}, expected {want_d}"
         launches = _count_launches()
@@ -1735,49 +1851,78 @@ def _dev_sum(dev_ms: dict):
     return sum(vals) if vals else None
 
 
-def timing_entries(rows, cube, launches, label):
-    """The feasibility kernels on the given inputs: each must match its
-    plain version there, then the wrapper, the plain version and the
-    yardstick are timed with CUDA events and the kernel's device time is
-    read from the profiler."""
+def timing_entries(rows, cube, launches, label, phase3=None):
+    """The feasibility kernels on the given inputs — `rows` a row batch as
+    req_rows_vs_targets takes it, `cube` a sweep as cube_rows takes it:
+    each must match its plain version there, then the wrapper, the plain
+    version and the yardstick are timed with CUDA events and the kernel's
+    device time is read from the profiler; B1 and B3 also get their host
+    time by part (wrapper_breakdown) and ptxas's report. membership (B2,
+    off the path) runs on the sweep's rows gathered; `phase3`: phase 3's
+    launches of the OFF_PATH wrappers, to which its checks here add theirs
+    as `check_launches` (None: no such entry is kept)."""
     from karpenter_tpu_torch.ops import feasibility as feas
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    membership_args = (cube[0], cube[1])
     entries = []
 
     def words(n):
         return (n + 31) // 32
 
-    def entry(name, kernel, plain, library, inputs, device_names, word_ops):
+    def entry(name, kernel, plain, library, inputs, device_names, word_ops, **extra):
+        l0 = _count_launches()[name]
         got, want = kernel(), plain()
         check_equal(f"{name} on {label}", got, want)
+        if name in OFF_PATH and phase3 is not None:
+            extra["check_launches"] = phase3[name] + _count_launches()[name] - l0
         gots = got if isinstance(got, tuple) else (got,)
         entries.append(_entry(
             name, launches, _max_abs_err(got, want), cuda_ms(kernel),
             cuda_ms(plain, reps=5, warmup=1), nbytes(*inputs) + nbytes(*gots), word_ops,
             WORD_OPS_PER_S, cuda_ms(library) if library is not None else None,
             _dev_sum(device_kernel_ms(kernel, device_names)),
-            shapes=[list(t.shape) for t in inputs],
+            shapes=[list(t.shape) for t in inputs], **extra,
         ))
 
     # word ops the functions need: one AND per mask word of each (row, set)
     # pair; one AND per 32-row word of each (entity, target) pair, plus the
     # custom-key words per (entity, offering)
-    (R, W), N = rows[5].shape, rows[6].shape[0]
-    (P, Rc), I, (O, K) = cube[0].shape, cube[1].shape[1], cube[3].shape
-    entry("row_compat", lambda: feas.req_rows_vs_sets(*rows),
-          lambda: feas.req_rows_vs_sets_plain(*rows), None, rows, ["row_compat_kernel"],
-          R * N * W)
-    entry("membership", lambda: feas.membership_all(*membership_args),
-          lambda: feas.membership_all_plain(*membership_args),
-          lambda: (membership_args[0].float() @ (~membership_args[1]).float()) < 0.5,
-          membership_args, ["membership_kernel"], P * I * words(Rc))
-    entry("cube", lambda: feas.production_cube(*cube),
-          lambda: feas.production_cube_plain(*cube),
-          lambda: cube_f32(*cube), cube, ["membership_kernel", "cube_offer_kernel"],
-          P * I * words(Rc) + P * O * (words(Rc) + words(K)))
+    table, targets, sk, vi = rows
+    R, W = table.shape[0], table.shape[1] - feas.ROW_FIELDS
+    K = targets[0][0].shape[1]
+    N = sum(t[0].shape[0] for t in targets)
+    run_rows = lambda: feas.req_rows_vs_targets(*rows)  # noqa: E731
+    packs = [feas.pack_sets(*t) for t in targets]
+    key_slots = feas.key_slot_words(sk, K)
+    set_inputs = [a for t in targets for a in t]
+    entry("row_compat", run_rows,
+          lambda: feas.req_rows_vs_targets_plain(table, packs, key_slots, vi), None,
+          [table] + set_inputs + [sk, vi], ["row_compat_kernel"], R * N * W,
+          targets=[t[0].shape[0] for t in targets], breakdown=wrapper_breakdown(run_rows),
+          ptxas={k: v for k, v in FEAS_PTXAS.items() if "row_compat_kernel" in k},
+          plain_from="req_rows_vs_sets_plain per target on the packs unpacked")
+
+    mem, kp, idx, rc, oc, cn, av, ow = cube
+    Ru = idx.shape[0]
+    # the rows the sweep reads: its used rows only, by index
+    rc_u, oc_u = rc.index_select(0, idx.long()), oc.index_select(0, idx.long())
+    mem_u = mem[:, :Ru].contiguous()
+    P, I, (O, Kc) = mem.shape[0], rc.shape[1], cn.shape
+    entry("membership", lambda: feas.membership_all(mem_u, rc_u),
+          lambda: feas.membership_all_plain(mem_u, rc_u),
+          lambda: (mem_u.float() @ (~rc_u).float()) < 0.5,
+          (mem_u, rc_u), ["membership_kernel"], P * I * words(Ru))
+    run_cube = lambda: feas.cube_rows(*cube)  # noqa: E731
+    entry("cube", run_cube, lambda: feas.cube_rows_plain(*cube),
+          lambda: cube_f32(mem_u, rc.index_select(0, idx.long()), oc.index_select(0, idx.long()),
+                           cn, kp, av, ow),
+          (mem_u, kp, idx, rc_u, oc_u, cn, av, ow), ["cube_kernel"],
+          P * I * words(Ru) + P * O * (words(Ru) + words(Kc)),
+          library_call="the reference's f32 4-matmul form after index_select of the used rows",
+          bytes_note="the used rows only, read by index (the gather's padding rows are not read)",
+          resident_rows=int(rc.shape[0]), breakdown=wrapper_breakdown(run_cube),
+          ptxas={k: v for k, v in FEAS_PTXAS.items() if "cube_kernel" in k})
     return entries
 
 
@@ -2172,7 +2317,7 @@ def group_entries(captured, launches, phase3):
         return ((rows_ok & undef_ok & av[None, :]).float() @ onehot) > 0.5
 
     add("offering_reduce", lambda: feas.offering_reduce(*off), lambda: feas.offering_reduce_plain(*off),
-        offering_f32, off[:6], ["cube_offer_kernel"], P * O * (words(R) + words(K)),
+        offering_f32, off[:6], ["cube_kernel"], P * O * (words(R) + words(K)),
         library_call="the reference's f32 matmul form")
 
     def solve_ops(args):
@@ -2337,8 +2482,8 @@ def _per_call(dev_ms, launches_per_call):
 def old_sharded_cube(mesh):
     """The per-shard sharded cube kt_cube_fused replaces, rebuilt from
     public pieces for the before/after turns: per shard a pageable upload
-    of each entity slab (split_rows), production_cube there (kt_membership,
-    kt_cube_offer), then gather_rows."""
+    of each entity slab (split_rows), production_cube there (one kt_cube
+    launch), then gather_rows."""
     from karpenter_tpu_torch import mesh as mesh_mod
     from karpenter_tpu_torch.ops import feasibility as feas
 
@@ -2379,7 +2524,8 @@ def old_sharded_solve_block(mesh):
 # composition and the fused wrappers. Kernel launches are timed apart, by
 # C entry point ("enqueue <entry>").
 BREAKDOWN_PARTS = {
-    "upload": [("mesh", "split_rows"), ("mesh", "stage_rows")],
+    "upload": [("mesh", "split_rows"), ("mesh", "stage_rows"), ("mesh", "upload_rows")],
+    "packs": [("feas", "_cached")],
     "replicate": [("mesh", "per_shard")],
     "plan": [("mesh", "slab_plan")],
     "checks": [("feas", "_check"), ("packer", "_check")],
@@ -2450,8 +2596,8 @@ def wrapper_breakdown(run, reps=50) -> dict:
 
 # the kernels a sharded wrapper may launch, by the profiler's names: the
 # per-shard composition's and the fused ones
-CUBE_KERNELS = ["membership_kernel", "cube_offer_kernel", "cube_fused_kernel"]
-GROUP_KERNELS = ["membership_kernel", "cube_offer_kernel", "group_solve_kernel"]
+CUBE_KERNELS = ["cube_kernel", "cube_fused_kernel"]
+GROUP_KERNELS = ["cube_kernel", "group_solve_kernel"]
 
 
 def device_per_call(fn, names=None, reps=20, rounds=3) -> dict:
@@ -2711,10 +2857,120 @@ def mesh_entries(captured, launches, plain):
     return entries
 
 
+def sweep_turns(engine, dev) -> tuple:
+    """The catalog sweep's wrappers in one checkout, through entry points
+    older checkouts have too, each in the way the checkout's engine
+    composes them (see --turns): B1 on a fresh 7-row batch against the types and
+    the offerings; B3 at phase 4's sweep shape (16 of the workload's
+    selector sets), the engine's kernels (cube_rows where the checkout has
+    it, else the two gathers and production_cube) and production_cube
+    alone on the gathered rows; the whole CatalogEngine.feasibility sweep.
+    Returns the {name: (run, check)} of those and a callable that runs one
+    fresh row batch through _ensure_rows (the time-consuming part is the
+    caller's)."""
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.cloudprovider.kwok.instance_types import construct_instance_types
+    from karpenter_tpu_torch.ops import encoding as enc
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.scheduling.requirements import Operator, Requirement, Requirements
+
+    # fresh rows that intern no new value: instance-type pairs, 7 a batch
+    pairs = itertools.combinations([it.name for it in construct_instance_types()], 2)
+
+    def fresh_batch():
+        return [Requirement(wk.LABEL_INSTANCE_TYPE, Operator.IN, list(next(pairs))) for _ in range(7)]
+
+    engine.warmup()
+    er = enc.encode_requirement_rows(engine.vocab, fresh_batch(), engine._word_capacity)
+    rows = tuple(_to(a, dev) for a in (er.key, er.complement, er.has_values, er.gt, er.lt, er.mask))
+    sets = [engine._set_args("inst", engine._inst_sets), engine._set_args("offer", engine._offer_sets)]
+    tables = (engine._dev("slot_key", engine._tables.slot_key),
+              engine._dev("value_int", engine._tables.value_int))
+    want_rows = [feas.req_rows_vs_sets_plain(*rows, *t, *tables) for t in sets]
+    if hasattr(feas, "req_rows_vs_targets"):
+        table = _to(feas.row_table(er.key, er.complement, er.has_values, er.gt, er.lt, er.mask), dev)
+        b1 = lambda: feas.req_rows_vs_targets(table, sets, *tables)  # noqa: E731
+        b1_want = torch.cat(want_rows, dim=1)
+    else:
+        b1 = lambda: tuple(feas.req_rows_vs_sets(*rows, *t, *tables) for t in sets)  # noqa: E731
+        b1_want = tuple(want_rows)
+
+    # phase 4's sweep shape: 16 selector sets of the workload
+    shapes, _ = bench_shapes()
+    selectors = list(dict.fromkeys(tuple(sorted(sel.items())) for sel, _ in shapes))[:16]
+    reqs = [Requirements(*(Requirement(k, Operator.IN, [v]) for k, v in sel)) for sel in selectors]
+    row_sets = [engine.rows_for(r) for r in reqs]
+    key_present = engine.key_presence(reqs)
+    engine._ensure_rows()
+    used = sorted({rid for rs in row_sets for rid in rs if not engine._row_trivial[rid]})
+    P, R = len(row_sets), len(used)
+    P2, R2 = 1 << max(0, (P - 1).bit_length()), 1 << max(0, (max(R, 1) - 1).bit_length())
+    membership = np.zeros((P2, R2), dtype=bool)
+    for p, rs in enumerate(row_sets):
+        for rid in rs:
+            if rid in used:
+                membership[p, used.index(rid)] = True
+    kp = np.zeros((P2, key_present.shape[1]), dtype=bool)
+    kp[:P] = key_present
+    mem_d, kp_d = _to(membership, dev), _to(kp, dev)
+    rc_d, oc_d = engine._req_compat_d, engine._offer_compat_d
+    cat = (engine._dev("custom_need", engine.offering_custom_need),
+           engine._dev("available", engine.offering_available), engine._dev("owner", engine.offering_owner))
+    idx64 = _to(np.asarray(used, dtype=np.int64), dev)
+    rc_g, oc_g = engine._gather_rows(rc_d, idx64, R2), engine._gather_rows(oc_d, idx64, R2)
+    want_cube = feas.production_cube_plain(mem_d[:, :R], rc_d[idx64], oc_d[idx64], cat[0], kp_d, *cat[1:])
+    if hasattr(feas, "cube_rows"):
+        idx32 = _to(np.asarray(used, dtype=np.int32), dev)
+        b3 = lambda: feas.cube_rows(mem_d, kp_d, idx32, rc_d, oc_d, *cat)  # noqa: E731
+        b3_want = torch.stack(want_cube)
+    else:
+        b3 = lambda: feas.production_cube(  # noqa: E731
+            mem_d, engine._gather_rows(rc_d, idx64, R2), engine._gather_rows(oc_d, idx64, R2), cat[0],
+            kp_d, *cat[1:])
+        b3_want = want_cube
+    cube = lambda: feas.production_cube(mem_d, rc_g, oc_g, cat[0], kp_d, *cat[1:])  # noqa: E731
+    requests = np.zeros((P, len(engine.resource_dims)), dtype=np.float32)
+    sweep = lambda: engine.feasibility(row_sets, requests, key_present)  # noqa: E731
+
+    def sweep_check():
+        f = sweep()
+        check_equal("the sweep on the workload", (torch.from_numpy(f.compat), torch.from_numpy(f.has_offering)),
+                    tuple(w[:P].cpu() for w in want_cube))
+
+    # every batch lands on the same resident rows: the engine's row state
+    # is put back before each (the host copy of the matrices grows with
+    # every batch otherwise, and its concatenation would be what is timed)
+    base = {k: getattr(engine, k) for k in (
+        "_rows", "_row_ids", "_computed_rows", "_req_compat", "_offer_compat", "_req_compat_d",
+        "_offer_compat_d", "_row_trivial")}
+
+    def row_batch():
+        for k, v in base.items():
+            setattr(engine, k, v.copy() if isinstance(v, (list, dict)) else v)
+        for r in fresh_batch():
+            engine.row_id(r)
+        engine._ensure_rows()
+
+    label = f"P={P2} R={R} R2={R2}"
+    runs = {
+        "B1 row batch vs types and offerings": (b1, lambda: check_equal("B1", b1(), b1_want)),
+        f"B3 the sweep's kernels ({label})": (b3, lambda: check_equal("B3", b3(), b3_want)),
+        f"B3 production_cube ({label})": (cube, lambda: check_equal("production_cube", cube(), want_cube)),
+        "CatalogEngine.feasibility sweep": (sweep, sweep_check),
+    }
+    return runs, row_batch
+
+
+def _device_ops(dev_ms: dict) -> float:
+    """Device operations a call (kernels and copies) from device_per_call's
+    launches_seen."""
+    return sum(statistics.median(v) for v in dev_ms["launches_seen"].values())
+
+
 def turns_of(tree: str) -> dict:
-    """One checkout's group wrappers on the bench workload (see --turns),
-    timed by this script's helpers; the checkout's karpenter_tpu_torch is
-    first on sys.path."""
+    """One checkout's group and sweep wrappers on the bench workload (see
+    --turns), timed by this script's helpers; the checkout's
+    karpenter_tpu_torch is first on sys.path."""
     import karpenter_tpu_torch
     from karpenter_tpu_torch import device
     from karpenter_tpu_torch.mesh import Mesh
@@ -2741,20 +2997,29 @@ def turns_of(tree: str) -> dict:
     mesh_rows = (torch.from_numpy(np.pad(gb, pad)), torch.from_numpy(np.pad(gi, pad)))
     mesh_cat = solver._mesh_catalog_args(mesh)
     c_k, c_l = core0.clone(), core0.clone()
+
+    def checked(name, run, plain):
+        return run, lambda: check_equal(f"{name} on the workload", run(), plain())
+
     runs = {
-        "B9 solve_block": (lambda: packer.solve_block(*full), lambda: packer.solve_block_plain(*full)),
-        "B10 solve_block_core": (lambda: packer.solve_block_core(*front),
-                                 lambda: packer.solve_block_core_plain(*front)),
-        "B11 delta_scatter_rows": (lambda: packer.delta_scatter_rows(c_k, slots, rows),
-                                   lambda: packer.delta_scatter_rows_plain(core0.clone(), slots, rows)),
-        "B13 sharded_solve_block": (lambda: packer.sharded_solve_block(mesh)(*mesh_rows, *mesh_cat),
-                                    lambda: packer.solve_block_plain(*(t.to(dev) for t in mesh_rows),
-                                                                     *cat)),
+        "B9 solve_block": checked("B9", lambda: packer.solve_block(*full),
+                                  lambda: packer.solve_block_plain(*full)),
+        "B10 solve_block_core": checked("B10", lambda: packer.solve_block_core(*front),
+                                        lambda: packer.solve_block_core_plain(*front)),
+        "B11 delta_scatter_rows": checked(
+            "B11", lambda: packer.delta_scatter_rows(c_k, slots, rows),
+            lambda: packer.delta_scatter_rows_plain(core0.clone(), slots, rows)),
+        "B13 sharded_solve_block": checked(
+            "B13", lambda: packer.sharded_solve_block(mesh)(*mesh_rows, *mesh_cat),
+            lambda: packer.solve_block_plain(*(t.to(dev) for t in mesh_rows), *cat)),
     }
+    sweep_engine = CatalogEngine(build_catalog(), device=dev)
+    sweep_runs, row_batch = sweep_turns(sweep_engine, dev)
+    runs.update(sweep_runs)
     out = {"tree": tree, "device": torch.cuda.get_device_name(0), "kernels": {}}
     real = feas.launch
-    for name, (run, plain) in runs.items():
-        check_equal(f"{name} on the workload", run(), plain())
+
+    def per_call_launches(run):
         counts: dict = {}
 
         def shim(d, entry, *a):
@@ -2767,9 +3032,30 @@ def turns_of(tree: str) -> dict:
         finally:
             feas.launch = packer.launch = real
         torch.cuda.synchronize()
-        out["kernels"][name] = {"ms": cuda_ms(run), "launches_per_call": counts,
-                                "device_ms_by_kernel": device_per_call(run),
+        return counts
+
+    for name, (run, check) in runs.items():
+        check()
+        launches = per_call_launches(run)
+        dev_ms = device_per_call(run)
+        out["kernels"][name] = {"ms": cuda_ms(run), "launches_per_call": launches,
+                                "device_ms_by_kernel": dev_ms, "device_ops_per_call": _device_ops(dev_ms),
                                 "breakdown": wrapper_breakdown(run)}
+    # a fresh row batch each call: host clock around _ensure_rows (its copy
+    # back synchronizes), the interning of the batch outside the timer;
+    # device time, operations and host parts with the interning inside
+    times = []
+    for k in range(60):
+        t0 = time.perf_counter()
+        row_batch()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dev_ms = device_per_call(row_batch)
+    out["kernels"]["CatalogEngine._ensure_rows, a fresh 7-row batch"] = {
+        "ms": statistics.median(times[10:]),
+        "ms_includes": "putting the engine's row state back and interning the 7 rows",
+        "resident_rows_after": sweep_engine.num_rows,
+        "launches_per_call": per_call_launches(row_batch), "device_ms_by_kernel": dev_ms,
+        "device_ops_per_call": _device_ops(dev_ms), "breakdown": wrapper_breakdown(row_batch)}
     scatter = runs["B11 delta_scatter_rows"][0]
     slots_l = slots.long()  # index_put_ takes int64 indices: converted once, outside the timing
     index_put = lambda: c_l.index_put_((slots_l,), rows)  # noqa: E731
@@ -2800,7 +3086,8 @@ def run_turns(trees) -> int:
     for name in results[0]["kernels"]:
         log(f"{name}: " + json.dumps([(r["turn"], r["kernels"][name]["ms"],
                                        r["kernels"][name]["device_ms_by_kernel"]["total"],
-                                       r["kernels"][name]["breakdown"]["host_us"]) for r in results]))
+                                       r["kernels"][name]["breakdown"]["host_us"],
+                                       r["kernels"][name]["device_ops_per_call"]) for r in results]))
     return 0
 
 
@@ -2811,7 +3098,8 @@ def main() -> int:
                         help="build, then phase 4 and the mesh phase alone, with the sharded "
                              "twins' entries (for a machine with two or more cards)")
     parser.add_argument("--turns", nargs="+", metavar="TREE",
-                        help="time the group wrappers of each checkout in turns, in the order given")
+                        help="time the group and sweep wrappers of each checkout in turns, in the "
+                             "order given")
     parser.add_argument("--turns-of", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2860,13 +3148,16 @@ def main() -> int:
         mesh_launches = phase_mesh(captured)
         log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
         prefix_scan = phase_identity()
+        from karpenter_tpu_torch.ops import feasibility as feas
+
         # the sweep at the sizes a more diverse backlog reaches (256 joint
         # sets x 128 rows), beside the sizes this workload gave
         rng = np.random.RandomState(1)
         dev = torch.device("cuda")
+        rows, targets, sk, vi = random_target_inputs(rng, 128, (1008, 8064), 8, 8, dev, 0.2, 0.3)
         wide = timing_entries(
-            random_row_inputs(rng, 128, 8064, 8, 8, dev, 0.2, 0.3),
-            random_cube_inputs(rng, 256, 128, 1008, 8064, 8, dev),
+            (feas.row_table(*rows), targets, sk, vi),
+            random_sweep_inputs(rng, 256, 128, 300, 1008, 8064, 8, dev),
             launches, "synthetic sweep-size inputs",
         )
         log(json.dumps({"kernels_at_sweep_size": [
@@ -2874,7 +3165,7 @@ def main() -> int:
                                "bound_ms", "bound_by", "bytes", "ops", "shapes")}
             for e in wide]}))
         kernels = timing_entries(captured["row_compat"], captured["cube"], launches,
-                                 "the main path's inputs")
+                                 "the main path's inputs", phase3)
         plain: dict = {}
         kernels += scan_entries(captured["uid_project"], captured["solve_scan"], prefix_scan,
                                 launches, plain)

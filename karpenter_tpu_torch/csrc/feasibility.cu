@@ -6,12 +6,15 @@
 // against live in karpenter_tpu_torch/ops/feasibility.py.
 //
 // What each kernel replaces (the JAX device programs of the reference):
-//   kt_row_compat  <- karpenter_tpu/ops/feasibility.py:48 req_rows_vs_sets
+//   kt_row_compat  <- karpenter_tpu/ops/feasibility.py:48 req_rows_vs_sets,
+//                     one launch for the rows of a batch against one or two
+//                     targets (the catalog's types and its offerings)
 //                     (kernel name catalog.row_compat)
-//   kt_membership  <- karpenter_tpu/ops/feasibility.py:177 membership_all,
-//                     and the compat half of _cube_math (:265)
-//   kt_cube_offer  <- karpenter_tpu/ops/feasibility.py:265 _cube_math /
-//                     production_cube, the offering half
+//   kt_membership  <- karpenter_tpu/ops/feasibility.py:177 membership_all
+//   kt_cube        <- karpenter_tpu/ops/feasibility.py:265 _cube_math /
+//                     production_cube, both halves in one launch, the rows
+//                     read in place by index; with no compat plane, the
+//                     offering half alone: :430 offering_reduce
 //   kt_cube_fused  <- karpenter_tpu/ops/feasibility.py:305-329 sharded_cube,
 //                     both halves of the cube for every shard of one card
 //   kt_uid_project <- karpenter_tpu/ops/feasibility.py:332 uid_project
@@ -23,14 +26,16 @@
 // rows with an f32 matmul and thresholds at 0.5; here every test is exact
 // bit logic on packed uint32 words, so there is no threshold and no rounding.
 //
-// What bounds them on this card: at the solve's shapes (P=256 entities,
-// R<=128 rows, 1008 types, 8064 offerings, W=8 mask words) each call moves
-// well under 3 MB, which is under a microsecond at 3.35 TB/s. They are bound
-// by launch latency and by the re-reads of the compat matrices from L2,
-// not by device memory or arithmetic. The design keeps each call to one
-// launch per output, packs the R axis 32 rows to a word so one AND tests 32
-// rows, and tiles 32 entities per thread so a column of the compat matrix is
-// read once per 32 entities instead of once per entity.
+// What bounds them on this card: at the solve's shapes (the bench
+// workload's sweeps are 16 entities x 7 used rows, padded to 8, and 1
+// entity with no row, against 1008 types and 8064 offerings; its row
+// batches 7 rows, W=8 mask words; up to 256 x 128 for a more diverse
+// backlog) each call moves well under 3 MB, under a microsecond at 3.35 TB/s.
+// They are bound by launch latency and by dependent loads from L2, not by
+// device memory or arithmetic. The design keeps each call to one launch,
+// packs entities 32 to a word so one AND tests a row for 32 entities,
+// gives the card enough blocks to fill its SMs, and lays tables out so
+// that neighbouring threads read neighbouring addresses.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,66 +51,95 @@ constexpr int TILE = 32;                // entities per thread (one bit each)
 constexpr int THREADS = 128;
 
 // ---------------------------------------------------------------------------
-// B1: compat[r, n] — does requirement row r intersect set n on r's key?
+// B1: compat[r, col_t + n] — does requirement row r intersect set n of
+// target t on r's key?
 //
-// One block per (row, 256 sets). The row's candidate slots — its value mask,
-// complemented for NotIn/DoesNotExist rows, restricted to the slots of its
-// own key — are built once per block in shared memory. Padding slots carry
-// slot_key = -1 (encoding.Vocab.tables), so the key restriction clears the
-// bits a complement sets there. Each thread then ANDs those words with its
-// set's (complemented) mask word by word; only when a Gt/Lt bound is in
-// force does it walk the surviving slots and test value_int against the
-// merged bounds. Semantics: requirement.go HasIntersection and the
+// One launch covers a row batch against one or two targets (the catalog's
+// types and its offerings): grid.x runs over the first target's tiles of
+// 256 sets, then the second's; grid.y over the rows. The row side is one
+// int32 table [R, 5 + W] (ops/feasibility.py row_table: key, complement,
+// has_values, gt, lt, then the mask words), one upload. Each target's set side
+// comes packed once per catalog encode (ops/feasibility.py pack_sets): the
+// present / complement / has_values flags of (key, set) in one int32 word,
+// laid out [K, N] as are gt and lt, the mask words [W, N], so the threads
+// of consecutive sets read consecutive words for the row's key. The row's
+// candidate slots — its value mask, complemented for NotIn/DoesNotExist
+// rows, restricted to the slots of its own key — are built once per block
+// in shared memory from the key-slot words [K, W] (bit b of word w: slot
+// 32 w + b belongs to key k), computed once per vocabulary version, so a
+// complement's bits on padding slots and other keys' slots are cleared by
+// one AND a word. Each thread then ANDs those words with its set's
+// (complemented) mask word by word; only when a Gt/Lt bound is in force
+// does it walk the surviving slots and test value_int against the merged
+// bounds. Semantics: requirement.go HasIntersection and the
 // NotIn/DoesNotExist exemption of requirements.go Intersects.
+constexpr int SET_PRESENT = 1;     // pack_sets' flag bits
+constexpr int SET_COMPLEMENT = 2;
+constexpr int SET_HAS_VALUES = 4;
+constexpr int ROW_THREADS = 256;
+
+struct SetTarget {
+  const int32_t* flags;  // [K, N]
+  const int32_t* gt;     // [K, N]
+  const int32_t* lt;     // [K, N]
+  const uint32_t* mask;  // [W, N]
+  int n;                 // sets
+  int col;               // the target's first output column
+  int blocks;            // its grid.x blocks
+};
+
+constexpr int ROW_FIELDS = 5;  // row_table's columns before the mask words
+
 __global__ void row_compat_kernel(
-    const int32_t* __restrict__ row_key, const uint8_t* __restrict__ row_comp,
-    const uint8_t* __restrict__ row_hasv, const int32_t* __restrict__ row_gt,
-    const int32_t* __restrict__ row_lt, const uint32_t* __restrict__ row_mask,
-    const uint8_t* __restrict__ set_present, const uint8_t* __restrict__ set_comp,
-    const uint8_t* __restrict__ set_hasv, const int32_t* __restrict__ set_gt,
-    const int32_t* __restrict__ set_lt, const uint32_t* __restrict__ set_mask,
-    const int32_t* __restrict__ slot_key, const int32_t* __restrict__ value_int,
-    uint8_t* __restrict__ out, int R, int N, int K, int W) {
+    const int32_t* __restrict__ rows, const SetTarget first, const SetTarget second,
+    const uint32_t* __restrict__ key_slots, const int32_t* __restrict__ value_int,
+    uint8_t* __restrict__ out, int out_stride, int R, int W) {
   extern __shared__ uint32_t a_words[];  // [W]
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  // the block's target, field by field (no copy of a parameter struct)
+  const bool is_second = static_cast<int>(blockIdx.x) >= first.blocks;
+  const int32_t* __restrict__ flags = is_second ? second.flags : first.flags;
+  const int32_t* __restrict__ set_gt = is_second ? second.gt : first.gt;
+  const int32_t* __restrict__ set_lt = is_second ? second.lt : first.lt;
+  const uint32_t* __restrict__ set_mask = is_second ? second.mask : first.mask;
+  const int N = is_second ? second.n : first.n;
+  const int col = is_second ? second.col : first.col;
+  const int n = (blockIdx.x - (is_second ? first.blocks : 0)) * blockDim.x + threadIdx.x;
   for (int r = blockIdx.y; r < R; r += gridDim.y) {
-    const int32_t k = row_key[r];
-    const bool rc = row_comp[r] != 0;
+    const int32_t* row = rows + static_cast<size_t>(r) * (ROW_FIELDS + W);
+    const int32_t k = row[0];
+    const bool rc = row[1] != 0;
     __syncthreads();  // a_words of the previous row are no longer read
     for (int w = threadIdx.x; w < W; w += blockDim.x) {
-      uint32_t keymask = 0;
-      for (int b = 0; b < 32; ++b)
-        keymask |= static_cast<uint32_t>(slot_key[w * 32 + b] == k) << b;
-      const uint32_t m = row_mask[static_cast<size_t>(r) * W + w];
-      a_words[w] = (rc ? ~m : m) & keymask;
+      const uint32_t m = static_cast<uint32_t>(row[ROW_FIELDS + w]);
+      a_words[w] = (rc ? ~m : m) & key_slots[static_cast<size_t>(k) * W + w];
     }
     __syncthreads();
     if (n >= N) continue;
-    const size_t nk = static_cast<size_t>(n) * K + k;
+    const size_t kn = static_cast<size_t>(k) * N + n;
+    const int32_t f = flags[kn];
     uint8_t res;
-    if (!set_present[nk]) {
+    if (!(f & SET_PRESENT)) {
       res = 1;  // a key the set does not constrain is compatible
     } else {
-      const bool sc = set_comp[nk] != 0;
-      const bool rhv = row_hasv[r] != 0;
-      const bool shv = set_hasv[nk] != 0;
+      const bool sc = (f & SET_COMPLEMENT) != 0;
+      const bool rhv = row[2] != 0;
+      const bool shv = (f & SET_HAS_VALUES) != 0;
       const bool row_exempt = rc ? rhv : !rhv;
       const bool set_exempt = sc ? shv : !shv;
       if (row_exempt && set_exempt) {
         res = 1;
       } else {
-        const int32_t g = max(row_gt[r], set_gt[nk]);
-        const int32_t l = min(row_lt[r], set_lt[nk]);
+        const int32_t g = max(row[3], set_gt[kn]);
+        const int32_t l = min(row[4], set_lt[kn]);
         if (g != NO_GT && l != NO_LT && g >= l) {
           res = 0;  // empty integer range
         } else if (rc && sc) {
           res = 1;  // two complements always intersect (open world)
         } else {
           const bool unbounded = g == NO_GT && l == NO_LT;
-          const uint32_t* sm = set_mask + static_cast<size_t>(n) * W;
           bool any = false;
           for (int w = 0; w < W && !any; ++w) {
-            const uint32_t m = sm[w];
+            const uint32_t m = set_mask[static_cast<size_t>(w) * N + n];
             uint32_t c = a_words[w] & (sc ? ~m : m);
             if (unbounded) {
               any = c != 0;
@@ -125,7 +159,7 @@ __global__ void row_compat_kernel(
         }
       }
     }
-    out[static_cast<size_t>(r) * N + n] = res;
+    out[static_cast<size_t>(r) * out_stride + col + n] = res;
   }
 }
 
@@ -176,20 +210,126 @@ __global__ void membership_kernel(const uint8_t* __restrict__ mem,
 }
 
 // ---------------------------------------------------------------------------
-// B3, offering half: has_offering[p, i] = some offering o of type i is
-// available, every row of p is compatible with o, and p defines every
-// custom key o needs (the undefined-label rule of requirements.go
-// Compatible).
+// B3: the production cube, compat[p, i] and has_offering[p, i], in one
+// launch; with no compat plane (req_ok null) the offering half alone, B8.
 //
-// The JAX program any-reduces offerings onto their owners with a one-hot
-// [O, I] matmul thresholded at 0.5. Every offering has exactly one owner,
-// so that is the OR over the offerings whose owner is i; here it is done by
-// owner index with no atomics: the engine stores offerings owner-major
-// (offering_owner is non-decreasing, checked when the catalog is encoded),
-// so one thread per (type i, tile of 32 entities) finds its type's
-// contiguous offering range by binary search and ORs over it. The tile's
-// membership words (all rows) and missing-key words are packed into shared
-// memory once per block.
+// compat: every row of p is compatible with type i (req_ok). has_offering:
+// some offering o of type i is available, every row of p is compatible
+// with o (offer_ok), and p defines every custom key o needs (the
+// undefined-label rule of requirements.go Compatible). The JAX program
+// any-reduces offerings onto their owners with a one-hot [O, I] matmul
+// thresholded at 0.5; every offering has exactly one owner, so that is the
+// OR over the offerings whose owner is i (offerings are owner-major).
+//
+// The entity rows come with a row stride, so membership and key_present
+// may be two column ranges of one uploaded [P, R2 + K] array. The rows are
+// read in place: req_ok [Rtot, I] and offer_ok [Rtot, O] are
+// the engine's resident matrices, and rows[r] names the matrix row of
+// membership column r (columns past R are padding and are not read; a row
+// id outside [0, Rtot) reads nothing and decides nothing). The catalog's
+// constant tables come packed once per catalog (ops/feasibility.py
+// cube_pack): custom_need as key words per offering [WK, O], each type's
+// offering range (type_start [I + 1]) and a block plan: runs of
+// consecutive types of at most CUBE_THREADS types and, unless one type
+// alone has more, at most CUBE_THREADS offerings (plan[b]..plan[b + 1]).
+// One block covers one run for one tile of 32 entities, so the grid is
+// runs x tiles (63 x 1 at 1008 types of 8 offerings and 16 entities).
+//
+// Inside a block: the tile's entity bits are packed by row into shared
+// memory, one warp ballot a word: rowent[r] holds the tile's entities
+// constrained by row r, keyent[k] those that leave custom key k undefined,
+// absent_any[w] the keys some entity leaves undefined. Consecutive
+// threads take consecutive offerings of the run, so the byte loads of
+// offer_ok[rows[r], o] coalesce; a row no remaining entity uses is not
+// read; the custom-key test is one AND of the offering's key word with
+// absent_any, and only its set bits cost a shared load. Each offering ORs
+// the mask of the entities that may use it into its type's word in shared
+// memory (atomicOr, exact). Then one thread a type ORs the rowent of the
+// rows the type fails for the compat plane and writes both planes, the
+// threads of a run writing consecutive bytes.
+constexpr int CUBE_THREADS = 128;
+
+__global__ void cube_kernel(
+    const uint8_t* __restrict__ mem, int mem_stride, const uint8_t* __restrict__ key_present,
+    int kp_stride, const int32_t* __restrict__ rows, int R, const uint8_t* __restrict__ req_ok,
+    const uint8_t* __restrict__ offer_ok, int Rtot, const uint32_t* __restrict__ need_words,
+    const uint8_t* __restrict__ available, const int32_t* __restrict__ owner,
+    const int32_t* __restrict__ type_start, const int32_t* __restrict__ plan,
+    uint8_t* __restrict__ compat_out, uint8_t* __restrict__ offer_out, int P, int O, int K,
+    int I) {
+  extern __shared__ uint32_t smem[];
+  const int WK = (K + 31) / 32;
+  uint32_t* rowent = smem;                                  // [R]
+  int32_t* rowid = reinterpret_cast<int32_t*>(smem + R);    // [R]
+  uint32_t* keyent = smem + 2 * R;                          // [K]
+  uint32_t* absent_any = keyent + K;                        // [WK]
+  __shared__ uint32_t has_tile[CUBE_THREADS];  // bit j: entity j may use an offering of type t0 + t
+  const int p0 = blockIdx.y * TILE;
+  const int pn = min(TILE, P - p0);
+  const int t0 = plan[blockIdx.x], t1 = plan[blockIdx.x + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const bool live = lane < pn;
+  const uint8_t* mem_j = mem + static_cast<size_t>(p0 + (live ? lane : 0)) * mem_stride;
+  const uint8_t* kp_j = key_present + static_cast<size_t>(p0 + (live ? lane : 0)) * kp_stride;
+  for (int r = warp; r < R; r += nwarps) {
+    const uint32_t word = __ballot_sync(0xffffffffu, live && mem_j[r] != 0);
+    if (lane == 0) {
+      rowent[r] = word;
+      const int32_t id = rows[r];
+      rowid[r] = static_cast<unsigned>(id) < static_cast<unsigned>(Rtot) ? id : -1;
+    }
+  }
+  for (int k = warp; k < K; k += nwarps) {
+    const uint32_t word = __ballot_sync(0xffffffffu, live && kp_j[k] == 0);
+    if (lane == 0) keyent[k] = word;
+  }
+  for (int t = threadIdx.x; t < CUBE_THREADS; t += blockDim.x) has_tile[t] = 0;
+  __syncthreads();
+  for (int w = warp; w < WK; w += nwarps) {
+    const int k = w * 32 + lane;
+    const uint32_t word = __ballot_sync(0xffffffffu, k < K && keyent[k] != 0);
+    if (lane == 0) absent_any[w] = word;
+  }
+  __syncthreads();
+  const uint32_t tile = pn == TILE ? 0xffffffffu : (1u << pn) - 1u;
+  const int o_hi = type_start[t1];
+  for (int o = type_start[t0] + threadIdx.x; o < o_hi; o += blockDim.x) {
+    if (!available[o]) continue;
+    uint32_t okp = tile;  // bit j: offering o is usable by entity j
+    for (int r = 0; r < R && okp; ++r) {
+      const uint32_t e = rowent[r] & okp;
+      const int id = rowid[r];
+      if (e && id >= 0 && !offer_ok[static_cast<size_t>(id) * O + o]) okp &= ~e;
+    }
+    for (int w = 0; w < WK && okp; ++w) {
+      uint32_t m = need_words[static_cast<size_t>(w) * O + o] & absent_any[w];
+      while (m) {
+        const int b = __ffs(m) - 1;
+        m &= m - 1;
+        okp &= ~keyent[w * 32 + b];
+      }
+    }
+    if (okp) atomicOr(&has_tile[owner[o] - t0], okp);
+  }
+  __syncthreads();
+  const int i = t0 + threadIdx.x;
+  if (i >= t1) return;
+  if (compat_out != nullptr) {
+    uint32_t bad = 0;  // bit j: entity j has a row incompatible with type i
+    for (int r = 0; r < R; ++r) {
+      const uint32_t e = rowent[r] & ~bad;
+      const int id = rowid[r];
+      if (e && id >= 0 && !req_ok[static_cast<size_t>(id) * I + i]) bad |= e;
+    }
+    for (int j = 0; j < pn; ++j)
+      compat_out[static_cast<size_t>(p0 + j) * I + i] = !((bad >> j) & 1u);
+  }
+  const uint32_t has = has_tile[threadIdx.x];
+  for (int j = 0; j < pn; ++j) offer_out[static_cast<size_t>(p0 + j) * I + i] = (has >> j) & 1u;
+}
+
+// The first index of a non-decreasing array `a` of n whose value is not
+// below v (n when none is).
 __device__ __forceinline__ int lower_bound(const int32_t* a, int n, int32_t v) {
   int lo = 0, hi = n;
   while (lo < hi) {
@@ -197,73 +337,6 @@ __device__ __forceinline__ int lower_bound(const int32_t* a, int n, int32_t v) {
     if (a[mid] < v) lo = mid + 1; else hi = mid;
   }
   return lo;
-}
-
-__global__ void cube_offer_kernel(
-    const uint8_t* __restrict__ mem, const uint8_t* __restrict__ offer_ok,
-    const uint8_t* __restrict__ custom_need, const uint8_t* __restrict__ key_present,
-    const uint8_t* __restrict__ available, const int32_t* __restrict__ owner,
-    uint8_t* __restrict__ out, int P, int R, int O, int K, int I) {
-  extern __shared__ uint32_t smem[];
-  const int WR = (R + 31) / 32;
-  const int WK = (K + 31) / 32;
-  uint32_t* memw = smem;               // [TILE][WR] row-membership bits
-  uint32_t* absw = smem + TILE * WR;   // [TILE][WK] keys the entity lacks
-  const int p0 = blockIdx.y * TILE;
-  for (int idx = threadIdx.x; idx < TILE * WR; idx += blockDim.x) {
-    const int j = idx / WR, w = idx % WR, p = p0 + j;
-    uint32_t bits = 0;
-    if (p < P) {
-      const int rn = min(32, R - w * 32);
-      const uint8_t* mp = mem + static_cast<size_t>(p) * R + w * 32;
-      for (int b = 0; b < rn; ++b) bits |= static_cast<uint32_t>(mp[b] != 0) << b;
-    }
-    memw[idx] = bits;
-  }
-  for (int idx = threadIdx.x; idx < TILE * WK; idx += blockDim.x) {
-    const int j = idx / WK, w = idx % WK, p = p0 + j;
-    uint32_t bits = 0;
-    if (p < P) {
-      const int kn = min(32, K - w * 32);
-      const uint8_t* kp = key_present + static_cast<size_t>(p) * K + w * 32;
-      for (int b = 0; b < kn; ++b) bits |= static_cast<uint32_t>(kp[b] == 0) << b;
-    }
-    absw[idx] = bits;
-  }
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= I) return;
-  const int lo = lower_bound(owner, O, i);
-  const int hi = lower_bound(owner, O, i + 1);
-  uint32_t has = 0;  // bit j: entity p0 + j has a usable offering of type i
-  for (int o = lo; o < hi; ++o) {
-    if (!available[o]) continue;
-    uint32_t okp = 0xffffffffu;
-    for (int w = 0; w < WR && okp; ++w) {
-      const int rn = min(32, R - w * 32);
-      uint32_t badw = 0;
-      for (int b = 0; b < rn; ++b)
-        badw |= static_cast<uint32_t>(offer_ok[static_cast<size_t>(w * 32 + b) * O + o] == 0) << b;
-      if (badw) {
-        for (int j = 0; j < TILE; ++j)
-          if (memw[j * WR + w] & badw) okp &= ~(1u << j);
-      }
-    }
-    for (int w = 0; w < WK && okp; ++w) {
-      const int kn = min(32, K - w * 32);
-      const uint8_t* cn = custom_need + static_cast<size_t>(o) * K + w * 32;
-      uint32_t need = 0;
-      for (int b = 0; b < kn; ++b) need |= static_cast<uint32_t>(cn[b] != 0) << b;
-      if (need) {
-        for (int j = 0; j < TILE; ++j)
-          if (absw[j * WK + w] & need) okp &= ~(1u << j);
-      }
-    }
-    has |= okp;
-  }
-  const int pn = min(TILE, P - p0);
-  for (int j = 0; j < pn; ++j)
-    out[static_cast<size_t>(p0 + j) * I + i] = (has >> j) & 1u;
 }
 
 // ---------------------------------------------------------------------------
@@ -283,13 +356,13 @@ __global__ void cube_offer_kernel(
 // once, by row rather than by entity: rowent[r] holds the tile's entities
 // constrained by row r, keyent[k] those that leave custom key k undefined.
 // So one incompatible row clears all its entities with one OR, where the
-// per-entity words of kt_cube_offer cost a 32-step loop a row word. compat:
+// per-entity words of an entity-major layout cost a 32-step loop a row word. compat:
 // the OR of rowent[r] over the rows r that type i fails (req_compat).
 // has_offering, computed by offering: the block's offerings are the
 // owner-major range of its types (two threads search its two ends at once),
 // consecutive threads take consecutive offerings, and each tests available,
 // every row (offer_compat) and every custom key (custom_need) — the tests
-// of kt_cube_offer — and ORs the tile mask of the entities that may use it
+// of kt_cube — and ORs the tile mask of the entities that may use it
 // into its owner's word in shared memory (atomicOr). No thread runs a
 // search of its own or walks its type's offerings one after another. The
 // entity operands are read with a row stride, so the group solver's
@@ -452,26 +525,29 @@ int launch_fits(const void* req, const void* alloc, void* out, int P, int I, int
 
 extern "C" {
 
-int kt_row_compat(const void* row_key, const void* row_comp, const void* row_hasv,
-                  const void* row_gt, const void* row_lt, const void* row_mask,
-                  const void* set_present, const void* set_comp,
-                  const void* set_hasv, const void* set_gt, const void* set_lt,
-                  const void* set_mask, const void* slot_key,
-                  const void* value_int, void* out, int R, int N, int K, int W,
-                  void* stream) {
-  if (R == 0 || N == 0) return 0;
-  const dim3 block(256);
-  const dim3 grid((N + 255) / 256, R < MAX_GRID_Y ? R : MAX_GRID_Y);
-  row_compat_kernel<<<grid, block, W * sizeof(uint32_t),
+// The row table [R, 5 + W] int32 against one or two targets' packed set
+// sides (flags, gt, lt [K, N_t], mask [W, N_t]; n1 = 0: one target);
+// key_slots [K, W], value_int [32 W]; out [R, out_stride] bool, target 0's
+// sets at columns [0, n0), target 1's at [n0, n0 + n1). Returns the
+// launch's cudaError_t.
+int kt_row_compat(const void* rows,
+                  const void* flags0, const void* gt0, const void* lt0, const void* mask0, int n0,
+                  const void* flags1, const void* gt1, const void* lt1, const void* mask1, int n1,
+                  const void* key_slots, const void* value_int, void* out, int out_stride,
+                  int R, int W, void* stream) {
+  if (R == 0 || n0 + n1 == 0) return 0;
+  const SetTarget first{static_cast<const int32_t*>(flags0), static_cast<const int32_t*>(gt0),
+                        static_cast<const int32_t*>(lt0), static_cast<const uint32_t*>(mask0), n0,
+                        0, (n0 + ROW_THREADS - 1) / ROW_THREADS};
+  const SetTarget second{static_cast<const int32_t*>(flags1), static_cast<const int32_t*>(gt1),
+                         static_cast<const int32_t*>(lt1), static_cast<const uint32_t*>(mask1), n1,
+                         n0, (n1 + ROW_THREADS - 1) / ROW_THREADS};
+  const dim3 grid(first.blocks + second.blocks, R < MAX_GRID_Y ? R : MAX_GRID_Y);
+  row_compat_kernel<<<grid, ROW_THREADS, W * sizeof(uint32_t),
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row_key), static_cast<const uint8_t*>(row_comp),
-      static_cast<const uint8_t*>(row_hasv), static_cast<const int32_t*>(row_gt),
-      static_cast<const int32_t*>(row_lt), static_cast<const uint32_t*>(row_mask),
-      static_cast<const uint8_t*>(set_present), static_cast<const uint8_t*>(set_comp),
-      static_cast<const uint8_t*>(set_hasv), static_cast<const int32_t*>(set_gt),
-      static_cast<const int32_t*>(set_lt), static_cast<const uint32_t*>(set_mask),
-      static_cast<const int32_t*>(slot_key), static_cast<const int32_t*>(value_int),
-      static_cast<uint8_t*>(out), R, N, K, W);
+      static_cast<const int32_t*>(rows), first, second,
+      static_cast<const uint32_t*>(key_slots), static_cast<const int32_t*>(value_int),
+      static_cast<uint8_t*>(out), out_stride, R, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -486,20 +562,30 @@ int kt_membership(const void* mem, const void* ok, void* out, int P, int R, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-int kt_cube_offer(const void* mem, const void* offer_ok, const void* custom_need,
-                  const void* key_present, const void* available,
-                  const void* owner, void* out, int P, int R, int O, int K, int I,
-                  void* stream) {
-  if (P == 0 || I == 0) return 0;
-  const int WR = (R + 31) / 32, WK = (K + 31) / 32;
-  const size_t shmem = static_cast<size_t>(TILE) * (WR + WK) * sizeof(uint32_t);
-  const dim3 block(THREADS);
-  const dim3 grid((I + THREADS - 1) / THREADS, (P + TILE - 1) / TILE);
-  cube_offer_kernel<<<grid, block, shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mem), static_cast<const uint8_t*>(offer_ok),
-      static_cast<const uint8_t*>(custom_need), static_cast<const uint8_t*>(key_present),
+// mem [P, mem_stride] and key_present [P, kp_stride] bool entity rows
+// (membership's first R columns and key_present's first K read); rows [R]
+// int32, membership column r's row of req_ok [Rtot, I] (null: no compat
+// plane) and offer_ok [Rtot, O] bool; need_words [WK, O] int32;
+// available [O] bool; owner [O] int32 non-decreasing; type_start [I + 1]
+// and plan [runs + 1] int32 (ops/feasibility.py cube_pack); compat_out
+// (null with req_ok) and offer_out [P, I] bool. Returns the launch's
+// cudaError_t.
+int kt_cube(const void* mem, int mem_stride, const void* key_present, int kp_stride,
+            const void* rows, int R,
+            const void* req_ok, const void* offer_ok, int Rtot, const void* need_words,
+            const void* available, const void* owner, const void* type_start, const void* plan,
+            int runs, void* compat_out, void* offer_out, int P, int O, int K, int I,
+            void* stream) {
+  if (P == 0 || runs == 0) return 0;
+  const size_t shmem = static_cast<size_t>(2 * R + K + (K + 31) / 32) * sizeof(uint32_t);
+  const dim3 grid(runs, (P + TILE - 1) / TILE);
+  cube_kernel<<<grid, CUBE_THREADS, shmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mem), mem_stride, static_cast<const uint8_t*>(key_present),
+      kp_stride, static_cast<const int32_t*>(rows), R, static_cast<const uint8_t*>(req_ok),
+      static_cast<const uint8_t*>(offer_ok), Rtot, static_cast<const uint32_t*>(need_words),
       static_cast<const uint8_t*>(available), static_cast<const int32_t*>(owner),
-      static_cast<uint8_t*>(out), P, R, O, K, I);
+      static_cast<const int32_t*>(type_start), static_cast<const int32_t*>(plan),
+      static_cast<uint8_t*>(compat_out), static_cast<uint8_t*>(offer_out), P, O, K, I);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,8 +16,12 @@ The engine lives on one torch device. On a CUDA engine every row batch and
 every sweep launches the hand-written kernels (ops/feasibility.py); on a
 `device="cpu"` engine the same calls run their plain torch versions. Both
 are exact, so the results are identical. The per-row compat matrices stay
-resident on the device, where each sweep gathers the rows it uses; a host
-copy serves the per-set `masks_for_rows`. The resource `fits` test stays
+resident on the device, where each sweep reads the rows it uses in place,
+by index (`feasibility.cube_rows`); a host copy serves the per-set
+`masks_for_rows`. On the card a row batch is one upload (its row table),
+one kt_row_compat launch against the types and the offerings, two appends
+and one copy back; a sweep is two uploads (the entity rows, the row ids),
+one kt_cube launch and one copy back. The resource `fits` test stays
 host-side in numpy (float64). A failure of the device work is a
 KernelError (device.device_work).
 """
@@ -300,8 +304,9 @@ class CatalogEngine:
 
     def _ensure_rows(self) -> None:
         """Compute compat matrices for any rows added since the last call:
-        one row_compat launch against the types and one against the
-        offerings."""
+        the batch's row table uploaded in one copy, one row_compat launch
+        against the types and the offerings together, its two column
+        ranges appended to the resident matrices, one copy back."""
         if self._computed_rows == len(self._rows):
             return
         new_rows = self._rows[self._computed_rows :]
@@ -320,32 +325,26 @@ class CatalogEngine:
             pad = self._word_capacity - er.mask.shape[1]
             er.mask = np.pad(er.mask, ((0, 0), (0, pad)))
 
+        I = self.num_instances
+        # the batch as one int32 row table, built on the host: one upload
+        rows = feas.row_table(er.key, er.complement, er.has_values, er.gt, er.lt, er.mask)
         with device_work("row_compat"):
-            row_args = tuple(
-                self._to_device(a)
-                for a in (er.key, er.complement, er.has_values, er.gt, er.lt, er.mask)
-            )
-            tables = (
+            targets = [self._set_args("inst", self._inst_sets)]
+            if self.num_offerings:
+                targets.append(self._set_args("offer", self._offer_sets))
+            new_d = feas.req_rows_vs_targets(
+                self._to_device(rows), targets,
                 self._dev("slot_key", self._tables.slot_key),
                 self._dev("value_int", self._tables.value_int),
             )
-            new_inst_d = feas.req_rows_vs_sets(
-                *row_args, *self._set_args("inst", self._inst_sets), *tables
-            )
-            if self.num_offerings:
-                new_off_d = feas.req_rows_vs_sets(
-                    *row_args, *self._set_args("offer", self._offer_sets), *tables
-                )
-            else:
-                new_off_d = torch.zeros((len(new_rows), 0), dtype=torch.bool, device=self.device)
             # the fresh rows are appended to the resident device matrices —
             # an O(churn) row batch per pass, never a re-upload of the
             # catalog (the reference's delta-warm append)
             resident = self._req_compat_d.shape[0]
-            self._req_compat_d = torch.cat([self._req_compat_d, new_inst_d])
-            self._offer_compat_d = torch.cat([self._offer_compat_d, new_off_d])
-            new_inst = new_inst_d.cpu().numpy()
-            new_off = new_off_d.cpu().numpy()
+            self._req_compat_d = torch.cat([self._req_compat_d, new_d[:, :I]])
+            self._offer_compat_d = torch.cat([self._offer_compat_d, new_d[:, I:]])
+            new = new_d.cpu().numpy()
+        new_inst, new_off = new[:, :I], new[:, I:]
         if delta_mod.delta_enabled() and resident and self.mesh is None:
             delta_mod.note_rows("device_appended", len(new_rows))
         self._req_compat = np.concatenate([self._req_compat, new_inst], axis=0)
@@ -456,7 +455,8 @@ class CatalogEngine:
         The row axis is restricted to the NON-TRIVIAL rows actually used by
         this query, and both axes are padded to power-of-two buckets (the
         shapes the reference pads to). Padded membership rows are all-False,
-        so they read compatible and are sliced off."""
+        so they read compatible and are sliced off; the membership columns
+        past the used rows are padding, which cube_rows skips by count."""
         self._ensure_rows()
         P = len(row_sets)
         used = sorted(
@@ -474,7 +474,11 @@ class CatalogEngine:
             # aligned to lcm(n, MESH_ALIGN), the reference's padded shape
             align = mesh_mod.mesh_multiple(mesh_n)
             P2 = -(-max(P2, align) // align) * align
-        membership = np.zeros((P2, R2), dtype=bool)
+        # membership [P2, R2] and key_present [P2, K] side by side in one
+        # array: the card's sweep uploads it in one copy
+        K = self._key_capacity if key_present is None else key_present.shape[1]
+        entities = np.zeros((P2, R2 + K), dtype=bool)
+        membership = entities[:, :R2]
         for p, rows in enumerate(row_sets):
             for rid in rows:
                 i = colmap.get(rid)
@@ -488,53 +492,57 @@ class CatalogEngine:
             <= self.allocatable[None, :, :] + 1e-9,
             axis=-1,
         )
-        if key_present is None:
-            key_present = np.zeros((P, self._key_capacity), dtype=bool)
-        key_present_p = np.zeros((P2, key_present.shape[1]), dtype=bool)
-        key_present_p[:P] = key_present
+        if key_present is not None:
+            entities[:P, R2:] = key_present
 
         with device_work("sweep"):
-            idx = self._to_device(np.asarray(used, dtype=np.int64))
-            req_compat = self._gather_rows(self._req_compat_d, idx, R2)
             if self.num_offerings == 0:
-                compat = feas.membership_all(self._to_device(membership), req_compat)
+                idx = self._to_device(np.asarray(used, dtype=np.int64))
+                req_compat = self._gather_rows(self._req_compat_d, idx, R2)
+                compat = feas.membership_all(self._to_device(membership.copy()), req_compat)
                 return Feasibility(
                     compat.cpu().numpy()[:P],
                     fits,
                     np.zeros((P, self.num_instances), dtype=bool),
                 )
-            offer_compat = self._gather_rows(self._offer_compat_d, idx, R2)
             if mesh_n:
                 # entity slabs go from the host to their shards, the
                 # gathered rows are replicated, the catalog's own arrays
                 # come from the per-shard cache
+                idx = self._to_device(np.asarray(used, dtype=np.int64))
                 compat_d, offering_d = feas.sharded_cube(self.mesh)(
-                    torch.from_numpy(membership),
-                    req_compat,
-                    offer_compat,
+                    torch.from_numpy(membership.copy()),
+                    self._gather_rows(self._req_compat_d, idx, R2),
+                    self._gather_rows(self._offer_compat_d, idx, R2),
                     self._mesh_dev("custom_need", self.offering_custom_need),
-                    torch.from_numpy(key_present_p),
+                    torch.from_numpy(entities[:, R2:].copy()),
                     self._mesh_dev("available", self.offering_available),
                     self._mesh_dev("owner", self.offering_owner),
                 )
-            else:
-                compat_d, offering_d = feas.production_cube(
-                    self._to_device(membership),
-                    req_compat,
-                    offer_compat,
-                    self._dev("custom_need", self.offering_custom_need),
-                    self._to_device(key_present_p),
-                    self._dev("available", self.offering_available),
-                    self._dev("owner", self.offering_owner),
+                return Feasibility(
+                    compat_d.cpu().numpy()[:P], fits, offering_d.cpu().numpy()[:P]
                 )
-            return Feasibility(
-                compat_d.cpu().numpy()[:P], fits, offering_d.cpu().numpy()[:P]
-            )
+            # the entity rows in one upload, the row ids beside them; the
+            # kernel reads the resident rows by index and writes both
+            # planes into one buffer, copied back once
+            entities_d = self._to_device(entities)
+            planes = feas.cube_rows(
+                entities_d[:, :R2],
+                entities_d[:, R2:],
+                self._to_device(np.asarray(used, dtype=np.int32)),
+                self._req_compat_d,
+                self._offer_compat_d,
+                self._dev("custom_need", self.offering_custom_need),
+                self._dev("available", self.offering_available),
+                self._dev("owner", self.offering_owner),
+            ).cpu().numpy()
+            return Feasibility(planes[0, :P], fits, planes[1, :P])
 
     def _gather_rows(self, matrix: torch.Tensor, idx: torch.Tensor, R2: int) -> torch.Tensor:
         """Rows `idx` of a device-resident compat matrix, padded with
         all-False rows to R2 (padding rows meet only all-False membership
-        columns, so they never decide a result)."""
+        columns, so they never decide a result): the operand of the mesh's
+        sharded cube and of a catalog without offerings."""
         out = torch.zeros((R2, matrix.shape[1]), dtype=torch.bool, device=self.device)
         out[: idx.numel()] = matrix.index_select(0, idx)
         return out

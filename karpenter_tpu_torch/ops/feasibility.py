@@ -18,11 +18,25 @@ runs the plain torch version beside it, which mirrors the JAX program of
 karpenter_tpu/ops/feasibility.py. There is no fallback from one to the
 other. `LAUNCHES` counts kernel launches per kernel (never plain-version
 calls). Bit masks are uint32 words held in int32 tensors (same bits).
+
+The catalog engine's path has two entries of its own beside the JAX
+signatures: `req_rows_vs_targets` (a row batch, one int32 row table,
+against the types and the offerings in one kt_row_compat launch) and
+`cube_rows` (the cube over the engine's resident row matrices, read by
+index, in one kt_cube launch; the entity rows may be two column ranges of
+one uploaded array).
+The kernels read the catalog's constant tables packed (`pack_sets`,
+`key_slot_words`, `cube_pack`); the packs are made here on a catalog's
+first call and kept while their source tensors are the same objects,
+unchanged in place (`_cached`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
+from collections import OrderedDict
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -37,6 +51,7 @@ LAUNCHES: dict[str, int] = {
 }
 
 _TILE = 32  # entities per kernel thread (csrc/feasibility.cu TILE)
+_CUBE_THREADS = 128  # kt_cube's block: at most this many types a run (csrc CUBE_THREADS)
 _MAX_GRID_Y = 65535
 _MAX_SLABS = 64  # shards one launch covers on a card (csrc MAX_SLABS)
 _MAX_SHARED_BYTES = 48 * 1024
@@ -56,6 +71,19 @@ def unpack_mask(words: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(WORD, dtype=torch.int32, device=words.device)
     bits = (words[..., None] >> shifts) & 1
     return bits.reshape(*words.shape[:-1], words.shape[-1] * WORD).bool()
+
+
+def pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """[..., M] bool → [..., ceil(M / 32)] int32 words, bit b of word w
+    bits[..., 32 w + b] (bits past M are 0): unpack_mask's inverse."""
+    M = bits.shape[-1]
+    W = (M + WORD - 1) // WORD
+    lead = tuple(bits.shape[:-1])
+    padded = torch.zeros(lead + (W * WORD,), dtype=torch.int64, device=bits.device)
+    padded[..., :M] = bits
+    shifts = torch.arange(WORD, dtype=torch.int64, device=bits.device)
+    words = (padded.view(*lead, W, WORD) << shifts).sum(dim=-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
 def _bounds_ok(gt, lt, value_int):
@@ -141,6 +169,35 @@ def production_cube_plain(
     )
 
 
+def cube_rows_plain(
+    membership, key_present, rows, req_compat, offer_compat, custom_need, available,
+    offering_owner,
+) -> torch.Tensor:
+    """cube_rows in plain torch: the rows `rows` of the resident matrices
+    gathered, membership's first len(rows) columns, then
+    production_cube_plain; the two planes stacked [2, P, I]."""
+    R = rows.shape[0]
+    idx = rows.long()
+    compat, has = production_cube_plain(
+        membership[:, :R], req_compat[idx], offer_compat[idx], custom_need, key_present,
+        available, offering_owner,
+    )
+    return torch.stack((compat, has))
+
+
+def req_rows_vs_targets_plain(rows, packs, key_slots, value_int) -> torch.Tensor:
+    """req_rows_vs_targets in plain torch, from the tables the kernel
+    reads: the row table's fields (row_fields), each target's sets
+    unpacked (unpack_sets), the slot keys recovered from the key-slot
+    words (slot_key_of), then req_rows_vs_sets_plain per target; [R, sum
+    of N] in target order."""
+    slot_key = slot_key_of(key_slots)
+    fields = row_fields(rows)
+    return torch.cat(
+        [req_rows_vs_sets_plain(*fields, *unpack_sets(p), slot_key, value_int) for p in packs], dim=1
+    )
+
+
 def uid_project_plain(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tensor:
     """[..., U]: does any type of `type_mask` map onto unique-allocatable
     row u? The JAX program counts surviving types with an f32 matmul and
@@ -172,6 +229,198 @@ def uid_onehot_matrix(uid_of_type: np.ndarray, num_uniq: int) -> np.ndarray:
     return out
 
 
+# -- the kernels' packed tables -------------------------------------------------
+
+
+ROW_FIELDS = 5  # row_table's columns before the mask words (csrc ROW_FIELDS)
+
+
+def row_table(key, complement, has_values, gt, lt, mask):
+    """A row batch as kt_row_compat reads it: [R, 5 + W] int32, per row its
+    key, complement, has_values, gt and lt, then its mask words. numpy
+    arrays give a numpy table (the engine builds it on the host and
+    uploads it in one copy); tensors give a tensor on their device."""
+    if isinstance(key, np.ndarray):
+        R, W = mask.shape
+        out = np.empty((R, ROW_FIELDS + W), dtype=np.int32)
+        for c, field in enumerate((key, complement, has_values, gt, lt)):
+            out[:, c] = field
+        out[:, ROW_FIELDS:] = mask.view(np.int32) if mask.dtype == np.uint32 else mask
+        return out
+    return torch.cat([key[:, None], complement[:, None].int(), has_values[:, None].int(),
+                      gt[:, None], lt[:, None], mask], dim=1)
+
+
+def row_fields(rows: torch.Tensor) -> tuple:
+    """row_table's inverse: the six row arrays of req_rows_vs_sets."""
+    return (rows[:, 0], rows[:, 1].bool(), rows[:, 2].bool(), rows[:, 3], rows[:, 4],
+            rows[:, ROW_FIELDS:])
+
+
+@dataclass(eq=False)
+class PackedSets:
+    """One target's set side as kt_row_compat reads it: per (key, set) the
+    flags present (bit 0), complement (bit 1) and has_values (bit 2) in one
+    word, and gt, lt, all [K, N]; the mask words [W, N]. Sets along the
+    minor axis, so consecutive threads read consecutive words. `ptrs`:
+    the four tables' device addresses, read once."""
+
+    flags: torch.Tensor  # [K, N] int32
+    gt: torch.Tensor  # [K, N] int32
+    lt: torch.Tensor  # [K, N] int32
+    mask: torch.Tensor  # [W, N] int32 (uint32 words)
+
+    def __post_init__(self):
+        self.ptrs = tuple(_ptr(t) for t in (self.flags, self.gt, self.lt, self.mask))
+        (self.K, self.N), self.W = self.flags.shape, self.mask.shape[0]
+
+
+def pack_sets(present, complement, has_values, gt, lt, mask) -> PackedSets:
+    """A target's [N, K] / [N, W] set arrays packed for kt_row_compat, on
+    their device (a few torch ops, once per catalog encode)."""
+    flags = present.int() | (complement.int() << 1) | (has_values.int() << 2)
+    return PackedSets(flags.T.contiguous(), gt.T.contiguous(), lt.T.contiguous(), mask.T.contiguous())
+
+
+def unpack_sets(p: PackedSets) -> tuple:
+    """pack_sets' inverse: the six [N, K] / [N, W] set arrays."""
+    return ((p.flags & 1).bool().T, (p.flags & 2).bool().T, (p.flags & 4).bool().T,
+            p.gt.T, p.lt.T, p.mask.T)
+
+
+def key_slot_words(slot_key: torch.Tensor, num_keys: int) -> torch.Tensor:
+    """[K, W] int32: bit b of word w of row k set when slot 32 w + b belongs
+    to key k (padding slots, slot_key -1, belong to none)."""
+    keys = torch.arange(num_keys, dtype=slot_key.dtype, device=slot_key.device)
+    return pack_words(slot_key[None, :] == keys[:, None])
+
+
+def slot_key_of(key_slots: torch.Tensor) -> torch.Tensor:
+    """key_slot_words' inverse: [G] int32, each slot's key, -1 for none."""
+    bits = unpack_mask(key_slots)  # [K, G]
+    if bits.shape[0] == 0:
+        return torch.full((bits.shape[1],), -1, dtype=torch.int32, device=bits.device)
+    owner = bits.int().argmax(dim=0).to(torch.int32)
+    return torch.where(bits.any(dim=0), owner, torch.full_like(owner, -1))
+
+
+@dataclass(eq=False)
+class CubePack:
+    """The catalog's constant tables as kt_cube reads them: custom_need as
+    key words per offering [WK, O]; type i's offerings
+    [type_start[i], type_start[i + 1]) (offerings are owner-major); the
+    block plan, block b covering types [plan[b], plan[b + 1])."""
+
+    need_words: torch.Tensor  # [WK, O] int32
+    type_start: torch.Tensor  # [I + 1] int32
+    plan: torch.Tensor  # [runs + 1] int32
+    runs: int
+
+
+def block_plan(type_start: np.ndarray, per_block: int = _CUBE_THREADS) -> np.ndarray:
+    """kt_cube's block plan: the types cut into runs of consecutive types,
+    each of at most `per_block` types and, unless one type alone has more,
+    at most `per_block` offerings; the runs' first types and, last, the
+    type count."""
+    I = type_start.shape[0] - 1
+    starts = [0]
+    t = 0
+    while t < I:
+        end = t + 1
+        while end < I and end - t < per_block and type_start[end + 1] - type_start[t] <= per_block:
+            end += 1
+        starts.append(end)
+        t = end
+    return np.asarray(starts, dtype=np.int32)
+
+
+def cube_pack(custom_need: torch.Tensor, offering_owner: torch.Tensor, num_instances: int) -> CubePack:
+    """kt_cube's packed catalog on the operands' device (once per catalog:
+    the owners come to the host for the plan). Raises KernelError unless
+    offerings are stored owner-major."""
+    owner = offering_owner.cpu().numpy()
+    if np.any(np.diff(owner) < 0):
+        raise KernelError("cube: offerings must be stored owner-major (offering_owner non-decreasing)")
+    type_start = np.searchsorted(owner, np.arange(num_instances + 1), side="left").astype(np.int32)
+    plan = block_plan(type_start)
+    dev = custom_need.device
+    return CubePack(
+        pack_words(custom_need).T.contiguous(), torch.from_numpy(type_start).to(dev),
+        torch.from_numpy(plan).to(dev), plan.shape[0] - 1,
+    )
+
+
+# the packs of the last few catalogs: (the source tensors' weak references,
+# the pack) by kind and the sources' (id, _version)
+_PACK_KEEP = 16
+_packs: OrderedDict = OrderedDict()
+
+
+def _cached(kind: tuple, srcs: tuple, make):
+    """The pack of `kind` made from `srcs`, made on first use and reused
+    while every source is the same object, unchanged in place (its
+    `_version`): a catalog that is encoded anew, or a vocabulary table
+    uploaded anew, is a new tensor and packs anew."""
+    key = kind + tuple((id(t), t._version) for t in srcs)
+    hit = _packs.get(key)
+    if hit is not None and all(ref() is t for ref, t in zip(hit[0], srcs)):
+        _packs.move_to_end(key)
+        return hit[1]
+    value = make()
+    _packs[key] = (tuple(weakref.ref(t) for t in srcs), value)
+    while len(_packs) > _PACK_KEEP:
+        _packs.popitem(last=False)
+    return value
+
+
+def _target_packs(targets) -> tuple:
+    """The targets' PackedSets, one cache entry for all of them; each set
+    array checked when it is packed."""
+    srcs = tuple(a for t in targets for a in t)
+
+    def make():
+        packs = []
+        for present, complement, has_values, gt, lt, mask in targets:
+            dev = present.device
+            N, K = present.shape
+            W = mask.shape[1]
+            for name, t, dt, shape in (
+                ("set_present", present, torch.bool, (N, K)),
+                ("set_complement", complement, torch.bool, (N, K)),
+                ("set_has_values", has_values, torch.bool, (N, K)),
+                ("set_gt", gt, torch.int32, (N, K)),
+                ("set_lt", lt, torch.int32, (N, K)),
+                ("set_mask", mask, torch.int32, (N, W)),
+            ):
+                _check(name, t, dt, shape, dev)
+            packs.append(pack_sets(present, complement, has_values, gt, lt, mask))
+        return tuple(packs)
+
+    return _cached(("sets", len(targets)), srcs, make)
+
+
+def _key_slots(slot_key: torch.Tensor, num_keys: int, num_words: int) -> torch.Tensor:
+    """The key-slot words of a vocabulary table, once per table tensor; the
+    table checked when it is packed."""
+    def make():
+        _check("slot_key", slot_key, torch.int32, (num_words * WORD,), slot_key.device)
+        return key_slot_words(slot_key, num_keys)
+
+    return _cached(("key_slots", num_keys), (slot_key,), make)
+
+
+_identities: dict = {}  # (n, device) -> arange(n), int32
+
+
+def _identity(n: int, dev: torch.device) -> torch.Tensor:
+    """arange(n) as int32 on `dev`: the row index of a cube over all the
+    rows given, made once per (n, device)."""
+    t = _identities.get((n, dev))
+    if t is None:
+        t = _identities[(n, dev)] = torch.arange(n, dtype=torch.int32, device=dev)
+    return t
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
 _lib_cache: list = []
@@ -182,11 +431,11 @@ def _lib() -> ctypes.CDLL:
         lib = kernel_library("feasibility")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.kt_row_compat.restype = ci
-        lib.kt_row_compat.argtypes = [vp] * 15 + [ci] * 4 + [vp]
+        lib.kt_row_compat.argtypes = [vp] * 5 + [ci] + [vp] * 4 + [ci] + [vp] * 3 + [ci] * 3 + [vp]
         lib.kt_membership.restype = ci
         lib.kt_membership.argtypes = [vp] * 3 + [ci] * 3 + [vp]
-        lib.kt_cube_offer.restype = ci
-        lib.kt_cube_offer.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+        lib.kt_cube.restype = ci
+        lib.kt_cube.argtypes = [vp, ci, vp, ci, vp, ci, vp, vp, ci] + [vp] * 5 + [ci] + [vp] * 2 + [ci] * 4 + [vp]
         lib.kt_cube_fused.restype = ci
         lib.kt_cube_fused.argtypes = [vp, ci, vp, ci] + [vp] * 8 + [ci] * 5 + [vp]
         lib.kt_uid_project.restype = ci
@@ -224,6 +473,16 @@ def _refuse(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device
     if tuple(t.shape) != tuple(shape):
         raise KernelError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     raise KernelError(f"{name}: not contiguous")
+
+
+def _check_rows(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+    """_check for a bool matrix the kernel reads row by row with the row
+    stride it is given: its columns adjacent, its rows at any stride (a
+    column range of a wider array)."""
+    if t.dtype is not torch.bool or t.shape != shape or t.device != device:
+        _refuse(name, t, torch.bool, shape, device)
+    if shape[1] > 1 and t.stride(1) != 1:
+        raise KernelError(f"{name}: columns not adjacent (strides {t.stride()})")
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -266,7 +525,6 @@ def req_rows_vs_sets(
         return req_rows_vs_sets_plain(*args)
     dev = row_key.device
     R, W = row_mask.shape
-    N, K = set_present.shape
     i32, b = torch.int32, torch.bool
     for name, t, dt, shape in (
         ("row_key", row_key, i32, (R,)),
@@ -275,20 +533,55 @@ def req_rows_vs_sets(
         ("row_gt", row_gt, i32, (R,)),
         ("row_lt", row_lt, i32, (R,)),
         ("row_mask", row_mask, i32, (R, W)),
-        ("set_present", set_present, b, (N, K)),
-        ("set_complement", set_complement, b, (N, K)),
-        ("set_has_values", set_has_values, b, (N, K)),
-        ("set_gt", set_gt, i32, (N, K)),
-        ("set_lt", set_lt, i32, (N, K)),
-        ("set_mask", set_mask, i32, (N, W)),
-        ("slot_key", slot_key, i32, (W * WORD,)),
-        ("value_int", value_int, i32, (W * WORD,)),
     ):
         _check(name, t, dt, shape, dev)
-    if W * 4 > _MAX_SHARED_BYTES:
-        raise KernelError(f"row_compat: {W} mask words exceed the kernel's shared memory")
+    # the row table built on the card (a few device operations: this
+    # signature is the reference's, no path of the engine calls it)
+    return _row_compat_launch(row_table(*args[:6]), _target_packs((args[6:12],)), slot_key, value_int)
+
+
+def req_rows_vs_targets(
+    rows: torch.Tensor,  # [R, 5 + W] int32: row_table of the batch
+    targets,  # one or two (present, complement, has_values, gt, lt, mask) set tuples
+    slot_key: torch.Tensor,  # [G = 32 W] int32
+    value_int: torch.Tensor,  # [G] int32
+) -> torch.Tensor:
+    """compat[R, N_0 + N_1]: req_rows_vs_sets of a row batch (its
+    row_table, one upload) against each target (the catalog engine's
+    types, then its offerings), side by side, in one kt_row_compat launch.
+    The targets' sets, and the key-slot words of slot_key, are packed on
+    their first call and kept (_cached); the plain version unpacks those
+    packs, so the CPU runs the same layout."""
+    if not 1 <= len(targets) <= 2:
+        raise ValueError(f"req_rows_vs_targets: {len(targets)} targets, expected 1 or 2")
+    packs = _target_packs(targets)  # referenced until the launch is queued
+    if _on_cpu(rows):
+        K, W = packs[0].K, rows.shape[1] - ROW_FIELDS
+        return req_rows_vs_targets_plain(rows, packs, _key_slots(slot_key, K, W), value_int)
+    return _row_compat_launch(rows, packs, slot_key, value_int)
+
+
+def _row_compat_launch(rows, packs, slot_key, value_int) -> torch.Tensor:
+    """Check the row table and launch kt_row_compat over one or two packed
+    targets; counted under `row_compat`."""
+    dev = rows.device
+    R, C = rows.shape
+    W = C - ROW_FIELDS
+    K = packs[0].K
+    _check("rows", rows, torch.int32, (R, C), dev)
+    _check("value_int", value_int, torch.int32, (W * WORD,), dev)
+    for p in packs:
+        if p.K != K or p.W != W or p.flags.device != dev:
+            raise KernelError(f"row_compat: a target's sets are [{p.K} keys, {p.W} words] on "
+                              f"{p.flags.device}, expected [{K}, {W}] on {dev}")
+    if W < 0 or W * 4 > _MAX_SHARED_BYTES:
+        raise KernelError(f"row_compat: {W} mask words for the kernel's shared memory")
+    key_slots = _key_slots(slot_key, K, W)
+    N = sum(p.N for p in packs)
     out = torch.empty((R, N), dtype=torch.bool, device=dev)
-    rc = launch(dev, _lib().kt_row_compat, *(_ptr(t) for t in args), _ptr(out), R, N, K, W)
+    second = packs[1].ptrs + (packs[1].N,) if len(packs) == 2 else (None,) * 4 + (0,)
+    rc = launch(dev, _lib().kt_row_compat, _ptr(rows), *packs[0].ptrs, packs[0].N, *second,
+                _ptr(key_slots), _ptr(value_int), _ptr(out), N, R, W)
     _raise_on(rc, "row_compat")
     LAUNCHES["row_compat"] += bool(R and N)  # empty inputs launch nothing
     return out
@@ -321,36 +614,52 @@ def membership_all(membership: torch.Tensor, row_ok: torch.Tensor) -> torch.Tens
     return _membership_kernel(membership, row_ok)
 
 
-def _offering_kernel(
-    name: str, membership, offer_compat, custom_need, key_present, available,
+def _cube_launch(
+    name: str, membership, key_present, rows, req_compat, offer_compat, custom_need, available,
     offering_owner, num_instances: int,
 ) -> torch.Tensor:
-    """Check the offering half's inputs and launch kt_cube_offer; the
-    caller counts the launch under its own kernel name."""
+    """Check the cube's inputs and launch kt_cube: [2, P, I] (compat,
+    has_offering), or with req_compat None the has_offering plane alone,
+    [1, P, I]. Membership column r reads matrix row rows[r]; columns past
+    len(rows) are padding. Counted under `name`."""
     dev = membership.device
-    P, R = membership.shape
-    O, K = custom_need.shape
+    P, Rm = membership.shape
+    R = rows.shape[0]
+    Rtot, O = offer_compat.shape
+    K = custom_need.shape[1]
     I = num_instances
-    _check("membership", membership, torch.bool, (P, R), dev)
-    _check("offer_compat", offer_compat, torch.bool, (R, O), dev)
-    _check("key_present", key_present, torch.bool, (P, K), dev)
+    _check_rows("membership", membership, (P, Rm), dev)
+    _check_rows("key_present", key_present, (P, K), dev)
+    _check("rows", rows, torch.int32, (R,), dev)
+    if req_compat is not None:
+        _check("req_compat", req_compat, torch.bool, (Rtot, I), dev)
+    _check("offer_compat", offer_compat, torch.bool, (Rtot, O), dev)
+    _check("custom_need", custom_need, torch.bool, (O, K), dev)
     _check("available", available, torch.bool, (O,), dev)
     _check("offering_owner", offering_owner, torch.int32, (O,), dev)
-    _check("custom_need", custom_need, torch.bool, (O, K), dev)
-    shmem = _TILE * ((R + 31) // 32 + (K + 31) // 32) * 4
-    if shmem > _MAX_SHARED_BYTES:
+    if R > Rm:
+        raise KernelError(f"{name}: {R} rows for {Rm} membership columns")
+    if (2 * R + K + (K + 31) // 32) * 4 > _MAX_SHARED_BYTES:
         raise KernelError(f"{name}: {R} rows x {K} keys exceed the kernel's shared memory")
     if (P + _TILE - 1) // _TILE > _MAX_GRID_Y:
         raise KernelError(f"{name}: {P} entities exceed the kernel's grid")
-    has_offering = torch.empty((P, I), dtype=torch.bool, device=dev)
+    # the pack stays referenced until the launch is queued
+    pack = _cached(("cube", I), (custom_need, offering_owner),
+                   lambda: cube_pack(custom_need, offering_owner, I))
+    planes = 1 if req_compat is None else 2
+    out = torch.empty((planes, P, I), dtype=torch.bool, device=dev)
+    base = _ptr(out)
     rc = launch(
-        dev, _lib().kt_cube_offer,
-        _ptr(membership), _ptr(offer_compat), _ptr(custom_need), _ptr(key_present),
-        _ptr(available), _ptr(offering_owner), _ptr(has_offering),
-        P, R, O, K, I,
+        dev, _lib().kt_cube, _ptr(membership), membership.stride(0), _ptr(key_present),
+        key_present.stride(0), _ptr(rows), R,
+        None if req_compat is None else _ptr(req_compat), _ptr(offer_compat), Rtot,
+        _ptr(pack.need_words), _ptr(available), _ptr(offering_owner), _ptr(pack.type_start),
+        _ptr(pack.plan), pack.runs, None if req_compat is None else base, base + (planes - 1) * P * I,
+        P, O, K, I,
     )
     _raise_on(rc, name)
-    return has_offering
+    LAUNCHES[name] += bool(P and pack.runs)
+    return out
 
 
 def production_cube(
@@ -363,23 +672,43 @@ def production_cube(
     offering_owner: torch.Tensor,  # [O] int32, non-decreasing
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """compat[P, I] and has_offering[P, I] — the production feasibility
-    cube. On the card: the membership kernel for the compat half, then the
-    offering kernel (kt_cube_offer) for the offering half. The offering
-    kernel requires offerings stored owner-major (offering_owner
-    non-decreasing), which CatalogEngine guarantees."""
+    cube. On the card one kt_cube launch over every row given (an identity
+    row index, made once per row count). The kernel requires offerings
+    stored owner-major (offering_owner non-decreasing), which
+    CatalogEngine guarantees."""
     if _on_cpu(membership):
         return production_cube_plain(
             membership, req_compat, offer_compat, custom_need, key_present,
             available, offering_owner,
         )
-    P, I = membership.shape[0], req_compat.shape[1]
-    compat = _membership_kernel(membership, req_compat)
-    has_offering = _offering_kernel(
-        "cube", membership, offer_compat, custom_need, key_present, available,
-        offering_owner, I,
-    )
-    LAUNCHES["cube"] += bool(P and I)
-    return compat, has_offering
+    rows = _identity(membership.shape[1], membership.device)
+    out = _cube_launch("cube", membership, key_present, rows, req_compat, offer_compat,
+                       custom_need, available, offering_owner, req_compat.shape[1])
+    return out[0], out[1]
+
+
+def cube_rows(
+    membership: torch.Tensor,  # [P, Rm] bool, Rm >= R: columns past R are padding
+    key_present: torch.Tensor,  # [P, K] bool
+    rows: torch.Tensor,  # [R] int32: membership column r is matrix row rows[r]
+    req_compat: torch.Tensor,  # [Rtot, I] bool, every interned row
+    offer_compat: torch.Tensor,  # [Rtot, O] bool
+    custom_need: torch.Tensor,  # [O, K] bool
+    available: torch.Tensor,  # [O] bool
+    offering_owner: torch.Tensor,  # [O] int32, non-decreasing
+) -> torch.Tensor:
+    """[2, P, I] bool: production_cube over the rows `rows` of the catalog
+    engine's resident row matrices, read in place by index (the sweep's
+    gather never runs), both planes in one buffer for one copy back.
+    membership and key_present may be column ranges of one array (their
+    rows at a stride: the engine uploads both in one copy). Row ids must
+    lie in [0, Rtot); the kernel reads nothing for one that does not, where
+    the plain version raises."""
+    if _on_cpu(membership):
+        return cube_rows_plain(membership, key_present, rows, req_compat, offer_compat,
+                               custom_need, available, offering_owner)
+    return _cube_launch("cube", membership, key_present, rows, req_compat, offer_compat,
+                        custom_need, available, offering_owner, req_compat.shape[1])
 
 
 def offering_reduce(
@@ -395,19 +724,16 @@ def offering_reduce(
     (scheduling/nodeclaim.go:414-433 semantics) — the group solver's B8.
     Takes owner indices where the JAX program takes the [O, I] one-hot
     (offerings owner-major, as production_cube). On the card it launches
-    the cube's offering kernel, kt_cube_offer, counted here as
+    the cube's kernel, kt_cube, with no compat plane, counted here as
     `offering_reduce`."""
     if _on_cpu(membership):
         return offering_reduce_plain(
             membership, offer_compat, custom_need, key_present, available,
             offering_owner, num_instances,
         )
-    out = _offering_kernel(
-        "offering_reduce", membership, offer_compat, custom_need, key_present,
-        available, offering_owner, num_instances,
-    )
-    LAUNCHES["offering_reduce"] += bool(membership.shape[0] and num_instances)
-    return out
+    rows = _identity(membership.shape[1], membership.device)
+    return _cube_launch("offering_reduce", membership, key_present, rows, None, offer_compat,
+                        custom_need, available, offering_owner, num_instances)[0]
 
 
 def uid_project(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tensor:

@@ -48,8 +48,6 @@ launches only.
 from __future__ import annotations
 
 import ctypes
-import weakref
-from collections import OrderedDict
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence
 
@@ -248,13 +246,7 @@ class PackedCatalog(NamedTuple):
 def pack_rows(bits: torch.Tensor) -> torch.Tensor:
     """[N, M] bool → [ceil(N / 32), M] int32 words: bit b of word w is
     bits[32 w + b] (rows past N are 0)."""
-    N, M = bits.shape
-    W = (N + 31) // 32
-    padded = torch.zeros((W * 32, M), dtype=torch.int64, device=bits.device)
-    padded[:N] = bits
-    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
-    words = (padded.view(W, 32, M) << shifts[None, :, None]).sum(dim=1)
-    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    return feas.pack_words(bits.T).T.contiguous()
 
 
 def pack_catalog(req_compat: torch.Tensor, offer_compat: torch.Tensor, custom_need: torch.Tensor,
@@ -272,29 +264,13 @@ def pack_catalog(req_compat: torch.Tensor, offer_compat: torch.Tensor, custom_ne
     )
 
 
-# the packed catalogs of the last few catalogs solved on: (the source
-# tensors' weak references, their PackedCatalog) by the sources' (id,
-# _version)
-_PACKED_KEEP = 8
-_packed_cache: OrderedDict = OrderedDict()
-
-
 def _packed(rc, oc, cn, ow) -> PackedCatalog:
     """The catalog's PackedCatalog, packed on its first solve and reused
     while the four source tensors are the same objects, unchanged in place
     (their `_version`): a catalog that grows is a new tensor (the engine
-    concatenates its rows), so it packs anew."""
-    srcs = (rc, oc, cn, ow)
-    key = tuple((id(t), t._version) for t in srcs)
-    hit = _packed_cache.get(key)
-    if hit is not None and all(ref() is t for ref, t in zip(hit[0], srcs)):
-        _packed_cache.move_to_end(key)
-        return hit[1]
-    packed = pack_catalog(rc, oc, cn, ow)
-    _packed_cache[key] = (tuple(weakref.ref(t) for t in srcs), packed)
-    while len(_packed_cache) > _PACKED_KEEP:
-        _packed_cache.popitem(last=False)
-    return packed
+    concatenates its rows), so it packs anew. Kept with the feasibility
+    kernels' packs (feasibility._cached)."""
+    return feas._cached(("group",), (rc, oc, cn, ow), lambda: pack_catalog(rc, oc, cn, ow))
 
 
 def _group_operands(name: str, catalog: Sequence[torch.Tensor], dev) -> tuple:

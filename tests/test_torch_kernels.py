@@ -25,9 +25,10 @@ from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
 from karpenter_tpu_torch.device import KernelError  # noqa: E402
 from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    GROUP_KERNEL_SHAPES, SCAN_EDGE_CASES, core_inputs, cube_inputs, fits_inputs, frontier_inputs,
-    group_inputs, group_kernel_inputs, mesh_kernel_inputs, offering_inputs, row_inputs,
-    scan_edge_inputs, scan_inputs, stage_inputs, to_torch, uid_inputs,
+    GROUP_KERNEL_SHAPES, SCAN_EDGE_CASES, SWEEP_ROW_CASES, core_inputs, cube_inputs, fits_inputs,
+    frontier_inputs, group_inputs, group_kernel_inputs, mesh_kernel_inputs, offering_inputs,
+    row_inputs, scan_edge_inputs, scan_inputs, stage_inputs, sweep_inputs, target_inputs, to_torch,
+    uid_inputs,
 )
 
 SEEDS = range(8)
@@ -55,6 +56,92 @@ def test_kernels_match_plain_on_card(cuda_device, seed):
     assert torch.equal(
         tfeas.membership_all(cube[0], cube[1]), tfeas.membership_all_plain(cube[0], cube[1])
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_case", SWEEP_ROW_CASES)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_sweep_entries_match_plain_on_card(cuda_device, seed, rows_case):
+    """B3 through cube_rows (kt_cube over resident rows read by index:
+    sorted, with a repeat, none) and B1 through req_rows_vs_targets
+    (kt_row_compat against one target and two), bit for bit; one launch a
+    call and no kt_membership."""
+    l0 = dict(tfeas.LAUNCHES)
+    args = [to_torch(a).to(cuda_device) for a in sweep_inputs(seed, rows_case)]
+    got = tfeas.cube_rows(*args)
+    assert got.shape == (2, args[0].shape[0], args[3].shape[1])
+    assert torch.equal(got, tfeas.cube_rows_plain(*args))
+    # membership and key_present as column ranges of one array, as the
+    # engine uploads them
+    entities = torch.cat([args[0], args[1]], dim=1)
+    Rm = args[0].shape[1]
+    strided = [entities[:, :Rm], entities[:, Rm:]] + args[2:]
+    assert torch.equal(tfeas.cube_rows(*strided), got)
+    for targets in (1, 2):
+        rows, sets, slot_key, value_int = target_inputs(seed, targets)
+        table = to_torch(tfeas.row_table(*rows)).to(cuda_device)
+        rows = [to_torch(a).to(cuda_device) for a in rows]
+        sets = [[to_torch(a).to(cuda_device) for a in t] for t in sets]
+        slot_key, value_int = to_torch(slot_key).to(cuda_device), to_torch(value_int).to(cuda_device)
+        want = torch.cat([tfeas.req_rows_vs_sets_plain(*rows, *t, slot_key, value_int) for t in sets], 1)
+        assert torch.equal(tfeas.req_rows_vs_targets(table, sets, slot_key, value_int), want)
+    torch.cuda.synchronize()
+    moved = {k: v - l0[k] for k, v in tfeas.LAUNCHES.items() if v != l0[k]}
+    assert moved == {"cube": 2, "row_compat": 2}, moved
+
+
+@pytest.mark.cuda
+def test_sweep_packs_follow_their_sources_on_card(cuda_device):
+    """The packed tables kt_cube and kt_row_compat read are made anew when a
+    source changes in place (its _version moves): the next launch sees the
+    change."""
+    args = [to_torch(a).to(cuda_device) for a in sweep_inputs(2)]
+    assert torch.equal(tfeas.cube_rows(*args), tfeas.cube_rows_plain(*args))
+    args[5].logical_not_()  # custom_need
+    assert torch.equal(tfeas.cube_rows(*args), tfeas.cube_rows_plain(*args))
+    rows, sets, slot_key, value_int = target_inputs(3)
+    table = to_torch(tfeas.row_table(*rows)).to(cuda_device)
+    rows = [to_torch(a).to(cuda_device) for a in rows]
+    sets = [[to_torch(a).to(cuda_device) for a in t] for t in sets]
+    slot_key, value_int = to_torch(slot_key).to(cuda_device), to_torch(value_int).to(cuda_device)
+    for change in (lambda: sets[0][0].logical_not_(), lambda: slot_key[::3].fill_(-1)):
+        change()
+        want = torch.cat([tfeas.req_rows_vs_sets_plain(*rows, *t, slot_key, value_int) for t in sets], 1)
+        assert torch.equal(tfeas.req_rows_vs_targets(table, sets, slot_key, value_int), want)
+
+
+@pytest.mark.cuda
+def test_engine_row_batch_and_sweep_launch_once_on_card(cuda_device):
+    """A CUDA CatalogEngine: one kt_row_compat launch a row batch (types and
+    offerings together), one kt_cube launch a sweep and no kt_membership,
+    with the planes of a device="cpu" engine."""
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.cloudprovider.kwok.instance_types import construct_instance_types
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+    from karpenter_tpu_torch.scheduling.requirements import Operator, Requirement, Requirements
+
+    catalog = construct_instance_types()
+    queries = [
+        Requirements(Requirement(wk.LABEL_ARCH, Operator.IN, ["arm64"])),
+        Requirements(Requirement(wk.LABEL_TOPOLOGY_ZONE, Operator.NOT_IN, ["kwok-zone-1"]),
+                     Requirement(wk.CAPACITY_TYPE_LABEL_KEY, Operator.IN, ["spot"])),
+        Requirements(Requirement("example.com/team", Operator.IN, ["a"])),
+        Requirements(),
+    ]
+    results = []
+    for device in (cuda_device, "cpu"):
+        engine = CatalogEngine(catalog, device=device)
+        rows = [engine.rows_for(q) for q in queries]
+        l0 = dict(tfeas.LAUNCHES)
+        engine._ensure_rows()
+        f = engine.feasibility(rows, np.zeros((len(rows), len(engine.resource_dims))),
+                               engine.key_presence(queries))
+        moved = {k: v - l0[k] for k, v in tfeas.LAUNCHES.items() if v != l0[k]}
+        results.append((f.compat, f.has_offering, engine._req_compat, engine._offer_compat, moved))
+    (cc, co, crc, coc, moved), (pc, po, prc, poc, _) = results
+    assert moved == {"row_compat": 1, "cube": 1}, moved
+    for got, want in ((cc, pc), (co, po), (crc, prc), (coc, poc)):
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda
@@ -161,8 +248,9 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", SEEDS)
 def test_group_kernels_match_plain_on_card(cuda_device, seed):
-    """B8 (kt_cube_offer as offering_reduce), B9/B10 (kt_group_solve) and
-    B11/B12 (kt_delta_scatter, kt_delta_finalize), bit for bit."""
+    """B8 (kt_cube with no compat plane, as offering_reduce), B9/B10
+    (kt_group_solve) and B11/B12 (kt_delta_scatter, kt_delta_finalize), bit
+    for bit."""
     args, I = offering_inputs(seed)
     off = [to_torch(a).to(cuda_device) for a in args]
     assert torch.equal(tfeas.offering_reduce(*off, I), tfeas.offering_reduce_plain(*off, I))

@@ -324,12 +324,13 @@ DEVICE_FAULTS = {
 
 
 def _break_cube(monkeypatch, fault):
+    """The sweep's cube entry (the engine's cube_rows) raises `fault`."""
     from karpenter_tpu_torch.ops import feasibility as tfeas
 
     def broken(*args):
         raise DEVICE_FAULTS[fault]()
 
-    monkeypatch.setattr(tfeas, "production_cube", broken)
+    monkeypatch.setattr(tfeas, "cube_rows", broken)
 
 
 def test_kernel_fault_fails_the_solve(reference_config, monkeypatch):

@@ -84,6 +84,60 @@ def cube_inputs(seed: int):
     )
 
 
+def target_inputs(seed: int, targets: int = 2):
+    """A row batch against one or two targets, at req_rows_vs_targets'
+    layout: (the six row arrays, one six-array set tuple per target,
+    slot_key, value_int). The first target's sets come from row_inputs;
+    the second's are drawn at the same keys and words (bounded and
+    complement sets among them)."""
+    args = row_inputs(seed)
+    rows, first, slot_key, value_int = args[:6], args[6:12], args[12], args[13]
+    sets = [first]
+    if targets == 2:
+        rng = np.random.RandomState(500 + seed)
+        N, K = rng.randint(1, 90), first[0].shape[1]
+        W = first[5].shape[1]
+        gt = np.where(rng.rand(N, K) < 0.3, rng.randint(-25, 15, size=(N, K)), NO_GT).astype(np.int32)
+        lt = np.where(rng.rand(N, K) < 0.3, rng.randint(-15, 25, size=(N, K)), NO_LT).astype(np.int32)
+        mask = (rng.randint(0, 2**32, size=(N, W), dtype=np.uint64)
+                & rng.randint(0, 2**32, size=(N, W), dtype=np.uint64)).astype(np.uint32)
+        sets.append((rng.rand(N, K) < 0.6, rng.rand(N, K) < 0.4, rng.rand(N, K) < 0.7, gt, lt, mask))
+    return rows, sets, slot_key, value_int
+
+
+SWEEP_ROW_CASES = ("sorted", "repeated", "empty")
+
+
+def sweep_inputs(seed: int, rows_case: str = "sorted"):
+    """cube_rows' inputs from cube_inputs' catalog: a resident matrix of
+    Rtot rows, R of them picked by index (sorted and unique, with repeats,
+    or none), membership padded to a power of two of columns (the padding
+    all False). Returns (membership, key_present, rows, req_compat,
+    offer_compat, custom_need, available, owner)."""
+    membership, req_compat, offer_compat, custom_need, key_present, available, owner = cube_inputs(seed)
+    rng = np.random.RandomState(600 + seed)
+    P, R = membership.shape
+    extra = int(rng.randint(1, 6))
+    Rtot = R + extra
+    perm = rng.permutation(Rtot)
+    req_all = np.concatenate([req_compat, rng.rand(extra, req_compat.shape[1]) < 0.5])[perm]
+    offer_all = np.concatenate([offer_compat, rng.rand(extra, offer_compat.shape[1]) < 0.5])[perm]
+    where = np.argsort(perm)[:R]  # row r of cube_inputs lies at where[r]
+    if rows_case == "sorted":
+        order = np.argsort(where)
+        rows, membership = where[order], membership[:, order]
+    elif rows_case == "repeated":
+        rows = np.concatenate([where, where[:1]])
+        membership = np.concatenate([membership, membership[:, :1]], axis=1)
+    else:
+        rows, membership = where[:0], membership[:, :0]
+    width = 1 << max(0, (max(rows.shape[0], 1) - 1).bit_length())
+    padded = np.zeros((P, width), dtype=bool)
+    padded[:, : rows.shape[0]] = membership
+    return (padded, key_present, rows.astype(np.int32), req_all, offer_all, custom_need, available,
+            owner)
+
+
 def to_torch(a: np.ndarray) -> torch.Tensor:
     if a.dtype == np.uint32:
         a = a.view(np.int32)
