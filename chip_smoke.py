@@ -21,15 +21,21 @@ Phases, in order; any failure exits non-zero:
      a tile, R and K past 32, I not a multiple of a block, a type with no
      offering, an offering never available, one used row, no used row with
      the membership padded, types of ~300 offerings); uid_project on
-     ragged type counts and U=1;
+     ragged type counts and U=1, and in its factored form (the fused
+     solve's famu_ok from tmpl_mask and fam_mask read as they are) at T 1,
+     2 and 4, F 1, 7 and 64, U 1, 33 and 70, I 1, 31 and 1008 (all-false
+     rows among them) and at the workload's shape, the masks also as row
+     ranges of one buffer and one byte past 16-byte alignment;
      fits_matrix (int32 and float32) and stage_plane on random inputs
      (phase 7 checks them again on the workload's inputs; those launches
      are the only ones they have: no path of the reference runs them);
      offering_reduce (kt_cube with no compat plane) on ragged P/R/O/K
      (K=0, an offering never available);
-     kt_group_solve in its three modes (solve_block, solve_block_core,
+     kt_group_solve in its four modes (solve_block, solve_block_core,
      solve_block_scatter with edge-padded duplicate, negative and dropped
-     slots) on random operands (all-infeasible groups, zero-request dims,
+     slots, and delta_pass: that scatter, then the pass's finalize in the
+     launch's last block, on a counter left stale) on random operands
+     (all-infeasible groups, zero-request dims,
      price ties, K=0, R and K past 2048, I past a chunk of 1024 types, a
      chunk's offerings past a window of 32,768), one launch a call; the sharded wrappers'
      kt_cube_fused and kt_group_solve on ragged operands (R and K past 32,
@@ -56,7 +62,10 @@ Phases, in order; any failure exits non-zero:
      resident design (here, in phase 5 and in phase 5b). Exactly one
      kt_row_compat launch a row batch (types and offerings together) and
      one kt_cube launch a sweep, in each solve, and no kt_membership; the
-     sweeps' shapes are logged. Then the slice-1 path (scan off, the
+     sweeps' shapes are logged. One kt_uid_project launch a scan solve
+     (famu_ok); in one more warm solve the famu_ok build, recorded op by
+     op, is the masks' one upload and that one launch, and a profiled warm
+     solve holds no elementwise & kernel. Then the slice-1 path (scan off, the
      native walk) on the same workload, cold and warm, with the same
      decisions and the same launch rule;
   5. delta solves (KARPENTER_TPU_DELTA=on, the fused scan on, a self-check
@@ -72,9 +81,11 @@ Phases, in order; any failure exits non-zero:
      left out): the full solve, and with delta on a cold pass, a
      count-only pass (0 groups solved) and a pass with new shapes, each
      with its wall ms; exact launches: one solve_block a full solve and
-     self-check, one solve_block_scatter a pass with a frontier, one
-     delta_finalize a pass, and no membership, offering_reduce,
-     solve_block_core or delta_scatter;
+     self-check, one delta_pass a pass with a frontier (one kt_group_solve
+     launch: the frontier and the pass's finalize) and no delta_finalize
+     there, one delta_finalize a count-only pass, and no membership,
+     offering_reduce, solve_block_core, solve_block_scatter or
+     delta_scatter; the C entries counted per pass agree;
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
      mesh, on a 2-shard mesh (two cards when the machine has them, else
      cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
@@ -111,13 +122,18 @@ Phases, in order; any failure exits non-zero:
      solve_block_scatter's hold the host time by part and kt_group_solve's
      phase split (block 0's phase timestamps: pack, offering pass, type
      pass, reduction) and ptxas's report; delta_scatter's holds its host
-     time by part and it and index_put_ timed in turns. The kernels of no
-     path (OFF_PATH: fits_matrix, stage_plane, offering_reduce,
-     solve_block_core, delta_scatter, membership) have 0 launches, held
-     so, and phase 3's and phase 7's check launches under
-     `check_launches`; row_compat's and cube's entries (on the row batch
-     and the sweep the main path gave them) also hold the host time by part
-     and ptxas's report;
+     time by part and it and index_put_ timed in turns; delta_pass's the
+     delta group pass (cold, count-only, new shapes, self-check off)
+     through GroupResidency.solve: its wall ms, device operations and host
+     time by part (fingerprints, pack groups, upload, enqueue, copy back).
+     The kernels of no path (OFF_PATH: fits_matrix, stage_plane,
+     offering_reduce, solve_block_core, solve_block_scatter, delta_scatter,
+     membership) have 0 launches, held so, and phase 3's and phase 7's
+     check launches under `check_launches`; row_compat's and cube's entries
+     (on the row batch and the sweep the main path gave them) also hold the
+     host time by part and ptxas's report. Beside the kernels line, the
+     launch floor: an empty kernel's device time and a no-op's host time
+     through device.launch;
   8. last line {"ok": true, "device": {...}}.
 
 --turns times the group solver's and the catalog sweep's wrappers of one or
@@ -132,7 +148,13 @@ fresh 7-row batch against the types and the offerings, B3 at phase 4's
 sweep shape (the engine's kernels: cube_rows, or where the checkout lacks
 it the two gathers and production_cube; and production_cube alone), the
 whole CatalogEngine.feasibility sweep, and CatalogEngine._ensure_rows on
-a fresh 7-row batch. Each checked against its plain version, then its
+a fresh 7-row batch; B6, the famu_ok build at the workload's shape (the
+masks from the host to famu_ok on the card: the checkout's own
+composition) and its device work alone; B12, a delta pass's kernels on the
+workload's first 128 groups (delta_pass, or where the checkout lacks it
+solve_block_scatter then delta_finalize) and the delta group pass through
+GroupResidency.solve cold, count-only and with new shapes. Each checked
+against its plain version, then its
 wrapper ms, device ms by kernel, device operations, host us by part and C
 launches per call; all in chiprun_out/turns.json.
 
@@ -186,6 +208,7 @@ SOURCE = {
     "solve_block_scatter": "karpenter_tpu_torch/csrc/packer.cu",
     "delta_scatter": "karpenter_tpu_torch/csrc/packer.cu",
     "delta_finalize": "karpenter_tpu_torch/csrc/packer.cu",
+    "delta_pass": "karpenter_tpu_torch/csrc/packer.cu",
     "solve_scan_full": "karpenter_tpu_torch/csrc/scan.cu",
     "solve_scan_resume": "karpenter_tpu_torch/csrc/scan.cu",
     "fits_matrix": "karpenter_tpu_torch/csrc/feasibility.cu",
@@ -208,6 +231,7 @@ REPLACES = {
     "solve_block_scatter": "karpenter_tpu/ops/packer.py:162 + :185",
     "delta_scatter": "karpenter_tpu/ops/packer.py:185",
     "delta_finalize": "karpenter_tpu/ops/packer.py:196",
+    "delta_pass": "karpenter_tpu/ops/packer.py:162 + :185 + :196",
     "solve_scan_full": "karpenter_tpu/ops/packer.py:833",
     "solve_scan_resume": "karpenter_tpu/ops/packer.py:840",
     "fits_matrix": "karpenter_tpu/ops/feasibility.py:222",
@@ -223,7 +247,8 @@ ENTRY_POINTS = {
     "row_compat": "kt_row_compat (types and offerings in one launch; req_rows_vs_targets)",
     "membership": "kt_membership",
     "cube": "kt_cube (both planes, the rows read by index; cube_rows)",
-    "uid_project": "kt_uid_project",
+    "uid_project": "kt_uid_project (factored: tmpl_mask and fam_mask read as they are; "
+                   "uid_project_factored)",
     "solve_scan": "kt_solve_scan",
     "offering_reduce": "kt_cube (the offering plane alone)",
     "solve_block": "kt_group_solve (finalize mode)",
@@ -231,6 +256,7 @@ ENTRY_POINTS = {
     "solve_block_scatter": "kt_group_solve (scatter mode)",
     "delta_scatter": "kt_delta_scatter",
     "delta_finalize": "kt_delta_finalize",
+    "delta_pass": "kt_group_solve (pass mode: the scatter, then the finalize in the last block)",
     "solve_scan_full": "kt_solve_scan",
     "solve_scan_resume": "kt_solve_scan",
     "fits_matrix": "kt_fits_matrix_i32 / kt_fits_matrix_f32",
@@ -244,13 +270,15 @@ ENTRY_POINTS = {
 # the kernels no path launches: the reference runs B4 and B7 on none; since
 # the group solve became one kt_group_solve launch a call the standalone
 # offering_reduce (B8), solve_block_core (B10) and delta_scatter (B11)
-# wrappers run on none either, and since the sweep became one kt_cube
-# launch neither does membership (B2: a catalog without offerings would).
+# wrappers run on none either, since the sweep became one kt_cube launch
+# neither does membership (B2: a catalog without offerings would), and
+# since a delta pass with a frontier became one delta_pass launch neither
+# does solve_block_scatter.
 # Their entries give the paths' count, 0, as `launches` and phase 3's and
 # phase 7's check launches as `check_launches`; the kernels line holds them
 # to exactly that.
 OFF_PATH = ("fits_matrix", "stage_plane", "offering_reduce", "solve_block_core", "delta_scatter",
-            "membership")
+            "membership", "solve_block_scatter")
 # float32 operations per second outside the tensor cores (H100 SXM data
 # sheet: 67 TFLOP/s FP32), the rate of fits_matrix's float32 compares
 F32_OPS_PER_S = 67e12
@@ -260,7 +288,7 @@ SCAN_BLOCK_SIZES = (256, 512, 1024)
 PTXAS: dict = {}  # scan kernel -> ptxas's report, filled by phase_build
 GROUP_PTXAS: dict = {}  # the same for kt_group_solve's kernel
 FEAS_PTXAS: dict = {}  # the same for kt_row_compat's and kt_cube's kernels
-FEAS_KERNELS = ["row_compat_kernel", "cube_kernel"]
+FEAS_KERNELS = ["row_compat_kernel", "cube_kernel", "uid_project_kernel"]
 
 
 def log(msg: str) -> None:
@@ -456,27 +484,40 @@ def scatter_inputs(rng, args, cap):
 
 
 def group_mode_checks(rng, G, R, K, I, O, D, dev) -> int:
-    """kt_group_solve in its three modes through solve_block, solve_block_core
-    and solve_block_scatter on random operands, each bit for bit against
-    its plain version and one launch a call; returns the cases checked."""
+    """kt_group_solve in its four modes through solve_block, solve_block_core,
+    solve_block_scatter and delta_pass (a pass's order over the frontier's
+    slots and older rows, its counter left stale) on random operands, each
+    bit for bit against its plain version and one launch a call; returns
+    the cases checked."""
     from karpenter_tpu_torch.ops import packer
 
     args = random_group_inputs(rng, G, R, K, I, O, D, dev)
     label = f"G={G} R={R} K={K} I={I} O={O} D={D}"
-    core, slots, sargs = scatter_inputs(rng, args, max(8, 2 * G))
+    cap = max(8, 2 * G)
+    core, slots, sargs = scatter_inputs(rng, args, cap)
+    g = G + int(rng.randint(0, 8))
+    gb = max(8, 1 << (g - 1).bit_length())
+    order = _to(np.pad(rng.randint(0, cap, size=g).astype(np.int32), (0, gb - g), mode="edge"), dev)
+    counts = _to(np.pad(rng.randint(0, 900, size=g).astype(np.int32), (0, gb - g)), dev)
+    counter = torch.full((1,), 7, dtype=torch.int32, device=dev)  # stale: the launch zeroes it
     for name, run, plain in (
         ("solve_block", lambda: packer.solve_block(*args), lambda: packer.solve_block_plain(*args)),
         ("solve_block_core", lambda: packer.solve_block_core(*args),
          lambda: packer.solve_block_core_plain(*args)),
         ("solve_block_scatter", lambda: packer.solve_block_scatter(core.clone(), slots, *sargs),
          lambda: packer.delta_scatter_rows_plain(core.clone(), slots, packer.solve_block_core_plain(*sargs))),
+        ("delta_pass",
+         lambda: (lambda c: (packer.delta_pass(c, slots, *sargs[:2], order, counts, *sargs[2:],
+                                               counter=counter), c))(core.clone()),
+         lambda: (lambda c: (packer.delta_pass_plain(c, slots, *sargs[:2], order, counts, *sargs[2:]),
+                             c))(core.clone())),
     ):
         l0 = dict(_count_launches())
         got = run()
         moved = {k: v - l0[k] for k, v in _count_launches().items() if v != l0[k]}
         assert moved == {name: 1}, f"{name} {label}: launches {moved}"
         check_equal(f"{name} {label}", got, plain())
-    return 3
+    return 4
 
 
 def random_mesh_inputs(rng, P, n, R, K, I, O, D):
@@ -876,13 +917,13 @@ def phase_build():
     GROUP_PTXAS.update(ptxas_report(device.BUILD_LOG.get("packer", ""), ["group_solve_kernel"]))
     log(f"ptxas group_solve_kernel: {json.dumps(GROUP_PTXAS)}")
     FEAS_PTXAS.update(ptxas_report(device.BUILD_LOG.get("feasibility", ""), FEAS_KERNELS))
-    log(f"ptxas row_compat_kernel, cube_kernel: {json.dumps(FEAS_PTXAS)}")
+    log(f"ptxas {', '.join(FEAS_KERNELS)}: {json.dumps(FEAS_PTXAS)}")
     for fn, rep in PTXAS.items():
         log(f"ptxas {fn}: {json.dumps(rep)}")
     assert any("resident" in fn for fn in PTXAS) and any("resident" not in fn for fn in PTXAS), \
         f"ptxas reported no scan kernel of one design: {sorted(PTXAS)}"
     assert all(any(k in fn for fn in FEAS_PTXAS) for k in FEAS_KERNELS), \
-        f"ptxas reported no row_compat or cube kernel: {sorted(FEAS_PTXAS)}"
+        f"ptxas reported no {' or '.join(FEAS_KERNELS)}: {sorted(FEAS_PTXAS)}"
 
 
 def ptxas_report(text: str, names) -> dict:
@@ -940,6 +981,59 @@ def random_uid_inputs(rng, lead, U, I, dev):
     return _to(onehot, dev), _to(rng.rand(*lead, I) < 0.3, dev)
 
 
+# uid_project_factored's phase-3 shapes: T x F x U x I over these, then the
+# workload's famu_ok (T=1, F=64, U=36, I=1008)
+FAMU_SHAPES = tuple(itertools.product((1, 2, 4), (1, 7, 64), (1, 33, 70), (1, 31, 1008))) + (
+    (1, 64, 36, 1008),)
+
+
+def random_famu_inputs(rng, T, F, U, I, dev):
+    """famu_ok's factored operands: a [U, I] one-hot of a random
+    uid_of_type (each uid owning a type while there are types for it),
+    tmpl_mask [T, I] and sparse fam_mask [F, I], the last template row and
+    the first family row all-false when there are two or more."""
+    uid_of_type = rng.randint(0, U, size=I)
+    k = min(U, I)
+    uid_of_type[rng.permutation(I)[:k]] = rng.permutation(U)[:k]
+    onehot = np.zeros((U, I), dtype=bool)
+    onehot[uid_of_type, np.arange(I)] = True
+    tmpl, fam = rng.rand(T, I) < 0.6, rng.rand(F, I) < 0.08
+    if T > 1:
+        tmpl[-1] = False
+    if F > 1:
+        fam[0] = False
+    return _to(onehot, dev), _to(tmpl, dev), _to(fam, dev)
+
+
+def famu_checks(rng, dev) -> int:
+    """uid_project_factored at FAMU_SHAPES, bit for bit against the plain
+    product and one launch a call; the masks also as row ranges of one
+    buffer (the fused solve's one upload) and one byte past 16-byte
+    alignment (the kernel's byte path). Returns the cases checked."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    n = 0
+    for T, F, U, I in FAMU_SHAPES:
+        onehot, tmpl, fam = random_famu_inputs(rng, T, F, U, I, dev)
+        want = feas.uid_project_factored_plain(onehot, tmpl, fam)
+        label = f"T={T} F={F} U={U} I={I}"
+        l0 = dict(_count_launches())
+        got = feas.uid_project_factored(onehot, tmpl, fam)
+        moved = {k: v - l0[k] for k, v in _count_launches().items() if v != l0[k]}
+        assert moved == {"uid_project": 1}, f"uid_project_factored {label}: launches {moved}"
+        check_equal(f"uid_project_factored {label}", got, want)
+        buf = torch.cat([onehot, fam, tmpl])
+        check_equal(f"uid_project_factored {label} (one buffer)",
+                    feas.uid_project_factored(buf[:U], buf[U + F:], buf[U:U + F]), want)
+        flat = torch.zeros(buf.numel() + 1, dtype=torch.bool, device=dev)
+        flat[1:] = buf.view(-1)
+        odd = flat[1:].view(buf.shape)
+        check_equal(f"uid_project_factored {label} (unaligned)",
+                    feas.uid_project_factored(odd[:U], odd[U + F:], odd[U:U + F]), want)
+        n += 3
+    return n
+
+
 def capture_scan(engine, catalog, pods, case=None):
     """Solve with the fused scan forced on; returns the (cfg, operands) the
     scan got, the results and the wall ms."""
@@ -991,6 +1085,7 @@ def phase_kernel_checks(dev=torch.device("cuda")):
         check_equal(f"uid_project lead={lead} U={U} I={I}",
                     feas.uid_project(onehot, mask), feas.uid_project_plain(onehot, mask))
         n += 1
+    n += famu_checks(rng, dev)
     for R, sizes, K, W in TARGET_CHECK_SHAPES:
         for bounded, complement in ((0.0, 0.0), (0.3, 0.5)):
             rows, targets, sk, vi = random_target_inputs(rng, R, sizes, K, W, dev, bounded, complement)
@@ -1008,7 +1103,8 @@ def phase_kernel_checks(dev=torch.device("cuda")):
         check_equal(f"cube_rows P={P} R={R} of {Rtot} I={I} O={O} K={K}", feas.cube_rows(*args),
                     feas.cube_rows_plain(*args))
         n += 1
-    log(f"kernel checks: {n} feasibility and uid_project cases bit-identical to the plain versions")
+    log(f"kernel checks: {n} feasibility and uid_project cases (the factored form at "
+        f"{len(FAMU_SHAPES)} shapes) bit-identical to the plain versions")
     n = 0
     for P, R, O, K, I in ((256, 64, 8064, 8, 1008), (200, 16, 8064, 0, 1008), (1, 1, 1, 0, 1),
                           (33, 3, 75, 8, 37), (45, 70, 3001, 40, 1000), (7, 33, 20, 0, 9)):
@@ -1026,9 +1122,9 @@ def phase_kernel_checks(dev=torch.device("cuda")):
         check_equal(f"delta_finalize cap={cap} G={g}", packer.delta_finalize(got, order, counts),
                     packer.delta_finalize_plain(want, order, counts))
         n += 2
-    log(f"kernel checks: {n} offering_reduce, kt_group_solve (finalize, core and scatter modes; R and "
-        f"K past 2048, I past a chunk of types, offerings past a window) and delta_scatter/finalize cases "
-        f"bit-identical to the plain versions, one launch per call")
+    log(f"kernel checks: {n} offering_reduce, kt_group_solve (finalize, core, scatter and pass modes; R "
+        f"and K past 2048, I past a chunk of types, offerings past a window) and delta_scatter/finalize "
+        f"cases bit-identical to the plain versions, one launch per call")
     sharded_kernel_checks(dev)
     catalog = construct_instance_types()
     pods = build_pods()[:SMALL_PODS]
@@ -1165,7 +1261,7 @@ def phase_main(captured, device=None):
     # the kernels on them afterwards (recording does not launch anything);
     # count the engine's row batches and sweeps (one call of its entry
     # each) and the sweeps' shapes, on both paths
-    real = (feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project, packer.solve_scan)
+    real = (feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project_factored, packer.solve_scan)
     recording = [True]
     calls = {"row_batches": 0, "sweeps": 0}
     shapes: dict = {}
@@ -1189,7 +1285,7 @@ def phase_main(captured, device=None):
         return real[1](*args)
 
     def uid_shim(*args):
-        keep("uid_project", args, lambda a: a[1].numel())
+        keep("uid_project", args, lambda a: a[1].shape[0] * a[2].shape[0])
         return real[2](*args)
 
     def scan_shim(cfg, args):
@@ -1204,7 +1300,7 @@ def phase_main(captured, device=None):
         return real_drive(self)
 
     mode0 = fused.FUSED_MODE
-    feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project, packer.solve_scan = (
+    feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project_factored, packer.solve_scan = (
         rows_shim, cube_shim, uid_shim, scan_shim)
     ffd._NativeDriver.drive = drive_shim
     try:
@@ -1241,7 +1337,7 @@ def phase_main(captured, device=None):
         walk_calls = dict(calls)
     finally:
         fused.FUSED_MODE = mode0
-        feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project, packer.solve_scan = real
+        feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project_factored, packer.solve_scan = real
         ffd._NativeDriver.drive = real_drive
     for label, ms, results, per_solve, per_calls in runs:
         placed = sum(len(nc.pods) for nc in results.new_node_claims)
@@ -1254,6 +1350,8 @@ def phase_main(captured, device=None):
         assert per_solve["row_compat"] == per_calls["row_batches"] and \
             per_solve["cube"] == per_calls["sweeps"] and per_solve["membership"] == 0, \
             f"{label}: launches {per_solve}, engine calls {per_calls}"
+        # famu_ok: one kt_uid_project launch a scan solve
+        assert per_solve["uid_project"] == 1, f"{label}: {per_solve['uid_project']} uid_project launches"
     log(f"phase 4 sweep shapes (scan path): {json.dumps(shapes)}; engine calls of the scan solves "
         f"{json.dumps(scan_calls)}, of the walk solves {json.dumps(walk_calls)}")
     log(f"device solves {ffd.DEVICE_SOLVES - solves0}, fused solves {fused_solves}, declines "
@@ -1287,7 +1385,74 @@ def phase_main(captured, device=None):
         "(the walk's cold includes building the native walk); decisions identical".format(
             *(r[1] for r in runs), *(r[1] for r in walk_runs)))
     profile_warm_solve(engine, catalog, pods)
+    famu_ok_ops(engine, catalog, pods)
     return launches
+
+
+# the aten ops a famu_ok build may run: views and allocations, which launch
+# nothing on the card, and the one upload of the masks
+FAMU_VIEW_OPS = {"slice", "view", "alias", "empty", "detach", "lift_fresh", "as_strided"}
+FAMU_COPY_OPS = {"_to_copy", "copy_"}
+
+
+def famu_ok_ops(engine, catalog, pods) -> None:
+    """One more warm solve, its famu_ok build (fused._FusedSolve._famu_ok)
+    recorded op by op: every aten op it dispatches (a TorchDispatchMode
+    around the build) and the kernel launches it counts. It must be the
+    masks' one upload and one kt_uid_project launch: no other aten op that
+    runs on the card, no elementwise op. Then a profiled warm solve (the
+    whole solve: torch.profiler's trace of a short window drops activity,
+    PERF.md section 7) must hold no elementwise `&` kernel; its
+    uid_project kernels are logged."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import fused
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            on_card = isinstance(out, torch.Tensor) and out.is_cuda
+            self.ops.append((func.overloadpacket.__name__, on_card))
+            return out
+
+    static = fused._FusedSolve.__dict__["_famu_ok"]
+    builds = []
+
+    def shim(*args):
+        l0 = feas.LAUNCHES["uid_project"]
+        with Record() as rec:
+            out = static.__func__(*args)
+        builds.append((rec.ops, feas.LAUNCHES["uid_project"] - l0))
+        return out
+
+    fused._FusedSolve._famu_ok = staticmethod(shim)
+    try:
+        solve(engine, catalog, copy.deepcopy(pods))
+    finally:
+        fused._FusedSolve._famu_ok = static
+    assert len(builds) == 1, f"{len(builds)} famu_ok builds in one solve"
+    ops, launches = builds[0]
+    copies = [op for op, on_card in ops if op in FAMU_COPY_OPS and on_card]
+    other = [op for op, _ in ops if op not in FAMU_VIEW_OPS | FAMU_COPY_OPS]
+    assert len(copies) == 1 and not other and launches == 1, \
+        f"famu_ok build: aten ops {ops}, {launches} uid_project launches"
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solve(engine, catalog, copy.deepcopy(pods))
+    kernels = {}
+    for ev in prof.key_averages():
+        if (getattr(ev, "self_device_time_total", 0.0) or 0.0) > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0) + ev.count
+    ands = [k for k in kernels if "bitwiseand" in k.lower().replace("_", "")]
+    uid = {k: v for k, v in kernels.items() if "uid_project_kernel" in k}
+    log(f"phase 4 famu_ok build: aten ops {ops}, {launches} kt_uid_project launch; a profiled warm "
+        f"solve's uid_project kernels {json.dumps(uid)}, bitwise-and kernels {ands}")
+    assert not ands, f"an elementwise & ran in a warm solve: {ands}"
 
 
 def phase_delta(captured, device=None):
@@ -1604,8 +1769,9 @@ def phase_group(captured, device=None):
     count-only pass and a pass with new shapes, each held against the full
     solve outside the counts and timed (wall ms, ending in a copy to the
     host). The kernels' inputs kept in `captured`: the workload's groups,
-    the first frontier pass's solve_block_scatter operands, and from them
-    B8's, B10's and B11's."""
+    the first frontier pass's delta_pass operands, and from them B8's,
+    B10's, B11's and the frontier scatter's; the count-only pass's
+    delta_finalize operands."""
     from karpenter_tpu_torch.apis import labels as wk
     from karpenter_tpu_torch.ops import delta, packer
     from karpenter_tpu_torch.ops import feasibility as feas
@@ -1614,15 +1780,21 @@ def phase_group(captured, device=None):
     engine = CatalogEngine(build_catalog(), device=device)
     reqs, requests = packer_workload(engine)
     captured["workload"] = (engine, reqs, requests)
-    real = (packer.solve_block_scatter, packer.delta_finalize)
+    real = (packer.delta_pass, packer.delta_finalize, packer.launch)
 
-    def scatter_shim(core, slots, *args, **kw):
-        captured.setdefault("solve_block_scatter", (core.clone(), slots) + args)
+    def pass_shim(core, slots, *args, **kw):
+        captured.setdefault("delta_pass", (core.clone(), slots) + args)
         return real[0](core, slots, *args, **kw)
 
     def finalize_shim(core, order, counts):
         captured["delta_finalize"] = (core.clone(), order, counts)
         return real[1](core, order, counts)
+
+    entries: dict = {}  # C entry points launched, by name
+
+    def launch_shim(dev, entry, *a):
+        entries[entry.__name__] = entries.get(entry.__name__, 0) + 1
+        return real[2](dev, entry, *a)
 
     dmode0, every0 = delta.DELTA_MODE, delta.RESOLVE_FULL_EVERY
     delta.configure(mode="off")
@@ -1641,7 +1813,7 @@ def phase_group(captured, device=None):
                 packer.solve_block_core(*args), packer.solve_block_core_plain(*args))
     log(f"group solver: solve_block and solve_block_core bit-identical to the plain versions on the "
         f"workload's groups (G={G}, R+K={group_bools.shape[1]}, I={engine.num_instances})")
-    packer.solve_block_scatter, packer.delta_finalize = scatter_shim, finalize_shim
+    packer.delta_pass, packer.delta_finalize, packer.launch = pass_shim, finalize_shim, launch_shim
     try:
         feas.reset_launch_counts()
         packer.reset_launch_counts()
@@ -1664,24 +1836,27 @@ def phase_group(captured, device=None):
             g = packer.encode_pods_for_packer(engine, r, q)
             s0 = delta.delta_counters()
             l0 = _count_launches()
+            entries.clear()
             t0 = time.perf_counter()
             got = solver.solve(g)
             ms = (time.perf_counter() - t0) * 1e3
             s1 = delta.delta_counters()
             per = {k: v - l0[k] for k, v in _count_launches().items() if v != l0[k]}
+            per_entry = dict(entries)
             want = uncounted(solver._solve_full, g)
             assert all(np.array_equal(a, b) for a, b in zip(got, want)), f"group {label}: delta != full"
             trace.append((label, res.last_mode, g.membership.shape[0],
                           s1["delta_groups_solved"] - s0["delta_groups_solved"],
-                          s1["delta_groups_reused"] - s0["delta_groups_reused"], ms, per))
+                          s1["delta_groups_reused"] - s0["delta_groups_reused"], ms, per, per_entry))
         launches = _count_launches()
         counters = {k: v - c0.get(k, 0) for k, v in delta.delta_counters().items() if v != c0.get(k, 0)}
     finally:
-        packer.solve_block_scatter, packer.delta_finalize = real
+        packer.delta_pass, packer.delta_finalize, packer.launch = real
         delta.configure(mode=dmode0, resolve_full_every=every0)
-    for label, mode, groups, solved, reused, ms, per in trace:
+    for label, mode, groups, solved, reused, ms, per, per_entry in trace:
         log(f"group pass {label}: {mode}, {groups} groups, {solved} solved, {reused} reused, "
-            f"{ms:.2f} ms wall (a warm pass's self-check included), launches {json.dumps(per)}")
+            f"{ms:.2f} ms wall (a warm pass's self-check included), launches {json.dumps(per)}, "
+            f"C entries {json.dumps(per_entry)}")
     log(f"group solver: full solve {int(full[1].sum())}/{G} groups feasible, "
         f"{int(full[2].sum())} nodes, {full_ms:.2f} ms wall; counters {json.dumps(counters)}; "
         f"launches {json.dumps(launches)}")
@@ -1690,19 +1865,31 @@ def phase_group(captured, device=None):
     checks = counters.get("delta_selfchecks_identical", 0)
     assert checks == 2 and counters.get("delta_selfchecks_divergent", 0) == 0
     # the path's own launches: the full solve and each self-check one
-    # solve_block; each pass with a frontier one solve_block_scatter (B10
-    # and B11 in one launch); every pass delta_finalize; nothing else of
-    # the group kernels: no membership or offering_reduce beside a block
-    # solve, no solve_block_core, no delta_scatter
+    # solve_block; each pass with a frontier one delta_pass (B10, B11 and
+    # B12 in one kt_group_solve launch) and no delta_finalize; each pass
+    # without one delta_finalize alone; nothing else of the group kernels:
+    # no membership or offering_reduce beside a block solve, no
+    # solve_block_core, solve_block_scatter or delta_scatter
     frontier = sum(1 for t in trace if t[3])
-    want = {"solve_block": 1 + checks, "solve_block_scatter": frontier, "delta_finalize": len(trace),
-            "solve_block_core": 0, "delta_scatter": 0, "membership": 0, "offering_reduce": 0,
-            "cube": 0}
+    want = {"solve_block": 1 + checks, "delta_pass": frontier, "delta_finalize": len(trace) - frontier,
+            "solve_block_scatter": 0, "solve_block_core": 0, "delta_scatter": 0, "membership": 0,
+            "offering_reduce": 0, "cube": 0}
     got = {name: launches[name] for name in want}
     assert got == want, f"group path launches {got}, expected {want}"
-    # B10's and B11's operands on the path: the frontier's group rows, and
-    # the core rows they solve to scattered at its slots
-    core, slots, gb, gi, *cat = captured["solve_block_scatter"]
+    for label, mode, groups, solved, reused, ms, per, per_entry in trace:
+        check = per.get("solve_block", 0)  # the pass's self-check
+        rule = ({"delta_pass": 1, "solve_block": check} if solved else
+                {"delta_finalize": 1, "solve_block": check})
+        assert {k: v for k, v in per.items() if v} == {k: v for k, v in rule.items() if v}, \
+            f"group pass {label}: launches {per}"
+        assert per_entry == {k: v for k, v in (("kt_group_solve", per.get("delta_pass", 0) + check),
+                                               ("kt_delta_finalize", per.get("delta_finalize", 0))) if v}, \
+            f"group pass {label}: C entries {per_entry}"
+    # the frontier's operands on the path, and B10's and B11's from them:
+    # the frontier's group rows, and the core rows they solve to scattered
+    # at its slots
+    core, slots, gb, gi, order, counts, *cat = captured["delta_pass"]
+    captured["solve_block_scatter"] = (core, slots, gb, gi, *cat)
     captured["solve_block_core"] = (gb, gi, *cat)
     captured["delta_scatter"] = (core, slots, packer.solve_block_core_plain(gb, gi, *cat))
     return launches
@@ -1927,8 +2114,10 @@ def timing_entries(rows, cube, launches, label, phase3=None):
 
 
 def scan_entries(uid_args, scan, prefix_scan, launches, plain):
-    """uid_project on the main path's famu_ok inputs (yardstick: the
-    reference's f32 matmul form); solve_scan on the main path's operands
+    """uid_project (its factored form) on the main path's famu_ok inputs
+    (yardstick: the reference's f32 matmul form on the product mask, built
+    outside the timing), with its host time by part and ptxas's report;
+    solve_scan on the main path's operands
     (the wrapper's ms, the kernel's device ms, steps and us per step, the
     bound), checked and set against its plain version on the same operands
     (one run of the plain loop, ~40 s at 50k pods), and timed on the 5k
@@ -1936,21 +2125,26 @@ def scan_entries(uid_args, scan, prefix_scan, launches, plain):
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import packer
 
-    onehot, mask = uid_args
-    got, want = feas.uid_project(onehot, mask), feas.uid_project_plain(onehot, mask)
-    check_equal("uid_project on the main path's inputs", got, want)
+    onehot, tmpl, fam = uid_args
+    run = lambda: feas.uid_project_factored(onehot, tmpl, fam)  # noqa: E731
+    got, want = run(), feas.uid_project_factored_plain(onehot, tmpl, fam)
+    check_equal("uid_project_factored on the main path's inputs", got, want)
     U, I = onehot.shape
-    R = mask.numel() // I
-    # word ops the function needs: one OR per 32-type word of each (row,
-    # uid) pair, the count the feasibility entries use
+    R = tmpl.shape[0] * fam.shape[0]
+    prod = (tmpl[:, None, :] & fam[None, :, :]).reshape(R, I).float()
+    # word ops the function needs: one AND of the two masks and one OR per
+    # 32-type word of each (row, uid) pair, the count the feasibility
+    # entries use
     uid = _entry(
-        "uid_project", launches, _max_abs_err(got, want),
-        cuda_ms(lambda: feas.uid_project(onehot, mask)),
-        cuda_ms(lambda: feas.uid_project_plain(onehot, mask), reps=5, warmup=1),
-        nbytes(onehot, mask, got), R * U * ((I + 31) // 32), WORD_OPS_PER_S,
-        cuda_ms(lambda: (mask.float() @ onehot.float().T) > 0.5),
-        _dev_sum(device_kernel_ms(lambda: feas.uid_project(onehot, mask), ["uid_project_kernel"])),
-        shapes=[list(onehot.shape), list(mask.shape)],
+        "uid_project", launches, _max_abs_err(got, want), cuda_ms(run),
+        cuda_ms(lambda: feas.uid_project_factored_plain(onehot, tmpl, fam), reps=5, warmup=1),
+        nbytes(onehot, tmpl, fam, got), R * U * ((I + 31) // 32) + R * ((I + 31) // 32),
+        WORD_OPS_PER_S, cuda_ms(lambda: (prod @ onehot.float().T) > 0.5),
+        _dev_sum(device_kernel_ms(run, ["uid_project_kernel"])),
+        shapes=[list(onehot.shape), list(tmpl.shape), list(fam.shape)],
+        library_call="f32 matmul of the product mask (built outside the timing) > 0.5",
+        breakdown=wrapper_breakdown(run), bare_launch_ms=bare_launch_ms(run),
+        ptxas={k: v for k, v in FEAS_PTXAS.items() if "uid_project_kernel" in k},
     )
 
     cfg, args = scan
@@ -2359,6 +2553,24 @@ def group_entries(captured, launches, phase3):
         breakdown=wrapper_breakdown(run), bare_launch_ms=bare_launch_ms(run), cap=int(core.shape[0]),
         replaces_composition="solve_block_core then delta_scatter_rows (B10 + B11)")
 
+    # the pass with a frontier as the path ran it: one launch; rewriting
+    # the same rows is idempotent, so repeated calls time it
+    core, slots, gb, gi, order, counts_, *cat = captured["delta_pass"]
+    c_k, c_p = core.clone(), core.clone()
+    counter = torch.zeros(1, dtype=torch.int32, device=core.device)
+    run = lambda: packer.delta_pass(c_k, slots, gb, gi, order, counts_, *cat, counter=counter)  # noqa: E731
+    Gb = order.shape[0]
+    add("delta_pass", run, lambda: packer.delta_pass_plain(c_p, slots, gb, gi, order, counts_, *cat), None,
+        [slots, gb, gi, order, counts_] + list(cat), ["group_solve_kernel", "Memset"],
+        solve_ops((gb, gi, *cat)) + Gb * 8, out_bytes=slots.shape[0] * 12 + Gb * 12 + Gb * 16,
+        breakdown=wrapper_breakdown(run), bare_launch_ms=bare_launch_ms(run), cap=int(core.shape[0]),
+        frontier=int(gb.shape[0]), groups=int(Gb),
+        bytes_note="the frontier's inputs and core rows written, the pass's core rows gathered and "
+                   "its finalized rows written",
+        replaces_composition="solve_block_scatter then delta_finalize (B10 + B11, then B12): 2 launches",
+        pass_timings=delta_group_pass_timings(captured["workload"]))
+    check_equal("delta_pass's core on the group path's inputs", c_k, c_p)
+
     # rewriting the same rows is idempotent, so repeated calls time it
     core, slots, rows = captured["delta_scatter"]
     c_k, c_p, c_l = core.clone(), core.clone(), core.clone()
@@ -2533,12 +2745,16 @@ BREAKDOWN_PARTS = {
 }
 
 
-def wrapper_breakdown(run, reps=50) -> dict:
+def wrapper_breakdown(run, reps=50, extra=()) -> dict:
     """Host microseconds of one call of `run` split by part: every part of
-    BREAKDOWN_PARTS and every kernel launch wrapped in a timer over `reps`
-    calls (each followed by a synchronize outside the timed call, after two
-    warmup calls). `rest_us` is the call's host time outside the parts
-    (Python, allocation, slicing). Parts never nest, so they add up."""
+    BREAKDOWN_PARTS, every (label, owner, attribute) of `extra` that the
+    owner has (a static method too) and every kernel launch wrapped in a
+    timer over `reps` calls (each followed by a synchronize outside the
+    timed call, after two warmup calls). `rest_us` is the call's host time
+    outside the parts (Python, allocation, slicing). Parts never nest, so
+    they add up."""
+    import inspect
+
     from karpenter_tpu_torch import mesh as mesh_mod
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import packer
@@ -2572,6 +2788,16 @@ def wrapper_breakdown(run, reps=50) -> dict:
             if real is not None:
                 saved.append((mods[mod], attr, real))
                 setattr(mods[mod], attr, timed(label, real))
+    for label, owner, attr in extra:
+        try:
+            static = inspect.getattr_static(owner, attr)
+        except AttributeError:
+            continue
+        saved.append((owner, attr, static))
+        if isinstance(static, staticmethod):
+            setattr(owner, attr, staticmethod(timed(label, static.__func__)))
+        else:
+            setattr(owner, attr, timed(label, static))
     for mod in (feas, packer):
         saved.append((mod, "launch", mod.launch))
         mod.launch = launch_timer(mod.launch)
@@ -2592,6 +2818,116 @@ def wrapper_breakdown(run, reps=50) -> dict:
     parts = {k: v / reps / 1e3 for k, v in sorted(acc.items())}
     host = total / reps / 1e3
     return {"host_us": host, "parts_us": parts, "rest_us": host - sum(parts.values())}
+
+
+def delta_pass_parts() -> tuple:
+    """wrapper_breakdown's parts of a delta group pass (GroupResidency.solve):
+    the groups' fingerprints, the frontier's group rows, the upload (one
+    copy; before: mesh.upload_rows and two plain copies), the catalog
+    operands and the copy back; the enqueue of each launch is timed
+    anyway."""
+    from karpenter_tpu_torch.ops import delta, packer
+
+    return (("fingerprints", delta.GroupResidency, "fingerprints"),
+            ("pack groups", packer, "_pack_groups"),
+            ("upload", delta, "_upload_pass"), ("upload", delta, "_upload"),
+            ("catalog args", packer.GroupSolver, "_catalog_args"),
+            ("copy back", delta, "_download"))
+
+
+def delta_group_pass_timings(workload, reps=40) -> dict:
+    """The delta group pass on the workload's groups through
+    GroupResidency.solve, the self-check off: cold (the residency dropped
+    first), count-only (the same groups, counts up) and new shapes (three
+    groups of a new request whose slots are forgotten before each call, so
+    each call solves them as a frontier). Each checked against the full
+    solve, then its host ms (median of `reps`, each ending in the copy
+    back), its device operations and device ms a call (profiler) and its
+    host time by part."""
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.ops import delta, packer
+
+    engine, reqs, requests = workload
+    solver = packer.GroupSolver(engine)
+    base = packer.encode_pods_for_packer(engine, reqs, requests)
+    more = packer.encode_pods_for_packer(engine, reqs + reqs[:5000], np.vstack([requests, requests[:5000]]))
+    extra_req = np.tile(requests[:1], (3, 1))
+    extra_req[:, engine.resource_dims[wk.RESOURCE_CPU]] = 3.0  # a request no shape has
+    new = packer.encode_pods_for_packer(engine, reqs + [reqs[0]] * 3, np.vstack([requests, extra_req]))
+    dmode0, every0 = delta.DELTA_MODE, delta.RESOLVE_FULL_EVERY
+    delta.configure(mode="on", resolve_full_every=0)
+    out = {}
+    try:
+        res = delta.group_residency(solver)
+        res.invalidate("chip-smoke")
+        solver.solve(base)
+        base_fps = set(res.fingerprints(base))
+        new_fps = [fp for fp in res.fingerprints(new) if fp not in base_fps]
+
+        def cold():
+            res.invalidate("chip-smoke")
+            return solver.solve(base)
+
+        def new_shapes():
+            for fp in new_fps:
+                res.slot_of.pop(fp, None)
+            return solver.solve(new)
+
+        for label, run, grouped in (("cold", cold, base), ("count-only", lambda: solver.solve(more), more),
+                                    ("new shapes", new_shapes, new)):
+            got, want = run(), solver._solve_full(grouped)
+            assert all(np.array_equal(a, b) for a, b in zip(got, want)), f"delta pass {label}: != full"
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                run()
+                times.append((time.perf_counter() - t0) * 1e3)
+            dev_ms = device_per_call(run)
+            G = int(grouped.counts.size)
+            out[label] = {"ms": statistics.median(times), "ms_min": min(times), "groups": G,
+                          "solved": {"cold": G, "count-only": 0, "new shapes": len(new_fps)}[label],
+                          "device_ms_by_kernel": dev_ms, "device_ops_per_call": _device_ops(dev_ms),
+                          "breakdown": wrapper_breakdown(run, extra=delta_pass_parts())}
+    finally:
+        delta.configure(mode=dmode0, resolve_full_every=every0)
+    return out
+
+
+def launch_floor(reps=2000, rounds=5) -> dict:
+    """The launch floor on this card: an empty kernel (csrc/feasibility.cu
+    kt_noop) launched `reps` times back to back between CUDA events (ms a
+    launch, median of `rounds`), its own device time from the profiler, and
+    the host time of one launch through device.launch and of the bare
+    ctypes call."""
+    from karpenter_tpu_torch.device import launch
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    entry = feas._lib().kt_noop
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for _ in range(100):
+        launch(dev, entry)
+    torch.cuda.synchronize()
+    span, host, bare = [], [], []
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            assert launch(dev, entry) == 0
+        host.append((time.perf_counter_ns() - t0) / reps / 1e3)
+        end.record()
+        end.synchronize()
+        span.append(start.elapsed_time(end) / reps)
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            entry(stream)
+        bare.append((time.perf_counter_ns() - t0) / reps / 1e3)
+        torch.cuda.synchronize()
+    dev_ms = device_kernel_ms(lambda: launch(dev, entry), ["noop_kernel"], reps=200)["noop_kernel"]
+    return {"device_ms": dev_ms, "back_to_back_ms": statistics.median(span),
+            "launch_host_us": statistics.median(host), "ctypes_host_us": statistics.median(bare),
+            "reps": reps, "rounds": rounds}
 
 
 # the kernels a sharded wrapper may launch, by the profiler's names: the
@@ -2961,6 +3297,76 @@ def sweep_turns(engine, dev) -> tuple:
     return runs, row_batch
 
 
+def famu_turns(dev) -> dict:
+    """B6 in one checkout, at the workload's famu_ok shape (T=1, F=64,
+    U=36, I=1008; seeded masks): the famu_ok build from the host masks
+    (fused._FusedSolve._famu_ok where the checkout has it, else the
+    composition its fused solve ran: three uploads, the product mask, then
+    uid_project) and its device work alone on masks already on the card
+    (uid_project_factored, else the product mask and uid_project)."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import fused
+
+    T, F, U, I = 1, 64, 36, 1008
+    onehot_d, tmpl_d, fam_d = random_famu_inputs(np.random.RandomState(9), T, F, U, I, dev)
+    onehot, tmpl, fam = (t.cpu().numpy() for t in (onehot_d, tmpl_d, fam_d))
+    masks = np.concatenate([onehot, fam, tmpl])
+    want = feas.uid_project_plain(onehot_d, tmpl_d[:, None, :] & fam_d[None, :, :])
+    if hasattr(fused._FusedSolve, "_famu_ok"):
+        build = lambda: fused._FusedSolve._famu_ok(masks, U, F, dev)[0]  # noqa: E731
+        alone = lambda: feas.uid_project_factored(onehot_d, tmpl_d, fam_d)  # noqa: E731
+    else:
+        def build():
+            o, f, t = (torch.from_numpy(a).to(dev) for a in (onehot, fam, np.ascontiguousarray(tmpl)))
+            return feas.uid_project(o, t[:, None, :] & f[None, :, :])
+
+        alone = lambda: feas.uid_project(onehot_d, tmpl_d[:, None, :] & fam_d[None, :, :])  # noqa: E731
+    return {
+        "B6 famu_ok build, host masks to famu_ok": (build, lambda: check_equal("B6 build", build(), want)),
+        "B6 famu_ok on the card's masks": (alone, lambda: check_equal("B6", alone(), want)),
+    }
+
+
+def delta_turns(full, dev) -> dict:
+    """B12 in one checkout: a delta pass's kernels on the workload's first
+    128 groups as the frontier into a 256-row core matrix and an order of
+    the 200 groups (the frontier's slots and 72 older rows, edge-padded to
+    256) with their counts: delta_pass where the checkout has it, else
+    solve_block_scatter then delta_finalize."""
+    from karpenter_tpu_torch.ops import packer
+
+    rng = np.random.RandomState(12)
+    Fr, cap, G = 128, 256, 200
+    gb, gi = full[0][:Fr].contiguous(), full[1][:Fr].contiguous()
+    cat = full[2:]
+    perm = rng.permutation(cap).astype(np.int32)
+    slots = _to(perm[:Fr], dev)
+    order = _to(np.pad(np.concatenate([perm[:Fr], rng.choice(perm[Fr:], size=G - Fr)]), (0, cap - G),
+                       mode="edge").astype(np.int32), dev)
+    counts = _to(np.pad(rng.randint(0, 900, size=G).astype(np.int32), (0, cap - G)), dev)
+    core0 = _to(np.stack([rng.randint(0, 1008, size=cap), rng.randint(0, 2, size=cap),
+                          rng.randint(0, 200, size=cap)], axis=1).astype(np.int32), dev)
+    want_core = core0.clone()
+    packer.solve_block_scatter_plain(want_core, slots, gb, gi, *cat)
+    want = packer.delta_finalize_plain(want_core, order, counts)
+    core = core0.clone()
+    if hasattr(packer, "delta_pass"):
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def run():
+            return packer.delta_pass(core, slots, gb, gi, order, counts, *cat, counter=counter)
+    else:
+        def run():
+            packer.solve_block_scatter(core, slots, gb, gi, *cat)
+            return packer.delta_finalize(core, order, counts)
+
+    def check():
+        check_equal("B12", run(), want)
+        check_equal("B12 core", core, want_core)
+
+    return {"B12 a delta pass's kernels (128-group frontier, 256 groups)": (run, check)}
+
+
 def _device_ops(dev_ms: dict) -> float:
     """Device operations a call (kernels and copies) from device_per_call's
     launches_seen."""
@@ -3016,6 +3422,8 @@ def turns_of(tree: str) -> dict:
     sweep_engine = CatalogEngine(build_catalog(), device=dev)
     sweep_runs, row_batch = sweep_turns(sweep_engine, dev)
     runs.update(sweep_runs)
+    runs.update(famu_turns(dev))
+    runs.update(delta_turns(full, dev))
     out = {"tree": tree, "device": torch.cuda.get_device_name(0), "kernels": {}}
     real = feas.launch
 
@@ -3063,6 +3471,10 @@ def turns_of(tree: str) -> dict:
         {"which": w, "ms": cuda_ms(f, rounds=41)}
         for w, f in (("kernel", scatter), ("index_put_", index_put), ("index_put_", index_put),
                      ("kernel", scatter))]
+    # the delta group pass through GroupResidency.solve (host clock; device
+    # operations and host parts as above)
+    for label, rec in delta_group_pass_timings((engine, reqs, requests)).items():
+        out["kernels"][f"delta group pass, {label}"] = rec
     return out
 
 
@@ -3174,6 +3586,7 @@ def main() -> int:
         kernels += group_entries(captured, group_launches, phase3)
         kernels += fits_stage_entries(captured, launches)
         kernels += mesh_entries(captured, mesh_launches, plain)
+        log(json.dumps({"launch_floor": launch_floor()}))
         assert len(kernels) == len(SOURCE) == len(ENTRY_POINTS), [k["name"] for k in kernels]
         for k in kernels:
             if k["name"] in OFF_PATH:

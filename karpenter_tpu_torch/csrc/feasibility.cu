@@ -17,7 +17,8 @@
 //                     offering half alone: :430 offering_reduce
 //   kt_cube_fused  <- karpenter_tpu/ops/feasibility.py:305-329 sharded_cube,
 //                     both halves of the cube for every shard of one card
-//   kt_uid_project <- karpenter_tpu/ops/feasibility.py:332 uid_project
+//   kt_uid_project <- karpenter_tpu/ops/feasibility.py:332 uid_project, from the
+//                     factored masks (its call in ops/fused.py:433-436)
 //   kt_fits_matrix_f32 / kt_fits_matrix_i32
 //                  <- karpenter_tpu/ops/feasibility.py:222 fits_matrix
 //   kt_stage_plane <- karpenter_tpu/ops/feasibility.py:384 stage_plane
@@ -429,33 +430,88 @@ __global__ void cube_fused_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B6: out[r, u] = some type i with uid_onehot[u, i] survives in mask[r, i].
+// B6: out[t, f, u] = some type i with uid_onehot[u, i] survives in tmpl[t, i]
+// AND fam[f, i] — the fused scan's famu_ok, straight from the factored
+// masks; with no second factor (F = 0) out[t, u] from tmpl alone, the
+// generic uid_project over any [..., I] mask.
 //
 // The JAX program counts surviving types per unique-allocatable row with an
-// f32 matmul and thresholds at 0.5; here it is the exact OR. One warp per
-// (row, u): the lanes read the uid's one-hot row and the mask row 32
-// consecutive bytes at a time (coalesced) and the warp votes. At the fused
-// solve's shape ([T*F, I] = [64, 1008] rows into 36 uids) that is 2304 warps
-// of 32 loads each, ~1 MB from L2: launch-bound.
-__global__ void uid_project_kernel(const uint8_t* __restrict__ onehot,
-                                   const uint8_t* __restrict__ mask,
-                                   uint8_t* __restrict__ out, int R, int U,
-                                   int I) {
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= static_cast<long long>(R) * U) return;  // whole warps exit together
-  const int r = static_cast<int>(warp / U), u = static_cast<int>(warp % U);
-  const uint8_t* oh = onehot + static_cast<size_t>(u) * I;
-  const uint8_t* m = mask + static_cast<size_t>(r) * I;
-  bool hit = false;
-  for (int i0 = 0; i0 < I; i0 += 32) {
-    const int i = i0 + lane;
-    hit = __any_sync(0xffffffffu, i < I && oh[i] && m[i]);
-    if (hit) break;
-  }
-  if (lane == 0) out[warp] = hit;
+// f32 matmul over the [T, F, I] product and thresholds at 0.5; here it is
+// the exact OR, and the product never leaves registers. One block of
+// UID_WARPS warps per output row (t, f). Each lane loads its share of the
+// row's two mask rows once, UID_KV loads of 16 bytes when I is a multiple
+// of 16 and the operands are 16-byte aligned (else of one byte), and ANDs
+// them in registers; then the block's warps walk the uids, UID_UNROLL
+// one-hot rows a warp at a time with all their loads issued before the
+// warp votes. A mask tile with no set bit is skipped whole. At the fused
+// solve's shape (T = 1, F = 64, U = 36, I = 1008: 2 loads of 16 bytes a
+// lane) that is 64 blocks, each reading its 2 KB of masks and the 36 KB
+// one-hot (L2-resident after the first blocks) in at most two rounds of
+// independent loads. ~100 KB a call: launch-bound. The design before (a
+// warp per output, a chain of 32 dependent byte loads between votes, the
+// [T, F, I] product built by a separate torch op) took 0.0084 ms of device
+// time (PERF.md).
+constexpr int UID_WARPS = 8;
+constexpr int UID_UNROLL = 4;
+
+__device__ __forceinline__ bool nonzero(uint4 v) { return (v.x | v.y | v.z | v.w) != 0u; }
+__device__ __forceinline__ bool nonzero(uint8_t v) { return v != 0; }
+__device__ __forceinline__ uint4 band(uint4 a, uint4 b) {
+  return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
 }
+__device__ __forceinline__ uint8_t band(uint8_t a, uint8_t b) { return a & b; }
+
+// V: the load unit (uint4 or a byte); KV: loads a lane per mask tile; N:
+// a row's length in V units; fam null: no second factor
+template <typename V, int KV>
+__global__ void __launch_bounds__(UID_WARPS * 32) uid_project_kernel(
+    const V* __restrict__ onehot, const V* __restrict__ tmpl, const V* __restrict__ fam,
+    uint8_t* __restrict__ out, int F, int U, int N) {
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const V* m1 = tmpl + static_cast<size_t>(fam != nullptr ? row / F : row) * N;
+  const V* m2 = fam != nullptr ? fam + static_cast<size_t>(row % F) * N : nullptr;
+  uint8_t* o = out + static_cast<size_t>(row) * U;
+  for (int u = threadIdx.x; u < U; u += UID_WARPS * 32) o[u] = 0;
+  __syncthreads();  // the zeros land before any warp sets a hit
+  for (int n0 = 0; n0 < N; n0 += 32 * KV) {
+    V m[KV];
+    bool any_m = false;
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      const int n = n0 + k * 32 + lane;
+      V v{};
+      if (n < N) {
+        v = m1[n];
+        if (m2 != nullptr) v = band(v, m2[n]);
+      }
+      m[k] = v;
+      any_m |= nonzero(v);
+    }
+    if (!__any_sync(0xffffffffu, any_m)) continue;  // no type of the tile survives
+    for (int u0 = warp * UID_UNROLL; u0 < U; u0 += UID_WARPS * UID_UNROLL) {  // warp-uniform
+      V h[UID_UNROLL][KV];
+#pragma unroll
+      for (int j = 0; j < UID_UNROLL; ++j) {
+#pragma unroll
+        for (int k = 0; k < KV; ++k) {
+          const int n = n0 + k * 32 + lane;
+          h[j][k] = V{};
+          if (u0 + j < U && n < N) h[j][k] = onehot[static_cast<size_t>(u0 + j) * N + n];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < UID_UNROLL; ++j) {
+        bool b = false;
+#pragma unroll
+        for (int k = 0; k < KV; ++k) b |= nonzero(band(h[j][k], m[k]));
+        if (__any_sync(0xffffffffu, b) && lane == 0 && u0 + j < U) o[u0 + j] = 1;
+      }
+    }
+  }
+}
+
+__global__ void noop_kernel() {}
 
 // ---------------------------------------------------------------------------
 // B4: fits[p, i] = all_d(req[p, d] <= alloc[i, d]) — resources.Fits: a
@@ -614,15 +670,36 @@ int kt_cube_fused(const void* mem, int mem_stride, const void* key_present, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-int kt_uid_project(const void* onehot, const void* mask, void* out, int R, int U,
-                   int I, void* stream) {
-  if (R == 0 || U == 0) return 0;
-  const long long n = static_cast<long long>(R) * U * 32;  // one warp per output
-  const dim3 block(256);
-  const dim3 grid(static_cast<unsigned>((n + 255) / 256));
-  uid_project_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(onehot), static_cast<const uint8_t*>(mask),
-      static_cast<uint8_t*>(out), R, U, I);
+// uid_onehot [U, I], tmpl [T, I] and, with F > 0, fam [F, I] bool; out
+// [T, F, U] bool (with F = 0: [T, U], fam unread). Returns the launch's
+// cudaError_t.
+int kt_uid_project(const void* onehot, const void* tmpl, const void* fam, void* out, int T,
+                   int F, int U, int I, void* stream) {
+  if (T < 0 || F < 0 || U < 0 || I < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = F > 0 ? static_cast<long long>(T) * F : T;
+  if (rows == 0 || U == 0) return 0;
+  if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool wide = I % 16 == 0 && aligned(onehot) && aligned(tmpl) && (F == 0 || aligned(fam));
+  const dim3 grid(static_cast<unsigned>(rows)), block(UID_WARPS * 32);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    uid_project_kernel<uint4, 2><<<grid, block, 0, s>>>(
+        static_cast<const uint4*>(onehot), static_cast<const uint4*>(tmpl),
+        F > 0 ? static_cast<const uint4*>(fam) : nullptr, static_cast<uint8_t*>(out), F, U,
+        I / 16);
+  } else {
+    uid_project_kernel<uint8_t, 8><<<grid, block, 0, s>>>(
+        static_cast<const uint8_t*>(onehot), static_cast<const uint8_t*>(tmpl),
+        F > 0 ? static_cast<const uint8_t*>(fam) : nullptr, static_cast<uint8_t*>(out), F, U, I);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel: the launch floor (device time and host enqueue) that
+// PERF.md sets beside the kernel table.
+int kt_noop(void* stream) {
+  noop_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,19 +9,23 @@
 //   kt_group_solve     the whole per-group solve, the feasibility cube's two
 //                      halves (feasibility.membership_all and
 //                      offering_reduce, B8) included, in one launch, in
-//                      three output modes: finalized rows for
+//                      four output modes: finalized rows for
 //                      solve_block_jit (:133-148, B9) and sharded_solve_block
 //                      (:217-240, B13: every shard of one card in one
 //                      launch); core rows for _solve_block_core (:162-182,
 //                      B10); core rows scattered into the delta residency's
 //                      core matrix for the frontier pass, which the
 //                      reference runs as B10 then delta_scatter_rows
-//                      (:185-193, B11).
+//                      (:185-193, B11); and the scatter followed by the
+//                      pass's finalize (delta_finalize, :196-208, B12) in
+//                      the launch's last block: a delta pass with a
+//                      frontier, B10 + B11 + B12 in one launch.
 //   kt_delta_scatter   delta_scatter_rows (B11) on its own: core[slots] =
 //                      rows, in place where the reference donates `core`.
-//   kt_delta_finalize  delta_finalize (:196-208, B12): core[order], then the
-//                      same finalize as kt_group_solve (one __device__
-//                      helper, so B9 and B12 cannot drift apart).
+//   kt_delta_finalize  delta_finalize (:196-208, B12) on its own, a delta
+//                      pass without a frontier: core[order], then the same
+//                      finalize as kt_group_solve (one __device__ helper,
+//                      so B9 and B12 cannot drift apart).
 //
 // What bounds them on this card: launch latency and, inside a group
 // solve's block, its chain of dependent loads from L2 (every group reads
@@ -129,6 +133,14 @@ __device__ __forceinline__ void warp_choice(float& v, int& i, int& p, int& any) 
 // a negative slot counts from the end and a slot outside [0, cap) is
 // dropped (the reference's core.at[slots].set(rows)); edge-padded duplicate
 // slots carry rows that solve to equal values, so their writes agree.
+// MODE_PASS scatters as MODE_SCATTER, then finalizes the pass in the last
+// block to finish (one slab only): each block's writing thread writes its
+// core row, fences (__threadfence) and counts itself in `counter`, which
+// the C entry zeroes on the launch's stream first; the block that counts
+// last gathers fout[j] = finalize(core[order[j]], counts[j]) for j < n_out,
+// an order entry counting from the end when negative and clamped into
+// [0, cap) (the reference's gather), reading the core past L1 (__ldcg) so
+// that it sees every other block's row.
 //
 // `stamps`, null on every solve path, else STAMP_HEAD + 3 G uint64: block 0
 // writes %globaltimer (ns) at its start and after phases 1, 2 (the first
@@ -142,7 +154,7 @@ constexpr int GROUP_WARPS = GROUP_THREADS / 32;
 constexpr int WINDOW_WORDS = 1024;  // offerings whose usable bits a block holds: 32,768
 constexpr int UNROLL = 4;           // offerings a thread tests at once in a window
 constexpr int STAMP_HEAD = 16;
-constexpr int MODE_FINALIZE = 0, MODE_CORE = 1, MODE_SCATTER = 2;
+constexpr int MODE_FINALIZE = 0, MODE_CORE = 1, MODE_SCATTER = 2, MODE_PASS = 3;
 // the most dynamic shared memory a block may take on sm_90 (227 KB), less
 // the static arrays
 constexpr size_t MAX_DYNAMIC_SMEM = 232448 - 1024 - WINDOW_WORDS * sizeof(uint32_t);
@@ -178,6 +190,28 @@ __device__ __forceinline__ bool any_bit(const uint32_t* bits, int a, int e) {
   return false;
 }
 
+// MODE_PASS's tail, run by the block that counted last: fout[j] =
+// finalize(core[order[j]], counts[j]) over every core row, the other
+// blocks' included, read past L1.
+__device__ void pass_finalize(const int32_t* core, const int32_t* __restrict__ order,
+                                           const int32_t* __restrict__ counts,
+                                           int32_t* __restrict__ fout, int n_out, int cap) {
+  __threadfence();
+  for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
+    int o = order[j];
+    if (o < 0) o += cap;
+    o = o < 0 ? 0 : (o > cap - 1 ? cap - 1 : o);
+    const int32_t* c = core + static_cast<size_t>(o) * 3;
+    finalize_row(__ldcg(c), __ldcg(c + 1) != 0, __ldcg(c + 2), counts[j],
+                 fout + static_cast<size_t>(j) * 4);
+  }
+}
+
+// PASS: the instance MODE_PASS launches; the other modes' instance holds
+// no code of the pass's tail, so the solve keeps its register allocation
+// (at the 32-register cap two blocks of 1024 a SM allow, the tail's
+// presence alone added spills and ~1.5 us a block, PERF.md).
+template <bool PASS>
 __global__ void __launch_bounds__(GROUP_THREADS, 2) group_solve_kernel(
     const uint8_t* __restrict__ group_bools, const int32_t* __restrict__ group_ints,
     const uint32_t* __restrict__ req_words, const uint32_t* __restrict__ offer_words,
@@ -185,11 +219,14 @@ __global__ void __launch_bounds__(GROUP_THREADS, 2) group_solve_kernel(
     const int32_t* __restrict__ type_start, const int32_t* __restrict__ alloc_q,
     const float* __restrict__ price, int32_t* __restrict__ out, const int32_t* __restrict__ slots,
     int cap, int mode, const SlabTable slabs, int R, int K, int O, int I, int D,
-    unsigned long long* __restrict__ stamps) {
+    unsigned long long* __restrict__ stamps, const int32_t* __restrict__ order,
+    const int32_t* __restrict__ counts, int32_t* __restrict__ fout, int n_out,
+    unsigned int* __restrict__ counter) {
   extern __shared__ int32_t smem[];
   __shared__ uint32_t bits[WINDOW_WORDS];  // usable offerings of the window
   __shared__ float s_v[GROUP_WARPS];
   __shared__ int s_i[GROUP_WARPS], s_p[GROUP_WARPS], s_any[GROUP_WARPS];
+  __shared__ bool s_last;  // MODE_PASS: this block counted last
   const int z = blockIdx.z;
   if (static_cast<int>(blockIdx.x) >= slabs.rows[z]) return;  // the whole block
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -296,42 +333,55 @@ __global__ void __launch_bounds__(GROUP_THREADS, 2) group_solve_kernel(
     s_any[warp] = any;
   }
   __syncthreads();
-  if (warp != 0) return;
-  best_v = lane < GROUP_WARPS ? s_v[lane] : __int_as_float(0x7f800000);
-  best_i = lane < GROUP_WARPS ? s_i[lane] : INT32_MAX_V;
-  best_p = lane < GROUP_WARPS ? s_p[lane] : 0;
-  any = lane < GROUP_WARPS ? s_any[lane] : 0;
-  warp_choice(best_v, best_i, best_p, any);
-  if (lane != 0) return;
-  stamp(stamps, timer, 4);
-  const int choice = best_i, ppn = best_p;
-  const bool feasible = any != 0;
-  const size_t r = static_cast<size_t>(slabs.dst[z]) + blockIdx.x;
-  if (mode == MODE_FINALIZE) {
-    finalize_row(choice, feasible, ppn, req[D], out + r * 4);
-  } else {
-    int32_t* o3 = out + r * 3;
-    if (mode == MODE_SCATTER) {
-      int slot = slots[r];
-      if (slot < 0) slot += cap;
-      o3 = (slot >= 0 && slot < cap) ? out + static_cast<size_t>(slot) * 3 : nullptr;
-    }
-    if (o3 != nullptr) {
-      o3[0] = choice;
-      o3[1] = feasible ? 1 : 0;
-      o3[2] = ppn;
+  if constexpr (!PASS) {
+    if (warp != 0) return;
+  }
+  if (warp == 0) {
+    best_v = lane < GROUP_WARPS ? s_v[lane] : __int_as_float(0x7f800000);
+    best_i = lane < GROUP_WARPS ? s_i[lane] : INT32_MAX_V;
+    best_p = lane < GROUP_WARPS ? s_p[lane] : 0;
+    any = lane < GROUP_WARPS ? s_any[lane] : 0;
+    warp_choice(best_v, best_i, best_p, any);
+    if (lane == 0) {
+      stamp(stamps, timer, 4);
+      const int choice = best_i, ppn = best_p;
+      const bool feasible = any != 0;
+      const size_t r = static_cast<size_t>(slabs.dst[z]) + blockIdx.x;
+      if (mode == MODE_FINALIZE) {
+        finalize_row(choice, feasible, ppn, req[D], out + r * 4);
+      } else {
+        int32_t* o3 = out + r * 3;
+        if (mode != MODE_CORE) {
+          int slot = slots[r];
+          if (slot < 0) slot += cap;
+          o3 = (slot >= 0 && slot < cap) ? out + static_cast<size_t>(slot) * 3 : nullptr;
+        }
+        if (o3 != nullptr) {
+          o3[0] = choice;
+          o3[1] = feasible ? 1 : 0;
+          o3[2] = ppn;
+        }
+      }
+      if constexpr (PASS) {
+        __threadfence();  // the row is visible to every block before it is counted
+        s_last = atomicAdd(counter, 1u) == static_cast<unsigned>(slabs.rows[0]) - 1u;
+      }
+      if (stamps != nullptr) {
+        const unsigned long long t_start = s_start, t_end = global_ns();
+        atomicMin(&stamps[10], t_start);
+        atomicMax(&stamps[11], t_end);
+        atomicMax(&stamps[12], t_start);
+        atomicMax(&stamps[13], t_end - t_start);
+        unsigned long long* mine = stamps + STAMP_HEAD + 3 * r;
+        mine[0] = t_start;
+        mine[1] = t_end;
+        mine[2] = sm_id();
+      }
     }
   }
-  if (stamps != nullptr) {
-    const unsigned long long t_start = s_start, t_end = global_ns();
-    atomicMin(&stamps[10], t_start);
-    atomicMax(&stamps[11], t_end);
-    atomicMax(&stamps[12], t_start);
-    atomicMax(&stamps[13], t_end - t_start);
-    unsigned long long* mine = stamps + STAMP_HEAD + 3 * r;
-    mine[0] = t_start;
-    mine[1] = t_end;
-    mine[2] = sm_id();
+  if constexpr (PASS) {
+    __syncthreads();
+    if (s_last) pass_finalize(out, order, counts, fout, n_out, cap);  // the whole block
   }
 }
 
@@ -381,38 +431,52 @@ extern "C" {
 // in int32), available [O] bool, type_start [I+1] int32 (non-decreasing,
 // type_start[I] <= O); alloc_q [I, D] int32; price [I] float32. mode 0: out
 // [*, 4] finalized rows; mode 1: out [*, 3] core rows; mode 2: out the
-// [cap, 3] core matrix, row j written at slots[j]. `slabs` holds n_slabs
-// (src, rows, dst) triples. stamps: null, or STAMP_HEAD + 3 * (rows
-// written) uint64 (see group_solve_kernel). Returns the launch's
-// cudaError_t.
+// [cap, 3] core matrix, row j written at slots[j]; mode 3: as mode 2, then
+// fout [n_out, 4] = the finalized core rows order [n_out] gathers, against
+// counts [n_out] int32, `counter` one uint32 of the caller's (zeroed here,
+// on `stream`, before the launch), one slab of at least one row. `slabs`
+// holds n_slabs (src, rows, dst) triples. stamps: null, or STAMP_HEAD + 3
+// * (rows written) uint64 (see group_solve_kernel). order, counts, fout
+// and counter are null outside mode 3. Returns the launch's cudaError_t.
 int kt_group_solve(const void* group_bools, const void* group_ints, const void* req_words,
                    const void* offer_words, const void* need_words, const void* available,
                    const void* type_start, const void* alloc_q, const void* price, void* out,
                    const void* slots, int cap, int mode, const int* slabs, int n_slabs, int R,
-                   int K, int O, int I, int D, void* stamps, void* stream) {
-  if (I <= 0 || D < 0 || R < 0 || K < 0 || O < 0 || mode < MODE_FINALIZE || mode > MODE_SCATTER ||
-      (mode == MODE_SCATTER && (slots == nullptr || cap < 0)))
+                   int K, int O, int I, int D, void* stamps, const void* order,
+                   const void* counts, void* fout, int n_out, void* counter, void* stream) {
+  if (I <= 0 || D < 0 || R < 0 || K < 0 || O < 0 || mode < MODE_FINALIZE || mode > MODE_PASS ||
+      (mode >= MODE_SCATTER && (slots == nullptr || cap < 0)) ||
+      (mode == MODE_PASS && (n_slabs != 1 || cap <= 0 || n_out < 0 || counter == nullptr ||
+                             (n_out > 0 && (order == nullptr || counts == nullptr || fout == nullptr)))))
     return static_cast<int>(cudaErrorInvalidValue);
   SlabTable table;
   int max_rows;
   if (!read_slabs(slabs, n_slabs, table, max_rows)) return static_cast<int>(cudaErrorInvalidValue);
-  if (max_rows == 0) return 0;
+  if (max_rows == 0) return mode == MODE_PASS ? static_cast<int>(cudaErrorInvalidValue) : 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == MODE_PASS) {
+    const cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned int), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const size_t shmem = group_smem_bytes(R, K, D);
   if (shmem > MAX_DYNAMIC_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = mode == MODE_PASS ? group_solve_kernel<true> : group_solve_kernel<false>;
   if (shmem > 48 * 1024 - WINDOW_WORDS * sizeof(uint32_t) - 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        group_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(max_rows, 1, n_slabs);
-  group_solve_kernel<<<grid, GROUP_THREADS, shmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, GROUP_THREADS, shmem, s>>>(
       static_cast<const uint8_t*>(group_bools), static_cast<const int32_t*>(group_ints),
       static_cast<const uint32_t*>(req_words), static_cast<const uint32_t*>(offer_words),
       static_cast<const uint32_t*>(need_words), static_cast<const uint8_t*>(available),
       static_cast<const int32_t*>(type_start), static_cast<const int32_t*>(alloc_q),
       static_cast<const float*>(price), static_cast<int32_t*>(out),
       static_cast<const int32_t*>(slots), cap, mode, table, R, K, O, I, D,
-      static_cast<unsigned long long*>(stamps));
+      static_cast<unsigned long long*>(stamps), static_cast<const int32_t*>(order),
+      static_cast<const int32_t*>(counts), static_cast<int32_t*>(fout), n_out,
+      static_cast<unsigned int*>(counter));
   return static_cast<int>(cudaGetLastError());
 }
 

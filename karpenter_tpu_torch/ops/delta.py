@@ -459,6 +459,9 @@ class GroupResidency:
 
     def __init__(self):
         self.core: Optional[torch.Tensor] = None  # [cap, 3] int32 on the engine's device
+        # one int32 on the same device: the block count of this residency's
+        # one-launch passes (packer.delta_pass), never shared with another
+        self.counter: Optional[torch.Tensor] = None
         self.cap = 0
         self.slot_of: dict[bytes, int] = {}
         self.gen = None
@@ -472,6 +475,7 @@ class GroupResidency:
     def invalidate(self, reason: str, _registry_sweep: bool = False) -> int:
         had = 1 if self.core is not None else 0
         self.core = None
+        self.counter = None
         self.cap = 0
         self.slot_of.clear()
         self.gen = None
@@ -483,24 +487,25 @@ class GroupResidency:
 
     @staticmethod
     def fingerprints(grouped) -> list[bytes]:
-        fps = []
-        mem = np.ascontiguousarray(grouped.membership)
-        req = np.ascontiguousarray(grouped.requests_q)
-        kp = np.ascontiguousarray(grouped.key_present)
-        for g in range(mem.shape[0]):
-            h = hashlib.blake2b(digest_size=16)
-            h.update(mem[g].tobytes())
-            h.update(req[g].tobytes())
-            h.update(kp[g].tobytes())
-            fps.append(h.digest())
-        return fps
+        """Each group's content key: blake2b over its membership, requests_q
+        and key_present bytes, hashed as one row of their concatenation
+        (the same digest as three updates; one call a group, on a slice of
+        one buffer)."""
+        rows = np.concatenate([
+            np.ascontiguousarray(a).view(np.uint8)
+            for a in (grouped.membership, grouped.requests_q, grouped.key_present)
+        ], axis=1)
+        G, w = rows.shape
+        buf = memoryview(rows.tobytes())
+        return [hashlib.blake2b(buf[g * w:(g + 1) * w], digest_size=16).digest() for g in range(G)]
 
     def solve(self, solver, grouped):
         """The delta group solve: frontier-only core solves scattered in
-        place into residency (one launch) + counts finalize. Bit-identical to
+        place into residency and the pass's counts finalize, one launch
+        (packer.delta_pass) after one upload; a pass without a frontier is
+        the finalize alone (packer.delta_finalize). Bit-identical to
         solver._solve_full by construction (same math on the same inputs;
         the periodic self-check enforces it anyway)."""
-        from karpenter_tpu_torch import mesh as mesh_mod
         from karpenter_tpu_torch.device import device_work
         from karpenter_tpu_torch.ops import packer
 
@@ -531,6 +536,8 @@ class GroupResidency:
                     grown[: self.cap] = self.core
                 self.core = grown
                 self.cap = new_cap
+            if self.counter is None:
+                self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
 
             mode = "warm" if len(missing) < G else "cold"
             if missing:
@@ -543,6 +550,14 @@ class GroupResidency:
                         self.slot_of[fps[g]] = len(self.slot_of)
                         frontier.append(g)
                 missing = frontier
+            # this pass's group order and counts, padded to the solve_block
+            # rung
+            order = np.array([self.slot_of[fp] for fp in fps], np.int32)
+            counts = grouped.counts.astype(np.int32)
+            Gb = _bucket_groups(e, G)
+            if Gb > G:
+                order = np.pad(order, (0, Gb - G), mode="edge")
+                counts = np.pad(counts, (0, Gb - G))
             if missing:
                 slots = np.array([self.slot_of[fps[g]] for g in missing], np.int32)
                 group_bools, group_ints = packer._pack_groups(grouped)
@@ -550,9 +565,9 @@ class GroupResidency:
                 sub_ints = group_ints[missing]
                 # pad the frontier to the solve_block geometry (pow2, floor 8)
                 Gf = len(missing)
-                Gb = _bucket_groups(e, Gf)
-                if Gb > Gf:
-                    pad = Gb - Gf
+                Gfb = _bucket_groups(e, Gf)
+                if Gfb > Gf:
+                    pad = Gfb - Gf
                     # EDGE padding on inputs AND slots: the pad rows solve to
                     # the exact values of the last real group, so the
                     # scatter's duplicate writes to its slot are same-value
@@ -560,23 +575,18 @@ class GroupResidency:
                     sub_bools = np.pad(sub_bools, ((0, pad), (0, 0)), mode="edge")
                     sub_ints = np.pad(sub_ints, ((0, pad), (0, 0)), mode="edge")
                     slots = np.pad(slots, (0, pad), mode="edge")
-                # the rows and slots in one staged upload; one launch solves
-                # the frontier's core rows into their slots (B10 + B11)
-                gb, gi, sl = mesh_mod.upload_rows((sub_bools, sub_ints, slots), dev)
-                packer.solve_block_scatter(self.core, sl, gb, gi, *solver._catalog_args())
+                # one upload; one launch solves the frontier's core rows into
+                # their slots and finalizes the pass (B10 + B11 + B12)
+                sl, gi, od, ct, gb = _upload_pass((slots, sub_ints, order, counts), sub_bools, dev)
+                out = packer.delta_pass(self.core, sl, gb, gi, od, ct, *solver._catalog_args(),
+                                        counter=self.counter)
+            else:
+                # no frontier: the gather and finalize alone (B12)
+                od, ct = _upload_pass((order, counts), None, dev)
+                out = packer.delta_finalize(self.core, od, ct)
             note_groups("solved", len(missing))
             note_groups("reused", G - len(missing))
-
-            # gather this pass's group order + finalize against its counts
-            order = np.array([self.slot_of[fp] for fp in fps], np.int32)
-            counts = grouped.counts.astype(np.int32)
-            Gb = _bucket_groups(e, G)
-            if Gb > G:
-                order = np.pad(order, (0, Gb - G), mode="edge")
-                counts = np.pad(counts, (0, Gb - G))
-            out = packer.delta_finalize(
-                self.core, _upload(order, dev), _upload(counts, dev)
-            ).cpu().numpy()[:G]
+            out = _download(out)[:G]
         self.last_mode = mode
         if mode == "warm":
             self.warm_passes += 1
@@ -615,8 +625,36 @@ class GroupResidency:
         }
 
 
-def _upload(a: np.ndarray, dev) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+def _upload_pass(ints: Sequence[np.ndarray], bools: Optional[np.ndarray], dev) -> tuple:
+    """A group pass's operands on `dev` in one plain copy: the int32 arrays
+    `ints` one after the other in one buffer, then the bool rows `bools`
+    (None: none); returned as views of the upload, in that order, each in
+    its own shape."""
+    ints = [np.asarray(a, dtype=np.int32) for a in ints]
+    n_int = sum(a.size for a in ints)
+    n_bool = 0 if bools is None else bools.size
+    host = np.empty(4 * n_int + n_bool, dtype=np.uint8)
+    flat = host[: 4 * n_int].view(np.int32)
+    at = 0
+    for a in ints:
+        flat[at:at + a.size] = a.ravel()
+        at += a.size
+    if bools is not None:
+        host[4 * n_int:] = bools.reshape(-1).view(np.uint8)
+    buf = torch.from_numpy(host).to(dev)
+    words = buf[: 4 * n_int].view(torch.int32)
+    out, at = [], 0
+    for a in ints:
+        out.append(words[at:at + a.size].view(a.shape))
+        at += a.size
+    if bools is not None:
+        out.append(buf[4 * n_int:].view(torch.bool).view(bools.shape))
+    return tuple(out)
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    """A pass's [Gb, 4] result to the host (the pass's one copy back)."""
+    return t.cpu().numpy()
 
 
 def _bucket_groups(engine, g: int) -> int:

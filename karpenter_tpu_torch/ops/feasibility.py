@@ -205,6 +205,13 @@ def uid_project_plain(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torc
     return (type_mask[..., None, :] & uid_onehot).any(dim=-1)
 
 
+def uid_project_factored_plain(uid_onehot: torch.Tensor, tmpl_mask: torch.Tensor,
+                               fam_mask: torch.Tensor) -> torch.Tensor:
+    """[T, F, U]: uid_project_plain of the product mask tmpl_mask[:, None]
+    & fam_mask[None], as the reference builds the fused scan's famu_ok."""
+    return uid_project_plain(uid_onehot, tmpl_mask[:, None, :] & fam_mask[None, :, :])
+
+
 def fits_matrix_plain(requests: torch.Tensor, allocatable: torch.Tensor) -> torch.Tensor:
     """fits[P, I] in plain torch, the JAX fits_matrix."""
     return (requests[:, None, :] <= allocatable[None, :, :]).all(dim=-1)
@@ -439,7 +446,9 @@ def _lib() -> ctypes.CDLL:
         lib.kt_cube_fused.restype = ci
         lib.kt_cube_fused.argtypes = [vp, ci, vp, ci] + [vp] * 8 + [ci] * 5 + [vp]
         lib.kt_uid_project.restype = ci
-        lib.kt_uid_project.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+        lib.kt_uid_project.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+        lib.kt_noop.restype = ci
+        lib.kt_noop.argtypes = [vp]
         for entry in (lib.kt_fits_matrix_f32, lib.kt_fits_matrix_i32):
             entry.restype = ci
             entry.argtypes = [vp] * 3 + [ci] * 3 + [vp]
@@ -738,9 +747,10 @@ def offering_reduce(
 
 def uid_project(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tensor:
     """surviving-unique-alloc projection: does ANY instance type in
-    `type_mask` map onto unique-allocatable row u? Builds the fused scan's
-    famu_ok operand (ops/fused.py); the scan kernel projects its own masks
-    in place (csrc/scan.cu).
+    `type_mask` map onto unique-allocatable row u? (B6, the reference's
+    signature; the fused scan's famu_ok comes from uid_project_factored,
+    the same kernel, and the scan kernel projects its own masks in place,
+    csrc/scan.cu.)
 
     uid_onehot: [U, I] bool — uid_of_type scattered one-hot
     type_mask:  [..., I] bool
@@ -748,16 +758,48 @@ def uid_project(uid_onehot: torch.Tensor, type_mask: torch.Tensor) -> torch.Tens
     """
     if _on_cpu(uid_onehot):
         return uid_project_plain(uid_onehot, type_mask)
-    dev = uid_onehot.device
     U, I = uid_onehot.shape
     lead = tuple(type_mask.shape[:-1])
+    _check("type_mask", type_mask, torch.bool, lead + (I,), uid_onehot.device)
+    return _uid_launch(uid_onehot, type_mask.view(-1, I), None, lead + (U,))
+
+
+def uid_project_factored(uid_onehot: torch.Tensor, tmpl_mask: torch.Tensor,
+                         fam_mask: torch.Tensor) -> torch.Tensor:
+    """The fused scan's famu_ok (ops/fused.py): does any instance type of
+    template t AND family f map onto unique-allocatable row u? uid_project
+    of tmpl_mask[:, None] & fam_mask[None], the product never built: on the
+    card one kt_uid_project launch reads both masks as they are.
+
+    uid_onehot: [U, I] bool; tmpl_mask: [T, I] bool; fam_mask: [F, I] bool
+    returns     [T, F, U] bool
+    """
+    if _on_cpu(uid_onehot):
+        return uid_project_factored_plain(uid_onehot, tmpl_mask, fam_mask)
+    T, F, U = tmpl_mask.shape[0], fam_mask.shape[0], uid_onehot.shape[0]
+    if F == 0:
+        return torch.empty((T, 0, U), dtype=torch.bool, device=uid_onehot.device)
+    return _uid_launch(uid_onehot, tmpl_mask, fam_mask, (T, F, U))
+
+
+def _uid_launch(uid_onehot, tmpl_mask, fam_mask, shape: tuple) -> torch.Tensor:
+    """One kt_uid_project launch into a new bool tensor of `shape`, laid out
+    [T, F, U]: the rows of tmpl_mask [T, I] ANDed with those of fam_mask
+    [F, I] (None: [T, U] from tmpl_mask alone)."""
+    dev = uid_onehot.device
+    U, I = uid_onehot.shape
+    T = tmpl_mask.shape[0]
     _check("uid_onehot", uid_onehot, torch.bool, (U, I), dev)
-    _check("type_mask", type_mask, torch.bool, lead + (I,), dev)
-    R = int(np.prod(lead, dtype=np.int64))
-    out = torch.empty(lead + (U,), dtype=torch.bool, device=dev)
-    rc = launch(dev, _lib().kt_uid_project, _ptr(uid_onehot), _ptr(type_mask), _ptr(out), R, U, I)
+    _check("tmpl_mask", tmpl_mask, torch.bool, (T, I), dev)
+    F = 0
+    if fam_mask is not None:
+        F = fam_mask.shape[0]
+        _check("fam_mask", fam_mask, torch.bool, (F, I), dev)
+    out = torch.empty(shape, dtype=torch.bool, device=dev)
+    rc = launch(dev, _lib().kt_uid_project, _ptr(uid_onehot), _ptr(tmpl_mask),
+                None if fam_mask is None else _ptr(fam_mask), _ptr(out), T, F, U, I)
     _raise_on(rc, "uid_project")
-    LAUNCHES["uid_project"] += bool(R and U)
+    LAUNCHES["uid_project"] += bool(T and U)
     return out
 
 

@@ -401,9 +401,15 @@ class _FusedSolve(ffd._DeviceSolve):
         tkP[:F_real, :G_real] = trans_kind
         tfP = np.zeros((Fb, Gb), dtype=np.int32)
         tfP[:F_real, :G_real] = trans_fam
-        fam_maskP = np.zeros((Fb, I), dtype=bool)
-        fam_maskP[:F_real] = fam_mask
-        uid_onehot = feas.uid_onehot_matrix(self.uid_of_type, U)
+        # the three [*, I] masks the card needs, in one host array for one
+        # copy: the uid one-hot (slot 20), fam_mask (slot 17) and tmpl_mask
+        # (famu_ok's first factor; slot 18 with limits); host views of it
+        # serve the host side
+        masks = np.zeros((U + Fb + T, I), dtype=bool)
+        masks[self.uid_of_type, np.arange(I)] = True  # feas.uid_onehot_matrix
+        masks[U:U + F_real] = fam_mask
+        masks[U + Fb:] = self.tmpl_mask
+        uid_onehot, fam_maskP = masks[:U], masks[U:U + Fb]
 
         dummy2 = np.zeros((1, 1), dtype=np.float64)
         dummyb = np.zeros((1, 1), dtype=bool)
@@ -433,7 +439,7 @@ class _FusedSolve(ffd._DeviceSolve):
         cfg = (T, has_nodes, has_limits)
         # the operands as host arrays, in the reference's layout; famu_ok
         # (slot 12) is built on the card below (B6) from tmpl_mask, fam_mask
-        # (slot 17) and uid_onehot (slot 20)
+        # (slot 17) and uid_onehot (slot 20), uploaded together
         host_ops = [
             pod_gi, np.zeros(Cb, dtype=np.int32), g_req, g_floor,
             self.uniq_alloc, self.usage0_f,
@@ -446,16 +452,11 @@ class _FusedSolve(ffd._DeviceSolve):
             pool_of_t, pool_rem0, pool_has, pool_bad,
         ]
         with device_work("fused scan"):
-            uid_onehot_d = torch.from_numpy(uid_onehot).to(dev)
-            fam_mask_d = torch.from_numpy(fam_maskP).to(dev)
-            tmpl_mask_d = torch.from_numpy(np.ascontiguousarray(self.tmpl_mask)).to(dev)
-            # uid survival per (template, fam): any instance type in
-            # tmpl_mask ∧ fam_mask maps onto the unique-alloc row (B6)
-            famu_ok = feas.uid_project(
-                uid_onehot_d, tmpl_mask_d[:, None, :] & fam_mask_d[None, :, :]
-            )
+            famu_ok, uid_onehot_d, fam_mask_d, tmpl_mask_d = self._famu_ok(masks, U, Fb, dev)
             dev_ops = list(host_ops)
             dev_ops[12], dev_ops[17], dev_ops[20] = famu_ok, fam_mask_d, uid_onehot_d
+            if has_limits:
+                dev_ops[18] = tmpl_mask_d
             args = convert.scan_operands_from_numpy(dev_ops, dev)
             if delta_mod.delta_enabled():
                 # the delta fingerprint hashes what the scan consumes, as
@@ -484,6 +485,18 @@ class _FusedSolve(ffd._DeviceSolve):
             (pools, pool_rem) if has_limits else None,
         )
         global_fused_solved()
+
+    @staticmethod
+    def _famu_ok(masks: np.ndarray, U: int, Fb: int, dev) -> tuple:
+        """famu_ok on `dev` from the [U + Fb + T, I] host masks (uid
+        one-hot, fam_mask, tmpl_mask): one copy, then one kernel (B6) — uid
+        survival per (template, fam): does any instance type in tmpl_mask ∧
+        fam_mask map onto the unique-alloc row. Returns famu_ok and the
+        three masks on `dev` (views of the one upload)."""
+        masks_d = torch.from_numpy(masks).to(dev)
+        uid_onehot_d, fam_mask_d, tmpl_mask_d = masks_d[:U], masks_d[U:U + Fb], masks_d[U + Fb:]
+        famu_ok = feas.uid_project_factored(uid_onehot_d, tmpl_mask_d, fam_mask_d)
+        return famu_ok, uid_onehot_d, fam_mask_d, tmpl_mask_d
 
     # -- delta residency dispatch --------------------------------------------
 

@@ -10,14 +10,17 @@ karpenter_tpu/ops/packer.py, with a hand-written kernel per JAX program:
    by integer packing math. `solve_block` (B9, the reference's
    `solve_block_jit`) and `solve_block_core` (B10) each launch
    kt_group_solve (csrc/packer.cu) once: the whole per-group solve, the
-   cube's halves included, in its finalize and core modes. The delta
-   residency (ops/delta.py) solves its frontier with `solve_block_scatter`,
-   the kernel's scatter mode: the core rows go straight into the resident
-   core matrix, B10 and `delta_scatter_rows` (B11) in one launch; B11's own
-   kernel serves the standalone wrapper, and `delta_finalize` (B12) the
-   gather. With a mesh, `solve_sharded` runs `sharded_solve_block` (B13):
-   equal group slabs, the catalog replicated, one kt_group_solve launch per
-   card for the whole per-group solve of its shards, the rows gathered.
+   cube's halves included, in its finalize and core modes. A delta pass
+   with a frontier (ops/delta.py) runs `delta_pass`, the kernel's pass
+   mode: the frontier's core rows go straight into the resident core
+   matrix at their slots, and the launch's last block gathers and
+   finalizes the pass's rows: B10, `delta_scatter_rows` (B11) and
+   `delta_finalize` (B12) in one launch. `solve_block_scatter` is the
+   scatter mode alone (B10 + B11); B11's and B12's own kernels serve their
+   standalone wrappers, B12's a pass without a frontier. With a mesh,
+   `solve_sharded` runs `sharded_solve_block` (B13): equal group slabs, the
+   catalog replicated, one kt_group_solve launch per card for the whole
+   per-group solve of its shards, the rows gathered.
 
 2. **The fused scan**: the monotone FFD scan itself — the host walk's
    queue, emptiest-first claim heap, existing-node scan pointers, claim
@@ -68,7 +71,7 @@ LAUNCHES: dict[str, int] = {
     # totals above, which count them by variant)
     "scan_resident": 0, "scan_global": 0,
     "solve_block": 0, "solve_block_core": 0, "solve_block_scatter": 0, "delta_scatter": 0,
-    "delta_finalize": 0,
+    "delta_finalize": 0, "delta_pass": 0,
     "sharded_solve_block": 0, "sharded_solve_scan": 0, "sharded_solve_scan_full": 0,
     "sharded_solve_scan_resume": 0,
 }
@@ -197,6 +200,13 @@ def delta_finalize_plain(core, order, counts) -> torch.Tensor:
     return _count_finalize_plain(rows[:, 0], rows[:, 1].bool(), rows[:, 2], counts)
 
 
+def delta_pass_plain(core, slots, group_bools, group_ints, order, counts, *catalog) -> torch.Tensor:
+    """A delta pass with a frontier in plain torch: solve_block_scatter_plain
+    (`core` written in place), then delta_finalize_plain. [Gb, 4] int32."""
+    solve_block_scatter_plain(core, slots, group_bools, group_ints, *catalog)
+    return delta_finalize_plain(core, order, counts)
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
 _lib_cache: list = []
@@ -207,7 +217,7 @@ def _group_lib() -> ctypes.CDLL:
         lib = kernel_library("packer")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.kt_group_solve.restype = ci
-        lib.kt_group_solve.argtypes = [vp] * 11 + [ci] * 2 + [vp] + [ci] * 6 + [vp] * 2
+        lib.kt_group_solve.argtypes = [vp] * 11 + [ci] * 2 + [vp] + [ci] * 6 + [vp] * 4 + [ci] + [vp] * 2
         lib.kt_delta_scatter.restype = ci
         lib.kt_delta_scatter.argtypes = [vp] * 3 + [ci] * 2 + [vp]
         lib.kt_delta_finalize.restype = ci
@@ -218,8 +228,10 @@ def _group_lib() -> ctypes.CDLL:
 
 # kt_group_solve's output modes (csrc/packer.cu): finalized [*, 4] rows (B9,
 # B13), core [*, 3] rows (B10), core rows scattered into the residency's
-# core matrix at their slots (the delta frontier: B10 and B11 in one launch)
-GROUP_MODES = {"finalize": 0, "core": 1, "scatter": 2}
+# core matrix at their slots (B10 and B11 in one launch), and that scatter
+# followed by the pass's finalize in the launch's last block (a delta pass
+# with a frontier: B10, B11 and B12)
+GROUP_MODES = {"finalize": 0, "core": 1, "scatter": 2, "pass": 3}
 # uint64 entries at the head of kt_group_solve's timestamp buffer (the
 # kernel's STAMP_HEAD): block 0's %globaltimer at its start and after the
 # pack, the first window of usable offerings, the type pass and the
@@ -298,11 +310,14 @@ def _group_operands(name: str, catalog: Sequence[torch.Tensor], dev) -> tuple:
 
 
 def _group_solve(name: str, mode: str, group_bools, group_ints, catalog, out=None, slots=None,
-                 stamps=None) -> torch.Tensor:
+                 stamps=None, order=None, counts=None, counter=None) -> torch.Tensor:
     """One kt_group_solve launch over every group row (a one-slab table),
     reading membership and key_present in place from group_bools. `mode`
-    "finalize" and "core" allocate the [G, 4] / [G, 3] output; "scatter"
-    writes the core rows into `out`, the [cap, 3] core matrix, at `slots`.
+    "finalize" and "core" allocate the [G, 4] / [G, 3] output and return it;
+    "scatter" writes the core rows into `out`, the [cap, 3] core matrix, at
+    `slots` and returns `out`; "pass" scatters so, then returns the [Gb, 4]
+    rows of `order` finalized against `counts` (the launch's last block
+    knows itself last by `counter`, one int32 the C entry zeroes first).
     `stamps`: None, or a [GROUP_STAMPS + 3 G] int64 tensor on the card for
     the kernel's timestamps. Counted under `name`."""
     dev = group_bools.device
@@ -311,10 +326,20 @@ def _group_solve(name: str, mode: str, group_bools, group_ints, catalog, out=Non
     G = group_bools.shape[0]
     _check(f"{name} group_bools", group_bools, torch.bool, (G, R + K), dev)
     _check(f"{name} group_ints", group_ints, torch.int32, (G, D + 1), dev)
-    if mode == "scatter":
+    fout, n_out, tail = None, 0, (None, None, None)
+    if mode in ("scatter", "pass"):
         cap = out.shape[0]
         _check(f"{name} core", out, torch.int32, (cap, 3), dev)
         _check(f"{name} slots", slots, torch.int32, (G,), dev)
+        if mode == "pass":
+            if G == 0:
+                raise KernelError(f"{name}: a pass without frontier rows is delta_finalize's")
+            n_out = order.shape[0]
+            _check(f"{name} order", order, torch.int32, (n_out,), dev)
+            _check(f"{name} counts", counts, torch.int32, (n_out,), dev)
+            _check(f"{name} counter", counter, torch.int32, (1,), dev)
+            fout = torch.empty((n_out, 4), dtype=torch.int32, device=dev)
+            tail = (_ptr(order), _ptr(counts), _ptr(fout))
     else:
         cap = 0
         out = torch.empty((G, 4 if mode == "finalize" else 3), dtype=torch.int32, device=dev)
@@ -325,12 +350,13 @@ def _group_solve(name: str, mode: str, group_bools, group_ints, catalog, out=Non
     err = launch(
         dev, _group_lib().kt_group_solve, _ptr(group_bools), _ptr(group_ints), *cat, _ptr(out),
         None if slots is None else _ptr(slots), cap, GROUP_MODES[mode], (ctypes.c_int * 3)(0, G, 0), 1,
-        R, K, O, I, D, None if stamps is None else _ptr(stamps),
+        R, K, O, I, D, None if stamps is None else _ptr(stamps), *tail, n_out,
+        None if counter is None else _ptr(counter),
     )
     if err != 0:
         raise KernelError(f"{name}: CUDA launch failed with cudaError {err}")
     LAUNCHES[name] += 1
-    return out
+    return out if fout is None else fout
 
 
 def solve_block(
@@ -402,10 +428,33 @@ def delta_scatter_rows(core: torch.Tensor, slots: torch.Tensor, rows: torch.Tens
     return core
 
 
+def delta_pass(core: torch.Tensor, slots: torch.Tensor, group_bools: torch.Tensor,
+               group_ints: torch.Tensor, order: torch.Tensor, counts: torch.Tensor, *catalog,
+               counter: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A delta pass with a frontier: the frontier's core rows written into
+    the resident [cap, 3] core matrix at `slots` (solve_block_scatter, IN
+    PLACE), then this pass's [Gb, 4] int32 rows gathered in `order` and
+    finalized against `counts` (delta_finalize). On the card one
+    kt_group_solve launch, pass mode (B10 + B11 + B12): the launch's last
+    block to finish runs the finalize. `counter`: one int32 on the card
+    that the launch counts its blocks in, the caller's own (a
+    GroupResidency keeps one; two launches queued at once must not share
+    one); None allocates one. The frontier needs at least one row (a pass
+    without one is delta_finalize's)."""
+    if _on_cpu(core):
+        return delta_pass_plain(core, slots, group_bools, group_ints, order, counts, *catalog)
+    if counter is None:
+        counter = torch.empty(1, dtype=torch.int32, device=core.device)
+    return _group_solve("delta_pass", "pass", group_bools, group_ints, catalog, out=core, slots=slots,
+                        order=order, counts=counts, counter=counter)
+
+
 def delta_finalize(core: torch.Tensor, order: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """[Gb, 4] int32: the resident core rows gathered in this pass's group
     order (B12), nodes and unschedulable finalized against its counts — the
-    same finalize as solve_block. Order entries must lie in [0, cap)."""
+    same finalize as solve_block. Order entries must lie in [0, cap). A
+    delta pass without a frontier launches it alone; one with a frontier
+    runs it inside delta_pass's launch."""
     if _on_cpu(core):
         return delta_finalize_plain(core, order, counts)
     dev = core.device
@@ -490,7 +539,8 @@ def _sharded_solve_block_cuda(mesh, group_bools, group_ints, catalog) -> torch.T
             others.append((slabs, o))
         err = launch(
             dev, _group_lib().kt_group_solve, gb, gi, *cat, _ptr(o), None, 0, GROUP_MODES["finalize"],
-            feas.slab_table(starts, slabs, dsts), len(slabs), R, K, O, I, D, None,
+            feas.slab_table(starts, slabs, dsts), len(slabs), R, K, O, I, D, None, None, None, None, 0,
+            None,
         )
         if err != 0:
             raise KernelError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -25,10 +25,10 @@ from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
 from karpenter_tpu_torch.device import KernelError  # noqa: E402
 from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    GROUP_KERNEL_SHAPES, SCAN_EDGE_CASES, SWEEP_ROW_CASES, core_inputs, cube_inputs, fits_inputs,
-    frontier_inputs, group_inputs, group_kernel_inputs, mesh_kernel_inputs, offering_inputs,
-    row_inputs, scan_edge_inputs, scan_inputs, stage_inputs, sweep_inputs, target_inputs, to_torch,
-    uid_inputs,
+    FAMU_F, FAMU_I, FAMU_T, FAMU_U, GROUP_KERNEL_SHAPES, PASS_CASES, SCAN_EDGE_CASES,
+    SWEEP_ROW_CASES, core_inputs, cube_inputs, famu_inputs, fits_inputs, frontier_inputs,
+    group_inputs, group_kernel_inputs, mesh_kernel_inputs, offering_inputs, pass_inputs, row_inputs,
+    scan_edge_inputs, scan_inputs, stage_inputs, sweep_inputs, target_inputs, to_torch, uid_inputs,
 )
 
 SEEDS = range(8)
@@ -150,6 +150,37 @@ def test_uid_project_matches_plain_on_card(cuda_device, seed):
     for lead in ((7,), (1,), (3, 5), (1, 64)):
         onehot, mask = (to_torch(a).to(cuda_device) for a in uid_inputs(seed, lead))
         assert torch.equal(tfeas.uid_project(onehot, mask), tfeas.uid_project_plain(onehot, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I", FAMU_I)
+@pytest.mark.parametrize("U", FAMU_U)
+@pytest.mark.parametrize("T", FAMU_T)
+def test_uid_project_factored_matches_plain_on_card(cuda_device, T, U, I):
+    """famu_ok from the factored masks (one kt_uid_project launch a call,
+    counted once) bit for bit against the plain product at every family
+    count; the masks also as row ranges of one buffer (the fused solve's
+    single upload) and at an odd byte offset (the kernel's byte path), and
+    the generic uid_project of the product through the same kernel."""
+    for F in FAMU_F:
+        uid_of_type, tmpl, fam = famu_inputs(T, F, U, I)
+        onehot = to_torch(tfeas.uid_onehot_matrix(uid_of_type, U)).to(cuda_device)
+        tm, fm = to_torch(tmpl).to(cuda_device), to_torch(fam).to(cuda_device)
+        want = tfeas.uid_project_factored_plain(onehot, tm, fm)
+        n0 = tfeas.LAUNCHES["uid_project"]
+        got = tfeas.uid_project_factored(onehot, tm, fm)
+        torch.cuda.synchronize()
+        assert tfeas.LAUNCHES["uid_project"] == n0 + 1
+        assert got.dtype == torch.bool and torch.equal(got, want), F
+        buf = torch.cat([onehot, fm, tm])
+        views = buf[:U], buf[U + F:], buf[U:U + F]
+        assert torch.equal(tfeas.uid_project_factored(*views), want)
+        flat = torch.zeros(buf.numel() + 1, dtype=torch.bool, device=cuda_device)
+        flat[1:] = buf.view(-1)
+        odd = flat[1:].view(buf.shape)  # one byte past the buffer's 16-byte alignment
+        assert torch.equal(tfeas.uid_project_factored(odd[:U], odd[U + F:], odd[U:U + F]), want)
+        prod = (tm[:, None, :] & fm[None, :, :]).contiguous()
+        assert torch.equal(tfeas.uid_project(onehot, prod), want)
 
 
 def _force(design: str):
@@ -563,3 +594,62 @@ def test_group_wrappers_refuse_bad_operands_on_card(cuda_device):
     with pytest.raises(KernelError):
         tpacker.solve_block(*wide)
     assert {**tfeas.LAUNCHES, **tpacker.LAUNCHES} == l0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PASS_CASES)
+@pytest.mark.parametrize("seed", range(4))
+def test_delta_pass_matches_plain_on_card(cuda_device, case, seed):
+    """A delta pass with a frontier (kt_group_solve's pass mode: the
+    scatter, then the finalize in the launch's last block) bit for bit
+    against solve_block_scatter_plain then delta_finalize_plain, the core
+    written in place; one launch, counted under delta_pass alone; and at
+    the wide shapes of the group kernels."""
+    core, slots, gb, gi, order, counts, *cat = (to_torch(a).to(cuda_device)
+                                                  for a in pass_inputs(case, seed))
+    want_core = core.clone()
+    want = tpacker.delta_pass_plain(want_core, slots, gb, gi, order, counts, *cat)
+    l0 = {**tfeas.LAUNCHES, **tpacker.LAUNCHES}
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = tpacker.delta_pass(core, slots, gb, gi, order, counts, *cat, counter=counter)
+    torch.cuda.synchronize()
+    assert _group_launches(l0) == {"delta_pass": 1}
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(core, want_core)
+    assert int(counter) == gb.shape[0]  # every block counted itself once
+    args = group_kernel_inputs(seed)
+    fcore, fslots, fargs = frontier_inputs(args, seed)
+    fgrp = [to_torch(a).to(cuda_device) for a in fargs]
+    fcore_d, fslots_d = to_torch(fcore).to(cuda_device), to_torch(fslots).to(cuda_device)
+    cap = fcore.shape[0]
+    order_d = to_torch(np.random.RandomState(seed).randint(0, cap, size=64).astype(np.int32)).to(cuda_device)
+    counts_d = to_torch(np.random.RandomState(seed).randint(0, 900, size=64).astype(np.int32)).to(cuda_device)
+    want_core = fcore_d.clone()
+    want = tpacker.delta_pass_plain(want_core, fslots_d, *fgrp[:2], order_d, counts_d, *fgrp[2:])
+    got = tpacker.delta_pass(fcore_d, fslots_d, *fgrp[:2], order_d, counts_d, *fgrp[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(fcore_d, want_core)
+
+
+@pytest.mark.cuda
+def test_delta_pass_counter_resets_on_card(cuda_device):
+    """Passes back to back on one counter, queued without a synchronize,
+    the counter left stale by hand before the first: the C entry zeroes it
+    on the stream before each launch, so each pass's last block is found
+    and each result equals the plain one; a frontier with no row and more
+    than one slab are refused."""
+    core, slots, gb, gi, order, counts, *cat = (to_torch(a).to(cuda_device)
+                                                  for a in pass_inputs("edge_padded", 2))
+    want_core = core.clone()
+    first = tpacker.delta_pass_plain(want_core, slots, gb, gi, order, counts, *cat)
+    counts2 = counts.flip(0).contiguous()
+    second = tpacker.delta_finalize_plain(want_core, order, counts2)
+    counter = torch.full((1,), 12345, dtype=torch.int32, device=cuda_device)
+    got1 = tpacker.delta_pass(core, slots, gb, gi, order, counts, *cat, counter=counter)
+    got2 = tpacker.delta_pass(core, slots, gb, gi, order, counts2, *cat, counter=counter)
+    torch.cuda.synchronize()
+    assert torch.equal(got1, first) and torch.equal(got2, second) and torch.equal(core, want_core)
+    with pytest.raises(KernelError):
+        tpacker.delta_pass(core, slots[:0], gb[:0], gi[:0], order, counts, *cat, counter=counter)
+    with pytest.raises(KernelError):
+        tpacker.delta_pass(core, slots, gb, gi, order, counts, *cat, counter=counter.long())

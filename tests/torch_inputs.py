@@ -524,3 +524,76 @@ def frontier_inputs(args: tuple, seed: int):
     core = np.stack([rng.randint(0, 50, size=cap), rng.randint(0, 3, size=cap),
                      rng.randint(-1, 12, size=cap)], axis=1).astype(np.int32)
     return core, slots, (gb, gi) + tuple(args[2:])
+
+
+# the fused scan's famu_ok at factored shapes (uid_project_factored, B6):
+# templates 1, 2 and 4; families 1, 7 (ragged) and 64 (the workload's);
+# uids 1, past 32 and past 64; types 1, 31 (rows of no 16-byte multiple)
+# and the workload's 1008
+FAMU_T = (1, 2, 4)
+FAMU_F = (1, 7, 64)
+FAMU_U = (1, 33, 70)
+FAMU_I = (1, 31, 1008)
+
+
+def famu_inputs(T: int, F: int, U: int, I: int, seed: int = 0):
+    """uid_of_type [I] (each uid owning a type while there are types for
+    it), tmpl_mask [T, I] and fam_mask [F, I] bool: the last template row
+    and the first family row all-false when there are two or more, sparse
+    families so that many (t, f, u) survive nothing."""
+    rng = np.random.RandomState(900 + 1000 * seed + 100 * T + 10 * F + U + I)
+    uid_of_type = rng.randint(0, U, size=I)
+    k = min(U, I)
+    uid_of_type[rng.permutation(I)[:k]] = rng.permutation(U)[:k]
+    tmpl = rng.rand(T, I) < 0.6
+    fam = rng.rand(F, I) < 0.08
+    if T > 1:
+        tmpl[-1] = False
+    if F > 1:
+        fam[0] = False
+    return uid_of_type.astype(np.int32), tmpl, fam
+
+
+# a delta pass with a frontier (delta_pass, B10 + B11 + B12): one frontier
+# row; fewer frontier rows than the pass's groups; edge-padded duplicate
+# slots; a negative slot (counting from the end); slots past either end
+# (dropped)
+PASS_CASES = ("one_row", "fewer_than_groups", "edge_padded", "negative_slot", "out_of_range_slot")
+
+
+def pass_inputs(case: str, seed: int):
+    """(core, slots, group_bools, group_ints, order, counts, *catalog) as the
+    group residency hands a pass with a frontier to delta_pass: a random
+    [cap, 3] core matrix, the frontier's group rows (group_inputs) and their
+    slots, and the pass's order over the core (the frontier's slots among
+    older ones, edge-padded to the pow2 rung, floor 8) with its counts
+    (zero on the padding)."""
+    args = group_inputs(seed)
+    rng = np.random.RandomState(1500 + 31 * seed + PASS_CASES.index(case))
+    gb, gi = args[0].copy(), args[1].copy()
+    if case == "one_row":
+        gb, gi = gb[:1], gi[:1]
+    G = gb.shape[0]
+    cap = 2 * G + 16
+    slots = rng.permutation(cap)[:G].astype(np.int32)
+    if case == "edge_padded":
+        Gb = max(8, 1 << (G - 1).bit_length())
+        gb = np.pad(gb, ((0, Gb - G), (0, 0)), mode="edge")
+        gi = np.pad(gi, ((0, Gb - G), (0, 0)), mode="edge")
+        slots = np.pad(slots, (0, Gb - G), mode="edge")
+    elif case == "negative_slot":
+        slots[0] -= cap
+    elif case == "out_of_range_slot":
+        slots[0] = cap + 3
+        if G > 1:
+            slots[-1] = -cap - 2
+    core = np.stack([rng.randint(0, 50, size=cap), rng.randint(0, 3, size=cap),
+                     rng.randint(-1, 12, size=cap)], axis=1).astype(np.int32)
+    written = [s % cap for s in slots if -cap <= s < cap]
+    g = len(written) + int(rng.randint(1, 6))
+    order = np.concatenate([written, rng.randint(0, cap, size=g - len(written))]).astype(np.int32)
+    rng.shuffle(order)
+    Gb = max(8, 1 << (g - 1).bit_length())
+    order = np.pad(order, (0, Gb - g), mode="edge")
+    counts = np.pad(rng.randint(0, 100, size=g).astype(np.int32), (0, Gb - g))
+    return (core, slots, gb, gi, order, counts) + tuple(args[2:])
