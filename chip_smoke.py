@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # phases 1-3 only (build + kernel checks)
-    python3 chip_smoke.py --mesh     # phases 1-2, 4 and 5b (two or more cards)
+    python3 chip_smoke.py --mesh     # phases 1-2, 4, 5c and 5b (two or more cards)
     python3 chip_smoke.py --turns TREE [TREE ...]   # the group and sweep
                                      # wrappers of each checkout, timed in turns
 
@@ -86,11 +86,33 @@ Phases, in order; any failure exits non-zero:
      there, one delta_finalize a count-only pass, and no membership,
      offering_reduce, solve_block_core, solve_block_scatter or
      delta_scatter; the C entries counted per pass agree;
+  5c. the topology-aware driver (ops/ffd_topo.py; run before 5b, which
+     reads its decisions): bench.py's topology leg at its own size (20,000
+     pods in 4 deployments app-0..3, 1 cpu / 1Gi, each zone-spread with
+     maxSkew 1, DoNotSchedule, over its own app label; the kwok catalog
+     x7; one NodePool; empty cluster) on a CUDA engine, one cold and 5 warm
+     solves: each one device solve served by _TopoSolve (its counter),
+     one `topo` decline of the fused scan, no fallback, no pod error, no
+     kt_solve_scan, kt_group_solve, kt_uid_project or kt_membership launch,
+     one kt_row_compat a row batch and one kt_cube a sweep (at least one in
+     the cold solve), counted by C entry point with the shapes logged; wall
+     ms of each solve and the warm p50; decisions equal across the solves
+     and to a device="cpu" engine's; the row batch and the sweep the path
+     gave the kernels held against their plain versions. Then a 2,000-pod
+     mixed case on the kwok catalog against the host loop (engine=None):
+     a topology leg (zone and hostname spread, required anti-affinity on
+     hostname, preferred node affinity, a second NodePool tainted
+     PreferNoSchedule) and a relax leg (preferred and multi-term node
+     affinity, no topology: the plain driver declines, the topology driver
+     serves), each saying which attempt served it; one JSON line
+     {"topology": {...}};
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
      mesh, on a 2-shard mesh (two cards when the machine has them, else
      cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
      cards: a scan solve cold and warm (decisions equal to phase
-     4's), a delta churn of 6 passes with one self-check (1 miss, then
+     4's), on the 2-shard mesh phase 5c's topology solve cold and warm
+     (decisions equal to phase 5c's, one kt_cube_fused per card a sweep),
+     a delta churn of 6 passes with one self-check (1 miss, then
      warm, decisions equal to delta off, one resident state per shard),
      the group solver's sharded solve of the 200 groups (equal to the
      unsharded solve_block); every replica's scan outputs equal to each
@@ -1550,6 +1572,376 @@ def phase_delta(captured, device=None):
     return launches
 
 
+# -- phase 5c: the topology-aware driver ----------------------------------------
+
+TOPO_PODS = 20_000  # bench.py's topology leg (topology_bench): 4 zone-spread deployments
+TOPO_WARM = 5
+TOPO_MIX_PODS = 2_000
+
+
+def topology_pods():
+    """bench.py's topology leg in the port's API: TOPO_PODS pending pods in four
+    deployments app-0..3, 1 cpu / 1Gi each, each zone-spread with maxSkew 1
+    and DoNotSchedule over a selector on its own app label."""
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.apis.core import LabelSelector, TopologySpreadConstraint
+    from karpenter_tpu_torch.utils.resources import parse_resource_list
+
+    requests = parse_resource_list({"cpu": "1", "memory": "1Gi"})
+    pods = []
+    for i in range(TOPO_PODS):
+        app = f"app-{i % 4}"
+        pod = _pending_pod(f"tp-{i:05d}", f"tp-uid-{i:05d}", {}, requests, 0.0)
+        pod.metadata.labels = {"app": app}
+        pod.spec.topology_spread_constraints = [TopologySpreadConstraint(
+            max_skew=1, topology_key=wk.LABEL_TOPOLOGY_ZONE, when_unsatisfiable="DoNotSchedule",
+            label_selector=LabelSelector(match_labels={"app": app}),
+        )]
+        pods.append(pod)
+    return pods
+
+
+def topology_mix(leg: str):
+    """The 2,000-pod mixed case: (pools, build_pods). `topology`: two
+    zone-spread deployments (app-0, app-1), a hostname-spread one (app-2),
+    one with required pod anti-affinity on hostname (app-3), pods with
+    preferred node affinity, plain pods, a tenth of the pods selecting
+    arm64; and beside the `default` NodePool (amd64 only) a second pool
+    `soft` tainted PreferNoSchedule, which the arm64 pods reach through the
+    relax ladder's toleration rung. `relax`: no topology and one untainted
+    pool; a quarter of the pods prefer a zone and a quarter require one of
+    two node-affinity terms, the first unsatisfiable: the plain driver
+    declines the shape and the topology driver's relax ladder serves it."""
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.apis.core import (
+        Affinity, LabelSelector, NodeAffinity, NodeSelectorTerm, PodAffinityTerm,
+        PodAntiAffinity, PreferredSchedulingTerm, Taint, TopologySpreadConstraint,
+    )
+    from karpenter_tpu_torch.utils.resources import parse_resource_list
+
+    zones = ["kwok-zone-1", "kwok-zone-2", "kwok-zone-3", "kwok-zone-4"]
+    cpus = ["250m", "500m", "1", "2"]
+
+    def term(values):
+        return NodeSelectorTerm(match_expressions=[
+            {"key": wk.LABEL_TOPOLOGY_ZONE, "operator": "In", "values": values}])
+
+    def preferred(i):
+        return Affinity(node_affinity=NodeAffinity(preferred=[
+            PreferredSchedulingTerm(weight=50, preference=term([zones[i % 4]]))]))
+
+    def spread(key, app):
+        return [TopologySpreadConstraint(
+            max_skew=1, topology_key=key, when_unsatisfiable="DoNotSchedule",
+            label_selector=LabelSelector(match_labels={"app": app}))]
+
+    def build_pods():
+        pods = []
+        for i in range(TOPO_MIX_PODS):
+            requests = parse_resource_list({"cpu": cpus[i % 4], "memory": "1Gi"})
+            kind = i % 10
+            sel = {wk.LABEL_ARCH: "arm64"} if leg == "topology" and kind == 9 else {}
+            pod = _pending_pod(f"mix-{i:05d}", f"mix-uid-{i:05d}", sel, requests, float(i % 7))
+            if leg == "relax":
+                if i % 4 == 0:
+                    pod.spec.affinity = preferred(i)
+                elif i % 4 == 1:
+                    pod.spec.affinity = Affinity(node_affinity=NodeAffinity(
+                        required=[term(["kwok-zone-9"]), term(zones[:2])]))
+            elif kind <= 2:
+                app = f"app-{kind % 2}"
+                pod.metadata.labels = {"app": app}
+                pod.spec.topology_spread_constraints = spread(wk.LABEL_TOPOLOGY_ZONE, app)
+            elif kind == 3:
+                pod.metadata.labels = {"app": "app-2"}
+                pod.spec.topology_spread_constraints = spread(wk.LABEL_HOSTNAME, "app-2")
+            elif kind == 4:
+                pod.metadata.labels = {"app": "app-3"}
+                pod.spec.affinity = Affinity(pod_anti_affinity=PodAntiAffinity(required=[
+                    PodAffinityTerm(topology_key=wk.LABEL_HOSTNAME,
+                                    label_selector=LabelSelector(match_labels={"app": "app-3"}))]))
+            elif kind <= 6:
+                pod.spec.affinity = preferred(i)
+            pods.append(pod)
+        return pods
+
+    if leg == "relax":
+        return [("default", None, [], [])], build_pods
+    amd64 = [{"key": wk.LABEL_ARCH, "operator": "In", "values": ["amd64"]}]
+    soft = [Taint(key="soft", value="lane", effect="PreferNoSchedule")]
+    return [("default", 10, amd64, []), ("soft", 5, [], soft)], build_pods
+
+
+def topology_env(pool_specs):
+    """A store, a cluster and the NodePools of `pool_specs` ((name, weight,
+    requirements, taints)), in weight order; an empty cluster."""
+    from karpenter_tpu_torch.apis.core import ObjectMeta
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+    from karpenter_tpu_torch.runtime.store import Store
+    from karpenter_tpu_torch.state.cluster import Cluster
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    clock = FakeClock()
+    store = Store(clock=clock)
+    cluster = Cluster(clock, store, cloud_provider=None)
+    pools = []
+    for name, weight, requirements, taints in sorted(pool_specs, key=lambda p: -(p[1] or 0)):
+        pool = NodePool(metadata=ObjectMeta(name=name))
+        if weight is not None:
+            pool.spec.weight = weight
+        pool.spec.template.spec.requirements = list(requirements)
+        pool.spec.template.spec.taints = list(taints)
+        pool.set_condition("Ready", "True")
+        store.create(pool)
+        pools.append(pool)
+    return clock, store, cluster, pools
+
+
+def topology_solve(engine, env, catalog, pods):
+    """One provisioning pass over `pods` (the same objects every pass, as
+    the bench's topology leg): a fresh Topology and Scheduler, the hostname
+    placeholders drawn from a fresh counter (they are decision-relevant
+    under topology). engine=None is the host loop. (results, wall ms)."""
+    from karpenter_tpu_torch.events.recorder import Recorder
+    from karpenter_tpu_torch.scheduler import nodeclaim as ncmod
+    from karpenter_tpu_torch.scheduler.scheduler import Scheduler
+    from karpenter_tpu_torch.scheduler.topology import Topology
+
+    clock, store, cluster, pools = env
+    its = {pool.metadata.name: catalog for pool in pools}
+    ncmod._hostname_counter = itertools.count(1)
+    t0 = time.perf_counter()
+    topology = Topology(store, cluster, [], pools, its, pods)
+    scheduler = Scheduler(store, pools, cluster, [], topology, its, [], Recorder(clock=clock), clock,
+                          engine=engine)
+    results = scheduler.solve(pods)
+    if engine is not None and engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return results, (time.perf_counter() - t0) * 1000.0
+
+
+def topo_counters() -> dict:
+    """The driver's counters: device solves and fallbacks, fused scan solves
+    and declines by reason, topology-driver solves."""
+    from karpenter_tpu_torch.ops import ffd, ffd_topo, fused
+
+    return {"device_solves": ffd.DEVICE_SOLVES, "device_fallbacks": ffd.DEVICE_FALLBACKS,
+            "fused_solves": fused.FUSED_SOLVES, "topo_solves": int(ffd_topo._TOPO_SOLVES_CTR.value()),
+            **{f"decline_{k}": v for k, v in fused.FUSED_DECLINES.items()}}
+
+
+def counters_since(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in topo_counters().items() if v != before.get(k, 0)}
+
+
+def served_by(moved: dict) -> str:
+    """The attempt that served a solve, from its counter deltas."""
+    if moved.get("device_solves", 0) != 1:
+        return "host loop"
+    if moved.get("topo_solves", 0) == 1:
+        return "_TopoSolve"
+    return "fused scan" if moved.get("fused_solves", 0) == 1 else "_DeviceSolve"
+
+
+def phase_topology(captured, device=None):
+    """The topology-aware driver on the card (ops/ffd_topo.py). bench.py's
+    topology leg at its own size (TOPO_PODS zone-spread pods, the kwok
+    catalog x7, one NodePool, an empty cluster) on a CUDA engine: one cold
+    and TOPO_WARM warm solves, each a device solve on _TopoSolve with one
+    `topo` decline of the fused scan, no fallback, no pod error, no scan,
+    group or uid_project launch, one kt_row_compat a row batch and one
+    kt_cube a sweep (at least one in the cold solve), shapes logged;
+    decisions equal in every solve and to a device="cpu" engine's; the row
+    batch and the sweep the path gave the kernels held against their plain
+    versions. Then the 2,000-pod mixed case, each leg against the host loop
+    (engine=None), saying which attempt served it. Keeps the decisions and
+    pods for phase 5b's mesh solve."""
+    from karpenter_tpu_torch.cloudprovider.kwok.instance_types import construct_instance_types
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import ffd, fused, packer
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    t_phase = time.perf_counter()
+    catalog = build_catalog()
+    pods = topology_pods()
+    env = topology_env([("default", None, [], [])])
+    real = (feas.req_rows_vs_targets, feas.cube_rows, feas.launch, packer.launch,
+            ffd._DeviceSolve.run)
+    entries: dict = {}  # C entry point -> launches
+    calls = {"row_batches": 0, "sweeps": 0}
+    shapes: dict = {}
+    declined = []
+    recording = [True]  # keep the CUDA engine's inputs only
+
+    def keep(name, args, size):
+        if recording[0] and (name not in captured or size(args) >= size(captured[name])):
+            captured[name] = args
+
+    def launch_shim(dev, entry, *args):
+        entries[entry.__name__] = entries.get(entry.__name__, 0) + 1
+        return real[2](dev, entry, *args)
+
+    def rows_shim(*args):
+        calls["row_batches"] += 1
+        keep("topo_row_compat", args, lambda a: a[0].shape[0])
+        shape = f"row_compat R={args[0].shape[0]} N={'+'.join(str(t[0].shape[0]) for t in args[1])}"
+        shapes[shape] = shapes.get(shape, 0) + 1
+        return real[0](*args)
+
+    def cube_shim(*args):
+        calls["sweeps"] += 1
+        keep("topo_cube", args, lambda a: a[0].shape[0] * (a[2].shape[0] + 1))
+        shape = f"cube P={args[0].shape[0]} R={args[2].shape[0]} R2={args[0].shape[1]}"
+        shapes[shape] = shapes.get(shape, 0) + 1
+        return real[1](*args)
+
+    def run_shim(self, timeout):
+        try:
+            return real[4](self, timeout)
+        except ffd._IneligibleShape:
+            declined.append(type(self).__name__)
+            raise
+
+    def solve_counted(engine, env_, catalog_, pods_):
+        """topology_solve with this solve's counters, launches by C entry,
+        engine calls, shapes and the attempts that declined."""
+        c0, l0 = topo_counters(), _count_launches()
+        entries.clear()
+        shapes.clear()
+        del declined[:]
+        calls.update(row_batches=0, sweeps=0)
+        results, ms = topology_solve(engine, env_, catalog_, pods_)
+        return results, ms, {
+            "counters": counters_since(c0),
+            "launches": {k: v - l0[k] for k, v in _count_launches().items() if v != l0[k]},
+            "entries": dict(entries), "calls": dict(calls), "shapes": dict(shapes),
+            "declined": list(declined),
+        }
+
+    feas.req_rows_vs_targets, feas.cube_rows = rows_shim, cube_shim
+    feas.launch = packer.launch = launch_shim
+    ffd._DeviceSolve.run = run_shim
+    try:
+        engine = CatalogEngine(catalog, device=device)  # None: the current CUDA device
+        on_card = engine.device.type == "cuda"
+        log(f"phase 5c: {len(pods)} zone-spread pods in 4 deployments, {engine.num_instances} "
+            f"types, {engine.num_offerings} offerings, engine on {engine.device}, fused "
+            f"{'on' if fused.fused_enabled(engine) else 'off'}")
+        feas.reset_launch_counts()
+        packer.reset_launch_counts()
+        runs = []
+        for k in range(1 + TOPO_WARM):
+            label = "cold" if k == 0 else f"warm {k}"
+            results, ms, seen = solve_counted(engine, env, catalog, pods)
+            runs.append((label, ms, results, seen))
+            moved, ent = seen["counters"], seen["entries"]
+            log(f"topology solve {label}: {ms:.1f} ms wall, {len(results.new_node_claims)} "
+                f"nodeclaims, {len(results.pod_errors)} pod errors, served by {served_by(moved)}, "
+                f"counters {json.dumps(moved)}, C launches {json.dumps(ent)}, engine calls "
+                f"{json.dumps(seen['calls'])}, shapes {json.dumps(seen['shapes'])}")
+            assert served_by(moved) == "_TopoSolve" and not moved.get("device_fallbacks"), \
+                f"{label}: not served by the topology driver: {moved}"
+            assert not results.pod_errors, f"{label}: {len(results.pod_errors)} pod errors"
+            if fused.fused_enabled(engine):
+                assert moved.get("decline_topo") == 1, f"{label}: no topo decline: {moved}"
+            if on_card:
+                assert all(ent.get(e, 0) == 0 for e in ("kt_solve_scan", "kt_group_solve",
+                                                        "kt_uid_project", "kt_membership")), ent
+                assert ent.get("kt_row_compat", 0) == seen["calls"]["row_batches"] and \
+                    ent.get("kt_cube", 0) == seen["calls"]["sweeps"], (ent, seen["calls"])
+                assert seen["launches"].get("row_compat", 0) == ent.get("kt_row_compat", 0) and \
+                    seen["launches"].get("cube", 0) == ent.get("kt_cube", 0), seen["launches"]
+                if k == 0:
+                    assert ent.get("kt_cube", 0) >= 1, "no kt_cube launch in the cold solve"
+        path_launches = _count_launches()
+        first = decisions(runs[0][2])
+        for label, _, results, _ in runs:
+            assert decisions(results) == first, f"topology solve {label}: decisions differ from cold"
+        warm = [r[1] for r in runs[1:]]
+        topo = {
+            "pods": len(pods), "nodeclaims": len(runs[0][2].new_node_claims),
+            "cold_ms": runs[0][1], "warm_ms": warm, "warm_p50_ms": statistics.median(warm),
+            "per_solve": [{"solve": label, "ms": ms, "entries": seen["entries"],
+                           "calls": seen["calls"], "shapes": seen["shapes"]}
+                          for label, ms, _, seen in runs],
+            "launches": {k: v for k, v in path_launches.items() if v},
+        }
+        recording[0] = False
+        cpu_results, cpu_ms, cpu_seen = solve_counted(CatalogEngine(catalog, device="cpu"), env,
+                                                      catalog, pods)
+        assert served_by(cpu_seen["counters"]) == "_TopoSolve", cpu_seen["counters"]
+        assert decisions(cpu_results) == first, "the CUDA and CPU engines decided differently"
+        topo["cpu_engine_ms"] = cpu_ms
+        log(f"topology: {len(pods)} pods, decisions of the {len(runs)} CUDA solves equal to each "
+            f"other and to a device=\"cpu\" engine's ({cpu_ms:.1f} ms); warm p50 "
+            f"{topo['warm_p50_ms']:.1f} ms, cold {runs[0][1]:.1f} ms")
+        captured["topo_decisions"], captured["topo_pods"] = first, pods
+        if on_card:
+            # one more warm solve, after the counts were read: device busy
+            # share and host time by function
+            topo["profiled"] = profile_run(lambda: topology_solve(engine, env, catalog, pods),
+                                           "profiled warm topology solve",
+                                           "warm_topology_profile.txt")
+        # the kernels at the shapes this path gave them, against their plain
+        # versions (these launches are the checks', not the path's)
+        if on_card:
+            table, targets, sk, vi = captured["topo_row_compat"]
+            packs = [feas.pack_sets(*t) for t in targets]
+            key_slots = feas.key_slot_words(sk, targets[0][0].shape[1])
+            cube = captured["topo_cube"]
+            assert table.is_cuda and cube[0].is_cuda, "the topology path's inputs are not on the card"
+            checks = {
+                "row_compat": (lambda: real[0](table, targets, sk, vi),
+                               lambda: feas.req_rows_vs_targets_plain(table, packs, key_slots, vi)),
+                "cube": (lambda: real[1](*cube), lambda: feas.cube_rows_plain(*cube)),
+            }
+            topo["kernels"] = {}
+            for name, (kernel, plain) in checks.items():
+                check_equal(f"{name} on the topology path", uncounted(kernel), plain())
+                topo["kernels"][name] = {"ms": uncounted(cuda_ms, kernel),
+                                         "plain_ms": cuda_ms(plain, reps=5, warmup=1)}
+            log(f"topology path kernels equal to their plain versions: row_compat "
+                f"{list(table.shape)} x {[t[0].shape[0] for t in targets]}, cube "
+                f"{[list(cube[i].shape) for i in (0, 2)]}; wrapper and plain ms "
+                f"{json.dumps(topo['kernels'])}")
+        # the mixed case on the kwok catalog, each leg against the host loop
+        small = construct_instance_types()
+        mix_engine = CatalogEngine(small, device=device)
+        topo["mix"] = {}
+        for leg in ("topology", "relax"):
+            pool_specs, build = topology_mix(leg)
+            host_results, host_ms, host_seen = solve_counted(None, topology_env(pool_specs), small,
+                                                             build())
+            assert served_by(host_seen["counters"]) == "host loop", host_seen["counters"]
+            results, ms, seen = solve_counted(mix_engine, topology_env(pool_specs), small, build())
+            moved = seen["counters"]
+            got = decisions(results)
+            pools_used = sorted({nc.nodepool_name for nc in results.new_node_claims})
+            log(f"mixed {leg} ({TOPO_MIX_PODS} pods): host loop {host_ms:.1f} ms, engine "
+                f"{ms:.1f} ms, served by {served_by(moved)} after declines {seen['declined']}, "
+                f"counters {json.dumps(moved)}, C launches {json.dumps(seen['entries'])}, "
+                f"{len(results.new_node_claims)} nodeclaims in pools {pools_used}, "
+                f"{len(results.pod_errors)} pod errors")
+            assert got == decisions(host_results), f"mixed {leg}: the engine and the host loop differ"
+            assert served_by(moved) == "_TopoSolve" and not moved.get("device_fallbacks"), moved
+            if leg == "relax":
+                assert seen["declined"] == ["_DeviceSolve"], seen["declined"]
+            else:
+                assert not seen["declined"] and pools_used == ["default", "soft"], \
+                    (seen["declined"], pools_used)
+            topo["mix"][leg] = {"host_loop_ms": host_ms, "engine_ms": ms, "served_by": served_by(moved),
+                                "declined": seen["declined"], "entries": seen["entries"],
+                                "nodeclaims": len(results.new_node_claims)}
+    finally:
+        feas.req_rows_vs_targets, feas.cube_rows = real[0], real[1]
+        feas.launch, packer.launch = real[2], real[3]
+        ffd._DeviceSolve.run = real[4]
+    topo["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"topology": topo}))
+    log(f"phase 5c took {topo['phase_s']:.1f} s")
+    return topo
+
+
 def solver_meshes(device=None):
     """The meshes phase_mesh drives: one device, and two shards — two
     cards when the machine has them, else the first card twice (a
@@ -1659,6 +2051,30 @@ def phase_mesh(captured, device=None):
                 results, ms = solve(engine, catalog, copy.deepcopy(pods))
                 assert decisions(results) == want, f"{label}: the scan solve decided unlike phase 4"
                 scan_ms.append(ms)
+            if n == 2:
+                # phase 5c's topology workload on the 2-shard mesh, cold then
+                # warm: decisions equal to the unsharded solves', one
+                # kt_cube_fused per card for each sweep
+                tenv = topology_env([("default", None, [], [])])
+                for tlabel in ("cold", "warm"):
+                    sw0, pd0, tc0 = len(sweeps), dict(per_device), topo_counters()
+                    tres, tms = topology_solve(engine, tenv, catalog, captured["topo_pods"])
+                    tmoved, tsweeps = counters_since(tc0), len(sweeps) - sw0
+                    fused_by_card = {
+                        str(d): per_device.get((str(d), "kt_cube_fused"), 0)
+                        - pd0.get((str(d), "kt_cube_fused"), 0)
+                        for d in dict.fromkeys(mesh.devices)
+                    }
+                    log(f"mesh {label}: topology solve {tlabel} of {len(captured['topo_pods'])} "
+                        f"pods {tms:.1f} ms, served by {served_by(tmoved)}, {tsweeps} sharded "
+                        f"sweeps, kt_cube_fused per card {json.dumps(fused_by_card)}")
+                    assert decisions(tres) == captured["topo_decisions"], \
+                        f"{label}: the topology solve differs from the unsharded one"
+                    assert served_by(tmoved) == "_TopoSolve" and not tmoved.get("device_fallbacks"), \
+                        tmoved
+                    assert tsweeps >= 1, f"{label}: no sharded sweep in the topology solve"
+                    if mesh.devices[0].type == "cuda":
+                        assert all(v == tsweeps for v in fused_by_card.values()), fused_by_card
             delta.configure(mode="on", resolve_full_every=MESH_CHURN_PASSES)
             delta.invalidate_all("chip-smoke")
             res = delta.scan_residency(engine)
@@ -1896,23 +2312,31 @@ def phase_group(captured, device=None):
 
 
 def profile_warm_solve(engine, catalog, pods):
-    """One more warm solve, after the launch counts were read: its device
-    busy time from torch.profiler and its host time by function from
-    cProfile (the top entries here, the full table under chiprun_out/)."""
+    """One more warm solve, after the launch counts were read, profiled
+    (profile_run)."""
+    solve_pods = copy.deepcopy(pods)
+    profile_run(lambda: solve(engine, catalog, solve_pods), "profiled warm solve",
+                "warm_solve_profile.txt")
+
+
+def profile_run(run, label, filename) -> dict:
+    """run() -> (results, wall ms) once under torch.profiler and cProfile:
+    its device busy time and its host time by function (the top entries
+    here, the full table in `filename` under the script's output
+    directory)."""
     import cProfile
     import io
     import pstats
 
     from torch.profiler import ProfilerActivity, profile
 
-    solve_pods = copy.deepcopy(pods)
     prof = cProfile.Profile()
     with profile(activities=[ProfilerActivity.CUDA]) as tprof:
         prof.enable()
-        _, ms = solve(engine, catalog, solve_pods)
+        _, ms = run()
         prof.disable()
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) or 0.0 for e in tprof.key_averages())
-    log(f"profiled warm solve: {ms:.1f} ms wall (cProfile on), device busy "
+    log(f"{label}: {ms:.1f} ms wall (cProfile on), device busy "
         f"{busy_us / 1e3:.4f} ms = {busy_us / 1e3 / ms:.6f} of wall")
     out = io.StringIO()
     pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(12)
@@ -1922,8 +2346,9 @@ def profile_warm_solve(engine, catalog, pods):
         log(f"  host {ln.strip()}")
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "warm_solve_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, filename), "w") as f:
         pstats.Stats(prof, stream=f).sort_stats("cumulative").print_stats(60)
+    return {"wall_ms": ms, "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / ms}
 
 
 def phase_identity(cuda="cuda"):
@@ -3538,6 +3963,8 @@ def main() -> int:
     if args.mesh:
         phase_main(captured)
         log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+        phase_topology(captured)
+        log(f"phase 5c done at {time.perf_counter() - t_start:.1f} s")
         mesh_launches = phase_mesh(captured)
         log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
         plain: dict = {}
@@ -3557,6 +3984,8 @@ def main() -> int:
         delta_launches = phase_delta(captured)
         group_launches = phase_group(captured)
         log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+        phase_topology(captured)
+        log(f"phase 5c done at {time.perf_counter() - t_start:.1f} s")
         mesh_launches = phase_mesh(captured)
         log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
         prefix_scan = phase_identity()

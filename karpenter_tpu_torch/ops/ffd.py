@@ -41,9 +41,9 @@ relaxation into per-claim specs), reserved capacity in BOTH offering modes
 all-volatile topo driver), and PreferNoSchedule relaxation. The host loop
 remains the semantics oracle. On a CUDA engine the whole walk runs first as
 the fused one-dispatch scan (ops/fused.py, csrc/scan.cu); batches it
-declines by shape run on the walk here. This package has no topology-aware
-driver yet: topology-engaged, PreferNoSchedule and strict-reserved solves,
-and shapes the plain driver declines, return None and run on the host loop.
+declines by shape run on the walk here. Topology-engaged, host-port/volume,
+hostname, PreferNoSchedule, and strict-reserved solves run the topo-aware
+driver (ops/ffd_topo.py).
 """
 
 from __future__ import annotations
@@ -119,7 +119,11 @@ def solver_cache_counters() -> dict:
     """Snapshot of the solver's cumulative cache/dispatch counters (delta
     two snapshots to attribute one solve): the plain driver's counters, the
     fused scan's (solves + decline taxonomy) and the delta residency's.
-    This package has no topology count tensors yet."""
+    Includes the topology count-gate counters (ops/topo_counts.py) so
+    solve spans can attribute a slow topo solve to oracle fallbacks /
+    tensor resyncs the same way they attribute cold joint/pack caches."""
+    from karpenter_tpu_torch.ops import topo_counts
+
     out = {
         "joint_cache_hits": JOINT_CACHE_HITS,
         "joint_cache_misses": JOINT_CACHE_MISSES,
@@ -129,6 +133,7 @@ def solver_cache_counters() -> dict:
         "device_solves": DEVICE_SOLVES,
         "device_fallbacks": DEVICE_FALLBACKS,
     }
+    out.update(topo_counts.gate_counters())
     # lazy import keeps the ffd<->fused module cycle one-directional at import
     from karpenter_tpu_torch.ops import fused as _fused
 
@@ -231,8 +236,8 @@ def set_memory_budget(limit_mib: int) -> None:
 def eligible(scheduler, pods: Sequence[Pod]) -> bool:
     """True when the device path can reproduce host semantics for this solve
     (solve-level gates; per-pod gates run once per GROUP during grouping).
-    Topology-engaged solves are additionally routed to the host loop inside
-    solve_device."""
+    Topology-engaged solves are additionally gated by ffd_topo.supported()
+    inside solve_device — spread-only solves run the topo-aware driver."""
     if scheduler.engine is None:
         return False
     if len(pods) < DEVICE_MIN_PODS:
@@ -240,7 +245,8 @@ def eligible(scheduler, pods: Sequence[Pod]) -> bool:
         # gate. An operator that forced the fused path AND incremental
         # delta solves has opted into device-resident state — tiny churn
         # batches are exactly the traffic that mode exists for, and
-        # bouncing them to the host walk would skip the warm scan-resume.
+        # bouncing them to the host walk would both skip the warm
+        # scan-resume and force a host resync of the count tensors.
         from karpenter_tpu_torch.ops import delta as delta_mod
         from karpenter_tpu_torch.ops import fused as fused_mod
 
@@ -580,8 +586,10 @@ class _Fallback(Exception):
 
 
 class _IneligibleShape(_Fallback):
-    """A pod shape the plain driver declines: the solve falls back to the
-    host loop."""
+    """A pod shape the current driver declines. From the plain driver this
+    triggers a retry on the topo driver (whose relax ladder handles
+    preferred/multi-term node affinity); from the topo driver it falls
+    back to the host loop."""
 
 
 class _NativeDriver:
@@ -2215,6 +2223,12 @@ def solve_device(scheduler, pods: Sequence[Pod], timeout: Optional[float] = 60.0
         DEVICE_FALLBACKS += 1
         _FALLBACKS_CTR.inc()
         return None
+    from karpenter_tpu_torch.ops import ffd_topo
+
+    if not ffd_topo.supported(scheduler):
+        DEVICE_FALLBACKS += 1
+        _FALLBACKS_CTR.inc()
+        return None
     from karpenter_tpu_torch.ops import fused as fused_mod
 
     topo = scheduler.topology
@@ -2223,42 +2237,56 @@ def solve_device(scheduler, pods: Sequence[Pod], timeout: Optional[float] = 60.0
         getattr(topo, "topology_groups", None)
         or getattr(topo, "inverse_topology_groups", None)
         # PreferNoSchedule pools: every pod may relax via the wildcard
-        # toleration rung — only a topology-aware driver drives the relax
-        # ladder, and this package has none yet
+        # toleration rung — only the topo driver drives the relax ladder
         or scheduler.preferences.tolerate_prefer_no_schedule
         # strict reserved mode: reservation exhaustion rejects candidates
         # non-monotonically and aborts pod scans — volatile paths only
         or strict_reserved
     ):
+        attempts = [ffd_topo._TopoSolve]
         if fused_mod.fused_enabled(scheduler.engine):
             # the fused scan never drives the relax ladder / volatile paths
             fused_mod.note_decline("topo")
-        DEVICE_FALLBACKS += 1
-        _FALLBACKS_CTR.inc()
-        return None
-    # the fused one-dispatch scan first (when enabled: on a CUDA engine by
-    # default), then the plain driver (native kernel). A scan decline or an
-    # ineligible shape moves on to the next attempt; other shapes the plain
-    # driver declines return to the host loop, the semantics oracle. Any
-    # other error, a kernel or device fault included, fails the solve.
-    attempts = list(fused_mod.maybe_attempts(scheduler)) + [_DeviceSolve]
+    else:
+        # fused one-dispatch scan first (when enabled: on a CUDA engine by
+        # default), then the plain driver (native kernel); shapes it
+        # declines that only need the relax ladder (preferred/multi-term
+        # node affinity) retry on the topo driver, which relaxes exactly
+        # like the host
+        attempts = list(fused_mod.maybe_attempts(scheduler)) + [
+            _DeviceSolve,
+            ffd_topo._TopoSolve,
+        ]
+    # A scan decline or an ineligible shape moves on to the next attempt,
+    # and on the last one to the host loop, the semantics oracle; so does a
+    # relaxed shape the topo driver declines (_Fallback). Any other error, a
+    # kernel or device fault included, aborts the attempt (topology counts
+    # and relaxed pods restored) and fails the solve: nothing covers a
+    # device fault with the host loop.
     done = False
-    solve = None
-    for cls in attempts:
-        solve = cls(scheduler, pods)
+    for idx, cls in enumerate(attempts):
+        last = idx == len(attempts) - 1
+        solve = None
         try:
+            solve = cls(scheduler, pods)
             solve.run(timeout)
             solve.emit()
             done = True
             break
         except (fused_mod._FusedDecline, _IneligibleShape):
-            # not scan-shaped — the host-walk driver is the designed slow
+            # not scan-shaped — the host-walk drivers are the designed slow
             # path (a decline is already metered by taxonomy reason)
             solve.abort()
-            continue
+            if not last:
+                continue
+            break
         except _Fallback:
             solve.abort()
             break
+        except Exception:
+            if solve is not None:
+                solve.abort()
+            raise
     if not done:
         DEVICE_FALLBACKS += 1
         _FALLBACKS_CTR.inc()

@@ -695,6 +695,58 @@ class GroupSolver:
         return out[:G, 0], out[:G, 1].astype(bool), out[:G, 2], out[:G, 3]
 
 
+def scatter_add_counts(
+    counts: np.ndarray, idx: Sequence[int], amount: int = 1
+) -> np.ndarray:
+    """Unbuffered scatter-add of `amount` into `counts` at `idx` (duplicate
+    indices accumulate, matching `jnp.ndarray.at[].add` semantics), growing
+    the vector geometrically when an index lands past the end. This is the
+    update primitive behind the topology count tensors (ops/topo_counts.py):
+    one placement batch scatters its (group, domain) increments in a single
+    call instead of a per-domain dict walk."""
+    idx = np.asarray(idx, dtype=np.int64)
+    if idx.size == 0:
+        return counts
+    hi = int(idx.max())
+    if hi >= counts.shape[0]:
+        grown = np.zeros(max(hi + 1, counts.shape[0] * 2), dtype=counts.dtype)
+        grown[: counts.shape[0]] = counts
+        counts = grown
+    np.add.at(counts, idx, amount)
+    return counts
+
+
+def merge_shard_group_counts(
+    shard_group_ids: Sequence[np.ndarray],
+    num_groups: int,
+    shard_amounts: Optional[Sequence[np.ndarray]] = None,
+) -> np.ndarray:
+    """Segment-reduce per-shard group-membership streams into ONE global
+    [num_groups] count vector — the claim-emission merge for a pod-axis-
+    sharded encode, where one group's pods may land on several shards and
+    each shard only knows its local tally. Ids past num_groups are padding
+    rows (the mesh-alignment remainder) and are MASKED OUT, never counted.
+    With `shard_amounts`, entry j of shard s contributes amounts[s][j]
+    instead of 1 (pre-reduced per-shard count tensors merge the same way).
+    Semantics match np.add.at over the concatenated streams — duplicates
+    accumulate, exactly like scatter_add_counts and the host dict walk.
+    NOTE: the shipped encode (encode_pods_for_packer) groups on the host
+    before sharding, so group counts arrive whole; this is the merge
+    primitive for encodes that split the raw pod stream across shards
+    (spec'd against the concatenated-scatter oracle in tests/test_mesh.py)."""
+    out = np.zeros(num_groups, dtype=np.int64)
+    for s, ids in enumerate(shard_group_ids):
+        ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+        amounts = (
+            np.ones(ids.shape[0], dtype=np.int64)
+            if shard_amounts is None
+            else np.asarray(shard_amounts[s], dtype=np.int64).reshape(-1)
+        )
+        keep = (ids >= 0) & (ids < num_groups)
+        np.add.at(out, ids[keep], amounts[keep])
+    return out
+
+
 def encode_pods_for_packer(
     engine: CatalogEngine,
     pods_requirements: Sequence[Requirements],

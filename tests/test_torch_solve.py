@@ -246,9 +246,9 @@ def test_solve_decisions_identical(reference_config, seed):
 
 
 def topology_solve(pkg: str, before_solve=lambda: None):
-    """A zone-spread workload: the JAX package runs its topology driver, the
-    port (no such driver yet) its host loop. `before_solve` runs after the
-    scheduler is built (which filters the templates through the engine)."""
+    """A zone-spread workload: each package runs its topology driver.
+    `before_solve` runs after the scheduler is built (which filters the
+    templates through the engine)."""
 
     def m(name):
         return importlib.import_module(f"{pkg}.{name}")
@@ -303,13 +303,13 @@ def topology_solve(pkg: str, before_solve=lambda: None):
     )
 
 
-def test_topology_solve_falls_back_to_host_loop_identically(reference_config):
-    """The JAX package runs its topology driver, the port returns to the
-    host loop: decisions agree."""
-    t0 = tffd.DEVICE_SOLVES
+def test_topology_solve_runs_topology_driver_identically(reference_config):
+    """Both packages run their topology driver on a zone-spread workload:
+    the port's solve counts as a device solve, and decisions agree."""
+    t0, f0 = tffd.DEVICE_SOLVES, tffd.DEVICE_FALLBACKS
     want = topology_solve("karpenter_tpu")
     got = topology_solve("karpenter_tpu_torch")
-    assert tffd.DEVICE_SOLVES == t0  # the port took the host loop
+    assert (tffd.DEVICE_SOLVES, tffd.DEVICE_FALLBACKS) == (t0 + 1, f0)
     assert got == want and got[0]
 
 
@@ -349,8 +349,12 @@ def test_kernel_fault_fails_the_solve(reference_config, monkeypatch):
 
 @pytest.mark.parametrize("fault", sorted(DEVICE_FAULTS))
 def test_device_fault_fails_the_host_loop(reference_config, monkeypatch, fault):
-    """On the host loop (a topology solve), a device fault in a claim's
-    instance-type filter fails the solve instead of becoming a pod error."""
+    """On the host loop (a topology solve with the topology driver gated
+    off), a device fault in a claim's instance-type filter fails the solve
+    instead of becoming a pod error."""
+    from karpenter_tpu_torch.ops import ffd_topo as tffd_topo
+
+    monkeypatch.setattr(tffd_topo, "supported", lambda scheduler: False)
     t0 = tffd.DEVICE_SOLVES
     with pytest.raises(KernelError):
         topology_solve("karpenter_tpu_torch", lambda: _break_cube(monkeypatch, fault))
