@@ -106,6 +106,27 @@ Phases, in order; any failure exits non-zero:
      affinity, no topology: the plain driver declines, the topology driver
      serves), each saying which attempt served it; one JSON line
      {"topology": {...}};
+  4c. the kernel observatory (phase_observatory; run after 5c, whose
+     20,000-pod topology leg it reuses with phase 4's workload and phase
+     5's churn): the registry reset, one cold and one warm solve of each
+     kind (scan, walk, delta churn, delta group pass, topology), then the
+     registry sealed and, each inside ktime.measure() and
+     registry().batch_scope(label), one warm scan solve, one walk solve, two
+     churn passes, one group pass with new shapes and one warm topology
+     solve: each batch's named dispatches equal the wrapper launches
+     LAUNCHES counted in the same window under DISPATCH_OF (a warm scan
+     solve is exactly feasibility.cube 1 and packer.solve_scan 1, a churn
+     pass one packer.solve_scan_resume, the group pass one
+     packer.delta_pass); no compile in the phase and no steady recompile;
+     every dispatch fenced with block_s > 0; each batch's device_busy_s
+     and host_stall_fraction printed (the topology solve's beside phase
+     5c's profiled busy share); sample_device_memory() equal to
+     torch.cuda.memory_allocated() and memory_stats(); a ladder derived
+     from the observed counts (the scan's 27-operand signature parsed); a
+     profiler capture (efficiency.profiler().arm, its worker thread) around
+     one warm solve whose trace.json parses, its kernel events counted; in
+     a child process, a fence after a kt_delta_finalize launch given a
+     bogus pointer raises KernelError. One JSON line {"observatory": {...}};
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
      mesh, on a 2-shard mesh (two cards when the machine has them, else
      cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
@@ -155,7 +176,9 @@ Phases, in order; any failure exits non-zero:
      (on the row batch and the sweep the main path gave them) also hold the
      host time by part and ptxas's report. Beside the kernels line, the
      launch floor: an empty kernel's device time and a no-op's host time
-     through device.launch;
+     through device.launch; and the dispatch floor: the same kernel through
+     a named ktime.dispatch, without and with a measure() context (which
+     fences every call), host us a call and device ms;
   8. last line {"ok": true, "device": {...}}.
 
 --turns times the group solver's and the catalog sweep's wrappers of one or
@@ -1879,9 +1902,9 @@ def phase_topology(captured, device=None):
         if on_card:
             # one more warm solve, after the counts were read: device busy
             # share and host time by function
-            topo["profiled"] = profile_run(lambda: topology_solve(engine, env, catalog, pods),
-                                           "profiled warm topology solve",
-                                           "warm_topology_profile.txt")
+            topo["profiled"] = captured["topo_profiled"] = profile_run(
+                lambda: topology_solve(engine, env, catalog, pods),
+                "profiled warm topology solve", "warm_topology_profile.txt")
         # the kernels at the shapes this path gave them, against their plain
         # versions (these launches are the checks', not the path's)
         if on_card:
@@ -1940,6 +1963,308 @@ def phase_topology(captured, device=None):
     log(json.dumps({"topology": topo}))
     log(f"phase 5c took {topo['phase_s']:.1f} s")
     return topo
+
+
+# the named dispatch under which each wrapper's launches are recorded, one
+# dispatch a launch (the names tests/test_torch_observatory.py holds against
+# the reference's); LAUNCHES names without one: uid_project (B6, no named
+# dispatch in the reference either) and the scan's design counters, which
+# count its launches a second time
+DISPATCH_OF = {
+    "row_compat": "catalog.row_compat", "cube": "feasibility.cube",
+    "membership": "feasibility.membership", "solve_scan": "packer.solve_scan",
+    "solve_scan_full": "packer.solve_scan_full", "solve_scan_resume": "packer.solve_scan_resume",
+    "solve_block": "packer.solve_block", "delta_pass": "packer.delta_pass",
+    "delta_finalize": "packer.delta_finalize",
+}
+UNNAMED_LAUNCHES = {"uid_project", "scan_resident", "scan_global"}
+# the __global__ kernels of csrc/*.cu, as a profiler trace names them
+PORT_KERNELS = ("row_compat_kernel", "membership_kernel", "cube_kernel", "cube_fused_kernel",
+                "uid_project_kernel", "fits_matrix_kernel", "stage_plane_kernel",
+                "group_solve_kernel", "delta_scatter_kernel", "delta_finalize_kernel",
+                "solve_scan_kernel", "solve_scan_resident_kernel", "noop_kernel")
+
+# run in a child process (a faulted context is lost for the rest of its
+# process): kt_delta_finalize launched with a bogus core pointer, then a
+# named dispatch returning its output, fenced under measure()
+FAULT_PROBE = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from karpenter_tpu_torch.device import KernelError, launch
+from karpenter_tpu_torch.ops import packer
+from karpenter_tpu_torch.tracing import kernel as ktime
+dev = torch.device("cuda", 0)
+order = torch.zeros(1, dtype=torch.int32, device=dev)
+counts = torch.ones(1, dtype=torch.int32, device=dev)
+out = torch.empty((1, 4), dtype=torch.int32, device=dev)
+torch.cuda.synchronize()
+
+def faulting():
+    rc = launch(dev, packer._group_lib().kt_delta_finalize, 16, order.data_ptr(),
+                counts.data_ptr(), out.data_ptr(), 1, 1)
+    assert rc == 0, f"the launch itself failed: cudaError {rc}"
+    return (out,)
+
+try:
+    with ktime.measure():
+        ktime.dispatch(faulting, kernel="chip_smoke.fault")
+except KernelError as e:
+    print(json.dumps({"raised": "KernelError", "message": str(e)[:300]}))
+    sys.exit(0)
+print(json.dumps({"raised": None}))
+sys.exit(1)
+"""
+
+
+def fault_probe() -> dict:
+    """The dispatch's fault rule on the card, in a child process: a fault
+    of a kernel's device work that surfaces at the fence is a KernelError."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", FAULT_PROBE, root], capture_output=True,
+                          text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    got = json.loads(lines[-1]) if lines else {}
+    assert proc.returncode == 0 and got.get("raised") == "KernelError", \
+        f"fault probe: exit {proc.returncode}, {proc.stdout[-2000:]} {proc.stderr[-2000:]}"
+    return got
+
+
+def phase_observatory(captured, device=None):
+    """Phase 4c: every launch of the main path through the named dispatch,
+    read back through the observatory (see the module docstring)."""
+    from karpenter_tpu_torch import device as devmod
+    from karpenter_tpu_torch.aot import ladder as ladder_mod
+    from karpenter_tpu_torch.aot import runtime as aotrt
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.observability import efficiency
+    from karpenter_tpu_torch.observability import kernels as kobs
+    from karpenter_tpu_torch.ops import delta, fused, packer
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+    from karpenter_tpu_torch.tracing import kernel as ktime
+
+    t_phase = time.perf_counter()
+    catalog = build_catalog()
+    pods = build_pods()
+    topo_pods_ = topology_pods()
+    topo_env = topology_env([("default", None, [], [])])
+    engines = {kind: CatalogEngine(catalog, device=device)
+               for kind in ("scan", "walk", "churn", "group", "topology")}
+    reqs, requests = packer_workload(engines["group"])
+    solver = packer.GroupSolver(engines["group"])
+    extra_req = np.tile(requests[:1], (3, 1))
+    extra_req[:, engines["group"].resource_dims[wk.RESOURCE_CPU]] = 3.0  # a request no shape has
+    group_inputs = [
+        (reqs, requests),
+        (reqs + reqs[:5000], np.vstack([requests, requests[:5000]])),
+        (reqs + [reqs[0]] * 3, np.vstack([requests, extra_req])),
+    ]
+    churn = [build_pods()]  # pod objects of their own: a solve marks its pods
+    for k in range(1, 4):
+        churn.append(churn[-1] + churn_pods(k))
+
+    def prepared(kind, k):
+        """The k-th solve of a kind with its inputs made (a copy of the
+        pods, a group encode), the mode set: a callable returning its wall
+        ms, so that a batch scope holds the solve alone."""
+        fused.FUSED_MODE = "off" if kind == "walk" else "on"
+        delta.configure(mode="on" if kind in ("churn", "group") else "off", resolve_full_every=0)
+        if kind in ("scan", "walk"):
+            solve_pods = copy.deepcopy(pods)
+            return lambda: solve(engines[kind], catalog, solve_pods)[1]
+        if kind == "churn":
+            return lambda: solve(engines[kind], catalog, churn[k])[1]
+        if kind == "group":
+            g = packer.encode_pods_for_packer(engines["group"], *group_inputs[k])
+
+            def group_pass():
+                t0 = time.perf_counter()
+                solver.solve(g)
+                return (time.perf_counter() - t0) * 1e3
+
+            return group_pass
+        return lambda: topology_solve(engines[kind], topo_env, catalog, topo_pods_)[1]
+
+    reg = kobs.registry()
+    builds0 = devmod.build_count()
+    mode0, dmode0, every0 = fused.FUSED_MODE, delta.DELTA_MODE, delta.RESOLVE_FULL_EVERY
+    plan = [("scan", 2), ("walk", 2), ("churn", 2), ("group", 2), ("topology", 2)]
+    measured = [("scan", 2), ("walk", 2), ("churn", 2), ("churn", 3), ("group", 2),
+                ("topology", 2)]
+    batches = []
+    try:
+        reg.reset()
+        # delta on for the churn and the group passes only; no self-check,
+        # so a pass is its own launches
+        delta.invalidate_all("chip-smoke")
+        for kind, warm in plan:
+            for k in range(warm):
+                prepared(kind, k)()
+        reg.seal()
+        for kind, k in measured:
+            label = f"{kind} {k}"
+            run = prepared(kind, k)
+            before = _count_launches()
+            with ktime.measure() as acc, reg.batch_scope(label) as batch:
+                ms = run()
+            launches = {n: v - before[n] for n, v in _count_launches().items() if v != before[n]}
+            batches.append((label, ms, dict(acc), batch, launches))
+        compiles = devmod.build_count() - builds0
+        snapshot = reg.debug_snapshot()
+        counts = reg.counts_snapshot()
+        steady_recompiles = reg.steady_recompiles()
+    finally:
+        fused.FUSED_MODE = mode0
+        delta.configure(mode=dmode0, resolve_full_every=every0)
+        delta.invalidate_all("chip-smoke")
+    out: dict = {"batches": {}}
+    for label, ms, acc, batch, launches in batches:
+        unnamed = {n: v for n, v in launches.items() if n not in DISPATCH_OF}
+        want = {DISPATCH_OF[n]: v for n, v in launches.items() if n in DISPATCH_OF}
+        entry = {
+            "wall_ms": ms, "dispatches": batch["dispatches"], "kernels": batch["kernels"],
+            "launches": launches, "fenced": batch["fenced"],
+            "device_busy_s": batch["device_busy_s"], "host_gap_s": batch["host_gap_s"],
+            "host_stall_fraction": batch["host_stall_fraction"], "enqueue_s": acc["enqueue_s"],
+            "block_s": acc["block_s"], "execute_s": acc["execute_s"],
+            "timeline": [(e["kernel"], e["enqueue_s"], e["block_s"]) for e in batch["timeline"]],
+        }
+        out["batches"][label] = entry
+        log(f"observatory {label}: {ms:.1f} ms wall, dispatches {json.dumps(batch['kernels'])}, "
+            f"launches {json.dumps(launches)}, device busy {batch['device_busy_s']:.6f} s, "
+            f"host stall fraction {batch['host_stall_fraction']}, block {acc['block_s']:.6f} s, "
+            f"enqueue {acc['enqueue_s']:.6f} s")
+        assert batch["kernels"] == want, f"{label}: dispatches {batch['kernels']}, launches {launches}"
+        assert set(unnamed) <= UNNAMED_LAUNCHES, f"{label}: launches without a dispatch {unnamed}"
+        assert batch["dispatches"] == batch["fenced"] == acc["dispatches"] > 0, (label, batch, acc)
+        assert acc["compiles"] == 0 and all(e["block_s"] > 0 for e in batch["timeline"]), \
+            f"{label}: compiles {acc['compiles']}, timeline {batch['timeline']}"
+    b = out["batches"]
+    assert b["scan 2"]["kernels"] == {"feasibility.cube": 1, "packer.solve_scan": 1}, b["scan 2"]
+    assert b["churn 2"]["kernels"].get("packer.solve_scan_resume") == 1, b["churn 2"]
+    assert b["churn 3"]["kernels"].get("packer.solve_scan_resume") == 1, b["churn 3"]
+    assert b["group 2"]["kernels"] == {"packer.delta_pass": 1}, b["group 2"]
+    assert compiles == 0 and steady_recompiles == 0, (compiles, steady_recompiles)
+    assert all(row["compiles"] == 0 for row in snapshot["kernels"]), snapshot["kernels"]
+    out["compiles"], out["steady_recompiles"] = compiles, steady_recompiles
+    out["kernels"] = [{k: row[k] for k in ("kernel", "dispatches", "compiles", "recompiles",
+                                           "phases", "execute_wall_s", "shapes_seen")}
+                      for row in snapshot["kernels"]]
+    profiled = captured.get("topo_profiled")
+    if profiled:
+        t = b["topology 2"]
+        out["topology_vs_profiler"] = {
+            "observatory_busy_share": 1.0 - t["host_stall_fraction"],
+            "observatory_device_busy_s": t["device_busy_s"],
+            "profiler_busy_share": profiled["busy_share"],
+            "profiler_device_busy_ms": profiled["device_busy_ms"],
+        }
+        log(f"topology warm solve: observatory busy share {1.0 - t['host_stall_fraction']:.6f} "
+            f"(fenced dispatch walls, host enqueue included) vs phase 5c's profiler "
+            f"{profiled['busy_share']:.6f} (kernel time)")
+    # a ladder from the observed buckets: the scan's 27-operand signature
+    # parsed back into its 7 axes
+    derived = ladder_mod.from_observatory(counts, headroom=0)
+    out["ladder"] = {name: [list(r) for r in rungs] for name, rungs in
+                     derived.to_dict()["kernels"].items()}
+    assert derived.kernels.get("packer.solve_scan"), f"no scan rung derived: {out['ladder']}"
+    view = aotrt.ladder_view()
+    assert view["enabled"] is False and "packer.solve_scan" in view["observed"], view
+    out["utilization"] = efficiency.utilization_view()  # {}: no cost tables without AOT
+    # device memory against the allocator
+    torch.cuda.synchronize()
+    sample = kobs.sample_device_memory()
+    stats = torch.cuda.memory_stats(0)
+    allocated = sum(torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count()))
+    dev0 = sample["devices"][0]
+    assert sample["live_array_bytes"] == allocated, (sample, allocated)
+    assert dev0["bytes_in_use"] == stats["allocated_bytes.all.current"] and \
+        dev0["peak_bytes_in_use"] == stats["allocated_bytes.all.peak"] and \
+        dev0["bytes_limit"] == torch.cuda.mem_get_info(0)[1], (dev0, stats)
+    out["device_memory"] = sample
+    # a profiler capture around one warm solve, on the service's worker thread
+    prof_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "profiles")
+    profiler = efficiency.configure_profiler(profile_dir=prof_dir)
+    assert profiler.available() and "cuda" in profiler.activities(), profiler.activities()
+    solve_pods = copy.deepcopy(pods)
+    fused.FUSED_MODE = "on"
+    try:
+        armed = profiler.arm("chip-smoke", seconds=4.0, cooldown=0)
+        assert armed is not None, profiler.snapshot()
+        time.sleep(0.5)
+        _, prof_ms = solve(engines["scan"], catalog, solve_pods)
+    finally:
+        fused.FUSED_MODE = mode0
+    deadline = time.perf_counter() + 120
+    while profiler.snapshot()["active"]:
+        assert time.perf_counter() < deadline, "the profiler capture did not stop"
+        time.sleep(0.05)
+    record = profiler.snapshot()["recent"][-1]
+    assert "error" not in record and os.path.getsize(record["trace"]) > 0, record
+    with open(record["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_events: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = next((k for k in PORT_KERNELS if k in e.get("name", "")), "other")
+            kernel_events[name] = kernel_events.get(name, 0) + 1
+    out["profile"] = {"trace": os.path.relpath(record["trace"], os.path.dirname(prof_dir)),
+                      "bytes": os.path.getsize(record["trace"]), "events": len(events),
+                      "kernel_events": kernel_events,
+                      "kt_events": sum(1 for e in events if "kt_" in e.get("name", "")),
+                      "solve_ms": prof_ms, "activities": profiler.activities()}
+    log(f"profiler capture: {record['trace']} ({out['profile']['bytes']} bytes, {len(events)} "
+        f"events), kernel events by kernel {json.dumps(kernel_events)}, around a {prof_ms:.1f} ms "
+        f"warm solve")
+    out["fault"] = fault_probe()
+    log(f"fault probe: {out['fault']['message']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"observatory": out}))
+    return out
+
+
+def dispatch_floor(reps=2000, rounds=5) -> dict:
+    """The named dispatch's own floor: the empty kernel (kt_noop) launched
+    through ktime.dispatch with a kernel name, without a measure() context
+    (no fence: the launch stays asynchronous) and with one (every call
+    fenced on an event), host us a call (median of `rounds` of `reps`) and
+    the kernel's device ms."""
+    from karpenter_tpu_torch.device import launch
+    from karpenter_tpu_torch.observability import kernels as kobs
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.tracing import kernel as ktime
+
+    entry = feas._lib().kt_noop
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = torch.empty(1, device=dev)
+
+    def noop(_):
+        assert launch(dev, entry) == 0
+        return out
+
+    def call():
+        return ktime.dispatch(noop, out, kernel="chip_smoke.noop")
+
+    for _ in range(100):
+        call()
+    torch.cuda.synchronize()
+    host, fenced = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            call()
+        host.append((time.perf_counter_ns() - t0) / reps / 1e3)
+        torch.cuda.synchronize()
+        with ktime.measure():
+            t0 = time.perf_counter_ns()
+            for _ in range(reps):
+                call()
+            fenced.append((time.perf_counter_ns() - t0) / reps / 1e3)
+    dev_ms = device_kernel_ms(call, ["noop_kernel"], reps=200)["noop_kernel"]
+    row = kobs.registry().debug_snapshot("chip_smoke.noop")
+    return {"device_ms": dev_ms, "dispatch_host_us": statistics.median(host),
+            "measured_dispatch_host_us": statistics.median(fenced), "reps": reps,
+            "rounds": rounds, "recorded": row["dispatches"]}
 
 
 def solver_meshes(device=None):
@@ -3986,6 +4311,8 @@ def main() -> int:
         log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
         phase_topology(captured)
         log(f"phase 5c done at {time.perf_counter() - t_start:.1f} s")
+        phase_observatory(captured)
+        log(f"phase 4c done at {time.perf_counter() - t_start:.1f} s")
         mesh_launches = phase_mesh(captured)
         log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
         prefix_scan = phase_identity()
@@ -4016,6 +4343,7 @@ def main() -> int:
         kernels += fits_stage_entries(captured, launches)
         kernels += mesh_entries(captured, mesh_launches, plain)
         log(json.dumps({"launch_floor": launch_floor()}))
+        log(json.dumps({"dispatch_floor": dispatch_floor()}))
         assert len(kernels) == len(SOURCE) == len(ENTRY_POINTS), [k["name"] for k in kernels]
         for k in kernels:
             if k["name"] in OFF_PATH:

@@ -64,6 +64,14 @@ _libs: dict[str, ctypes.CDLL] = {}
 # seconds of the build, for chip_smoke.py to print
 BUILD_LOG: dict[str, str] = {}
 BUILD_SECONDS: dict[str, float] = {}
+# libraries built or loaded in this process: the port's one compile.
+# tracing/kernel.dispatch calls a dispatch during which it grew a compile
+_built = 0
+
+
+def build_count() -> int:
+    """How many kernel libraries this process has built or loaded."""
+    return _built
 
 
 def resolve_device(device=None) -> torch.device:
@@ -152,8 +160,10 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
             os.replace(tmp, so)
         if failures:
             raise KernelError("kernel build failed:\n" + "\n".join(failures))
+        global _built
         for name, src in todo.items():
             _libs[name] = ctypes.CDLL(_so_path(name, src))
+            _built += 1
         return dict(_libs)
 
 

@@ -24,6 +24,15 @@ and one copy back; a sweep is two uploads (the entity rows, the row ids),
 one kt_cube launch and one copy back. The resource `fits` test stays
 host-side in numpy (float64). A failure of the device work is a
 KernelError (device.device_work).
+
+Every launch goes through the kernel observatory's choke point
+(tracing/kernel.dispatch) under the reference's names: a row batch as
+`catalog.row_compat` (one dispatch for the types and the offerings; the
+reference dispatches its kernel once for each), a sweep as
+`feasibility.cube`, a mesh sweep as `feasibility.cube_sharded` and a
+catalog without offerings as `feasibility.membership`. The reference's
+host-twin route (`_use_device`, its `record_host` calls) is not ported:
+every batch and sweep here launches on the engine's device.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from karpenter_tpu_torch.ops import delta as delta_mod
 from karpenter_tpu_torch.ops import encoding as enc
 from karpenter_tpu_torch.ops import feasibility as feas
 from karpenter_tpu_torch.scheduling.requirements import Operator, Requirement, Requirements
+from karpenter_tpu_torch.tracing import kernel as ktime
 
 DEFAULT_RESOURCE_DIMS = (
     wk.RESOURCE_CPU,
@@ -332,10 +342,12 @@ class CatalogEngine:
             targets = [self._set_args("inst", self._inst_sets)]
             if self.num_offerings:
                 targets.append(self._set_args("offer", self._offer_sets))
-            new_d = feas.req_rows_vs_targets(
-                self._to_device(rows), targets,
+            new_d = ktime.dispatch(
+                lambda *a: feas.req_rows_vs_targets(a[0], targets, *a[1:]),
+                self._to_device(rows),
                 self._dev("slot_key", self._tables.slot_key),
                 self._dev("value_int", self._tables.value_int),
+                kernel="catalog.row_compat",
             )
             # the fresh rows are appended to the resident device matrices —
             # an O(churn) row batch per pass, never a re-upload of the
@@ -499,7 +511,10 @@ class CatalogEngine:
             if self.num_offerings == 0:
                 idx = self._to_device(np.asarray(used, dtype=np.int64))
                 req_compat = self._gather_rows(self._req_compat_d, idx, R2)
-                compat = feas.membership_all(self._to_device(membership.copy()), req_compat)
+                compat = ktime.dispatch(
+                    feas.membership_all, self._to_device(membership.copy()), req_compat,
+                    kernel="feasibility.membership",
+                )
                 return Feasibility(
                     compat.cpu().numpy()[:P],
                     fits,
@@ -510,7 +525,8 @@ class CatalogEngine:
                 # gathered rows are replicated, the catalog's own arrays
                 # come from the per-shard cache
                 idx = self._to_device(np.asarray(used, dtype=np.int64))
-                compat_d, offering_d = feas.sharded_cube(self.mesh)(
+                compat_d, offering_d = ktime.dispatch(
+                    feas.sharded_cube(self.mesh),
                     torch.from_numpy(membership.copy()),
                     self._gather_rows(self._req_compat_d, idx, R2),
                     self._gather_rows(self._offer_compat_d, idx, R2),
@@ -518,6 +534,8 @@ class CatalogEngine:
                     torch.from_numpy(entities[:, R2:].copy()),
                     self._mesh_dev("available", self.offering_available),
                     self._mesh_dev("owner", self.offering_owner),
+                    kernel="feasibility.cube_sharded",
+                    aot_scope=feas.mesh_scope(self.mesh),
                 )
                 return Feasibility(
                     compat_d.cpu().numpy()[:P], fits, offering_d.cpu().numpy()[:P]
@@ -526,7 +544,8 @@ class CatalogEngine:
             # kernel reads the resident rows by index and writes both
             # planes into one buffer, copied back once
             entities_d = self._to_device(entities)
-            planes = feas.cube_rows(
+            planes = ktime.dispatch(
+                feas.cube_rows,
                 entities_d[:, :R2],
                 entities_d[:, R2:],
                 self._to_device(np.asarray(used, dtype=np.int32)),
@@ -535,6 +554,7 @@ class CatalogEngine:
                 self._dev("custom_need", self.offering_custom_need),
                 self._dev("available", self.offering_available),
                 self._dev("owner", self.offering_owner),
+                kernel="feasibility.cube",
             ).cpu().numpy()
             return Feasibility(planes[0, :P], fits, planes[1, :P])
 

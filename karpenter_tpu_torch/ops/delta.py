@@ -505,9 +505,15 @@ class GroupResidency:
         (packer.delta_pass) after one upload; a pass without a frontier is
         the finalize alone (packer.delta_finalize). Bit-identical to
         solver._solve_full by construction (same math on the same inputs;
-        the periodic self-check enforces it anyway)."""
+        the periodic self-check enforces it anyway). Each launch is a named
+        dispatch (tracing/kernel.dispatch): the pass as `packer.delta_pass`,
+        one dispatch where the reference makes three
+        (`packer.solve_block_core`, `packer.delta_scatter`,
+        `packer.delta_finalize`), the finalize alone as
+        `packer.delta_finalize`."""
         from karpenter_tpu_torch.device import device_work
         from karpenter_tpu_torch.ops import packer
+        from karpenter_tpu_torch.tracing import kernel as ktime
 
         e = solver.engine
         dev = e.device
@@ -578,12 +584,19 @@ class GroupResidency:
                 # one upload; one launch solves the frontier's core rows into
                 # their slots and finalizes the pass (B10 + B11 + B12)
                 sl, gi, od, ct, gb = _upload_pass((slots, sub_ints, order, counts), sub_bools, dev)
-                out = packer.delta_pass(self.core, sl, gb, gi, od, ct, *solver._catalog_args(),
-                                        counter=self.counter)
+                counter = self.counter
+                out = ktime.dispatch(
+                    lambda *a: packer.delta_pass(*a, counter=counter),
+                    self.core, sl, gb, gi, od, ct, *solver._catalog_args(),
+                    kernel="packer.delta_pass",
+                )
             else:
                 # no frontier: the gather and finalize alone (B12)
                 od, ct = _upload_pass((order, counts), None, dev)
-                out = packer.delta_finalize(self.core, od, ct)
+                out = ktime.dispatch(
+                    packer.delta_finalize, self.core, od, ct,
+                    kernel="packer.delta_finalize",
+                )
             note_groups("solved", len(missing))
             note_groups("reused", G - len(missing))
             out = _download(out)[:G]

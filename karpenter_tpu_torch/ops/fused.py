@@ -13,7 +13,12 @@ A copy of the reference's dispatch (karpenter_tpu/ops/fused.py), the
 classic one and, with delta solves on, the scan residency's
 (`_delta_dispatch`, ops/delta.py), each with its mesh twin (an engine with
 a mesh launches the scan replicated on every shard,
-packer.sharded_solve_scan*), without the AOT ladder. The host
+packer.sharded_solve_scan*), without the AOT ladder. Each scan launch
+goes through the kernel observatory's choke point (tracing/kernel.dispatch)
+under the reference's names — `packer.solve_scan`, `packer.solve_scan_full`,
+`packer.solve_scan_resume` — with the reference's `aot_scope` on a mesh,
+where one dispatch covers every replica's launch; the famu_ok build (B6)
+has no named dispatch, as in the reference. The host
 walk (ffd._DeviceSolve / the native C++ driver) remains the semantics
 oracle and the path for shapes the scan does not cover; those decline with
 a metered taxonomy reason (`karpenter_scheduler_fused_declines_total{reason=}`):
@@ -53,6 +58,7 @@ from karpenter_tpu_torch.ops import ffd
 from karpenter_tpu_torch.ops import feasibility as feas
 from karpenter_tpu_torch.ops import packer
 from karpenter_tpu_torch.scheduling.taints import Taints
+from karpenter_tpu_torch.tracing import kernel as ktime
 from karpenter_tpu_torch.utils import resources as res
 
 # -- mode + metering ----------------------------------------------------------
@@ -436,6 +442,7 @@ class _FusedSolve(ffd._DeviceSolve):
 
         dev = self.engine.device
         mesh = self.engine.mesh
+        scope = feas.mesh_scope(mesh) if mesh is not None else ""
         cfg = (T, has_nodes, has_limits)
         # the operands as host arrays, in the reference's layout; famu_ok
         # (slot 12) is built on the card below (B6) from tmpl_mask, fam_mask
@@ -463,11 +470,15 @@ class _FusedSolve(ffd._DeviceSolve):
                 # the reference does: famu_ok itself ([T, F, U] bools), not
                 # the template mask it was built from
                 host_ops[12] = famu_ok.cpu().numpy()
-                out = self._delta_dispatch(args, host_ops, cfg, P_real)
-            elif mesh is not None:
-                out = packer.sharded_solve_scan(mesh)(cfg, args)[: packer.SCAN_N_OUT]
+                out = self._delta_dispatch(args, host_ops, cfg, scope, P_real)
             else:
-                out = packer.solve_scan(cfg, args)[: packer.SCAN_N_OUT]
+                if mesh is not None:
+                    fn = lambda *a: packer.sharded_solve_scan(mesh)(cfg, a)  # noqa: E731
+                else:
+                    fn = lambda *a: packer.solve_scan(cfg, a)  # noqa: E731
+                out = ktime.dispatch(
+                    fn, *args, kernel="packer.solve_scan", aot_scope=scope
+                )[: packer.SCAN_N_OUT]
             (
                 abort, nclaims, pod_claim, pod_node, pod_seq,
                 claim_ti, claim_fam, u_valid, tm_st, pool_rem,
@@ -500,7 +511,7 @@ class _FusedSolve(ffd._DeviceSolve):
 
     # -- delta residency dispatch --------------------------------------------
 
-    def _delta_dispatch(self, args, host_ops, cfg, p_real):
+    def _delta_dispatch(self, args, host_ops, cfg, scope, p_real):
         """Residency-aware scan dispatch (ops/delta.py): a cold pass runs
         the full-state scan and commits its final state as the engine's
         residency; an eligible follow-up pass RESUMES the scan against the
@@ -520,14 +531,27 @@ class _FusedSolve(ffd._DeviceSolve):
         mesh = self.engine.mesh
 
         def full():
-            if mesh is None:
-                return (packer.solve_scan_full(cfg, args)[:-1],)
-            return tuple(r[:-1] for r in packer.sharded_solve_scan_full(mesh)(cfg, args))
+            def call(*a):
+                if mesh is None:
+                    return (packer.solve_scan_full(cfg, a)[:-1],)
+                return tuple(r[:-1] for r in packer.sharded_solve_scan_full(mesh)(cfg, a))
+
+            return ktime.dispatch(
+                call, *args, kernel="packer.solve_scan_full", aot_scope=scope
+            )
 
         def resume(states, p_lo):
-            if mesh is None:
-                return (packer.solve_scan_resume(cfg, args, states[0], p_lo)[:-1],)
-            return tuple(r[:-1] for r in packer.sharded_solve_scan_resume(mesh)(cfg, args, states, p_lo))
+            # the operands, shard 0's state and p_lo are the dispatch's
+            # arguments (its shape signature, as the reference's)
+            def call(*_):
+                if mesh is None:
+                    return (packer.solve_scan_resume(cfg, args, states[0], p_lo)[:-1],)
+                return tuple(r[:-1] for r in packer.sharded_solve_scan_resume(mesh)(cfg, args, states, p_lo))
+
+            return ktime.dispatch(
+                call, *args, *states[0], np.int32(p_lo),
+                kernel="packer.solve_scan_resume", aot_scope=scope,
+            )
 
         mode = "cold"
         if miss == "":

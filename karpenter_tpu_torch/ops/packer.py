@@ -64,6 +64,7 @@ from karpenter_tpu_torch.ops import feasibility as feas
 from karpenter_tpu_torch.ops.catalog import CatalogEngine
 from karpenter_tpu_torch.ops.feasibility import uid_project_plain
 from karpenter_tpu_torch.scheduling.requirements import Requirements
+from karpenter_tpu_torch.tracing import kernel as ktime
 
 LAUNCHES: dict[str, int] = {
     "solve_scan": 0, "solve_scan_full": 0, "solve_scan_resume": 0,
@@ -665,7 +666,9 @@ class GroupSolver:
         with device_work("group solve"):
             # the group rows in one staged upload (one pinned buffer, one copy)
             gb, gi = mesh_mod.upload_rows((group_bools, group_ints), dev)
-            out = solve_block(gb, gi, *args).cpu().numpy()[:G]
+            out = ktime.dispatch(
+                solve_block, gb, gi, *args, kernel="packer.solve_block"
+            ).cpu().numpy()[:G]
         return out[:, 0], out[:, 1].astype(bool), out[:, 2], out[:, 3]
 
     def solve_sharded(self, grouped: GroupedPods, mesh):
@@ -687,10 +690,13 @@ class GroupSolver:
             group_ints = np.pad(group_ints, ((0, pad), (0, 0)))
         args = self._mesh_catalog_args(mesh)
         with device_work("sharded group solve"):
-            out = sharded_solve_block(mesh)(
+            out = ktime.dispatch(
+                sharded_solve_block(mesh),
                 torch.from_numpy(np.ascontiguousarray(group_bools)),
                 torch.from_numpy(np.ascontiguousarray(group_ints)),
                 *args,
+                kernel="packer.solve_block_sharded",
+                aot_scope=feas.mesh_scope(mesh),
             ).cpu().numpy()
         return out[:G, 0], out[:G, 1].astype(bool), out[:G, 2], out[:G, 3]
 

@@ -37,6 +37,7 @@ from typing import Optional
 
 import numpy as np
 
+from karpenter_tpu_torch.observability import kernels as kobs
 from karpenter_tpu_torch.ops.encoding import DomainVocab
 from karpenter_tpu_torch.ops.packer import scatter_add_counts
 from karpenter_tpu_torch.scheduler.topology import (
@@ -100,6 +101,11 @@ class GroupCounts:
         self.counts = [dom.get(d, -1) for d in vocab.domains]
         self._np = None
         self.synced_gen = tg._gen
+        # kernel-observatory record: resyncs are the count-tensor layer's
+        # "compile" — rare, full rebuilds whose frequency the observatory
+        # tracks per domain-vocabulary size (the hot gate evals stay
+        # uninstrumented; they are the thing being protected)
+        kobs.registry().record_host("topo_counts.resync", str(len(vocab.domains)))
 
     # -- updates -------------------------------------------------------------
 

@@ -181,7 +181,18 @@ class JourneyRecorder:
         for stage, (s, e) in stages.items():
             self._observe(stage, e - s)
         self._observe("total", journey["total"])
-        # (the SLO burn-rate feed is not part of this package yet)
+        # SLO feed: the solverd hops of the journey — admission wait plus
+        # batch execution — classified against the solve-latency objective.
+        # This is exactly the karpenter_pod_scheduling_duration_seconds
+        # stage data, re-read as a burn-rate series.
+        from karpenter_tpu_torch.observability import slo
+
+        for stage in ("admit", "solve"):
+            window = stages.get(stage)
+            if window is not None:
+                slo.engine().observe(
+                    "solve-latency", max(0.0, window[1] - window[0])
+                )
 
     def _observe(self, stage: str, duration: float) -> None:
         _STAGE_HIST.observe(max(0.0, duration), {"stage": stage})

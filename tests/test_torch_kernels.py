@@ -653,3 +653,67 @@ def test_delta_pass_counter_resets_on_card(cuda_device):
         tpacker.delta_pass(core, slots[:0], gb[:0], gi[:0], order, counts, *cat, counter=counter)
     with pytest.raises(KernelError):
         tpacker.delta_pass(core, slots, gb, gi, order, counts, *cat, counter=counter.long())
+
+
+# -- the kernel observatory on the card (tracing/kernel.py, observability/kernels.py)
+
+
+@pytest.mark.cuda
+def test_dispatch_fences_on_a_cuda_event_on_card(cuda_device):
+    """Inside measure() a named dispatch of a kernel waits for it on an
+    event: block wall > 0, the output complete when dispatch returns; the
+    registry records it fenced, with no compile once the kernels are
+    built; without a context nothing fences."""
+    from karpenter_tpu_torch.observability import kernels as kobs
+    from karpenter_tpu_torch.tracing import kernel as ktime
+
+    cube = [to_torch(a).to(cuda_device) for a in cube_inputs(0)]
+    tfeas.production_cube(*cube)  # the build, if this process has not built yet
+    torch.cuda.synchronize()
+    reg = kobs.registry()
+    reg.reset()
+    try:
+        with reg.batch_scope("card") as batch, ktime.measure() as acc:
+            got = ktime.dispatch(tfeas.production_cube, *cube, kernel="feasibility.cube")
+            done = torch.cuda.current_stream().query()
+        assert done, "the dispatch returned before its kernel finished"
+        assert acc["dispatches"] == 1 and acc["compiles"] == 0 and acc["block_s"] > 0
+        assert batch["fenced"] == 1 and batch["device_busy_s"] > 0
+        want = tfeas.production_cube_plain(*cube)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ktime.dispatch(tfeas.production_cube, *cube, kernel="feasibility.cube")  # unfenced
+        snap = reg.debug_snapshot("feasibility.cube")
+        assert snap["dispatches"] == 2 and snap["compiles"] == 0
+    finally:
+        reg.reset()
+
+
+@pytest.mark.cuda
+def test_build_counter_counts_libraries_on_card(cuda_device):
+    """device.build_count() grows by the libraries a build loads, once:
+    a second build_kernels() in the process loads nothing."""
+    from karpenter_tpu_torch import device
+
+    device.build_kernels()
+    n = device.build_count()
+    assert n >= len(device._sources())
+    device.build_kernels()
+    assert device.build_count() == n
+
+
+@pytest.mark.cuda
+def test_sample_device_memory_matches_the_allocator_on_card(cuda_device):
+    from karpenter_tpu_torch.observability import kernels as kobs
+
+    keep = torch.ones(1 << 20, device=cuda_device)  # noqa: F841 — held live
+    torch.cuda.synchronize()
+    sample = kobs.sample_device_memory()
+    stats = torch.cuda.memory_stats(cuda_device)
+    allocated = sum(torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count()))
+    assert sample["live_array_bytes"] == allocated >= 4 << 20
+    dev = next(d for d in sample["devices"] if d["device"] == str(torch.device("cuda", cuda_device.index or 0)))
+    assert dev["bytes_in_use"] == stats["allocated_bytes.all.current"]
+    assert dev["peak_bytes_in_use"] == stats["allocated_bytes.all.peak"]
+    assert dev["bytes_limit"] == torch.cuda.mem_get_info(cuda_device)[1]
+    assert sample["live_arrays"] >= 1
+    assert kobs.registry().debug_snapshot()["device_memory"] == sample
