@@ -127,6 +127,37 @@ Phases, in order; any failure exits non-zero:
      one warm solve whose trace.json parses, its kernel events counted; in
      a child process, a fence after a kt_delta_finalize launch given a
      bogus pointer raises KernelError. One JSON line {"observatory": {...}};
+  4s. the solver service (phase_service; after 4c): phase 4's workload
+     (the 50,000 pods and one Ready `default` NodePool created in a Store,
+     fed to the Cluster by the StateInformer; FakeCloudProvider over the
+     kwok catalog x7) through the port's Provisioner with Options() as they
+     come (solver_backend "tpu": a CUDA engine from default_engine_factory;
+     the in-process solverd transport): prewarm(), then reconcile() cold,
+     then a second harness on the same catalog (the content-cached engine
+     reused) reconciled warm. Each must decide exactly as phase 4's direct
+     solve (after the same instance-type truncation), put as many
+     NodeClaims in the store, have 0 pod errors, one device solve and no
+     fallback, the engine on the card, the service's last_batch_dispatches
+     equal to the named launches inside its batch, the registry sealed
+     after the first reconcile and 0 steady recompiles; the set-up, the
+     prewarm, each reconcile and its parts (pending pods, scheduler build,
+     the solverd round trip, decision marks, claim creation) are timed,
+     beside last_batch_seconds and last_batch_host_stall. Launch counts
+     are zeroed just before and read after. Then two requests on one fresh
+     CUDA engine (the workload's pods split in two, the second half at
+     twice the cpu) submitted before one run_pending: one joint sweep, its
+     priming one kt_row_compat and one kt_cube launch, both results equal
+     to their solo solves. Then the sidecar: `python -m
+     karpenter_tpu_torch.solverd --listen <socket>` as a fresh interpreter
+     on the card, driven by bench.py's fleet leg in the port's API (the kwok
+     catalog, 8 batches x 1,200 pods, pipelined and unpipelined, 3 repeats
+     each, after one warm run) through AdmissionPipeline(SocketClient):
+     every batch decided as this process decides it on a CUDA engine, the
+     daemon's device_solves > 0 and device_fallbacks 0, SIGTERM draining
+     it to exit 0 within 15 s; best ms of both modes and the encode
+     overlap printed. Last, in a child process, a coalesced batch whose
+     primed sweep launches kt_cube with a bogus pointer: both requests
+     fail with KernelError. One JSON line {"service": {...}};
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
      mesh, on a 2-shard mesh (two cards when the machine has them, else
      cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
@@ -145,7 +176,7 @@ Phases, in order; any failure exits non-zero:
      nodes-and-limits solve with the scan on CUDA against the plain scan on
      the CPU;
   7. one JSON line {"kernels": [...]}: per kernel its launches on its path
-     (phase 4, phase 5 for the delta and group kernels, phase 5b for the
+     (phases 4 and 4s, phase 5 for the delta and group kernels, phase 5b for the
      sharded twins, phase 3 and the workload checks for fits_matrix and
      stage_plane: fits of the 50k pods' quantized requests against the
      1008 allocatables, the stage plane of a sweep of the 200 shapes),
@@ -828,6 +859,17 @@ def _register_nodes(store, cluster, nodes):
 
 
 def solve(engine, catalog, pods, case=None):
+    scheduler, t0 = scheduler_for(engine, catalog, pods, case)
+    results = scheduler.solve(pods)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return results, (time.perf_counter() - t0) * 1000.0
+
+
+def scheduler_for(engine, catalog, pods, case=None):
+    """A Scheduler over `case` (default: one `default` NodePool, no nodes)
+    and `pods`, on `engine`, and the perf_counter reading taken after the
+    store and the cluster were set up, before the Topology was built."""
     from karpenter_tpu_torch.apis.core import ObjectMeta
     from karpenter_tpu_torch.apis.nodepool import NodePool
     from karpenter_tpu_torch.events.recorder import Recorder
@@ -857,14 +899,10 @@ def solve(engine, catalog, pods, case=None):
     its = {pool.metadata.name: catalog for pool in pools}
     t0 = time.perf_counter()
     topology = Topology(store, cluster, state_nodes, pools, its, pods)
-    scheduler = Scheduler(
+    return Scheduler(
         store, pools, cluster, state_nodes, topology, its, [], Recorder(clock=clock), clock,
         engine=engine,
-    )
-    results = scheduler.solve(pods)
-    if engine.device.type == "cuda":
-        torch.cuda.synchronize()
-    return results, (time.perf_counter() - t0) * 1000.0
+    ), t0
 
 
 def decisions(results):
@@ -1420,6 +1458,7 @@ def phase_main(captured, device=None):
     assert walk_launches["row_compat"] == walk_calls["row_batches"] and \
         walk_launches["cube"] == walk_calls["sweeps"], (walk_launches, walk_calls)
     first = captured["decisions"] = decisions(runs[0][2])
+    captured["results"] = runs[0][2]  # phase 4s holds the Provisioner to it
     for label, _, results in [r[:3] for r in runs] + walk_runs:
         claims, errors, _ = decisions(results)
         assert not errors, f"{label}: {len(errors)} pod errors"
@@ -2221,6 +2260,459 @@ def phase_observatory(captured, device=None):
     out["phase_s"] = time.perf_counter() - t_phase
     log(json.dumps({"observatory": out}))
     return out
+
+
+# -- phase 4s: the solver service ---------------------------------------------
+
+SIDECAR_BATCHES, SIDECAR_PODS, SIDECAR_REPS = 8, 1200, 3  # bench.py's fleet leg
+
+# run in a child process (a faulted context is lost for the rest of its
+# process): two requests on one CUDA engine, admitted before one drain; the
+# batch's primed sweep launches kt_cube with a bogus pointer for its
+# has_offering plane (an output every launch writes, where the membership
+# is not read when a sweep uses no row), so the sweep's copy back raises;
+# both requests must fail with KernelError
+FAULT_PRIME_PROBE = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from karpenter_tpu_torch.device import KernelError
+from karpenter_tpu_torch.ops import feasibility as feas
+from karpenter_tpu_torch.solverd import KIND_SIMULATE, KIND_SOLVE, SolverService, SolveRequest
+from karpenter_tpu_torch.utils.clock import FakeClock
+
+build, engine = cs.fleet_env()
+svc = SolverService(clock=FakeClock())
+requests = [SolveRequest(KIND_SOLVE, *build(200, 1), timeout=60.0),
+            SolveRequest(KIND_SIMULATE, *build(200, 2), timeout=60.0)]
+torch.cuda.synchronize()
+real = feas.launch
+armed = [True]
+
+def faulting(dev, fn, *args):
+    if armed[0] and getattr(fn, "__name__", "") == "kt_cube":
+        armed[0] = False
+        # the has_offering plane (feasibility._cube_launch's 17th argument)
+        # at an address nobody owns
+        args = args[:16] + (16,) + args[17:]
+    return real(dev, fn, *args)
+
+feas.launch = faulting
+entries = [svc.submit(r) for r in requests]
+try:
+    svc.run_pending()
+    raised = None
+except KernelError as e:
+    raised = str(e)
+print(json.dumps({"raised": raised and raised[:300], "armed": armed[0],
+                  "errors": [type(e.error).__name__ for e in entries],
+                  "results": [e.result is not None for e in entries]}))
+sys.exit(0 if raised and not armed[0] and all(isinstance(e.error, KernelError) for e in entries)
+         else 1)
+"""
+
+
+def fault_prime_probe() -> dict:
+    """The coalescer's fault rule on the card, in a child process: a device
+    fault in a coalesced batch's primed sweep fails both requests with
+    KernelError."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", FAULT_PRIME_PROBE, root], capture_output=True,
+                          text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    got = json.loads(lines[-1]) if lines else {}
+    assert proc.returncode == 0 and got.get("errors") == ["KernelError", "KernelError"], \
+        f"prime fault probe: exit {proc.returncode}, {proc.stdout[-2000:]} {proc.stderr[-2000:]}"
+    return got
+
+
+def fleet_env(device=None):
+    """bench.py's fleet leg in the port's API: a factory of fresh
+    (scheduler, pods) batches over the kwok catalog, the pod mix varied by
+    (salt, index), all on one engine (stripped before pickling on the
+    wire); and that engine."""
+    from karpenter_tpu_torch.apis.core import Condition, Container, ObjectMeta, Pod, PodSpec
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+    from karpenter_tpu_torch.cloudprovider.kwok.instance_types import construct_instance_types
+    from karpenter_tpu_torch.events.recorder import Recorder
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+    from karpenter_tpu_torch.runtime.store import Store
+    from karpenter_tpu_torch.scheduler.scheduler import Scheduler
+    from karpenter_tpu_torch.scheduler.topology import Topology
+    from karpenter_tpu_torch.state.cluster import Cluster
+    from karpenter_tpu_torch.state.informer import StateInformer
+    from karpenter_tpu_torch.utils.clock import FakeClock
+    from karpenter_tpu_torch.utils.resources import parse_resource_list
+
+    catalog = construct_instance_types()
+    engine = CatalogEngine(catalog, device=device)
+    cpus = ["250m", "500m", "1", "2"]
+
+    def build(n_pods: int, salt: int):
+        clock = FakeClock()
+        store = Store(clock=clock)
+        cluster = Cluster(clock, store, cloud_provider=None)
+        informer = StateInformer(store, cluster)
+        pool = NodePool(metadata=ObjectMeta(name="default"))
+        pool.set_condition("Ready", "True")
+        store.create(pool)
+        informer.flush()
+        pods = []
+        for i in range(n_pods):
+            pod = Pod(
+                metadata=ObjectMeta(name=f"pod-{salt}-{i:05d}", uid=f"uid-{salt}-{i:05d}"),
+                spec=PodSpec(containers=[Container(requests=parse_resource_list(
+                    {"cpu": cpus[(i + salt) % len(cpus)], "memory": "1Gi"}))]),
+            )
+            pod.metadata.creation_timestamp = 1000.0 + i
+            pod.status.conditions.append(
+                Condition(type="PodScheduled", status="False", reason="Unschedulable"))
+            store.create(pod)
+            pods.append(pod)
+        instance_types = {"default": list(catalog)}
+        topology = Topology(store, cluster, [], [pool], instance_types, pods)
+        scheduler = Scheduler(store, [pool], cluster, [], topology, instance_types, [],
+                              Recorder(clock=clock), clock, engine=engine)
+        return scheduler, pods
+
+    return build, engine
+
+
+def provisioner_harness(catalog, device=None):
+    """A Store, a Cluster fed by the StateInformer, and a Provisioner with
+    Options() as they come (solver_backend "tpu": the CUDA engine; the
+    in-process solverd transport) over FakeCloudProvider(catalog). The
+    clock starts at 0, so the pods keep the creation timestamps phase 4's
+    direct solve gave them. `device="cpu"` only for a rehearsal."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import (
+        Provisioner, default_engine_factory,
+    )
+    from karpenter_tpu_torch.events.recorder import Recorder
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.runtime.store import Store
+    from karpenter_tpu_torch.state.cluster import Cluster
+    from karpenter_tpu_torch.state.informer import StateInformer
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    clock = FakeClock(start=0.0)
+    store = Store(clock=clock)
+    provider = FakeCloudProvider(instance_types=catalog)
+    cluster = Cluster(clock, store, provider)
+    informer = StateInformer(store, cluster)
+    prov = Provisioner(store, provider, cluster, Recorder(clock=clock), clock, Options(),
+                       engine_factory=None if device is None else default_engine_factory(
+                           device=device))
+    return clock, store, cluster, informer, prov
+
+
+def reconcile_workload(catalog, device=None):
+    """Phase 4's workload in a store: one Ready `default` NodePool and the
+    50,000 pending pods, fed to the cluster by the informer, the pods
+    triggered and the batch window closed. Returns the harness and the
+    set-up's wall seconds."""
+    from karpenter_tpu_torch.apis.core import ObjectMeta
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+
+    t0 = time.perf_counter()
+    clock, store, cluster, informer, prov = harness = provisioner_harness(catalog, device)
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    pool.set_condition("Ready", "True")
+    store.create(pool)
+    pods = [store.create(p) for p in build_pods()]
+    informer.flush()
+    for p in pods:
+        prov.trigger(p.metadata.uid)
+    clock.step(1.5)  # the batcher's idle window closes
+    return harness, time.perf_counter() - t0
+
+
+def timed_parts(prov) -> dict:
+    """Wall seconds of the Provisioner's steps, accumulated while the
+    wrappers stay on the instance: the pending-pod list, the scheduler
+    build (volume-topology injection, Topology, the engine lookup), the
+    solverd round trip, the cluster's decision marks and claim creation."""
+    parts: dict = {}
+
+    def wrap(obj, name, label):
+        real = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                parts[label] = parts.get(label, 0.0) + time.perf_counter() - t0
+
+        setattr(obj, name, timed)
+
+    wrap(prov, "get_pending_pods", "get_pending_pods")
+    wrap(prov, "new_scheduler", "new_scheduler")
+    wrap(prov.solver, "solve", "solverd_solve")
+    wrap(prov.cluster, "mark_pod_scheduling_decisions", "mark_pod_scheduling_decisions")
+    wrap(prov, "create_node_claims", "create_node_claims")
+    return parts
+
+
+def _sidecar_address(tmp: str) -> str:
+    """A unix socket in `tmp`, or TCP loopback on a free port when the path
+    is past a socket path's 107 bytes."""
+    path = os.path.join(tmp, "solverd.sock")
+    if len(path.encode()) <= 107:
+        return path
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{sock.getsockname()[1]}"
+
+
+def phase_service(captured, device=None):
+    """Phase 4s: the system's entry point on the card — the Provisioner,
+    the solver service's coalescer and the sidecar daemon (see the module
+    docstring)."""
+    import shutil
+    import signal
+    import tempfile
+
+    from karpenter_tpu_torch.observability import kernels as kobs
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import ffd, packer
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+    from karpenter_tpu_torch.solverd import (
+        KIND_SIMULATE, KIND_SOLVE, AdmissionPipeline, SocketClient, SolverService, SolveRequest,
+    )
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    catalog = build_catalog()
+    # phase 4's results as the Provisioner leaves its own: the instance
+    # types truncated (Provisioner.schedule), each claim stamped into an
+    # API NodeClaim (Provisioner.create: it narrows the claim's
+    # requirements to its instance types in place)
+    ref = captured["results"]
+    ref.truncate_instance_types()
+    for nc in ref.new_node_claims:
+        nc.to_api_nodeclaim()
+    want = decisions(ref)
+
+    # 1. the Provisioner at full width, cold then warm
+    reg = kobs.registry()
+    reg.reset()
+    feas.reset_launch_counts()
+    packer.reset_launch_counts()
+    reconciles = []
+    for label in ("cold", "warm"):
+        harness, setup_s = reconcile_workload(catalog, device)
+        clock, store, cluster, informer, prov = harness
+        service = prov.solver.service
+        batch_launches: dict = {}
+        real_execute = service.coalescer.execute
+
+        def execute(entries, real_execute=real_execute, batch_launches=batch_launches):
+            before = _count_launches()
+            try:
+                return real_execute(entries)
+            finally:
+                batch_launches.update(
+                    {n: v - before[n] for n, v in _count_launches().items() if v != before[n]})
+
+        service.coalescer.execute = execute
+        t0 = time.perf_counter()
+        prov.prewarm()
+        prewarm_s = time.perf_counter() - t0
+        parts = timed_parts(prov)
+        solves0, fallbacks0 = ffd.DEVICE_SOLVES, ffd.DEVICE_FALLBACKS
+        before = _count_launches()
+        t0 = time.perf_counter()
+        results = prov.reconcile()
+        reconcile_ms = (time.perf_counter() - t0) * 1e3
+        launches = {n: v - before[n] for n, v in _count_launches().items() if v != before[n]}
+        engine = prov.engine_factory(prov._gather_instance_types(
+            [store.get("NodePool", "default")]))
+        stats = service.stats()
+        got = decisions(results)
+        claims_in_store = len(store.list("NodeClaim"))
+        named = sum(v for n, v in batch_launches.items() if n in DISPATCH_OF)
+        row = {
+            "setup_s": setup_s, "prewarm_s": prewarm_s, "reconcile_ms": reconcile_ms,
+            "parts_s": parts, "nodeclaims": len(results.new_node_claims),
+            "nodeclaims_in_store": claims_in_store, "pod_errors": len(results.pod_errors),
+            "launches": launches, "batch_launches": batch_launches,
+            "last_batch_dispatches": stats["last_batch_dispatches"],
+            "last_batch_seconds": stats["last_batch_seconds"],
+            "last_batch_host_stall": stats["last_batch_host_stall"],
+            "device_solves": ffd.DEVICE_SOLVES - solves0,
+            "device_fallbacks": ffd.DEVICE_FALLBACKS - fallbacks0,
+            "engine_device": str(engine.device), "sealed": reg.sealed,
+            "steady_recompiles": reg.steady_recompiles(),
+        }
+        reconciles.append((label, row, engine))
+        log(f"phase 4s provisioner {label}: store and informer set-up {setup_s:.2f} s, prewarm "
+            f"{prewarm_s:.2f} s, reconcile {reconcile_ms:.1f} ms (parts s "
+            f"{json.dumps({k: round(v, 4) for k, v in parts.items()})}), "
+            f"{row['nodeclaims']} nodeclaims ({claims_in_store} in the store), "
+            f"{row['pod_errors']} pod errors, launches {json.dumps(launches)}, in the solverd "
+            f"batch {json.dumps(batch_launches)}, last_batch_dispatches "
+            f"{stats['last_batch_dispatches']}, last_batch_seconds {stats['last_batch_seconds']:.4f}, "
+            f"last_batch_host_stall {stats['last_batch_host_stall']}, engine on {engine.device}")
+        assert got == want, f"{label}: the Provisioner's decisions differ from phase 4's solve"
+        assert row["pod_errors"] == 0 and claims_in_store == row["nodeclaims"] == len(want[0]), row
+        assert row["device_solves"] == 1 and row["device_fallbacks"] == 0, row
+        assert engine.device.type == (device or "cuda"), engine.device
+        assert stats["last_batch_dispatches"] == named, (stats, batch_launches)
+        assert reg.sealed and row["steady_recompiles"] == 0, row
+        if label == "cold":
+            for name in ("row_compat", "cube", "uid_project", "solve_scan"):
+                assert launches.get(name, 0) > 0, f"cold reconcile: no {name} launch: {launches}"
+        prov.solver.close()
+    assert reconciles[1][2] is reconciles[0][2], "the warm harness built a second engine"
+    out["provisioner"] = {label: row for label, row, _ in reconciles}
+    service_launches = _count_launches()  # the path's launches: both reconciles
+    out["parts_s"] = {"provisioner": time.perf_counter() - t_phase}
+
+    # 2. coalescing: two requests on one fresh engine, one primed sweep
+    from karpenter_tpu_torch.apis import labels as wk
+
+    def halves():
+        """The workload's pods split in two, the second request at twice
+        the cpu: fresh pod objects each call (a solve marks its pods)."""
+        pods = build_pods()
+        half = len(pods) // 2
+        for p in pods[half:]:
+            for c in p.spec.containers:
+                c.requests[wk.RESOURCE_CPU] = 2 * c.requests[wk.RESOURCE_CPU]
+        return [pods[:half], pods[half:]]
+
+    engine = CatalogEngine(catalog, device=device)
+    svc = SolverService(clock=FakeClock())
+    entries = [
+        svc.submit(SolveRequest(kind, scheduler_for(engine, catalog, hp)[0], hp, timeout=600.0))
+        for kind, hp in zip((KIND_SOLVE, KIND_SIMULATE), halves())
+    ]
+    prime_launches: dict = {}
+    real_prime = ffd.prime_joint_masks
+
+    def prime(engine_, pairs):
+        before = _count_launches()
+        try:
+            return real_prime(engine_, pairs)
+        finally:
+            prime_launches.update(
+                {n: v - before[n] for n, v in _count_launches().items() if v != before[n]})
+
+    ffd.prime_joint_masks = prime
+    sweeps0 = ffd.JOINT_SWEEPS
+    before = _count_launches()
+    try:
+        t0 = time.perf_counter()
+        assert svc.run_pending() == 2
+        batch_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ffd.prime_joint_masks = real_prime
+    batch_launches = {n: v - before[n] for n, v in _count_launches().items() if v != before[n]}
+    service_launches = {n: service_launches[n] + batch_launches.get(n, 0) for n in service_launches}
+    solo = [decisions(solve(reconciles[0][2], catalog, hp)[0]) for hp in halves()]
+    stats = svc.stats()
+    svc.close()
+    out["coalescing"] = {"batch_ms": batch_ms, "joint_sweeps": ffd.JOINT_SWEEPS - sweeps0,
+                         "prime_launches": prime_launches, "batch_launches": batch_launches,
+                         "last_batch_dispatches": stats["last_batch_dispatches"],
+                         "last_batch_host_stall": stats["last_batch_host_stall"]}
+    log(f"phase 4s coalescing: two requests ({len(entries[0].request.pods)} and "
+        f"{len(entries[1].request.pods)} pods) in one batch, "
+        f"{batch_ms:.1f} ms, joint sweeps {ffd.JOINT_SWEEPS - sweeps0}, priming launches "
+        f"{json.dumps(prime_launches)}, batch launches {json.dumps(batch_launches)}")
+    assert [e.error for e in entries] == [None, None], [e.error for e in entries]
+    assert ffd.JOINT_SWEEPS - sweeps0 == 1, ffd.JOINT_SWEEPS - sweeps0
+    assert prime_launches == {"row_compat": 1, "cube": 1}, prime_launches
+    for e, w in zip(entries, solo):
+        assert decisions(e.result) == w, "a coalesced result differs from its solo solve"
+    out["parts_s"]["coalescing"] = time.perf_counter() - t_phase - sum(out["parts_s"].values())
+
+    # 3. the sidecar: a daemon process on the card, bench.py's fleet leg
+    build, fleet_engine = fleet_env(device)
+    salts = [i for base in (0, 100, 200, 300) for i in range(base, base + SIDECAR_BATCHES)]
+    inproc = {}  # each batch solved in this process on the engine, as the daemon must
+    for salt in salts:
+        scheduler, spods = build(SIDECAR_PODS, salt)
+        inproc[salt] = decisions(scheduler.solve(spods))
+    tmp = tempfile.mkdtemp(prefix="kt-")
+    address = _sidecar_address(tmp)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "karpenter_tpu_torch.solverd", "--listen", address,
+           "--coalesce-window", "0", "--log-level", "error"]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    proc = subprocess.Popen(cmd, cwd=root, env=dict(os.environ), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    client = SocketClient(address)
+    sidecar: dict = {"address_family": "unix" if address.startswith("/") else "tcp"}
+    try:
+        t0 = time.perf_counter()
+        deadline = t0 + 180.0
+        while "error" in client.stats():
+            assert proc.poll() is None, f"solverd exited {proc.returncode}: {proc.stdout.read()}"
+            assert time.perf_counter() < deadline, "solverd never answered"
+            time.sleep(0.2)
+        sidecar["ready_s"] = time.perf_counter() - t0
+        pipeline = AdmissionPipeline(client)
+
+        def run(base, pipelined):
+            batches = [build(SIDECAR_PODS, base + i) for i in range(SIDECAR_BATCHES)]
+            t0 = time.perf_counter()
+            got = pipeline.run(KIND_SOLVE, batches, pipelined=pipelined)
+            wall = (time.perf_counter() - t0) * 1e3
+            for i, (res, err) in enumerate(got):
+                assert err is None, f"sidecar batch {base + i}: {err!r}"
+                assert decisions(res) == inproc[base + i], f"sidecar batch {base + i} differs"
+            return wall, pipeline.stats()
+
+        sidecar["warm_ms"] = run(0, True)[0]
+        for mode, pipelined in (("pipelined", True), ("unpipelined", False)):
+            walls, fractions = [], []
+            for rep in range(SIDECAR_REPS):
+                wall, pstats = run((1 + rep) * 100, pipelined)
+                walls.append(wall)
+                fractions.append(pstats["encode_overlap_fraction"])
+            sidecar[mode] = {"best_ms": min(walls), "samples_ms": walls,
+                             "encode_overlap_fraction": max(fractions)}
+        daemon = client.stats()
+        sidecar["daemon"] = {k: daemon.get(k) for k in (
+            "requests", "batches", "executed", "device_solves", "device_fallbacks",
+            "last_batch_dispatches", "last_batch_seconds", "last_batch_host_stall")}
+        assert daemon["device_solves"] > 0 and daemon["device_fallbacks"] == 0, daemon
+        client.close()
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=15)
+        sidecar["drain_s"] = time.perf_counter() - t0
+        assert proc.returncode == 0, f"solverd exited {proc.returncode} on SIGTERM"
+    finally:
+        client.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["sidecar"] = sidecar
+    out["parts_s"]["sidecar"] = time.perf_counter() - t_phase - sum(out["parts_s"].values())
+    log(f"phase 4s sidecar ({sidecar['address_family']}): ready in {sidecar['ready_s']:.1f} s, "
+        f"{SIDECAR_BATCHES} batches x {SIDECAR_PODS} pods, best ms pipelined "
+        f"{sidecar['pipelined']['best_ms']:.1f} unpipelined {sidecar['unpipelined']['best_ms']:.1f}, "
+        f"encode_overlap_fraction {sidecar['pipelined']['encode_overlap_fraction']}, daemon "
+        f"{json.dumps(sidecar['daemon'])}, drained and exited 0 in {sidecar['drain_s']:.2f} s")
+
+    # 4. the fault rule in the primed sweep, on the card
+    out["fault"] = fault_prime_probe()
+    log(f"phase 4s prime fault probe: {json.dumps(out['fault'])}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["parts_s"]["fault_probe"] = out["phase_s"] - sum(out["parts_s"].values())
+    log(f"phase 4s took {out['phase_s']:.1f} s, by part "
+        f"{json.dumps({k: round(v, 1) for k, v in out['parts_s'].items()})}")
+    log(json.dumps({"service": out}))
+    return service_launches
 
 
 def dispatch_floor(reps=2000, rounds=5) -> dict:
@@ -4313,6 +4805,11 @@ def main() -> int:
         log(f"phase 5c done at {time.perf_counter() - t_start:.1f} s")
         phase_observatory(captured)
         log(f"phase 4c done at {time.perf_counter() - t_start:.1f} s")
+        service_launches = phase_service(captured)
+        log(f"phase 4s done at {time.perf_counter() - t_start:.1f} s")
+        # the main path's launches: phase 4's solves and phase 4s's
+        # reconciles and coalesced batch
+        path = {k: v + service_launches.get(k, 0) for k, v in launches.items()}
         mesh_launches = phase_mesh(captured)
         log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
         prefix_scan = phase_identity()
@@ -4332,15 +4829,15 @@ def main() -> int:
             {k: e[k] for k in ("name", "ms", "plain_ms", "library_ms", "device_ms",
                                "bound_ms", "bound_by", "bytes", "ops", "shapes")}
             for e in wide]}))
-        kernels = timing_entries(captured["row_compat"], captured["cube"], launches,
+        kernels = timing_entries(captured["row_compat"], captured["cube"], path,
                                  "the main path's inputs", phase3)
         plain: dict = {}
         kernels += scan_entries(captured["uid_project"], captured["solve_scan"], prefix_scan,
-                                launches, plain)
+                                path, plain)
         kernels += scan_state_entries(captured["solve_scan"], captured["solve_scan_resume"],
                                       delta_launches, plain)
         kernels += group_entries(captured, group_launches, phase3)
-        kernels += fits_stage_entries(captured, launches)
+        kernels += fits_stage_entries(captured, path)
         kernels += mesh_entries(captured, mesh_launches, plain)
         log(json.dumps({"launch_floor": launch_floor()}))
         log(json.dumps({"dispatch_floor": dispatch_floor()}))

@@ -79,10 +79,18 @@ class Recorder:
 
     def _maybe_evict(self, now: float) -> None:
         """Prune expired dedupe entries so the map is bounded by the TTL
-        window (the reference uses an expiring cache, recorder.go:48-58)."""
-        if len(self._seen) < 4096:
+        window (the reference uses an expiring cache, recorder.go:48-58).
+
+        port: a prune runs once the map has doubled since the last one
+        (first at 4096 entries). The reference prunes on every publish past
+        4096, a copy of the whole map each time: with tens of thousands of
+        distinct keys inside the window (a 50k-pod batch's Nominated
+        events) that is quadratic. An expired entry never dedupes, so the
+        events published are the same."""
+        if len(self._seen) < getattr(self, "_evict_at", 4096):
             return
         self._seen = {k: t for k, t in self._seen.items() if now - t < DEDUPE_TTL}
+        self._evict_at = max(4096, 2 * len(self._seen))
 
     def reset(self) -> None:
         self.events.clear()

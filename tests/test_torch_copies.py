@@ -29,6 +29,17 @@ VERBATIM = [
     "observability/flight.py",
     "ops/topo_counts.py",
     "tracing/journey.py",
+    "operator/harness.py",
+    "state/informer.py",
+    "cloudprovider/fake.py",
+    "scheduler/volumetopology.py",
+    "controllers/__init__.py",
+    "controllers/provisioning/__init__.py",
+    "controllers/provisioning/batcher.py",
+    "solverd/__init__.py",
+    "solverd/api.py",
+    "solverd/queue.py",
+    "solverd/service.py",
 ]
 
 # module -> the port-specific parts (see the module docstring), and the
@@ -55,6 +66,42 @@ PORT_SPECIFIC = {
          "DeviceProfiler.available", "DeviceProfiler.activities", "DeviceProfiler._run"],
         [],
     ),
+    # the dedupe map pruned when it has doubled, not on every publish
+    "events/recorder.py": (["Recorder._maybe_evict"], []),
+    # "tpu" keeps its name and means the CUDA engine
+    "operator/options.py": ([], [(
+        ['    solver_backend: str = "tpu"  # "tpu" | "host"'],
+        ['    solver_backend: str = "tpu"  # "tpu" | "host" (port: "tpu" is the CUDA engine)'],
+    )]),
+    # the mesh builder is mesh.build_solver_mesh; the engines' device
+    "controllers/provisioning/provisioner.py": (
+        ["_build_solver_mesh", "default_engine_factory"], [],
+    ),
+    # the daemon's factory takes the device; a failed engine build is the
+    # request's error, never a host-loop answer
+    "solverd/transport.py": (
+        ["_default_engine_factory"],
+        [(
+            [
+                "            try:",
+                "                scheduler.engine = self.engine_factory(catalog)",
+                "            except Exception:  # noqa: BLE001 — host path is decision-identical",
+                "                scheduler.engine = None",
+            ],
+            [
+                "            # port: a failed engine build is the request's error (its type",
+                "            # rides the error reply) — a daemon that owns the card never",
+                "            # answers from the host loop instead",
+                "            scheduler.engine = self.engine_factory(catalog)",
+            ],
+        )],
+    ),
+    # a KernelError in the primed sweep fails the batch's requests
+    "solverd/coalescer.py": (["Coalescer._prime"], []),
+    # the catalog hash computed in place until aot/compiler.py is ported
+    "solverd/fleet.py": (["FleetClient._catalog_hash"], []),
+    # --device; the AOT flags refused until aot/compiler.py is ported
+    "solverd/__main__.py": (["main"], []),
 }
 
 

@@ -7,8 +7,8 @@ same random sequence and builds the same objects as the reference's own
 generator, `build_case("karpenter_tpu_torch", ...)` builds them in the
 port's classes. The object builders of tests/helpers.py and the test
 scheduler environment of tests/test_scheduler.py (`Env`) are copied the
-same way; the port has no state informer yet, so `Env` feeds the cluster
-state as the reference's informer does (nodes as copies, then pods).
+same way; `Env` feeds the cluster state through the package's own
+`state/informer.StateInformer`, as the reference's `Env` does.
 """
 
 from __future__ import annotations
@@ -147,8 +147,8 @@ def api(pkg: str) -> SimpleNamespace:
 
 class Env:
     """tests/test_scheduler.py's Env in package `pkg`: a store, a cluster
-    state fed as the reference's informer feeds it, and one solve of
-    Scheduler.solve over a fresh Topology."""
+    state fed by the package's informer, and one solve of Scheduler.solve
+    over a fresh Topology."""
 
     def __init__(self, pkg, node_pools, state_nodes=(), daemonset_pods=(), pods=(),
                  catalog=None, **scheduler_kwargs):
@@ -158,6 +158,7 @@ class Env:
         self.clock = m("utils.clock").FakeClock()
         self.store = m("runtime.store").Store(clock=self.clock)
         self.cluster = m("state.cluster").Cluster(self.clock, self.store, cloud_provider=None)
+        self.informer = m("state.informer").StateInformer(self.store, self.cluster)
         self.recorder = m("events.recorder").Recorder(clock=self.clock)
         self.node_pools = sorted(node_pools, key=lambda np_: -(np_.spec.weight or 0))
         for np_ in self.node_pools:
@@ -166,14 +167,7 @@ class Env:
             self.store.create(obj)
         for p in pods:
             self.store.create(p)
-        # the informer's flush: the watched kinds in creation order
-        for np_ in self.node_pools:
-            self.cluster.mark_unconsolidated()
-        for obj in state_nodes:
-            if obj.KIND == "Node":
-                self.cluster.update_node(copy.deepcopy(obj))
-        for p in pods:
-            self.cluster.update_pod(p)
+        self.informer.flush()
         self.instance_types = {
             np_.metadata.name: list(catalog or a.CATALOG) for np_ in self.node_pools
         }

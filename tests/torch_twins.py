@@ -1,0 +1,377 @@
+"""Run a reference test module's own cases on both packages.
+
+`run(name, case, pkg)` loads `tests/<name>.py` as a fresh module bound to
+package `pkg` — for the port, every `karpenter_tpu` import renamed to
+`karpenter_tpu_torch` — and runs one of its cases there with its own
+assertions. Its sibling imports (`helpers`, `test_solverd`,
+`test_scheduler`) are loaded the same way, and a top-level import of a
+module the package lacks is dropped, with the classes that derive from
+what it imported (only cases that need none of it are run). The reference's side is a copy of its module too, so the hooks below
+never touch the modules pytest collects.
+
+The twin tests compare what the two runs record:
+- every `decisions(results)` of tests/test_solverd.py records `decisions`
+  below: claims with their pods in order, instance-type options,
+  requirements and annotations; pods on existing nodes; pod errors with
+  type and message;
+- every `Env.schedule` of tests/test_scheduler.py records the same;
+- every harness `make_provisioner_harness` built records, after the case,
+  the NodeClaim objects in its store (`dataclasses.asdict`), the
+  provisioner's pod nominations and its events.
+
+Each run installs the same uid source (`apis.core.set_uid_source`) and
+restarts the name, hostname and placeholder counters, so the two packages
+draw the same names. On the reference's side `ffd.STRICT` is set: a fault
+there raises instead of falling back to the host loop. On the port's side
+engines are built on the CPU (`device="cpu"`): `CatalogEngine`,
+`SolverDaemon`'s engine factory and the harness's `default_engine_factory`.
+"""
+
+from __future__ import annotations
+
+import ast
+import contextlib
+import dataclasses
+import functools
+import importlib
+import importlib.util
+import inspect
+import itertools
+import os
+import pathlib
+import random
+import re
+import sys
+import tempfile
+import types
+
+import pytest
+
+J, T = "karpenter_tpu", "karpenter_tpu_torch"
+TESTS = os.path.dirname(os.path.abspath(__file__))
+SIBLINGS = ("helpers", "test_solverd", "test_scheduler")
+
+
+class Leg:
+    """What one run of a case records."""
+
+    def __init__(self, pkg: str):
+        self.pkg = pkg
+        self.obs: list = []
+        self.harnesses: list = []
+
+
+_LEG: list = []
+
+
+def _record(item) -> None:
+    if _LEG:
+        _LEG[-1].obs.append(item)
+
+
+def _m(pkg: str, name: str):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+def twin_name(name: str, pkg: str) -> str:
+    return f"_twin_{'port' if pkg == T else 'ref'}_{name}"
+
+
+def _exists(module: str) -> bool:
+    try:
+        return importlib.util.find_spec(module) is not None
+    except ModuleNotFoundError:
+        return False
+
+
+class _Rewrite(ast.NodeTransformer):
+    """Sibling imports to their twins; top-level imports of modules the
+    package lacks dropped."""
+
+    def __init__(self, pkg: str):
+        self.pkg = pkg
+
+    def visit_ImportFrom(self, node):
+        if node.module in SIBLINGS:
+            node.module = twin_name(node.module, self.pkg)
+        return node
+
+
+def _source(name: str, pkg: str) -> str:
+    with open(os.path.join(TESTS, f"{name}.py")) as f:
+        src = f.read()
+    if pkg == T:
+        src = re.sub(r"\bkarpenter_tpu\b", T, src)
+    return src
+
+
+@functools.lru_cache(maxsize=None)
+def module(name: str, pkg: str) -> types.ModuleType:
+    """tests/<name>.py bound to `pkg`, with the hooks installed."""
+    tree = ast.parse(_source(name, pkg))
+    tree = _Rewrite(pkg).visit(tree)
+    keep, dropped = [], set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith(pkg + "."):
+            if not _exists(node.module):
+                dropped.update(a.asname or a.name for a in node.names)
+                continue
+        if isinstance(node, ast.ClassDef) and any(
+            isinstance(b, ast.Name) and b.id in dropped for b in node.bases
+        ):
+            continue  # a subclass of what the package lacks
+        keep.append(node)
+    tree.body = keep
+    ast.fix_missing_locations(tree)
+    mod = types.ModuleType(twin_name(name, pkg))
+    mod.__file__ = os.path.join(TESTS, f"{name}.py")
+    sys.modules[mod.__name__] = mod
+    for sibling in SIBLINGS:
+        if sibling != name and re.search(rf"^\s*from {sibling} import", _source(name, pkg), re.M):
+            module(sibling, pkg)
+    exec(compile(tree, f"{mod.__file__} [{pkg}]", "exec"), mod.__dict__)
+    _install_hooks(mod, name, pkg)
+    return mod
+
+
+# -- hooks -------------------------------------------------------------------
+
+
+def decisions(results) -> tuple:
+    """The whole decision of a solve, in order."""
+    claims = [
+        (
+            nc.nodepool_name,
+            [p.metadata.name for p in nc.pods],
+            [it.name for it in nc.instance_type_options],
+            sorted(
+                (r.key, r.complement, sorted(r.values), r.greater_than, r.less_than, r.min_values)
+                for r in nc.requirements
+            ),
+            sorted(nc.annotations.items()),
+        )
+        for nc in results.new_node_claims
+    ]
+    existing = sorted(
+        (en.name(), [p.metadata.name for p in en.pods])
+        for en in results.existing_nodes
+        if en.pods
+    )
+    errors = sorted(
+        (p.metadata.name, type(e).__name__, str(e)) for p, e in results.pod_errors.items()
+    )
+    return claims, existing, errors
+
+
+def store_snapshot(harness) -> dict:
+    """The NodeClaims a harness's store holds, its provisioner's pod
+    nominations and its events."""
+    clock, store, provider, cluster, informer, prov = harness
+    return {
+        "nodeclaims": sorted(
+            (dataclasses.asdict(c) for c in store.list("NodeClaim")),
+            key=lambda c: c["metadata"]["name"],
+        ),
+        "nominations": sorted(cluster.pod_to_node_claim.items()),
+        "events": sorted(
+            (
+                getattr(getattr(e.involved_object, "metadata", None), "name", ""),
+                e.type, e.reason, e.message,
+            )
+            for e in prov.recorder.events
+        ),
+    }
+
+
+def _cpu_engine(CatalogEngine):
+    @functools.wraps(CatalogEngine)
+    def build(*args, **kwargs):
+        kwargs.setdefault("device", "cpu")
+        return CatalogEngine(*args, **kwargs)
+
+    return build
+
+
+def _cpu_daemon(SolverDaemon):
+    from karpenter_tpu_torch.solverd.transport import _default_engine_factory
+
+    class CpuSolverDaemon(SolverDaemon):
+        def __init__(self, service, address="127.0.0.1:0", engine_factory=None,
+                     replica_id="", shard_devices=0):
+            super().__init__(
+                service, address=address,
+                engine_factory=engine_factory
+                or _default_engine_factory(shard_devices, device="cpu"),
+                replica_id=replica_id, shard_devices=shard_devices,
+            )
+
+    return CpuSolverDaemon
+
+
+def port_provisioner_harness(options=None, instance_types=None):
+    """tests/helpers.make_provisioner_harness in the port: the engines on
+    the CPU."""
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import (
+        Provisioner,
+        default_engine_factory,
+    )
+    from karpenter_tpu_torch.events.recorder import Recorder
+    from karpenter_tpu_torch.operator.options import Options as _Options
+    from karpenter_tpu_torch.runtime.store import Store
+    from karpenter_tpu_torch.state.cluster import Cluster
+    from karpenter_tpu_torch.state.informer import StateInformer
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    options = options or _Options()
+    clock = FakeClock()
+    store = Store(clock=clock)
+    provider = FakeCloudProvider(instance_types)
+    cluster = Cluster(clock, store, provider)
+    informer = StateInformer(store, cluster)
+    recorder = Recorder(clock=clock)
+    factory = (
+        default_engine_factory(
+            shard_devices=options.solver_pod_shard_axis, device="cpu"
+        )
+        if options.solver_backend == "tpu"
+        else None
+    )
+    prov = Provisioner(
+        store, provider, cluster, recorder, clock, options, engine_factory=factory
+    )
+    return clock, store, provider, cluster, informer, prov
+
+
+def _install_hooks(mod, name: str, pkg: str) -> None:
+    if pkg == T:
+        if "CatalogEngine" in mod.__dict__:
+            mod.CatalogEngine = _cpu_engine(mod.CatalogEngine)
+        if "SolverDaemon" in mod.__dict__:
+            mod.SolverDaemon = _cpu_daemon(mod.SolverDaemon)
+    if name == "helpers":
+        make = port_provisioner_harness if pkg == T else mod.make_provisioner_harness
+
+        def make_provisioner_harness(options=None, instance_types=None):
+            harness = make(options, instance_types)
+            if _LEG:
+                _LEG[-1].harnesses.append(harness)
+            return harness
+
+        mod.make_provisioner_harness = make_provisioner_harness
+    if name == "test_scheduler":
+        schedule = mod.Env.schedule
+
+        def recorded_schedule(self, pods, timeout=60.0):
+            results = schedule(self, pods, timeout=timeout)
+            _record(("schedule", decisions(results)))
+            return results
+
+        mod.Env.schedule = recorded_schedule
+    if name == "test_solverd":
+        original = mod.decisions
+
+        def recorded(results):
+            _record(("decisions", decisions(results)))
+            return original(results)
+
+        mod.decisions = recorded
+
+
+# -- running a case ------------------------------------------------------------
+
+
+def cases(name: str, classes=None) -> list[str]:
+    """The test cases of tests/<name>.py ("Class::method" or "function"),
+    in file order; `classes` keeps only those classes' cases."""
+    tree = ast.parse(_source(name, J))
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
+            if classes is not None and node.name not in classes:
+                continue
+            out += [
+                f"{node.name}::{f.name}" for f in node.body
+                if isinstance(f, ast.FunctionDef) and f.name.startswith("test_")
+            ]
+        elif isinstance(node, ast.FunctionDef) and node.name.startswith("test_") and classes is None:
+            out.append(node.name)
+    return out
+
+
+def _fixture(mod, name: str, mp, tmp: pathlib.Path):
+    if name == "monkeypatch":
+        return mp
+    if name == "tmp_path":
+        return tmp
+    fx = mod.__dict__[name]
+    fn = getattr(fx, "_get_wrapped_function", None)
+    return (fn() if fn else fx.__wrapped__)()
+
+
+def reset(pkg: str, seed: int = 0) -> None:
+    """The same names and uids in either package."""
+    _m(pkg, "apis.core").set_uid_source(random.Random(seed))
+    _m(pkg, "scheduler.nodeclaim")._hostname_counter = itertools.count(1)
+    _m(pkg, "ops.ffd")._placeholder_counter = itertools.count(1)
+    helpers = sys.modules.get(twin_name("helpers", pkg))
+    if helpers is not None:
+        helpers._counter[0] = 0
+
+
+@contextlib.contextmanager
+def leg(pkg: str):
+    """One run's recording, names and settings."""
+    rec = Leg(pkg)
+    _LEG.append(rec)
+    with pytest.MonkeyPatch.context() as mp:
+        if pkg == J:
+            mp.setattr(_m(J, "ops.ffd"), "STRICT", True)
+        reset(pkg)
+        try:
+            yield rec
+        finally:
+            _m(pkg, "apis.core").set_uid_source(None)
+            _LEG.pop()
+
+
+class _PortMonkeyPatch(pytest.MonkeyPatch):
+    """The port has no `ffd.STRICT`: it always behaves as the reference
+    does under STRICT = True, so a case's `setattr(ffd, "STRICT", True)`
+    has nothing to set there."""
+
+    def setattr(self, target, name, value=None, raising=True):
+        if target is _m(T, "ops.ffd") and name == "STRICT" and value is True:
+            return
+        super().setattr(target, name, value, raising=raising)
+
+
+def run(name: str, case: str, pkg: str) -> list:
+    """Run one case of tests/<name>.py in `pkg`; returns what it recorded."""
+    mod = module(name, pkg)
+    mp = _PortMonkeyPatch() if pkg == T else pytest.MonkeyPatch()
+    with leg(pkg) as rec, contextlib.ExitStack() as stack, \
+            tempfile.TemporaryDirectory() as tmp:
+        stack.callback(mp.undo)
+        if "::" in case:
+            cls_name, meth = case.split("::")
+            fn = getattr(mod.__dict__[cls_name](), meth)
+        else:
+            fn = mod.__dict__[case]
+        kwargs = {
+            p: _fixture(mod, p, mp, pathlib.Path(tmp))
+            for p in inspect.signature(fn).parameters
+        }
+        fn(**kwargs)
+        for harness in rec.harnesses:
+            rec.obs.append(("store", store_snapshot(harness)))
+    return rec.obs
+
+
+def twin(name: str, case: str) -> tuple[list, list]:
+    """The case on the reference, then on the port; both must pass their
+    assertions, and what they record must be equal."""
+    ref = run(name, case, J)
+    port = run(name, case, T)
+    assert port == ref
+    return ref, port
