@@ -158,6 +158,41 @@ Phases, in order; any failure exits non-zero:
      overlap printed. Last, in a child process, a coalesced batch whose
      primed sweep launches kt_cube with a bogus pointer: both requests
      fail with KernelError. One JSON line {"service": {...}};
+  4d. the consolidation search (phase_consolidation; after 4s): bench.py's
+     consolidation legs in the port's API (consolidation_env: the kwok
+     catalog, a Provisioner with Options() as they come, the disruption
+     Queue and Controller, one Ready `workers` NodePool and N
+     c-4x-amd64-linux nodes of two bound 200m pods each) at N = 1,000 (one
+     cold and 5 timed computes) and N = 10,000 (one cold and 2 timed); a
+     compute is DisruptionController.reconcile(), the parked command
+     dropped, the clock stepped 60 s, the cluster marked unconsolidated,
+     gc fenced out of its wall. For each N: the computes' ms (cold, best,
+     median), probes and rounds a compute, C launches a compute by entry
+     point (apart: those made while the probes' schedulers were built,
+     and each round's coalesced prime), each scan launch's design and
+     dims, fused probes per round, fused declines by reason, the probes
+     the reference's routing gates send to the host loop (below
+     DEVICE_MIN_PODS pods, past DEVICE_MAX_EXISTING existing nodes: every
+     fallback must be one of them); every compute parks the same command,
+     equal to a device="cpu" engine's and to the reference's sequential
+     search's (_first_n_sequential) on the CUDA engine (decision,
+     candidates by name in order, each replacement's options and
+     requirements), with the same pod errors per round as the CPU engine;
+     each round's prime at most one kt_row_compat and one kt_cube; one
+     kt_row_compat a row batch and one kt_cube a sweep; at 1k one
+     kt_uid_project and one kt_solve_scan (has_nodes) a fused probe, at
+     10k none; memory_allocated flat over the timed computes; one more
+     compute inside ktime.measure() and a batch scope (its named
+     dispatches equal to the launches, device busy, host-stall fraction)
+     and, at 1k, one under cProfile (top 10 by cumulative time, the table
+     in chiprun_out/consolidation_1k_profile.txt). Then kt_solve_scan at
+     a 1k probe's operands (existing nodes, N=1024) in both designs, and
+     the path's largest row batch and sweep, against their plain versions
+     bit for bit, timed; and in child processes, side by side, a frontier
+     round whose primed kt_cube gets a bogus pointer: reconcile() raises
+     KernelError, in-process and through a SocketClient to the sidecar
+     (the module's entry point, the fault armed there). One JSON line
+     {"consolidation": {...}};
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
      mesh, on a 2-shard mesh (two cards when the machine has them, else
      cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
@@ -176,7 +211,7 @@ Phases, in order; any failure exits non-zero:
      nodes-and-limits solve with the scan on CUDA against the plain scan on
      the CPU;
   7. one JSON line {"kernels": [...]}: per kernel its launches on its path
-     (phases 4 and 4s, phase 5 for the delta and group kernels, phase 5b for the
+     (phases 4, 4s and 4d, phase 5 for the delta and group kernels, phase 5b for the
      sharded twins, phase 3 and the workload checks for fits_matrix and
      stage_plane: fits of the 50k pods' quantized requests against the
      1008 allocatables, the stage plane of a sweep of the 200 shapes),
@@ -2715,6 +2750,731 @@ def phase_service(captured, device=None):
     return service_launches
 
 
+# -- phase 4d: the consolidation search ------------------------------------------
+
+# bench.py's consolidation legs: (candidate nodes, timed computes) —
+# consolidation_1k and consolidation_10k (bench.py:1673-1676)
+CONSOLIDATION_NODES = ((1_000, 5), (10_000, 2))
+# the fault probe's cluster: its first round coalesces three probes of
+# 102-150 pods on the device path, whose prime makes the round's one sweep
+CONSOLIDATION_FAULT_NODES = 1_000
+
+
+def consolidation_env(n_nodes: int, device=None):
+    """bench.py's _consolidation_env in the port's API: FakeCloudProvider()
+    (the kwok catalog), a Provisioner with Options() as they come (the
+    CUDA engine from default_engine_factory, the in-process solverd), the
+    disruption Queue and Controller, one Ready `workers` NodePool and
+    `n_nodes` c-4x-amd64-linux nodes (4 cpu / 16Gi / 110 pods) with their
+    NodeClaims, each carrying two bound 200m pods; the informer flushed
+    and the clock stepped 120 s. `device="cpu"` builds CPU engines."""
+    import types
+
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.apis.core import (
+        Condition, Container, Node, NodeSpec, NodeStatus, ObjectMeta, Pod, PodSpec,
+    )
+    from karpenter_tpu_torch.apis.nodeclaim import NodeClaim
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+    from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.disruption import Controller as DisruptionController
+    from karpenter_tpu_torch.controllers.disruption.methods import MultiNodeConsolidation
+    from karpenter_tpu_torch.controllers.disruption.queue import Queue as DisruptionQueue
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import (
+        Provisioner, default_engine_factory,
+    )
+    from karpenter_tpu_torch.events.recorder import Recorder
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.runtime.store import Store
+    from karpenter_tpu_torch.state.cluster import Cluster
+    from karpenter_tpu_torch.state.informer import StateInformer
+    from karpenter_tpu_torch.utils.clock import FakeClock
+    from karpenter_tpu_torch.utils.resources import parse_resource_list
+
+    clock = FakeClock()
+    store = Store(clock=clock)
+    provider = FakeCloudProvider()
+    cluster = Cluster(clock, store, provider)
+    informer = StateInformer(store, cluster)
+    recorder = Recorder(clock=clock)
+    provisioner = Provisioner(store, provider, cluster, recorder, clock, Options(),
+                              engine_factory=None if device is None else default_engine_factory(
+                                  device=device))
+    queue = DisruptionQueue(store, recorder, cluster, clock, provisioner)
+    controller = DisruptionController(clock, store, provisioner, provider, recorder, cluster, queue)
+    pool = NodePool(metadata=ObjectMeta(name="workers"))
+    pool.set_condition("Ready", "True")
+    store.create(pool)
+    cap = parse_resource_list({"cpu": "4", "memory": "16Gi", "pods": "110"})
+    for i in range(n_nodes):
+        name = f"cand-{i:05d}"
+        labels = {
+            wk.NODEPOOL_LABEL_KEY: "workers",
+            wk.LABEL_INSTANCE_TYPE: "c-4x-amd64-linux",
+            wk.LABEL_TOPOLOGY_ZONE: "kwok-zone-1",
+            wk.CAPACITY_TYPE_LABEL_KEY: wk.CAPACITY_TYPE_ON_DEMAND,
+            wk.LABEL_OS: "linux",
+            wk.LABEL_ARCH: "amd64",
+            wk.NODE_REGISTERED_LABEL_KEY: "true",
+            wk.NODE_INITIALIZED_LABEL_KEY: "true",
+            wk.LABEL_HOSTNAME: name,
+        }
+        node = Node(metadata=ObjectMeta(name=name, labels=dict(labels)),
+                    spec=NodeSpec(provider_id=f"fake://{name}"),
+                    status=NodeStatus(capacity=dict(cap), allocatable=dict(cap)))
+        node.status.conditions.append(Condition(type="Ready", status="True"))
+        claim = NodeClaim(metadata=ObjectMeta(
+            name=f"{name}-claim",
+            labels={k: v for k, v in labels.items() if k not in (
+                wk.NODE_REGISTERED_LABEL_KEY, wk.NODE_INITIALIZED_LABEL_KEY, wk.LABEL_HOSTNAME)},
+        ))
+        claim.status.provider_id = f"fake://{name}"
+        claim.status.node_name = name
+        claim.status.capacity = dict(cap)
+        claim.status.allocatable = dict(cap)
+        for cond in ("Launched", "Registered", "Initialized", "Consolidatable"):
+            claim.set_condition(cond, "True")
+        store.create(claim)
+        store.create(node)
+        for j in range(2):
+            pod = Pod(metadata=ObjectMeta(name=f"{name}-p{j}"),
+                      spec=PodSpec(node_name=name, containers=[
+                          Container(requests=parse_resource_list({"cpu": "200m"}))]))
+            pod.status.conditions.append(Condition(type="PodScheduled", status="True"))
+            store.create(pod)
+    informer.flush()
+    clock.step(120)
+    multi = next(m for m in controller.methods if isinstance(m, MultiNodeConsolidation))
+    return types.SimpleNamespace(controller=controller, cluster=cluster, clock=clock, store=store,
+                                 provisioner=provisioner, multi=multi, nodes=n_nodes)
+
+
+def consolidation_command(cmd) -> tuple:
+    """A disruption Command's decision: the decision, the candidates by
+    name in order, each replacement's instance-type options and
+    requirements."""
+    return (
+        cmd.decision(),
+        tuple(c.name() for c in cmd.candidates),
+        tuple(
+            (
+                tuple(it.name for it in rep.node_claim.instance_type_options),
+                tuple(sorted(
+                    (r.key, r.complement, tuple(sorted(r.values)), r.greater_than, r.less_than,
+                     r.min_values)
+                    for r in rep.node_claim.requirements
+                )),
+            )
+            for rep in cmd.replacements
+        ),
+    )
+
+
+def consolidation_compute(env):
+    """One compute as bench.py's consolidation_bench times it: a disruption
+    reconcile, the parked command dropped, the clock stepped 60 s and the
+    cluster marked unconsolidated. Returns the parked command's record
+    (None when nothing was parked)."""
+    env.controller.reconcile()
+    pending, env.controller._pending = env.controller._pending, None
+    env.clock.step(60)
+    env.cluster.mark_unconsolidated()
+    return consolidation_command(pending[0]) if pending else None
+
+
+class ConsolidationProbe:
+    """What the consolidation path did in one compute: wrapper launches
+    (LAUNCHES), C launches by entry point, and apart those made while the
+    probes' schedulers were built (FrontierSimulator.plan) and those of
+    each round's coalesced prime (Coalescer._prime); engine calls (row
+    batches, sweeps); every scan launch's design and dims; fused probes per
+    round (the frontier spans' fused_probes); fused declines by reason;
+    frontier probes and rounds; pod errors per probe; fallbacks, by the
+    reference's routing gate. The shims stay installed between `install()`
+    and `remove()`; `keep` captures the operands of the first scan launch
+    with nodes and of the largest row batch and sweep."""
+
+    def __init__(self):
+        self.keep = False
+        self.captured: dict = {}
+        self.obs: dict = {}
+
+    def install(self):
+        from karpenter_tpu_torch.controllers.disruption import helpers as dhelpers
+        from karpenter_tpu_torch.ops import feasibility as feas
+        from karpenter_tpu_torch.ops import ffd, packer
+        from karpenter_tpu_torch.solverd.coalescer import Coalescer
+
+        self.real = {
+            "rows": feas.req_rows_vs_targets, "cube": feas.cube_rows, "launch": feas.launch,
+            "scan": packer.solve_scan, "prime": Coalescer._prime,
+            "uid": feas.uid_project_factored,
+            "plan": dhelpers.FrontierSimulator.plan,
+            "batch": dhelpers.FrontierSimulator.solve_batch, "solve_device": ffd.solve_device,
+        }
+        real, obs = self.real, self
+
+        def launch_shim(dev, entry, *args):
+            e = obs.obs.setdefault("entries", {})
+            e[entry.__name__] = e.get(entry.__name__, 0) + 1
+            if obs.obs.get("in_prime"):
+                p = obs.obs["primes"][-1]
+                p[entry.__name__] = p.get(entry.__name__, 0) + 1
+            if obs.obs.get("in_plan"):
+                p = obs.obs.setdefault("plan_entries", {})
+                p[entry.__name__] = p.get(entry.__name__, 0) + 1
+            return real["launch"](dev, entry, *args)
+
+        def rows_shim(*args):
+            obs.obs["row_batches"] = obs.obs.get("row_batches", 0) + 1
+            if obs.keep and args[0].shape[0] >= obs.captured.get("rows_size", -1):
+                obs.captured["row_compat"], obs.captured["rows_size"] = args, args[0].shape[0]
+            return real["rows"](*args)
+
+        def cube_shim(*args):
+            obs.obs["sweeps"] = obs.obs.get("sweeps", 0) + 1
+            size = args[0].shape[0] * (args[2].shape[0] + 1)
+            if obs.keep and size >= obs.captured.get("cube_size", -1):
+                obs.captured["cube"], obs.captured["cube_size"] = args, size
+            shape = f"P={args[0].shape[0]} R={args[2].shape[0]}"
+            s = obs.obs.setdefault("sweep_shapes", {})
+            s[shape] = s.get(shape, 0) + 1
+            return real["cube"](*args)
+
+        def scan_shim(cfg, args):
+            d = packer._scan_dims(cfg, args)
+            obs.obs.setdefault("scans", []).append({
+                "design": packer.scan_design(cfg, args), "has_nodes": bool(cfg[1]),
+                "N": d["N"], "P": d["P"], "C": d["C"], "G": d["G"],
+                "n_pods": int(args[13]), "n_nodes": int(args[14])})
+            if obs.keep and "scan" not in obs.captured and cfg[1]:
+                obs.captured["scan"] = (cfg, args)
+            return real["scan"](cfg, args)
+
+        def uid_shim(*args):
+            if obs.keep and "uid_project" not in obs.captured:
+                obs.captured["uid_project"] = args
+            return real["uid"](*args)
+
+        def prime_shim(coalescer, entries):
+            obs.obs.setdefault("primes", []).append({})
+            obs.obs["in_prime"] = True
+            try:
+                return real["prime"](coalescer, entries)
+            finally:
+                obs.obs["in_prime"] = False
+
+        def plan_shim(sim, candidates):
+            obs.obs["in_plan"] = True
+            try:
+                return real["plan"](sim, candidates)
+            finally:
+                obs.obs["in_plan"] = False
+
+        def batch_shim(sim, plans, nested=True):
+            try:
+                return real["batch"](sim, plans, nested)
+            finally:
+                obs.obs.setdefault("pod_errors", []).append(
+                    [None if p.results is None else len(p.results.pod_errors) for p in plans])
+
+        def solve_device_shim(scheduler, pods, timeout=60.0):
+            f0 = ffd.DEVICE_FALLBACKS
+            try:
+                return real["solve_device"](scheduler, pods, timeout)
+            finally:
+                if ffd.DEVICE_FALLBACKS != f0:
+                    # the reference's routing gates (ffd.eligible): a probe
+                    # below DEVICE_MIN_PODS or past DEVICE_MAX_EXISTING
+                    # existing nodes runs on the host loop, counted as a
+                    # fallback; "other" would be a device attempt that gave up
+                    reason = ("min_pods" if len(pods) < ffd.DEVICE_MIN_PODS else "max_existing"
+                              if len(scheduler.existing_nodes) > ffd.DEVICE_MAX_EXISTING
+                              else "other")
+                    e = obs.obs.setdefault("ineligible", {})
+                    e[reason] = e.get(reason, 0) + ffd.DEVICE_FALLBACKS - f0
+
+        feas.req_rows_vs_targets, feas.cube_rows = rows_shim, cube_shim
+        ffd.solve_device = solve_device_shim
+        feas.launch = packer.launch = launch_shim
+        packer.solve_scan, Coalescer._prime = scan_shim, prime_shim
+        feas.uid_project_factored = uid_shim
+        dhelpers.FrontierSimulator.solve_batch = batch_shim
+        dhelpers.FrontierSimulator.plan = plan_shim
+
+    def remove(self):
+        from karpenter_tpu_torch.controllers.disruption import helpers as dhelpers
+        from karpenter_tpu_torch.ops import feasibility as feas
+        from karpenter_tpu_torch.ops import ffd, packer
+        from karpenter_tpu_torch.solverd.coalescer import Coalescer
+
+        r = self.real
+        feas.req_rows_vs_targets, feas.cube_rows = r["rows"], r["cube"]
+        feas.launch = packer.launch = r["launch"]
+        packer.solve_scan, Coalescer._prime = r["scan"], r["prime"]
+        feas.uid_project_factored = r["uid"]
+        ffd.solve_device = r["solve_device"]
+        dhelpers.FrontierSimulator.solve_batch = r["batch"]
+        dhelpers.FrontierSimulator.plan = r["plan"]
+
+    def compute(self, env, run=None) -> tuple:
+        """One compute (`run` wraps it, default consolidation_compute),
+        observed, the launch counts set to 0 just before it and read just
+        after; returns (command, wall ms, what it did). gc is fenced out of
+        the wall time as in bench.py."""
+        import gc
+
+        from karpenter_tpu_torch import tracing
+        from karpenter_tpu_torch.controllers.disruption import methods as dmethods
+        from karpenter_tpu_torch.ops import feasibility as feas
+        from karpenter_tpu_torch.ops import ffd, fused, packer
+
+        labels = {"consolidation_type": "multi"}
+        probes0 = dmethods._FRONTIER_PROBES.value(labels)
+        rounds0 = dmethods._FRONTIER_ROUNDS.sum(labels)
+        fused0, declines0 = fused.FUSED_SOLVES, dict(fused.FUSED_DECLINES)
+        fallbacks0 = ffd.DEVICE_FALLBACKS
+        seen = {s["span"] for s in tracing.tracer().ring.spans()}
+        self.obs = {"primes": []}
+        feas.reset_launch_counts()
+        packer.reset_launch_counts()
+        gc.collect()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            cmd = (run or consolidation_compute)(env)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            gc.enable()
+        spans = [s for s in tracing.tracer().ring.spans()
+                 if s["name"] == "consolidation.frontier" and s["span"] not in seen]
+        obs = self.obs
+        obs.pop("in_prime", None)
+        obs.pop("in_plan", None)
+        obs["launches"] = {k: v for k, v in _count_launches().items() if v}
+        obs["probes"] = dmethods._FRONTIER_PROBES.value(labels) - probes0
+        obs["rounds"] = dmethods._FRONTIER_ROUNDS.sum(labels) - rounds0
+        obs["fused_solves"] = fused.FUSED_SOLVES - fused0
+        obs["fused_declines"] = {k: v - declines0.get(k, 0) for k, v in fused.FUSED_DECLINES.items()
+                                 if v != declines0.get(k, 0)}
+        obs["fused_probes_per_round"] = [s["attrs"].get("fused_probes") for s in spans]
+        obs["device_fallbacks"] = ffd.DEVICE_FALLBACKS - fallbacks0
+        return cmd, ms, obs
+
+
+CONSOLIDATION_FAULT_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from karpenter_tpu_torch.device import KernelError
+
+address = sys.argv[2] if len(sys.argv) > 2 else None
+env = cs.consolidation_env(cs.CONSOLIDATION_FAULT_NODES)
+if address is None:
+    state = cs.arm_prime_fault()
+else:
+    from karpenter_tpu_torch.solverd import SocketClient
+    env.provisioner.solver = SocketClient(address)
+    state = {"armed": "in the daemon"}
+try:
+    returned, raised = env.controller.reconcile(), None
+except KernelError as e:
+    returned, raised = None, str(e)
+except Exception as e:
+    returned, raised = None, f"not a KernelError: {type(e).__name__}: {e}"
+got = {"route": "socket" if address else "in-process", "raised": raised and raised[:300],
+       "returned": returned, "armed": state["armed"], "next_run": env.controller._next_run,
+       "pending": env.controller._pending is not None}
+print(json.dumps(got))
+sys.exit(0 if raised and not raised.startswith("not a") and got["next_run"] == 0.0
+         and not got["pending"] else 1)
+"""
+
+# the sidecar with the same fault armed in its own process: the module's
+# entry point run as `python -m karpenter_tpu_torch.solverd` would run it
+CONSOLIDATION_FAULT_DAEMON = r"""
+import runpy, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+cs.arm_prime_fault()
+sys.argv = ["karpenter_tpu_torch.solverd", "--listen", sys.argv[2], "--coalesce-window", "0",
+            "--log-level", "error"]
+runpy.run_module("karpenter_tpu_torch.solverd", run_name="__main__", alter_sys=True)
+"""
+
+
+def arm_prime_fault() -> dict:
+    """The first kt_cube launch inside a coalesced batch's primed sweep
+    (ffd.prime_joint_masks) gets a bogus has_offering pointer
+    (feasibility._cube_launch's 17th argument). Returns the arming state."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import ffd
+
+    real_launch, real_prime = feas.launch, ffd.prime_joint_masks
+    state = {"armed": True, "in_prime": False}
+
+    def prime(engine, pairs):
+        state["in_prime"] = True
+        try:
+            return real_prime(engine, pairs)
+        finally:
+            state["in_prime"] = False
+
+    def faulting(dev, fn, *args):
+        if state["armed"] and state["in_prime"] and getattr(fn, "__name__", "") == "kt_cube":
+            state["armed"] = False
+            args = args[:16] + (16,) + args[17:]
+        return real_launch(dev, fn, *args)
+
+    feas.launch, ffd.prime_joint_masks = faulting, prime
+    return state
+
+
+def consolidation_fault_probes() -> dict:
+    """The fault rule on the consolidation path, in child processes run
+    side by side: a frontier round whose primed kt_cube gets a bogus
+    pointer makes DisruptionController.reconcile() raise KernelError — it
+    neither returns False nor backs off — once in-process and once through
+    a SocketClient to the sidecar (`-m karpenter_tpu_torch.solverd`, the
+    fault armed in the daemon)."""
+    import shutil
+    import tempfile
+
+    from karpenter_tpu_torch.solverd import SocketClient
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="kt-")
+    address = _sidecar_address(tmp)
+    daemon = subprocess.Popen([sys.executable, "-c", CONSOLIDATION_FAULT_DAEMON, root, address],
+                              cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    inproc = subprocess.Popen([sys.executable, "-c", CONSOLIDATION_FAULT_PROBE, root], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out: dict = {}
+    try:
+        client = SocketClient(address)
+        deadline = time.perf_counter() + 180.0
+        while "error" in client.stats():
+            assert daemon.poll() is None, f"solverd exited {daemon.returncode}: {daemon.stdout.read()}"
+            assert time.perf_counter() < deadline, "solverd never answered"
+            time.sleep(0.2)
+        client.close()
+        sock = subprocess.run([sys.executable, "-c", CONSOLIDATION_FAULT_PROBE, root, address],
+                              cwd=root, capture_output=True, text=True, timeout=300)
+        so, se = inproc.communicate(timeout=300)
+        for route, (rc, stdout, stderr) in (("in-process", (inproc.returncode, so, se)),
+                                            ("socket", (sock.returncode, sock.stdout, sock.stderr))):
+            lines = stdout.strip().splitlines()
+            got = json.loads(lines[-1]) if lines else {}
+            assert rc == 0 and got.get("raised"), \
+                f"consolidation fault probe ({route}): exit {rc}, {stdout[-2000:]} {stderr[-2000:]}"
+            out[route] = got
+    finally:
+        for proc in (daemon, inproc):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert out["in-process"]["armed"] is False, out
+    return out
+
+
+def phase_consolidation(captured, device=None):
+    """Phase 4d: the consolidation search on the card (see the module
+    docstring). Returns the path's launches: the frontier computes' on
+    the CUDA engine."""
+    import cProfile
+    import io
+    import pstats
+
+    from karpenter_tpu_torch.observability import kernels as kobs
+    from karpenter_tpu_torch.ops import fused
+    from karpenter_tpu_torch.tracing import kernel as ktime
+
+    t_phase = time.perf_counter()
+    on_card = device is None
+    probe = ConsolidationProbe()
+    path: dict = {}
+    out: dict = {"legs": {}}
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+
+    def add(launches):
+        for k, v in launches.items():
+            path[k] = path.get(k, 0) + v
+
+    probe.install()
+    try:
+        for n_nodes, reps in CONSOLIDATION_NODES:
+            tag = f"{n_nodes // 1000}k"
+            leg: dict = {"nodes": n_nodes}
+            t0 = time.perf_counter()
+            env = consolidation_env(n_nodes, device)
+            leg["setup_s"] = time.perf_counter() - t0
+            probe.keep = n_nodes == CONSOLIDATION_NODES[0][0]
+            cold_cmd, cold_ms, cold = probe.compute(env)
+            add(cold["launches"])
+            assert cold_cmd is not None, f"{tag}: the cold compute parked no command"
+            timed, memory = [], []
+            for _ in range(reps):
+                cmd, ms, obs = probe.compute(env)
+                add(obs["launches"])
+                timed.append((ms, obs))
+                memory.append(torch.cuda.memory_allocated() if on_card else 0)
+                assert cmd == cold_cmd, f"{tag}: a timed compute parked another command"
+            probe.keep = False
+            walls = [ms for ms, _ in timed]
+            per = timed[-1][1]
+            leg.update({
+                "cold_ms": cold_ms, "timed_ms": walls, "best_ms": min(walls),
+                "median_ms": statistics.median(walls),
+                "probes_per_compute": statistics.mean(o["probes"] for _, o in timed),
+                "rounds_per_compute": statistics.mean(o["rounds"] for _, o in timed),
+                "launches_per_compute": per["entries"] if "entries" in per else {},
+                "wrapper_launches_per_compute": per["launches"],
+                "row_batches": per.get("row_batches", 0), "sweeps": per.get("sweeps", 0),
+                "primes": per["primes"], "plan_launches": per.get("plan_entries", {}),
+                "sweep_shapes": per.get("sweep_shapes", {}),
+                "scans": per.get("scans", []), "fused_probes_per_round": per["fused_probes_per_round"],
+                "fused_declines": per["fused_declines"], "fused_solves": per["fused_solves"],
+                "device_fallbacks": per["device_fallbacks"], "ineligible": per.get("ineligible", {}),
+                "pod_errors_per_round": per.get("pod_errors", []),
+                "memory_allocated": memory, "decision": cold_cmd[0],
+                "candidates": len(cold_cmd[1]), "replacements": len(cold_cmd[2]),
+                "cold": {k: cold.get(k) for k in ("entries", "primes", "plan_entries",
+                                                  "row_batches", "sweeps", "sweep_shapes",
+                                                  "fused_declines", "fused_solves", "probes",
+                                                  "rounds", "ineligible")},
+            })
+            log(f"phase 4d {tag} cold compute: {json.dumps(leg['cold'])}")
+            log(f"phase 4d {tag}: {n_nodes} nodes set up in {leg['setup_s']:.1f} s; compute cold "
+                f"{cold_ms:.1f} ms, timed best {leg['best_ms']:.1f} median {leg['median_ms']:.1f} ms "
+                f"({', '.join(f'{w:.1f}' for w in walls)}); {leg['probes_per_compute']} probes and "
+                f"{leg['rounds_per_compute']} rounds a compute; C launches a compute "
+                f"{json.dumps(leg['launches_per_compute'])}; row batches {leg['row_batches']}, "
+                f"sweeps {leg['sweeps']} {json.dumps(leg['sweep_shapes'])}; C launches while the "
+                f"probes' schedulers were built {json.dumps(leg['plan_launches'])}, in each "
+                f"round's coalesced prime {json.dumps(per['primes'])}; fused probes per round "
+                f"{per['fused_probes_per_round']}, fused declines {json.dumps(per['fused_declines'])}; "
+                f"host-loop probes by routing gate {json.dumps(per.get('ineligible', {}))}; "
+                f"decision {cold_cmd[0]} of {len(cold_cmd[1])} candidates, "
+                f"{len(cold_cmd[2])} replacements; memory_allocated {memory}")
+            for s in per.get("scans", []):
+                log(f"  scan launch: design {s['design']}, has_nodes {s['has_nodes']}, N={s['N']} "
+                    f"P={s['P']} C={s['C']} G={s['G']} (n_pods {s['n_pods']}, n_nodes {s['n_nodes']})")
+            # the launches the path should make, in every compute
+            for label, o in [("cold", cold)] + [(f"timed {i}", o) for i, (_, o) in enumerate(timed)]:
+                # every fallback is one of the reference's routing gates;
+                # none is a device attempt that gave up
+                gates = o.get("ineligible", {})
+                assert o["device_fallbacks"] == sum(gates.values()) and "other" not in gates, \
+                    f"{tag} {label}: {o['device_fallbacks']} fallbacks, gates {gates}"
+                assert o["probes"] > 0 and o["rounds"] > 0, f"{tag} {label}: no frontier round"
+                if not on_card:
+                    continue
+                ent, calls = o.get("entries", {}), o["launches"]
+                assert ent.get("kt_row_compat", 0) == o.get("row_batches", 0) == \
+                    calls.get("row_compat", 0), (label, ent, o.get("row_batches"), calls)
+                assert ent.get("kt_cube", 0) == o.get("sweeps", 0) == calls.get("cube", 0), \
+                    (label, ent, o.get("sweeps"), calls)
+                assert all(ent.get(e, 0) == 0 for e in ("kt_membership", "kt_group_solve",
+                                                        "kt_delta_finalize", "kt_cube_fused")), ent
+                # each round one coalesced batch: its prime at most one
+                # kt_row_compat and one kt_cube
+                assert len(o["primes"]) == o["rounds"] and all(
+                    p.get("kt_row_compat", 0) <= 1 and p.get("kt_cube", 0) <= 1 and
+                    set(p) <= {"kt_row_compat", "kt_cube"} for p in o["primes"]), o["primes"]
+                if n_nodes > fused.FUSED_MAX_NODES:
+                    assert ent.get("kt_solve_scan", 0) == 0 and ent.get("kt_uid_project", 0) == 0, \
+                        f"{tag} {label}: a scan past FUSED_MAX_NODES: {ent}"
+                else:
+                    assert ent.get("kt_solve_scan", 0) == ent.get("kt_uid_project", 0) == \
+                        o["fused_solves"] == sum(o["fused_probes_per_round"]) > 0, \
+                        (label, ent, o["fused_solves"], o["fused_probes_per_round"])
+                    assert all(s["has_nodes"] for s in o.get("scans", [])), o.get("scans")
+            if on_card:
+                assert memory[-1] == memory[0], f"{tag}: memory_allocated grew {memory}"
+
+            # one more compute inside ktime.measure() and a batch scope; the
+            # solver service files each round's batch in a scope of its own
+            # (`solverd:<requests>`), nested in this one
+            reg = kobs.registry()
+            label = f"consolidation-{tag}"
+            seq0 = reg._batch_seq
+            with ktime.measure() as acc, reg.batch_scope(label) as batch:
+                cmd, ms, obs = probe.compute(env)
+            add(obs["launches"])
+            assert cmd == cold_cmd, f"{tag}: the measured compute parked another command"
+            rounds = [b for b in reg._batches if b["seq"] > seq0 and b["label"].startswith("solverd:")]
+            kernels = dict(batch["kernels"])
+            for b in rounds:
+                for k, v in b["kernels"].items():
+                    kernels[k] = kernels.get(k, 0) + v
+            busy = batch["device_busy_s"] + sum(b["device_busy_s"] for b in rounds)
+            leg["measured"] = {
+                "wall_ms": ms, "kernels": kernels, "device_busy_s": busy,
+                "host_stall_fraction": 1.0 - busy / (ms / 1e3),
+                "outside_rounds": {k: batch[k] for k in ("kernels", "device_busy_s")},
+                "rounds": [{k: b[k] for k in ("label", "kernels", "wall_s", "device_busy_s",
+                                              "host_stall_fraction")} for b in rounds],
+                "block_s": acc["block_s"], "enqueue_s": acc["enqueue_s"],
+                "compiles": acc["compiles"],
+            }
+            log(f"phase 4d {tag} measured compute: {ms:.1f} ms wall, named dispatches "
+                f"{json.dumps(kernels)} ({json.dumps(batch['kernels'])} outside the solver "
+                f"service's batches), device busy {busy:.6f} s, host stall fraction "
+                f"{leg['measured']['host_stall_fraction']:.6f}; the rounds' batches "
+                f"{json.dumps(leg['measured']['rounds'])}")
+            if on_card:
+                want = {DISPATCH_OF[n]: v for n, v in obs["launches"].items() if n in DISPATCH_OF}
+                assert kernels == want and len(rounds) == obs["rounds"], \
+                    (label, kernels, obs["launches"], len(rounds))
+
+            if n_nodes == CONSOLIDATION_NODES[0][0]:
+                # one cProfile of a 1k compute: the top 10 by cumulative time
+                prof = cProfile.Profile()
+                cmd, ms, obs = probe.compute(env, run=lambda e: prof.runcall(consolidation_compute, e))
+                add(obs["launches"])
+                assert cmd == cold_cmd
+                text = io.StringIO()
+                pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(10)
+                lines = [ln for ln in text.getvalue().splitlines() if ln.strip()]
+                start = next(i for i, ln in enumerate(lines) if ln.lstrip().startswith("ncalls"))
+                leg["profile_ms"] = ms
+                log(f"phase 4d {tag} cProfile of one compute ({ms:.1f} ms with the profiler on), "
+                    f"top 10 by cumulative time:")
+                for ln in lines[start:start + 11]:
+                    log(f"  host {ln.strip()}")
+                os.makedirs(out_dir, exist_ok=True)
+                with open(os.path.join(out_dir, "consolidation_1k_profile.txt"), "w") as f:
+                    pstats.Stats(prof, stream=f).sort_stats("cumulative").print_stats(60)
+
+            # the same command on a device="cpu" engine and from the
+            # reference's sequential search on the CUDA engine
+            t0 = time.perf_counter()
+            cpu_env = consolidation_env(n_nodes, "cpu")
+            cpu_cmd, cpu_ms, cpu_obs = probe.compute(cpu_env)
+            leg["cpu_engine"] = {"setup_s": time.perf_counter() - t0 - cpu_ms / 1e3, "ms": cpu_ms,
+                                 "pod_errors_per_round": cpu_obs.get("pod_errors", [])}
+            del cpu_env
+            env.multi._first_n_consolidation_option = env.multi._first_n_sequential
+            try:
+                seq_cmd, seq_ms, seq_obs = probe.compute(env)
+            finally:
+                del env.multi._first_n_consolidation_option
+            leg["sequential"] = {"ms": seq_ms, "launches": seq_obs.get("entries", {})}
+            assert cpu_cmd == cold_cmd, f"{tag}: the CPU engine parked another command"
+            assert seq_cmd == cold_cmd, f"{tag}: the sequential search parked another command"
+            assert cpu_obs.get("pod_errors", []) == cold.get("pod_errors", []), \
+                (cpu_obs.get("pod_errors"), cold.get("pod_errors"))
+            log(f"phase 4d {tag}: the same command ({cold_cmd[0]}, {len(cold_cmd[1])} candidates, "
+                f"replacement options {[len(r[0]) for r in cold_cmd[2]]}) on the CUDA engine, on a "
+                f"device=\"cpu\" engine ({cpu_ms:.1f} ms) and from the sequential search "
+                f"({seq_ms:.1f} ms); pod errors per round equal to the CPU engine's")
+            out["legs"][tag] = leg
+            del env
+
+    finally:
+        probe.remove()
+    captured["consolidation_operands"] = probe.captured
+    if on_card:
+        out["kernel_checks"] = consolidation_kernel_checks(probe.captured)
+
+    # the fault rule: in-process and through the sidecar
+    t0 = time.perf_counter()
+    out["fault"] = consolidation_fault_probes() if on_card else {}
+    out["fault_s"] = time.perf_counter() - t0
+    log(f"phase 4d fault probes ({out['fault_s']:.1f} s): {json.dumps(out['fault'])}")
+    out["launches"] = {k: v for k, v in path.items() if v}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 4d took {out['phase_s']:.1f} s")
+    log(json.dumps({"consolidation": out}))
+    return path
+
+
+def consolidation_kernel_checks(ops: dict) -> dict:
+    """kt_solve_scan, kt_row_compat, kt_cube and kt_uid_project at the
+    operands phase 4d's 1k path gave them (the first scan with nodes and
+    its famu_ok masks, the largest row batch and sweep), held against their
+    plain versions bit for bit — the scan in the design the wrapper picks
+    and in the other one forced — and timed: wrapper ms (CUDA events),
+    device ms (the scan by CUDA events around the bare launch, the others
+    by the profiler), the plain version's ms, and the bound (these
+    launches are the checks', not the path's)."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+
+    assert {"scan", "row_compat", "cube", "uid_project"} <= set(ops), \
+        f"phase 4d captured only {sorted(ops)}"
+
+    def words(n):
+        return (n + 31) // 32
+
+    def timed(name, run, plain, inputs, kernel_names, word_ops):
+        got, want = uncounted(run), plain()
+        check_equal(f"{name} on the consolidation path", got, want)
+        gots = got if isinstance(got, tuple) else (got,)
+        moved = nbytes(*inputs) + nbytes(*gots)
+        return {"shapes": [list(t.shape) for t in inputs], "ms": uncounted(cuda_ms, run),
+                "device_ms": _dev_sum(uncounted(device_kernel_ms, run, kernel_names)),
+                "plain_ms": cuda_ms(plain, reps=5, warmup=1), "bytes": moved, "word_ops": word_ops,
+                "bound_ms": max(moved / HBM_BYTES_PER_S, word_ops / WORD_OPS_PER_S) * 1e3}
+
+    out = {}
+    table, targets, sk, vi = ops["row_compat"]
+    packs = [feas.pack_sets(*t) for t in targets]
+    key_slots = feas.key_slot_words(sk, targets[0][0].shape[1])
+    N = sum(t[0].shape[0] for t in targets)
+    out["row_compat"] = timed(
+        "row_compat", lambda: feas.req_rows_vs_targets(table, targets, sk, vi),
+        lambda: feas.req_rows_vs_targets_plain(table, packs, key_slots, vi),
+        [table] + [a for t in targets for a in t] + [sk, vi], ["row_compat_kernel"],
+        table.shape[0] * N * (table.shape[1] - feas.ROW_FIELDS))
+    cube = ops["cube"]
+    mem, kp, idx, rc, oc, cn, av, ow = cube
+    Ru = idx.shape[0]
+    P, I, (O, Kc) = mem.shape[0], rc.shape[1], cn.shape
+    out["cube"] = timed(
+        "cube", lambda: feas.cube_rows(*cube), lambda: feas.cube_rows_plain(*cube),
+        (mem[:, :Ru].contiguous(), kp, idx, rc.index_select(0, idx.long()),
+         oc.index_select(0, idx.long()), cn, av, ow), ["cube_kernel"],
+        P * I * words(Ru) + P * O * (words(Ru) + words(Kc)))
+    onehot, tmpl, fam = ops["uid_project"]
+    R = tmpl.shape[0] * fam.shape[0]
+    out["uid_project"] = timed(
+        "uid_project", lambda: feas.uid_project_factored(onehot, tmpl, fam),
+        lambda: feas.uid_project_factored_plain(onehot, tmpl, fam), (onehot, tmpl, fam),
+        ["uid_project_kernel"], R * onehot.shape[0] * words(onehot.shape[1]) + R * words(onehot.shape[1]))
+
+    cfg, args = ops["scan"]
+    scan_out, plain_ms = cuda_ms_once(lambda: packer.solve_scan_plain(cfg, args))
+    want = tuple(scan_out)
+    picked = packer.scan_design(cfg, args)
+    other = "global" if picked == "resident" else "resident"
+    for design in (None, other):
+        got = uncounted(lambda: tuple(packer.solve_scan(cfg, args, _design=design)))
+        check_equal(f"solve_scan on the consolidation path ({design or picked})", got, want)
+    d = packer._scan_dims(cfg, args)
+    steps = int(scan_out[packer.SCAN_N_OUT])
+    U, D = args[4].shape[0], args[2].shape[1]
+    # float64 compares and subtractions per step, as phase 7's scan entry
+    # counts them, plus the existing nodes' fit test (N x D)
+    f64_ops = steps * (d["G"] * U * D + 2 * U * D + d["N"] * D)
+    scan_bytes = nbytes(*args) + nbytes(*scan_out)
+    out["scan"] = {
+        "designs": [picked, other], "N": d["N"], "P": d["P"], "C": d["C"], "G": d["G"], "U": U,
+        "D": D, "n_pods": int(args[13]), "n_nodes": int(args[14]), "steps": steps,
+        "ms": uncounted(cuda_ms, lambda: packer.solve_scan(cfg, args), 3, 1, 3),
+        "device_ms": {design: scan_launch_ms(cfg, args, design=design) for design in (picked, other)},
+        "plain_ms": plain_ms, "bytes": scan_bytes, "f64_ops": f64_ops,
+        "bound_ms": max(scan_bytes / HBM_BYTES_PER_S, f64_ops / F64_OPS_PER_S) * 1e3,
+    }
+    log(f"phase 4d kernels equal to their plain versions at the path's operands, bit for bit: "
+        f"kt_solve_scan (has_nodes, {picked} as picked and {other} forced) "
+        f"{json.dumps(out['scan'])}; row_compat {json.dumps(out['row_compat'])}; cube "
+        f"{json.dumps(out['cube'])}; uid_project {json.dumps(out['uid_project'])}")
+    return out
+
 def dispatch_floor(reps=2000, rounds=5) -> dict:
     """The named dispatch's own floor: the empty kernel (kt_noop) launched
     through ktime.dispatch with a kernel name, without a measure() context
@@ -4807,9 +5567,12 @@ def main() -> int:
         log(f"phase 4c done at {time.perf_counter() - t_start:.1f} s")
         service_launches = phase_service(captured)
         log(f"phase 4s done at {time.perf_counter() - t_start:.1f} s")
-        # the main path's launches: phase 4's solves and phase 4s's
-        # reconciles and coalesced batch
-        path = {k: v + service_launches.get(k, 0) for k, v in launches.items()}
+        consolidation_launches = phase_consolidation(captured)
+        log(f"phase 4d done at {time.perf_counter() - t_start:.1f} s")
+        # the main path's launches: phase 4's solves, phase 4s's reconciles
+        # and coalesced batch, and phase 4d's frontier computes
+        path = {k: v + service_launches.get(k, 0) + consolidation_launches.get(k, 0)
+                for k, v in launches.items()}
         mesh_launches = phase_mesh(captured)
         log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
         prefix_scan = phase_identity()

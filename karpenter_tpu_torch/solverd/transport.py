@@ -38,6 +38,7 @@ import time
 from contextlib import contextmanager
 from typing import Optional
 
+from karpenter_tpu_torch.device import KernelError
 from karpenter_tpu_torch.solverd import api
 from karpenter_tpu_torch.solverd.api import SolveRequest, TransportError
 from karpenter_tpu_torch.solverd.service import SolverService
@@ -56,6 +57,9 @@ _ERROR_TYPES = {
         api.SolverClosedError,
         api.DrainingError,
         api.TenantQuotaExceededError,
+        # port: a daemon-side device fault reaches the client as the
+        # KernelError it is, not as a TransportError a caller backs off on
+        KernelError,
     )
 }
 

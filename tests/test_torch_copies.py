@@ -40,6 +40,12 @@ VERBATIM = [
     "solverd/api.py",
     "solverd/queue.py",
     "solverd/service.py",
+    "ops/frontier.py",
+    "controllers/disruption/__init__.py",
+    "controllers/disruption/types.py",
+    "controllers/disruption/validation.py",
+    "controllers/disruption/consolidation.py",
+    "controllers/disruption/queue.py",
 ]
 
 # module -> the port-specific parts (see the module docstring), and the
@@ -78,9 +84,10 @@ PORT_SPECIFIC = {
         ["_build_solver_mesh", "default_engine_factory"], [],
     ),
     # the daemon's factory takes the device; a failed engine build is the
-    # request's error, never a host-loop answer
+    # request's error, never a host-loop answer; a KernelError crosses the
+    # wire typed
     "solverd/transport.py": (
-        ["_default_engine_factory"],
+        ["_default_engine_factory", "_ERROR_TYPES"],
         [(
             [
                 "            try:",
@@ -102,6 +109,15 @@ PORT_SPECIFIC = {
     "solverd/fleet.py": (["FleetClient._catalog_hash"], []),
     # --device; the AOT flags refused until aot/compiler.py is ported
     "solverd/__main__.py": (["main"], []),
+    # a KernelError on any probe of a frontier round fails the compute
+    # before the walk; the walk's comments say so; reconcile's comment
+    # says a KernelError is not a shed
+    "controllers/disruption/helpers.py": (["FrontierSimulator.solve_batch"], []),
+    "controllers/disruption/methods.py": (
+        ["MultiNodeConsolidation._probe_verdict", "SingleNodeConsolidation.compute_command"],
+        [],
+    ),
+    "controllers/disruption/controller.py": (["Controller.reconcile"], []),
 }
 
 

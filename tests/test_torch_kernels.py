@@ -717,3 +717,57 @@ def test_sample_device_memory_matches_the_allocator_on_card(cuda_device):
     assert dev["bytes_limit"] == torch.cuda.mem_get_info(cuda_device)[1]
     assert sample["live_arrays"] >= 1
     assert kobs.registry().debug_snapshot()["device_memory"] == sample
+
+
+def _chip_smoke():
+    """chip_smoke.py beside the tests: its consolidation workload
+    (bench.py's _consolidation_env in the port's API)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_consolidation_compute_matches_the_cpu_engine_on_card(cuda_device, monkeypatch):
+    """A 200-node consolidation compute (the disruption controller's
+    frontier search) parks the same command on a CUDA engine as on a
+    device="cpu" one, each probe on the device path (DEVICE_MIN_PODS 1, as
+    tests/test_frontier.py pins it), the CUDA one through the fused scan
+    with existing nodes."""
+    from karpenter_tpu_torch.ops import ffd, fused
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(ffd, "DEVICE_MIN_PODS", 1)
+    fallbacks, scans = ffd.DEVICE_FALLBACKS, tpacker.LAUNCHES["solve_scan"]
+    got = cs.consolidation_compute(cs.consolidation_env(200))
+    assert ffd.DEVICE_FALLBACKS == fallbacks and tpacker.LAUNCHES["solve_scan"] > scans
+    assert fused.FUSED_MODE == "auto"
+    want = cs.consolidation_compute(cs.consolidation_env(200, "cpu"))
+    assert got is not None and got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", SCAN_DESIGNS)
+def test_scan_with_1000_existing_nodes_matches_plain_on_card(cuda_device, design):
+    """kt_solve_scan in has_nodes mode at the operands a 1,000-node
+    consolidation probe gives it, in both designs, bit for bit."""
+    cs = _chip_smoke()
+    seen = []
+    real = tpacker.solve_scan
+
+    def keep(cfg, args):
+        seen.append((cfg, args))
+        return real(cfg, args)
+
+    tpacker.solve_scan = keep
+    try:
+        cs.consolidation_compute(cs.consolidation_env(1000))
+    finally:
+        tpacker.solve_scan = real
+    cfg, args = next((c, a) for c, a in seen if c[1])
+    assert int(args[14]) >= 900 and args[15].shape[0] >= 1000
+    got = tpacker.solve_scan(cfg, args, _design=design)
+    want = tpacker.solve_scan_plain(cfg, args)
+    assert len(got) == len(want)
+    assert all(g.dtype == w.dtype and torch.equal(_bits(g), _bits(w)) for g, w in zip(got, want))

@@ -17,7 +17,16 @@ The twin tests compare what the two runs record:
 - every `Env.schedule` of tests/test_scheduler.py records the same;
 - every harness `make_provisioner_harness` built records, after the case,
   the NodeClaim objects in its store (`dataclasses.asdict`), the
-  provisioner's pod nominations and its events.
+  provisioner's pod nominations and its events;
+- every Command the disruption controller of tests/test_disruption.py's
+  `Env` parks for validation or starts (`command_record`: decision,
+  candidate names in order, each replacement's instance-type options and
+  requirements), every `command_signature` of tests/test_frontier.py,
+  and, after the case, every `Env` / `Harness` (tests/test_candidate_oracle.py)
+  built: the NodeClaim objects in its store and its events in order.
+
+A case parametrized by `pytest.mark.parametrize` is one case a parameter
+set (`Class::method[i]`), and the module's autouse fixtures run around it.
 
 Each run installs the same uid source (`apis.core.set_uid_source`) and
 restarts the name, hostname and placeholder counters, so the two packages
@@ -49,7 +58,7 @@ import pytest
 
 J, T = "karpenter_tpu", "karpenter_tpu_torch"
 TESTS = os.path.dirname(os.path.abspath(__file__))
-SIBLINGS = ("helpers", "test_solverd", "test_scheduler")
+SIBLINGS = ("helpers", "test_solverd", "test_scheduler", "test_disruption")
 
 
 class Leg:
@@ -59,6 +68,7 @@ class Leg:
         self.pkg = pkg
         self.obs: list = []
         self.harnesses: list = []
+        self.envs: list = []
 
 
 _LEG: list = []
@@ -183,6 +193,77 @@ def store_snapshot(harness) -> dict:
     }
 
 
+def command_record(cmd) -> tuple:
+    """A disruption Command's decision: the decision, the candidates by
+    name in order, each replacement's instance-type options and
+    requirements."""
+    return (
+        cmd.decision(),
+        [c.name() for c in cmd.candidates],
+        [
+            (
+                [it.name for it in rep.node_claim.instance_type_options],
+                sorted(
+                    (r.key, r.complement, sorted(r.values), r.greater_than,
+                     r.less_than, r.min_values)
+                    for r in rep.node_claim.requirements
+                ),
+            )
+            for rep in cmd.replacements
+        ],
+    )
+
+
+def env_snapshot(env) -> dict:
+    """The NodeClaim objects an env's store holds and its events, in the
+    order they were published."""
+    return {
+        "nodeclaims": sorted(
+            (dataclasses.asdict(c) for c in env.store.list("NodeClaim")),
+            key=lambda c: c["metadata"]["name"],
+        ),
+        "events": [
+            (
+                getattr(getattr(e.involved_object, "metadata", None), "name", ""),
+                e.type, e.reason, e.message,
+            )
+            for e in env.recorder.events
+        ],
+    }
+
+
+def _cpu_provisioner(Provisioner):
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import (
+        default_engine_factory,
+    )
+    from karpenter_tpu_torch.operator.options import Options as _Options
+
+    @functools.wraps(Provisioner)
+    def build(store, cloud_provider, cluster, recorder, clock, options=None,
+              engine_factory=None, solver=None):
+        options = options or _Options()
+        if engine_factory is None and options.solver_backend == "tpu":
+            engine_factory = default_engine_factory(
+                shard_devices=options.solver_pod_shard_axis, device="cpu"
+            )
+        return Provisioner(store, cloud_provider, cluster, recorder, clock,
+                           options, engine_factory=engine_factory, solver=solver)
+
+    return build
+
+
+def _recorded_env(cls):
+    init = cls.__init__
+
+    @functools.wraps(init)
+    def __init__(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if _LEG:
+            _LEG[-1].envs.append(self)
+
+    cls.__init__ = __init__
+
+
 def _cpu_engine(CatalogEngine):
     @functools.wraps(CatalogEngine)
     def build(*args, **kwargs):
@@ -249,6 +330,37 @@ def _install_hooks(mod, name: str, pkg: str) -> None:
             mod.CatalogEngine = _cpu_engine(mod.CatalogEngine)
         if "SolverDaemon" in mod.__dict__:
             mod.SolverDaemon = _cpu_daemon(mod.SolverDaemon)
+        if "Provisioner" in mod.__dict__:
+            mod.Provisioner = _cpu_provisioner(mod.Provisioner)
+    if name == "test_disruption":
+        _recorded_env(mod.Env)
+
+        class RecordedController(mod.DisruptionController):
+            def reconcile(self):
+                before = self._pending
+                out = super().reconcile()
+                if self._pending is not None and self._pending is not before:
+                    _record(("parked", command_record(self._pending[0])))
+                return out
+
+        class RecordedQueue(mod.DisruptionQueue):
+            def start_command(self, cmd):
+                _record(("started", command_record(cmd)))
+                return super().start_command(cmd)
+
+        mod.DisruptionController = RecordedController
+        mod.DisruptionQueue = RecordedQueue
+    if name == "test_candidate_oracle":
+        _recorded_env(mod.Harness)
+    if name == "test_frontier":
+        signature = mod.command_signature
+
+        def recorded_signature(cmd):
+            out = signature(cmd)
+            _record(("command", out))
+            return out
+
+        mod.command_signature = recorded_signature
     if name == "helpers":
         make = port_provisioner_harness if pkg == T else mod.make_provisioner_harness
 
@@ -282,7 +394,8 @@ def _install_hooks(mod, name: str, pkg: str) -> None:
 
 
 def cases(name: str, classes=None) -> list[str]:
-    """The test cases of tests/<name>.py ("Class::method" or "function"),
+    """The test cases of tests/<name>.py ("Class::method" or "function",
+    "Class::method[i]" for the i-th parameter set of a parametrized one),
     in file order; `classes` keeps only those classes' cases."""
     tree = ast.parse(_source(name, J))
     out = []
@@ -296,7 +409,43 @@ def cases(name: str, classes=None) -> list[str]:
             ]
         elif isinstance(node, ast.FunctionDef) and node.name.startswith("test_") and classes is None:
             out.append(node.name)
-    return out
+    expanded = []
+    for case in out:
+        params = _parameter_sets(_case_function(module(name, J), case))
+        expanded += [case] if params is None else [f"{case}[{i}]" for i in range(len(params))]
+    return expanded
+
+
+def _case_function(mod, case: str):
+    """The unbound function of a case (its parameter index dropped)."""
+    case = case.split("[")[0]
+    if "::" in case:
+        cls_name, meth = case.split("::")
+        return getattr(mod.__dict__[cls_name], meth)
+    return mod.__dict__[case]
+
+
+def _parameter_sets(fn):
+    """[{argname: value}, ...] of a function's parametrize marks (their
+    product, the last mark innermost), or None when it has none."""
+    marks = [m for m in getattr(fn, "pytestmark", []) if m.name == "parametrize"]
+    if not marks:
+        return None
+    sets = [{}]
+    for mark in reversed(marks):
+        names, values = mark.args[0], list(mark.args[1])
+        names = [n.strip() for n in names.split(",")] if isinstance(names, str) else list(names)
+        rows = [dict(zip(names, v if len(names) > 1 else (v,))) for v in values]
+        sets = [{**a, **b} for a in sets for b in rows]
+    return sets
+
+
+def _autouse(mod) -> list:
+    """The module's autouse fixtures."""
+    return [
+        fx for fx in mod.__dict__.values()
+        if getattr(getattr(fx, "_fixture_function_marker", None), "autouse", False)
+    ]
 
 
 def _fixture(mod, name: str, mp, tmp: pathlib.Path):
@@ -353,18 +502,32 @@ def run(name: str, case: str, pkg: str) -> list:
     with leg(pkg) as rec, contextlib.ExitStack() as stack, \
             tempfile.TemporaryDirectory() as tmp:
         stack.callback(mp.undo)
-        if "::" in case:
-            cls_name, meth = case.split("::")
+        base, _, index = case.partition("[")
+        if "::" in base:
+            cls_name, meth = base.split("::")
             fn = getattr(mod.__dict__[cls_name](), meth)
         else:
-            fn = mod.__dict__[case]
+            fn = mod.__dict__[base]
+        params = _parameter_sets(_case_function(mod, base))
+        params = params[int(index.rstrip("]"))] if index else {}
+        for fx in _autouse(mod):
+            body = fx._get_wrapped_function()
+            out = body(**{
+                p: _fixture(mod, p, mp, pathlib.Path(tmp))
+                for p in inspect.signature(body).parameters
+            })
+            if inspect.isgenerator(out):
+                next(out)
+                stack.callback(next, out, None)
         kwargs = {
-            p: _fixture(mod, p, mp, pathlib.Path(tmp))
+            p: params[p] if p in params else _fixture(mod, p, mp, pathlib.Path(tmp))
             for p in inspect.signature(fn).parameters
         }
         fn(**kwargs)
         for harness in rec.harnesses:
             rec.obs.append(("store", store_snapshot(harness)))
+        for env in rec.envs:
+            rec.obs.append(("env", env_snapshot(env)))
     return rec.obs
 
 
