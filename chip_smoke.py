@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # phases 1-3 only (build + kernel checks)
     python3 chip_smoke.py --mesh     # phases 1-2, 4, 5c and 5b (two or more cards)
+    python3 chip_smoke.py --operator # phases 1-2 and 4o (the operator) alone
     python3 chip_smoke.py --turns TREE [TREE ...]   # the group and sweep
                                      # wrappers of each checkout, timed in turns
 
@@ -193,6 +194,34 @@ Phases, in order; any failure exits non-zero:
      KernelError, in-process and through a SocketClient to the sidecar
      (the module's entry point, the fault armed there). One JSON line
      {"consolidation": {...}};
+  4o. the operator (phase_operator; after 4d): the port's binary path on
+     the card — a FakeClock, a Store, KwokCloudProvider (its 144 types),
+     Operator(store, provider, clock=clock, options=Options()), one Ready
+     `workers` NodePool with the defaults (WhenEmptyOrUnderutilized,
+     consolidateAfter 0) and the first 10,000 of phase 4's pods pending.
+     Scale-up: run_once() every 2 s of the clock until every pod is bound
+     and every NodeClaim Launched, Registered and Initialized. Scale-down:
+     every second pod deleted by index, then passes until a consolidation
+     command was started, its candidates' Nodes and NodeClaims are gone
+     and every pod is bound again (an evicted pod comes back pending under
+     its name, as its ReplicaSet would recreate it). Each pass inside
+     ktime.measure() and a batch scope, the launch counts zeroed just
+     before: wall ms, what run_once returned, named dispatches (equal to
+     the wrapper launches) and C launches by kernel, device busy and
+     host-stall share, memory_allocated (flat from the first consolidation compute on). The
+     same run on device="cpu" engines (in a child process beside the card's
+     run, both host-bound), on the same uid source, must end in
+     the same store (NodeClaims by name with NodePool, instance type, zone
+     and capacity type; every pod's node; the commands in order); harness
+     errors 0 in both. kt_row_compat, kt_cube, kt_uid_project and
+     kt_solve_scan must have launched, every scan resident, and each is
+     held bit for bit against its plain version at the phase's operands
+     (the scale-up's scan, and a probe's with nodes when one ran on the
+     card). In child processes, side by side: the scale-up's primed kt_cube
+     given a bogus pointer makes run_once() raise KernelError (counted
+     once, not backed off), and __main__.main(["--device", "cuda", ...])
+     returns nonzero after one failed pass, logging its flight dump. One
+     JSON line {"operator": {...}};
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
      mesh, on a 2-shard mesh (two cards when the machine has them, else
      cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
@@ -211,7 +240,7 @@ Phases, in order; any failure exits non-zero:
      nodes-and-limits solve with the scan on CUDA against the plain scan on
      the CPU;
   7. one JSON line {"kernels": [...]}: per kernel its launches on its path
-     (phases 4, 4s and 4d, phase 5 for the delta and group kernels, phase 5b for the
+     (phases 4, 4s, 4d and 4o, phase 5 for the delta and group kernels, phase 5b for the
      sharded twins, phase 3 and the workload checks for fits_matrix and
      stage_plane: fits of the 50k pods' quantized requests against the
      1008 allocatables, the stage plane of a sweep of the 200 shapes),
@@ -3392,7 +3421,7 @@ def phase_consolidation(captured, device=None):
     return path
 
 
-def consolidation_kernel_checks(ops: dict) -> dict:
+def consolidation_kernel_checks(ops: dict, label: str = "phase 4d") -> dict:
     """kt_solve_scan, kt_row_compat, kt_cube and kt_uid_project at the
     operands phase 4d's 1k path gave them (the first scan with nodes and
     its famu_ok masks, the largest row batch and sweep), held against their
@@ -3405,14 +3434,14 @@ def consolidation_kernel_checks(ops: dict) -> dict:
     from karpenter_tpu_torch.ops import packer
 
     assert {"scan", "row_compat", "cube", "uid_project"} <= set(ops), \
-        f"phase 4d captured only {sorted(ops)}"
+        f"{label} captured only {sorted(ops)}"
 
     def words(n):
         return (n + 31) // 32
 
     def timed(name, run, plain, inputs, kernel_names, word_ops):
         got, want = uncounted(run), plain()
-        check_equal(f"{name} on the consolidation path", got, want)
+        check_equal(f"{name} ({label})", got, want)
         gots = got if isinstance(got, tuple) else (got,)
         moved = nbytes(*inputs) + nbytes(*gots)
         return {"shapes": [list(t.shape) for t in inputs], "ms": uncounted(cuda_ms, run),
@@ -3453,7 +3482,7 @@ def consolidation_kernel_checks(ops: dict) -> dict:
     other = "global" if picked == "resident" else "resident"
     for design in (None, other):
         got = uncounted(lambda: tuple(packer.solve_scan(cfg, args, _design=design)))
-        check_equal(f"solve_scan on the consolidation path ({design or picked})", got, want)
+        check_equal(f"solve_scan ({label}, {design or picked})", got, want)
     d = packer._scan_dims(cfg, args)
     steps = int(scan_out[packer.SCAN_N_OUT])
     U, D = args[4].shape[0], args[2].shape[1]
@@ -3469,11 +3498,475 @@ def consolidation_kernel_checks(ops: dict) -> dict:
         "plain_ms": plain_ms, "bytes": scan_bytes, "f64_ops": f64_ops,
         "bound_ms": max(scan_bytes / HBM_BYTES_PER_S, f64_ops / F64_OPS_PER_S) * 1e3,
     }
-    log(f"phase 4d kernels equal to their plain versions at the path's operands, bit for bit: "
-        f"kt_solve_scan (has_nodes, {picked} as picked and {other} forced) "
+    log(f"{label} kernels equal to their plain versions at the path's operands, bit for bit: "
+        f"kt_solve_scan ({'has_nodes' if cfg[1] else 'no nodes'}, {picked} as picked and {other} "
+        f"forced) "
         f"{json.dumps(out['scan'])}; row_compat {json.dumps(out['row_compat'])}; cube "
         f"{json.dumps(out['cube'])}; uid_project {json.dumps(out['uid_project'])}")
     return out
+
+# -- phase 4o: the operator ---------------------------------------------------
+
+OPERATOR_PODS = 10_000  # the first 10,000 of phase 4's 50k pods (bench.py:64-129)
+OPERATOR_STEP = 2.0  # seconds of FakeClock a pass (tests/test_operator_e2e.py settle)
+OPERATOR_MAX_PASSES = 80  # each of scale-up and scale-down must settle within this
+OPERATOR_SEED = 14  # the uid source both runs draw claim names from
+OPERATOR_FAULT_PODS = 1_000
+
+
+def operator_workload(store, n_pods: int) -> list:
+    """One Ready `workers` NodePool with the defaults and the first
+    `n_pods` of phase 4's pods, pending, created in `store`."""
+    from karpenter_tpu_torch.apis.core import ObjectMeta
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+
+    pool = NodePool(metadata=ObjectMeta(name="workers"))
+    pool.set_condition("Ready", "True")
+    store.create(pool)
+    return [store.create(p) for p in build_pods()[:n_pods]]
+
+
+def operator_env(n_pods: int, device=None):
+    """The port's binary path in a store: FakeClock, Store,
+    KwokCloudProvider (its 144-type catalog), Operator(store, provider,
+    clock=clock, options=Options()) — the engines from the Provisioner's
+    default_engine_factory, on the card (`device="cpu"`: CPU engines) —,
+    one Ready `workers` NodePool with the defaults (WhenEmptyOrUnderutilized,
+    consolidateAfter 0) and the first `n_pods` of phase 4's pods pending.
+    The uid source and the name counters restart, so two runs draw the same
+    names."""
+    import itertools
+    import random
+    import types
+
+    from karpenter_tpu_torch.apis import core
+    from karpenter_tpu_torch.cloudprovider.kwok.provider import KwokCloudProvider
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import default_engine_factory
+    from karpenter_tpu_torch.operator.operator import Operator
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.ops import ffd
+    from karpenter_tpu_torch.runtime.store import Store
+    from karpenter_tpu_torch.scheduler import nodeclaim as snodeclaim
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    core.set_uid_source(random.Random(OPERATOR_SEED))
+    snodeclaim._hostname_counter = itertools.count(1)
+    ffd._placeholder_counter = itertools.count(1)
+    clock = FakeClock()
+    store = Store(clock=clock)
+    provider = KwokCloudProvider(store, clock)
+    op = Operator(store, provider, clock=clock, options=Options(),
+                  engine_factory=None if device is None else default_engine_factory(device=device))
+    pods = operator_workload(store, n_pods)
+    return types.SimpleNamespace(clock=clock, store=store, op=op, pods=pods, watch=store.watch(["Pod"]),
+                                 deleted=set(), recreated=0, commands=[], candidates=None,
+                                 device=device)
+
+
+def operator_replicas(env) -> int:
+    """The pods' owning workload: a pod the operator evicted (deleted while
+    its node drained) comes back pending under its name with a new uid, as
+    a ReplicaSet recreates it. Pods the phase deleted itself stay gone."""
+    from karpenter_tpu_torch.runtime.store import DELETED
+
+    made = 0
+    for event in env.watch.drain():
+        pod = event.obj
+        if event.type != DELETED or pod.metadata.name in env.deleted:
+            continue
+        env.recreated += 1
+        fresh = _pending_pod(pod.metadata.name, f"{pod.metadata.uid}-r{env.recreated}",
+                             pod.spec.node_selector, pod.spec.containers[0].requests,
+                             env.clock.now())
+        env.store.create(fresh)
+        made += 1
+    return made
+
+
+def operator_settled(env) -> bool:
+    """Every pod bound, every NodeClaim Launched, Registered and
+    Initialized."""
+    pods = env.store.list("Pod")
+    claims = env.store.list("NodeClaim")
+    return bool(claims) and all(p.spec.node_name for p in pods) and all(
+        c.condition_is_true(t) for c in claims for t in ("Launched", "Registered", "Initialized"))
+
+
+def operator_state(env) -> dict:
+    """What the run ended in: NodeClaims by name with their NodePool,
+    instance type, zone and capacity type; every pod's node; the commands
+    started, in order."""
+    from karpenter_tpu_torch.apis import labels as wk
+
+    return {
+        "claims": sorted(
+            (c.metadata.name, c.metadata.labels.get(wk.NODEPOOL_LABEL_KEY),
+             c.metadata.labels.get(wk.LABEL_INSTANCE_TYPE),
+             c.metadata.labels.get(wk.LABEL_TOPOLOGY_ZONE),
+             c.metadata.labels.get(wk.CAPACITY_TYPE_LABEL_KEY))
+            for c in env.store.list("NodeClaim")),
+        "pods": sorted((p.metadata.name, p.spec.node_name) for p in env.store.list("Pod")),
+        "commands": list(env.commands),
+    }
+
+
+class OperatorProbe(ConsolidationProbe):
+    """ConsolidationProbe's shims over the operator's passes, and the
+    disruption queue's started commands; `keep` also captures the largest
+    scan without existing nodes (the scale-up's) beside the first with
+    them."""
+
+    def install(self):
+        from karpenter_tpu_torch.controllers.disruption.queue import Queue
+        from karpenter_tpu_torch.ops import packer
+
+        super().install()
+        inner, obs = packer.solve_scan, self
+
+        def scan_shim(cfg, args):
+            if obs.keep and not cfg[1] and int(args[13]) > obs.captured.get("scan_up_pods", -1):
+                obs.captured["scan_up"], obs.captured["scan_up_pods"] = (cfg, args), int(args[13])
+            return inner(cfg, args)
+
+        packer.solve_scan = scan_shim
+        self.real["start"] = Queue.start_command
+
+        def start_shim(queue, cmd):
+            if obs.env is not None:
+                obs.env.commands.append(consolidation_command(cmd))
+                if obs.env.candidates is None:
+                    obs.env.candidates = {c.provider_id() for c in cmd.candidates}
+            return obs.real["start"](queue, cmd)
+
+        Queue.start_command = start_shim
+        self.env = None
+
+    def remove(self):
+        from karpenter_tpu_torch.controllers.disruption.queue import Queue
+
+        Queue.start_command = self.real["start"]
+        super().remove()
+
+    def run_pass(self, env) -> dict:
+        """One `run_once()` inside ktime.measure() and a batch scope, the
+        launch counts set to 0 just before it and read just after; the
+        solver service's nested `solverd:<n>` batches summed in."""
+        from karpenter_tpu_torch.observability import kernels as kobs
+        from karpenter_tpu_torch.ops import feasibility as feas
+        from karpenter_tpu_torch.ops import packer
+        from karpenter_tpu_torch.tracing import kernel as ktime
+
+        self.env = env
+        self.obs = {"primes": []}
+        feas.reset_launch_counts()
+        packer.reset_launch_counts()
+        reg = kobs.registry()
+        seq0 = reg._batch_seq
+        env.clock.step(OPERATOR_STEP)
+        t0 = time.perf_counter()
+        with ktime.measure(), reg.batch_scope("operator-pass") as batch:
+            summary = env.op.run_once()
+        on_card = env.device is None
+        if on_card:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        nested = [b for b in reg._batches if b["seq"] > seq0 and b["label"].startswith("solverd:")]
+        named = dict(batch["kernels"])
+        for b in nested:
+            for k, v in b["kernels"].items():
+                named[k] = named.get(k, 0) + v
+        busy = batch["device_busy_s"] + sum(b["device_busy_s"] for b in nested)
+        obs = self.obs
+        return {
+            "wall_ms": wall_ms, "summary": summary,
+            "launches": {k: v for k, v in _count_launches().items() if v},
+            "entries": dict(obs.get("entries", {})), "named": named,
+            "device_busy_s": busy, "host_stall_fraction": 1.0 - busy / (wall_ms / 1e3),
+            "scans": [{k: s[k] for k in ("design", "has_nodes", "P", "N", "n_pods", "n_nodes")}
+                      for s in obs.get("scans", [])],
+            "memory_allocated": torch.cuda.memory_allocated() if on_card else 0,
+            "pending": sum(1 for p in env.store.list("Pod") if not p.spec.node_name),
+            "nodes": len(env.store.list("Node")), "claims": len(env.store.list("NodeClaim")),
+        }
+
+
+def operator_run(n_pods: int, device=None, probe=None) -> tuple:
+    """Phase 4o's scale-up and scale-down on one engine device; returns
+    (the end state, the passes, the env)."""
+    env = operator_env(n_pods, device)
+    passes = []
+
+    def one(stage):
+        rec = probe.run_pass(env)
+        rec["stage"] = stage
+        rec["recreated"] = operator_replicas(env)
+        passes.append(rec)
+        return rec
+
+    # scale-up: pass until every pod is bound and every claim initialized
+    for _ in range(OPERATOR_MAX_PASSES):
+        one("up")
+        if operator_settled(env):
+            break
+    assert operator_settled(env), f"scale-up did not settle in {len(passes)} passes"
+    up_claims = {c.metadata.name for c in env.store.list("NodeClaim")}
+    # scale-down: every second pod deleted, by index; pass until a command
+    # was started, the first one's candidates' Nodes and NodeClaims are
+    # gone, and every pod is bound again
+    for p in env.pods[1::2]:
+        env.deleted.add(p.metadata.name)
+        env.store.delete(env.store.get("Pod", p.metadata.name))
+    down0 = len(passes)
+    for _ in range(OPERATOR_MAX_PASSES):
+        one("down")
+        if (env.commands and not operator_holds(env, env.candidates)
+                and not passes[-1]["recreated"] and operator_settled(env)):
+            break
+    assert env.commands, f"no consolidation command started in {len(passes) - down0} passes"
+    assert operator_settled(env), "scale-down left pods pending or claims not initialized"
+    state = operator_state(env)
+    state["up_claims"] = len(up_claims)
+    return state, passes, env
+
+
+def operator_holds(env, provider_ids) -> set:
+    """The provider ids of `provider_ids` a Node or NodeClaim in the store
+    still carries."""
+    held = {c.status.provider_id for c in env.store.list("NodeClaim")}
+    held |= {n.spec.provider_id for n in env.store.list("Node")}
+    return held & set(provider_ids)
+
+
+# the phase's run on device="cpu" engines, in a process of its own beside the
+# card's run (the two are host-bound): its end state, errors and pass walls
+OPERATOR_CPU_RUN = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(2)
+import chip_smoke as cs
+from karpenter_tpu_torch.operator import logging as klog
+
+klog.configure("error")
+probe = cs.OperatorProbe()
+probe.install()
+t0 = time.perf_counter()
+state, passes, env = cs.operator_run(int(sys.argv[2]), "cpu", probe)
+got = {"state": state, "run_s": time.perf_counter() - t0,
+       "errors": {k: v for k, v in env.op.harness._errors.items() if v},
+       "walls_ms": [round(r["wall_ms"], 1) for r in passes]}
+env.op.shutdown()
+print(json.dumps(got))
+"""
+
+
+def operator_cpu_run(n_pods: int) -> subprocess.Popen:
+    """OPERATOR_CPU_RUN started in a child process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, "-c", OPERATOR_CPU_RUN, root, str(n_pods)], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_operator(captured, device=None):
+    """Phase 4o: the operator (see the module docstring). Returns the
+    path's launches: those of the passes on the CUDA engine."""
+    from karpenter_tpu_torch.apis import core
+    from karpenter_tpu_torch.operator import logging as klog
+
+    t_phase = time.perf_counter()
+    on_card = device is None
+    probe = OperatorProbe()
+    out: dict = {"pods": OPERATOR_PODS}
+    path: dict = {}
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    # the operator's own log (a line a launched claim, ...) to a file
+    log_file = open(os.path.join(out_dir, "operator_4o.log"), "w")
+    klog.configure("info", stream=log_file)
+    cpu_proc = operator_cpu_run(OPERATOR_PODS)
+    probe.install()
+    try:
+        probe.keep = True
+        t0 = time.perf_counter()
+        state, passes, env = operator_run(OPERATOR_PODS, device, probe)
+        out["run_s"] = time.perf_counter() - t0
+        probe.keep = False
+        errors = {k: v for k, v in env.op.harness._errors.items() if v}
+        env.op.shutdown()
+        del env
+        stdout, stderr = cpu_proc.communicate(timeout=900)
+        lines = stdout.strip().splitlines()
+        assert cpu_proc.returncode == 0 and lines, \
+            f"the CPU engine's run: exit {cpu_proc.returncode}, {stdout[-2000:]} {stderr[-3000:]}"
+        cpu = json.loads(lines[-1])
+    finally:
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.wait()
+        probe.remove()
+        core.set_uid_source(None)
+        klog.configure("warning", stream=sys.stderr)
+        log_file.close()
+    cpu_state, cpu_errors = cpu["state"], cpu["errors"]
+    out["cpu_run_s"] = cpu["run_s"]
+    for rec in passes:
+        for k, v in rec["launches"].items():
+            path[k] = path.get(k, 0) + v
+    up = [r for r in passes if r["stage"] == "up"]
+    solved = [r for r in passes if r["summary"]["provisioned"]]
+    entries: dict = {}
+    for r in passes:
+        for k, v in r["entries"].items():
+            entries[k] = entries.get(k, 0) + v
+    memory = [r["memory_allocated"] for r in passes]
+    # warm: after the first consolidation compute, every code path of the
+    # run has allocated its caches once
+    first_probe = next((i for i, r in enumerate(passes) if any(s["has_nodes"] for s in r["scans"])),
+                       len(passes))
+    warm = memory[first_probe:]
+    out.update({
+        "passes": len(passes), "up_passes": len(up), "down_passes": len(passes) - len(up),
+        "up_claims": state["up_claims"], "claims": len(state["claims"]),
+        "pods_at_end": len(state["pods"]),
+        "nodes": passes[-1]["nodes"], "commands": [(c[0], len(c[1]), len(c[2])) for c in state["commands"]],
+        "recreated": sum(r["recreated"] for r in passes), "harness_errors": errors,
+        "cpu_harness_errors": cpu_errors, "entries": entries, "launches": path,
+        "solving_passes": [passes.index(r) for r in solved],
+        "host_stall_of_solving_pass": [r["host_stall_fraction"] for r in solved],
+        "memory_allocated": memory, "first_probe_pass": first_probe,
+        "walls_ms": [round(r["wall_ms"], 1) for r in passes],
+        "cpu_walls_ms": cpu["walls_ms"],
+    })
+    for i, r in enumerate(passes):
+        log(f"phase 4o pass {i} ({r['stage']}): {r['wall_ms']:.1f} ms, run_once "
+            f"{json.dumps(r['summary'])}, C launches {json.dumps(r['entries'])}, named dispatches "
+            f"{json.dumps(r['named'])}, wrapper launches {json.dumps(r['launches'])}, device busy "
+            f"{r['device_busy_s']:.6f} s, host stall {r['host_stall_fraction']:.6f}, scans "
+            f"{json.dumps(r['scans'])}, pending {r['pending']}, nodes {r['nodes']}, claims "
+            f"{r['claims']}, recreated {r['recreated']}, memory_allocated {r['memory_allocated']}")
+    log(f"phase 4o: {len(up)} scale-up passes, {len(passes) - len(up)} scale-down passes; "
+        f"{state['up_claims']} claims after scale-up, {len(state['claims'])} at the end; commands "
+        f"{json.dumps(out['commands'])}; {out['recreated']} evicted pods recreated; harness errors "
+        f"{errors} (CPU engine {cpu_errors}); the run {out['run_s']:.1f} s, the CPU engine's "
+        f"{out['cpu_run_s']:.1f} s in a child process beside it")
+    assert not errors and not cpu_errors, (errors, cpu_errors)
+    # compared as JSON, as the child's state came
+    assert json.loads(json.dumps(state)) == cpu_state, \
+        "the CUDA engine's run and the CPU engine's ended in other stores"
+    assert solved and state["commands"], out
+    if on_card:
+        for i, r in enumerate(passes):
+            want = {DISPATCH_OF[n]: v for n, v in r["launches"].items() if n in DISPATCH_OF}
+            assert r["named"] == want, (i, r["named"], r["launches"])
+        for entry in ("kt_row_compat", "kt_cube", "kt_uid_project", "kt_solve_scan"):
+            assert entries.get(entry, 0) > 0, f"phase 4o launched no {entry}: {entries}"
+        assert all(s["design"] == "resident" for r in passes for s in r["scans"]), "a scan took global"
+        assert len(warm) > 1 and min(warm) == max(warm), \
+            f"memory_allocated moved over the warm passes (from pass {first_probe}): {memory}"
+        checks = {"scale_up": consolidation_kernel_checks(
+            {**probe.captured, "scan": probe.captured["scan_up"]}, "phase 4o (scale-up)")}
+        if "scan" in probe.captured:
+            checks["probe"] = consolidation_kernel_checks(probe.captured, "phase 4o (a probe)")
+        out["kernel_checks"] = checks
+        t0 = time.perf_counter()
+        out["fault"] = operator_fault_probes()
+        out["fault_s"] = time.perf_counter() - t0
+        log(f"phase 4o fault probes ({out['fault_s']:.1f} s): {json.dumps(out['fault'])}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 4o took {out['phase_s']:.1f} s")
+    with open(os.path.join(out_dir, "operator_4o.json"), "w") as f:
+        json.dump({"operator": out, "passes": passes}, f, default=str)
+    log(json.dumps({"operator": out}))
+    return path
+
+
+OPERATOR_FAULT_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from karpenter_tpu_torch.device import KernelError
+
+env = cs.operator_env(cs.OPERATOR_FAULT_PODS)
+state = cs.arm_prime_fault()
+raised, passes = None, 0
+try:
+    for passes in range(1, 11):
+        env.clock.step(cs.OPERATOR_STEP)
+        env.op.run_once()
+except KernelError as e:
+    raised = str(e)
+except Exception as e:
+    raised = f"not a KernelError: {type(e).__name__}: {e}"
+got = {"route": "run_once", "raised": raised and raised[:300], "passes": passes,
+       "armed": state["armed"], "errors": dict(env.op.harness._errors),
+       "retries": env.op.harness.limiter.retries(("provisioning", ""))}
+print(json.dumps(got))
+sys.exit(0 if raised and not raised.startswith("not a") and got["errors"] == {"provisioning": 1}
+         and got["retries"] == 0 else 1)
+"""
+
+# `python -m karpenter_tpu_torch --device cuda` in process: main() with its
+# Store holding the phase's pool and pods, the same fault armed
+OPERATOR_FAULT_MAIN = r"""
+import io, json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from karpenter_tpu_torch import __main__ as cli
+from karpenter_tpu_torch.operator import logging as klog
+
+real_store = cli.Store
+
+def populated(clock=None):
+    store = real_store(clock=clock)
+    cs.operator_workload(store, cs.OPERATOR_FAULT_PODS)
+    return store
+
+cli.Store = populated
+state = cs.arm_prime_fault()
+stream = io.StringIO()
+klog.configure("info", stream=stream)
+rc = cli.main(argv=["--device", "cuda", "--metrics-port", "0", "--health-probe-port", "0"],
+              max_passes=300, pass_interval=0.1)
+lines = [json.loads(line) for line in stream.getvalue().splitlines()]
+dumped = [e for e in lines if e["message"] == "flight bundle dumped"]
+failed = [e for e in lines if e["message"].startswith("reconcile pass failed")]
+stopped = [e for e in lines if e["message"] == "operator stopped"]
+got = {"route": "__main__", "rc": rc, "armed": state["armed"], "dumped": dumped[:1],
+       "failed": [{k: e.get(k) for k in ("message", "exc_info", "error")} for e in failed][:1],
+       "stopped": stopped[:1]}
+print(json.dumps(got, default=str)[:4000])
+sys.exit(0 if rc != 0 and dumped and not state["armed"] and len(failed) == 1 else 1)
+"""
+
+
+def operator_fault_probes() -> dict:
+    """The fault rule on the operator's path, in two child processes run
+    side by side (the fault poisons the card's context): the scale-up
+    solve's primed kt_cube given a bogus pointer makes Operator.run_once()
+    raise KernelError, counted once and not backed off; and
+    `__main__.main(["--device", "cuda", ...])` under the same fault returns
+    nonzero after one failed pass and logs the flight bundle it dumped."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {name: subprocess.Popen([sys.executable, "-c", script, root], cwd=root,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, script in (("run_once", OPERATOR_FAULT_PROBE),
+                                  ("__main__", OPERATOR_FAULT_MAIN))}
+    out: dict = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            lines = stdout.strip().splitlines()
+            got = json.loads(lines[-1]) if lines else {}
+            assert proc.returncode == 0, \
+                f"operator fault probe ({name}): exit {proc.returncode}, {stdout[-2000:]} {stderr[-2000:]}"
+            out[name] = got
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    return out
+
 
 def dispatch_floor(reps=2000, rounds=5) -> dict:
     """The named dispatch's own floor: the empty kernel (kt_noop) launched
@@ -5514,6 +6007,8 @@ def main() -> int:
     parser.add_argument("--turns", nargs="+", metavar="TREE",
                         help="time the group and sweep wrappers of each checkout in turns, in the "
                              "order given")
+    parser.add_argument("--operator", action="store_true",
+                        help="build, then phase 4o (the operator) alone")
     parser.add_argument("--turns-of", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -5537,6 +6032,10 @@ def main() -> int:
     phase_device()
     phase_build()
     captured: dict = {}
+    if args.operator:
+        phase_operator(captured)
+        log(f"phase 4o done at {time.perf_counter() - t_start:.1f} s")
+        return finish(t_start)
     if args.mesh:
         phase_main(captured)
         log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
@@ -5569,10 +6068,13 @@ def main() -> int:
         log(f"phase 4s done at {time.perf_counter() - t_start:.1f} s")
         consolidation_launches = phase_consolidation(captured)
         log(f"phase 4d done at {time.perf_counter() - t_start:.1f} s")
+        operator_launches = phase_operator(captured)
+        log(f"phase 4o done at {time.perf_counter() - t_start:.1f} s")
         # the main path's launches: phase 4's solves, phase 4s's reconciles
-        # and coalesced batch, and phase 4d's frontier computes
+        # and coalesced batch, phase 4d's frontier computes and phase 4o's
+        # operator passes
         path = {k: v + service_launches.get(k, 0) + consolidation_launches.get(k, 0)
-                for k, v in launches.items()}
+                + operator_launches.get(k, 0) for k, v in launches.items()}
         mesh_launches = phase_mesh(captured)
         log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
         prefix_scan = phase_identity()

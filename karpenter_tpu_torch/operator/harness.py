@@ -35,6 +35,7 @@ from random import Random
 from typing import Any, Callable, Optional
 
 from karpenter_tpu_torch import tracing
+from karpenter_tpu_torch.device import KernelError
 from karpenter_tpu_torch.metrics import global_registry
 from karpenter_tpu_torch.operator import logging as klog
 from karpenter_tpu_torch.utils.clock import Clock
@@ -287,6 +288,22 @@ class ReconcilerHarness:
             start = time.perf_counter()
             try:
                 result = rec.fn(*args)
+            except KernelError as e:
+                # port: a device fault is counted as any error is, then
+                # raised: the pass fails instead of retrying on a card that
+                # faulted (no backoff, no isolation)
+                RECONCILE_ERRORS.inc({"controller": rec.name})
+                self._consecutive[rec.name] = self._consecutive.get(rec.name, 0) + 1
+                self._errors[rec.name] = self._errors.get(rec.name, 0) + 1
+                self._last_error[rec.name] = f"{type(e).__name__}: {e}"
+                span.fail(e)
+                _log.error(
+                    "reconcile failed on a device fault",
+                    controller=rec.name,
+                    item=item or "",
+                    error=f"{type(e).__name__}: {e}",
+                )
+                raise
             except Exception as e:  # noqa: BLE001 — isolation is the point
                 RECONCILE_ERRORS.inc({"controller": rec.name})
                 delay = self.limiter.failure(key)

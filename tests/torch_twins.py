@@ -23,17 +23,24 @@ The twin tests compare what the two runs record:
   candidate names in order, each replacement's instance-type options and
   requirements), every `command_signature` of tests/test_frontier.py,
   and, after the case, every `Env` / `Harness` (tests/test_candidate_oracle.py)
-  built: the NodeClaim objects in its store and its events in order.
+  built: the NodeClaim objects in its store and its events in order;
+- every `Operator.run_once()` summary, and after the case each Operator's
+  events in order and its reconcilers' error counts;
+- after the case, every object of every store the module built on a
+  FakeClock (`repr`, by kind and key).
 
 A case parametrized by `pytest.mark.parametrize` is one case a parameter
 set (`Class::method[i]`), and the module's autouse fixtures run around it.
 
-Each run installs the same uid source (`apis.core.set_uid_source`) and
-restarts the name, hostname and placeholder counters, so the two packages
-draw the same names. On the reference's side `ffd.STRICT` is set: a fault
-there raises instead of falling back to the host loop. On the port's side
-engines are built on the CPU (`device="cpu"`): `CatalogEngine`,
-`SolverDaemon`'s engine factory and the harness's `default_engine_factory`.
+Each run installs the same uid source (`apis.core.set_uid_source`), one
+seeded source for leader identities and command ids, and restarts the
+name, hostname and placeholder counters, so the two packages draw the same
+names. On the reference's side `ffd.STRICT` is set: a fault there raises
+instead of falling back to the host loop. On the port's side engines are
+built on the CPU (`device="cpu"`) wherever a case builds one without a
+device: a `CatalogEngine`, the Provisioner's (so the Operator's) and the
+solver daemon's default engine factories, and `python -m
+karpenter_tpu_torch` in process and as a subprocess (`--device cpu`).
 """
 
 from __future__ import annotations
@@ -58,7 +65,10 @@ import pytest
 
 J, T = "karpenter_tpu", "karpenter_tpu_torch"
 TESTS = os.path.dirname(os.path.abspath(__file__))
-SIBLINGS = ("helpers", "test_solverd", "test_scheduler", "test_disruption")
+SIBLINGS = (
+    "helpers", "test_solverd", "test_scheduler", "test_disruption",
+    "test_metrics_exposition", "expectations", "test_sim_faults",
+)
 
 
 class Leg:
@@ -69,6 +79,8 @@ class Leg:
         self.obs: list = []
         self.harnesses: list = []
         self.envs: list = []
+        self.stores: list = []
+        self.operators: list = []
 
 
 _LEG: list = []
@@ -232,24 +244,88 @@ def env_snapshot(env) -> dict:
     }
 
 
-def _cpu_provisioner(Provisioner):
-    from karpenter_tpu_torch.controllers.provisioning.provisioner import (
-        default_engine_factory,
-    )
-    from karpenter_tpu_torch.operator.options import Options as _Options
+def store_objects(store) -> dict:
+    """Every object a store holds, by kind, in key order (`repr`: the
+    dataclasses' fields)."""
+    return {
+        kind: [(key, repr(obj)) for key, obj in sorted(bucket.items())]
+        for kind, bucket in sorted(store._objects.items())
+    }
 
-    @functools.wraps(Provisioner)
-    def build(store, cloud_provider, cluster, recorder, clock, options=None,
-              engine_factory=None, solver=None):
-        options = options or _Options()
-        if engine_factory is None and options.solver_backend == "tpu":
-            engine_factory = default_engine_factory(
-                shard_devices=options.solver_pod_shard_axis, device="cpu"
+
+def operator_snapshot(op) -> dict:
+    """An Operator's events in the order they were published, and its
+    reconcilers' error counts."""
+    return {
+        "events": [
+            (
+                getattr(getattr(e.involved_object, "metadata", None), "name", ""),
+                e.type, e.reason, e.message,
             )
-        return Provisioner(store, cloud_provider, cluster, recorder, clock,
-                           options, engine_factory=engine_factory, solver=solver)
+            for e in op.recorder.events
+        ],
+        "errors": sorted(op.harness._errors.items()),
+    }
+
+
+def _recorded_store(Store):
+    """Store, recorded: a factory of the package's own class, so the store
+    still crosses a socket by pickle."""
+
+    @functools.wraps(Store)
+    def build(*args, **kwargs):
+        store = Store(*args, **kwargs)
+        if _LEG:
+            _LEG[-1].stores.append(store)
+        return store
 
     return build
+
+
+def _recorded_operator(Operator):
+    class RecordedOperator(Operator):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            if _LEG:
+                _LEG[-1].operators.append(self)
+
+        def run_once(self):
+            out = super().run_once()
+            _record(("pass", out))
+            return out
+
+    RecordedOperator.__name__ = RecordedOperator.__qualname__ = Operator.__name__
+    return RecordedOperator
+
+
+class _CpuSubprocess:
+    """`subprocess` for a test module in the port: `python -m
+    karpenter_tpu_torch` gets `--device cpu`."""
+
+    def __init__(self, real):
+        self._real = real
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def run(self, args, *a, **kw):
+        args = list(args)
+        if args[1:3] == ["-m", T] and "--device" not in args:
+            args[3:3] = ["--device", "cpu"]
+        return self._real.run(args, *a, **kw)
+
+
+def _cpu_main(main):
+    """`__main__.main` of the port with `--device cpu` unless given."""
+
+    @functools.wraps(main)
+    def run(argv=None, *args, **kwargs):
+        argv = list(sys.argv[1:] if argv is None else argv)
+        if "--device" not in argv:
+            argv = ["--device", "cpu"] + argv
+        return main(argv, *args, **kwargs)
+
+    return run
 
 
 def _recorded_env(cls):
@@ -271,22 +347,6 @@ def _cpu_engine(CatalogEngine):
         return CatalogEngine(*args, **kwargs)
 
     return build
-
-
-def _cpu_daemon(SolverDaemon):
-    from karpenter_tpu_torch.solverd.transport import _default_engine_factory
-
-    class CpuSolverDaemon(SolverDaemon):
-        def __init__(self, service, address="127.0.0.1:0", engine_factory=None,
-                     replica_id="", shard_devices=0):
-            super().__init__(
-                service, address=address,
-                engine_factory=engine_factory
-                or _default_engine_factory(shard_devices, device="cpu"),
-                replica_id=replica_id, shard_devices=shard_devices,
-            )
-
-    return CpuSolverDaemon
 
 
 def port_provisioner_harness(options=None, instance_types=None):
@@ -328,10 +388,12 @@ def _install_hooks(mod, name: str, pkg: str) -> None:
     if pkg == T:
         if "CatalogEngine" in mod.__dict__:
             mod.CatalogEngine = _cpu_engine(mod.CatalogEngine)
-        if "SolverDaemon" in mod.__dict__:
-            mod.SolverDaemon = _cpu_daemon(mod.SolverDaemon)
-        if "Provisioner" in mod.__dict__:
-            mod.Provisioner = _cpu_provisioner(mod.Provisioner)
+        if "subprocess" in mod.__dict__:
+            mod.subprocess = _CpuSubprocess(mod.subprocess)
+    if mod.__dict__.get("Store") is _m(pkg, "runtime.store").Store:
+        mod.Store = _recorded_store(mod.Store)
+    if mod.__dict__.get("Operator") is _m(pkg, "operator.operator").Operator:
+        mod.Operator = _recorded_operator(mod.Operator)
     if name == "test_disruption":
         _recorded_env(mod.Env)
 
@@ -448,14 +510,20 @@ def _autouse(mod) -> list:
     ]
 
 
-def _fixture(mod, name: str, mp, tmp: pathlib.Path):
+def _fixture(mod, name: str, mp, tmp: pathlib.Path, stack: contextlib.ExitStack):
+    """A fixture's value; a generator fixture's teardown goes on `stack`."""
     if name == "monkeypatch":
         return mp
     if name == "tmp_path":
         return tmp
     fx = mod.__dict__[name]
     fn = getattr(fx, "_get_wrapped_function", None)
-    return (fn() if fn else fx.__wrapped__)()
+    out = (fn() if fn else fx.__wrapped__)()
+    if inspect.isgenerator(out):
+        value = next(out)
+        stack.callback(next, out, None)
+        return value
+    return out
 
 
 def reset(pkg: str, seed: int = 0) -> None:
@@ -468,6 +536,44 @@ def reset(pkg: str, seed: int = 0) -> None:
         helpers._counter[0] = 0
 
 
+def _seeded_uuids(mp, pkg: str, seed: int = 1) -> None:
+    """The same leader identities and command ids in either package."""
+    import uuid
+
+    rng = random.Random(seed)
+    seeded = types.SimpleNamespace(uuid4=lambda: uuid.UUID(int=rng.getrandbits(128), version=4))
+    for name in ("operator.leaderelection", "controllers.disruption.types"):
+        mp.setattr(_m(pkg, name), "uuid", seeded)
+
+
+def _cpu_factories(mp) -> None:
+    """The port's engines on the CPU wherever one is built without a
+    device: the Provisioner's (and so the Operator's) default engine
+    factory, the solver daemon's, `python -m karpenter_tpu_torch`, and a
+    `CatalogEngine` a case imports inside its body."""
+    prov = _m(T, "controllers.provisioning.provisioner")
+    transport = _m(T, "solverd.transport")
+    cli = _m(T, "__main__")
+    for module_, name in ((prov, "default_engine_factory"),
+                          (transport, "_default_engine_factory")):
+        real = getattr(module_, name)
+
+        def factory(shard_devices=0, device=None, _real=real):
+            return _real(shard_devices, device="cpu" if device is None else device)
+
+        mp.setattr(module_, name, factory)
+    mp.setattr(cli, "main", _cpu_main(cli.main))
+    catalog = _m(T, "ops.catalog")
+
+    class CpuCatalogEngine(catalog.CatalogEngine):
+        def __init__(self, *args, **kwargs):
+            kwargs.setdefault("device", "cpu")
+            super().__init__(*args, **kwargs)
+
+    CpuCatalogEngine.__name__ = CpuCatalogEngine.__qualname__ = "CatalogEngine"
+    mp.setattr(catalog, "CatalogEngine", CpuCatalogEngine)
+
+
 @contextlib.contextmanager
 def leg(pkg: str):
     """One run's recording, names and settings."""
@@ -476,6 +582,9 @@ def leg(pkg: str):
     with pytest.MonkeyPatch.context() as mp:
         if pkg == J:
             mp.setattr(_m(J, "ops.ffd"), "STRICT", True)
+        else:
+            _cpu_factories(mp)
+        _seeded_uuids(mp, pkg)
         reset(pkg)
         try:
             yield rec
@@ -495,6 +604,15 @@ class _PortMonkeyPatch(pytest.MonkeyPatch):
         super().setattr(target, name, value, raising=raising)
 
 
+def _call_method_hook(hook, fn) -> None:
+    """pytest's setup_method / teardown_method, with or without the
+    method argument."""
+    if inspect.signature(hook).parameters:
+        hook(fn)
+    else:
+        hook()
+
+
 def run(name: str, case: str, pkg: str) -> list:
     """Run one case of tests/<name>.py in `pkg`; returns what it recorded."""
     mod = module(name, pkg)
@@ -505,7 +623,12 @@ def run(name: str, case: str, pkg: str) -> list:
         base, _, index = case.partition("[")
         if "::" in base:
             cls_name, meth = base.split("::")
-            fn = getattr(mod.__dict__[cls_name](), meth)
+            inst = mod.__dict__[cls_name]()
+            fn = getattr(inst, meth)
+            if hasattr(inst, "setup_method"):
+                _call_method_hook(inst.setup_method, fn)
+            if hasattr(inst, "teardown_method"):
+                stack.callback(_call_method_hook, inst.teardown_method, fn)
         else:
             fn = mod.__dict__[base]
         params = _parameter_sets(_case_function(mod, base))
@@ -513,14 +636,14 @@ def run(name: str, case: str, pkg: str) -> list:
         for fx in _autouse(mod):
             body = fx._get_wrapped_function()
             out = body(**{
-                p: _fixture(mod, p, mp, pathlib.Path(tmp))
+                p: _fixture(mod, p, mp, pathlib.Path(tmp), stack)
                 for p in inspect.signature(body).parameters
             })
             if inspect.isgenerator(out):
                 next(out)
                 stack.callback(next, out, None)
         kwargs = {
-            p: params[p] if p in params else _fixture(mod, p, mp, pathlib.Path(tmp))
+            p: params[p] if p in params else _fixture(mod, p, mp, pathlib.Path(tmp), stack)
             for p in inspect.signature(fn).parameters
         }
         fn(**kwargs)
@@ -528,6 +651,11 @@ def run(name: str, case: str, pkg: str) -> list:
             rec.obs.append(("store", store_snapshot(harness)))
         for env in rec.envs:
             rec.obs.append(("env", env_snapshot(env)))
+        for op in rec.operators:
+            rec.obs.append(("operator", operator_snapshot(op)))
+        for store in rec.stores:
+            if isinstance(store.clock, _m(pkg, "utils.clock").FakeClock):
+                rec.obs.append(("objects", store_objects(store)))
     return rec.obs
 
 
