@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # phases 1-3 only (build + kernel checks)
     python3 chip_smoke.py --mesh     # phases 1-2, 4, 5c and 5b (two or more cards)
     python3 chip_smoke.py --operator # phases 1-2 and 4o (the operator) alone
+    python3 chip_smoke.py --sim      # phases 1-2 and 4v (the simulator) alone
     python3 chip_smoke.py --turns TREE [TREE ...]   # the group and sweep
                                      # wrappers of each checkout, timed in turns
 
@@ -222,6 +223,40 @@ Phases, in order; any failure exits non-zero:
      once, not backed off), and __main__.main(["--device", "cuda", ...])
      returns nonzero after one failed pass, logging its flight dump. One
      JSON line {"operator": {...}};
+  4v. the simulator (phase_sim; after 4o): `python -m
+     karpenter_tpu_torch.sim` through sim.__main__.main(..., "--device",
+     "cuda") (sim_run), each pass inside ktime.measure() and a batch scope
+     (SimPasses), the launch counts zeroed just before each run and read
+     just after, in the process that runs it. Leg a:
+     the 13 registered scenarios at seed 7, then mesh-sweep at
+     --shard-devices 1 and 2 (cuda:0 repeated on one card) and
+     sustained-churn with --delta-solve off and on; each run's event log
+     (its digest and its bytes) and its report outside
+     sim.harness.DEVICE_SPECIFIC equal to the same run on device="cpu"
+     engines, and the event log and the report outside sim.harness.VOLATILE
+     equal to a second same-seed run on the card; the mesh-sweep digests
+     equal across mesh sizes and the sustained-churn ones with delta off and
+     on. Leg b: a version-1 trace at a size users run, written by the phase
+     (sim_trace: the kwok catalog, one `workers` pool with consolidate_after
+     15 s; 3,000 pods at 4 s in 30 replace groups of 100 of bench.py's
+     shapes, a wave of 2,000 more at 60 s that completes at 180 s, a 24-pod
+     churn group every 10 s from 20 s that lives 60 s, a graceful spot
+     interruption of 2 nodes at 120 s and a reclaim at 200 s; 300 s at a
+     2 s tick) through --trace, equal to the CPU engines' run; it must
+     launch kt_row_compat, kt_cube, kt_uid_project and kt_solve_scan (every
+     scan resident), each held bit for bit against its plain version at the
+     operands the leg gave it; the wall per pass (p50, max), the passes to
+     bind the first batch, the host-stall share of the solving passes and
+     memory_allocated (from the first consolidation compute on, flat
+     outside the named residents: the engines' resident row matrices, the
+     packed tables' LRU, the operands kept for the checks). Leg b's card
+     run goes in this process; beside it, in child processes, leg a's two
+     runs on the card and the CPU engines' runs of both legs. In two more,
+     side by side, a bogus pointer in a
+     primed kt_cube — the first batch's, and one after a solver-service
+     restart and an operator crash restart — makes main() exit nonzero with
+     the KernelError named and the flight ring dumped. One JSON line
+     {"sim": {...}}; the details in chiprun_out/sim_4v/;
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
      mesh, on a 2-shard mesh (two cards when the machine has them, else
      cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
@@ -240,7 +275,7 @@ Phases, in order; any failure exits non-zero:
      nodes-and-limits solve with the scan on CUDA against the plain scan on
      the CPU;
   7. one JSON line {"kernels": [...]}: per kernel its launches on its path
-     (phases 4, 4s, 4d and 4o, phase 5 for the delta and group kernels, phase 5b for the
+     (phases 4, 4s, 4d, 4o and 4v, phase 5 for the delta and group kernels, phase 5b for the
      sharded twins, phase 3 and the workload checks for fits_matrix and
      stage_plane: fits of the 50k pods' quantized requests against the
      1008 allocatables, the stage plane of a sweep of the 200 shapes),
@@ -781,11 +816,11 @@ def build_catalog():
     return catalog
 
 
-def bench_shapes():
-    """The bench's 200 pod shapes (node selector, requests) and the shape
-    of each of its NUM_PODS pods, drawn with RandomState(7)."""
+def bench_shape_draws():
+    """The bench's 200 pod shapes as drawn (node selector, cpu and memory
+    quantities) and the shape of each of its NUM_PODS pods, drawn with
+    RandomState(7)."""
     from karpenter_tpu_torch.apis import labels as wk
-    from karpenter_tpu_torch.utils.resources import parse_resource_list
 
     rng = np.random.RandomState(7)
     zones = ["kwok-zone-1", "kwok-zone-2", "kwok-zone-3", "kwok-zone-4"]
@@ -802,11 +837,18 @@ def bench_shapes():
             sel[wk.LABEL_TOPOLOGY_ZONE] = zones[rng.randint(4)]
         if roll > 0.8:
             sel[wk.CAPACITY_TYPE_LABEL_KEY] = wk.CAPACITY_TYPE_SPOT
-        requests = parse_resource_list(
-            {"cpu": cpus[rng.randint(len(cpus))], "memory": mems[rng.randint(len(mems))]}
-        )
-        shapes.append((sel, requests))
+        shapes.append((sel, cpus[rng.randint(len(cpus))], mems[rng.randint(len(mems))]))
     return shapes, rng.randint(len(shapes), size=NUM_PODS)
+
+
+def bench_shapes():
+    """The bench's 200 pod shapes (node selector, requests) and the shape
+    of each of its NUM_PODS pods, drawn with RandomState(7)."""
+    from karpenter_tpu_torch.utils.resources import parse_resource_list
+
+    draws, picks = bench_shape_draws()
+    return [(sel, parse_resource_list({"cpu": cpu, "memory": mem}))
+            for sel, cpu, mem in draws], picks
 
 
 def _pending_pod(name, uid, sel, requests, ts):
@@ -3968,6 +4010,561 @@ def operator_fault_probes() -> dict:
     return out
 
 
+# -- phase 4v: the simulator --------------------------------------------------
+
+SIM_SEED = 7
+# leg b's trace (sim_trace): the first batch, the wave, pods a group, the
+# churn groups' size
+SIM_TRACE_BASE = 3_000
+SIM_TRACE_WAVE = 2_000
+SIM_TRACE_GROUP = 100
+SIM_TRACE_CHURN = 24
+SIM_FAULT_BASE = 200  # the fault probes' traces: leg b's at 200 pods, no wave
+SIM_CPU_CHILDREN = 2  # processes leg a's CPU-engine runs are spread over
+
+
+def sim_trace(base: int | None = None, wave: int | None = None) -> dict:
+    """Leg b's version-1 trace: the kwok catalog and one `workers` pool
+    (consolidate_after 15 s, the default budget); at 4 s `base` pods
+    (default SIM_TRACE_BASE) in
+    replace groups of SIM_TRACE_GROUP, at 60 s a wave of `wave` (default
+    SIM_TRACE_WAVE) more that
+    completes at 180 s, so the scale-down consolidates; from 20 s, every
+    10 s, a SIM_TRACE_CHURN-pod group of a base shape that lives 60 s; a
+    graceful spot interruption of 2 nodes at 120 s and a reclaim at 200 s;
+    300 s at a 2 s tick. The groups' shapes are bench.py's mix
+    (bench_shape_draws, RandomState(7)) in build_pod's fields."""
+    from karpenter_tpu_torch.apis import labels as wk
+
+    base = SIM_TRACE_BASE if base is None else base
+    wave = SIM_TRACE_WAVE if wave is None else wave
+    draws, picks = bench_shape_draws()
+    fields = {wk.LABEL_ARCH: "arch", wk.LABEL_TOPOLOGY_ZONE: "zone",
+              wk.CAPACITY_TYPE_LABEL_KEY: "capacity_type"}
+
+    def pod(i):
+        sel, cpu, mem = draws[picks[i]]
+        return {"cpu": cpu, "memory": mem, **{fields[k]: v for k, v in sel.items()}}
+
+    n_base, n_wave = base // SIM_TRACE_GROUP, wave // SIM_TRACE_GROUP
+    events = [{"at": 4.0, "kind": "submit", "group": f"base-{g}", "count": SIM_TRACE_GROUP,
+               "pod": pod(g), "replace": True} for g in range(n_base)]
+    events += [{"at": 60.0, "kind": "submit", "group": f"wave-{g}", "count": SIM_TRACE_GROUP,
+                "pod": pod(n_base + g), "until": 180.0, "replace": True} for g in range(n_wave)]
+    events += [{"at": float(t), "kind": "submit", "group": f"churn-{t}", "count": SIM_TRACE_CHURN,
+                "pod": pod((t // 10) % n_base), "until": float(t + 60), "replace": True}
+               for t in range(20, 300, 10)]
+    events += [{"at": 120.0, "kind": "interrupt", "count": 2, "mode": "graceful",
+                "capacity_type": "spot"},
+               {"at": 200.0, "kind": "interrupt", "count": 1, "mode": "reclaim"}]
+    events.sort(key=lambda e: e["at"])
+    return {"version": 1, "name": f"kwok-{base + wave}-pods", "duration": 300.0, "tick": 2.0,
+            "nodepools": [{"name": "workers", "consolidate_after": 15.0}], "faults": {},
+            "events": events}
+
+
+def sim_fault_trace(restarts: bool) -> dict:
+    """The fault probes' trace: leg b's at SIM_FAULT_BASE pods over 120 s;
+    with `restarts`, a solver-service restart at 10 s, an operator crash
+    armed at 12 s, and two more batches of SIM_TRACE_GROUP pods at 30 s and
+    60 s for the rebuilt engines to solve."""
+    trace = sim_trace(SIM_FAULT_BASE, 0)
+    trace["duration"] = 120.0
+    trace["events"] = [e for e in trace["events"] if e["at"] < 120.0]
+    if restarts:
+        first = trace["events"][0]["pod"]
+        trace["events"] += [
+            {"at": 10.0, "kind": "solverd-restart"},
+            {"at": 12.0, "kind": "operator-crash", "barrier": "pre-intent"},
+        ] + [{"at": at, "kind": "submit", "group": f"after-{at:.0f}", "count": SIM_TRACE_GROUP,
+              "pod": dict(first, cpu="1"), "replace": True} for at in (30.0, 60.0)]
+        trace["events"].sort(key=lambda e: e["at"])
+    return trace
+
+
+def sim_runs() -> list:
+    """Leg a: the registered scenarios, then the README's variants."""
+    from karpenter_tpu_torch.sim import scenarios
+
+    runs = [(name, ["-s", name]) for name in scenarios.names()]
+    runs += [(f"mesh-sweep@{n}", ["-s", "mesh-sweep", "--shard-devices", str(n)]) for n in (1, 2)]
+    runs += [(f"sustained-churn/delta-{m}", ["-s", "sustained-churn", "--delta-solve", m])
+             for m in ("off", "on")]
+    return runs
+
+
+def _tensors_in(value, depth: int = 4):
+    """The torch tensors `value` holds: itself, or inside tuples, lists,
+    dicts and objects' attributes, `depth` levels down."""
+    if isinstance(value, torch.Tensor):
+        yield value
+    elif depth <= 0:
+        return
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            yield from _tensors_in(v, depth - 1)
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _tensors_in(v, depth - 1)
+    elif hasattr(value, "__dict__") and not isinstance(value, type):
+        for v in vars(value).values():
+            yield from _tensors_in(v, depth - 1)
+
+
+def sim_resident_bytes(held=()) -> int:
+    """Card bytes held on purpose between passes, as the caching allocator
+    counts them (each storage rounded up to its 512-byte block): the
+    catalog engines' resident row matrices, which grow by a row for each new
+    requirement row; the packed tables of feasibility._cached, a 16-entry
+    LRU; and `held`, what this script keeps for its checks."""
+    from karpenter_tpu_torch.controllers.provisioning import provisioner as provmod
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    tensors = [t for engine in provmod._ENGINE_CONTENT_CACHE.values()
+               for t in (getattr(engine, "_req_compat_d", None),
+                         getattr(engine, "_offer_compat_d", None)) if t is not None]
+    tensors += [t for _refs, value in list(feas._packs.values()) for t in _tensors_in(value)]
+    tensors += list(_tensors_in(held))
+    storages = {}
+    for t in tensors:
+        if t.is_cuda:
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = -(-st.nbytes() // 512) * 512
+    return sum(storages.values())
+
+
+class SimPasses:
+    """Every Operator.run_once() of a run inside ktime.measure() and a batch
+    scope: its clock time, wall ms, what it returned, the consolidation
+    probes it ran, device-busy seconds (the solver service's nested
+    `solverd:<n>` batches summed in) and, on the card, memory_allocated
+    after it beside sim_resident_bytes(held()). Every process of the phase
+    installs it, so the runs it compares are instrumented alike."""
+
+    def __init__(self, on_card: bool, held=lambda: ()):
+        self.on_card = on_card
+        self.held = held
+        self.passes: list = []
+
+    def install(self):
+        from karpenter_tpu_torch.controllers.disruption import methods as dmethods
+        from karpenter_tpu_torch.observability import kernels as kobs
+        from karpenter_tpu_torch.operator.operator import Operator
+        from karpenter_tpu_torch.tracing import kernel as ktime
+
+        self.real = real = Operator.run_once
+        rec = self
+
+        def probes():
+            return sum(dmethods._FRONTIER_PROBES.value({"consolidation_type": kind})
+                       for kind in ("multi", "single"))
+
+        def run_once(op):
+            reg = kobs.registry()
+            seq0, probes0 = reg._batch_seq, probes()
+            t0 = time.perf_counter()
+            with ktime.measure(), reg.batch_scope("sim-pass") as batch:
+                summary = real(op)
+            if rec.on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            nested = [b for b in reg._batches
+                      if b["seq"] > seq0 and b["label"].startswith("solverd:")]
+            rec.passes.append({
+                "t": op.clock.now(), "wall_ms": wall * 1e3, "summary": dict(summary),
+                "frontier_probes": probes() - probes0,
+                "busy_s": batch["device_busy_s"] + sum(b["device_busy_s"] for b in nested),
+                "memory_allocated": torch.cuda.memory_allocated() if rec.on_card else 0,
+                "resident_bytes": sim_resident_bytes(rec.held()) if rec.on_card else 0,
+            })
+            return summary
+
+        Operator.run_once = run_once
+
+    def remove(self):
+        from karpenter_tpu_torch.operator.operator import Operator
+
+        Operator.run_once = self.real
+
+
+def _repeated_cards(n: int):
+    """The solver mesh of `--shard-devices n` on the card: n shards over the
+    cards, repeating them where there are fewer (cuda:0 twice on one card),
+    as phase 5b's 2-shard mesh does."""
+    from karpenter_tpu_torch.mesh import Mesh
+
+    if n < 1:
+        return None
+    count = torch.cuda.device_count()
+    return Mesh([torch.device("cuda", i % count) for i in range(n)])
+
+
+def sim_run(label: str, argv: list, device: str, out_dir: str, tag: str, probe) -> dict:
+    """One `python -m karpenter_tpu_torch.sim` run in this process:
+    main(argv + the seed, `--device`, the report and event-log files under
+    out_dir, named by `tag`, the process's), every pass through SimPasses,
+    observed by `probe` (an installed OperatorProbe; what it keeps counts as
+    held); the launch counts set to 0 just before and read just after; the
+    process-global settings the CLI sets (the delta mode) and the delta
+    counters put back after.
+    Returns the exit code, the report, the event log's sha256 and line
+    count, the wall s, the passes, the wrapper and C launches and the
+    scans."""
+    import hashlib
+
+    from karpenter_tpu_torch.controllers.provisioning import provisioner as provmod
+    from karpenter_tpu_torch.ops import delta as delta_mod
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+    from karpenter_tpu_torch.sim import __main__ as sim_cli
+
+    slug = "".join(c if c.isalnum() or c == "-" else "_" for c in label)
+    report_path = os.path.join(out_dir, f"{slug}.{tag}.report.json")
+    events_path = os.path.join(out_dir, f"{slug}.{tag}.events.jsonl")
+    passes = SimPasses(device == "cuda", lambda: probe.captured)
+    saved = (delta_mod.DELTA_MODE, delta_mod.RESOLVE_FULL_EVERY, provmod._build_solver_mesh,
+             delta_mod.COUNTERS)
+    if device == "cuda":
+        provmod._build_solver_mesh = _repeated_cards
+    # the delta counters a report carries (report["solver"]["delta"]) are the
+    # process's: each run counts from 0, as the CLI in a process of its own
+    delta_mod.COUNTERS = dict.fromkeys(delta_mod.COUNTERS, 0)
+    passes.install()
+    probe.obs = {"primes": []}
+    feas.reset_launch_counts()
+    packer.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = sim_cli.main(argv + ["--seed", str(SIM_SEED), "--device", device,
+                                  "--report", report_path, "--events", events_path])
+    finally:
+        wall = time.perf_counter() - t0
+        passes.remove()
+        (delta_mod.DELTA_MODE, delta_mod.RESOLVE_FULL_EVERY, provmod._build_solver_mesh,
+         delta_mod.COUNTERS) = saved
+    out = {
+        "label": label, "device": device, "rc": rc, "wall_s": wall, "passes": passes.passes,
+        "launches": {k: v for k, v in _count_launches().items() if v},
+        "entries": dict(probe.obs.get("entries", {})),
+        "scans": [{k: s[k] for k in ("design", "has_nodes", "P", "N", "n_pods")}
+                  for s in probe.obs.get("scans", [])],
+    }
+    if rc == 0:
+        with open(report_path) as f:
+            out["report"] = json.load(f)
+        with open(events_path, "rb") as f:
+            data = f.read()
+        out["events_sha256"], out["events"] = hashlib.sha256(data).hexdigest(), data.count(b"\n")
+    return out
+
+
+# runs in a child process: sim_run for each (label, argv) on the device given,
+# the results to a JSON file
+SIM_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(2)
+import chip_smoke as cs
+from karpenter_tpu_torch.operator import logging as klog
+
+device, runs, out_dir, tag = sys.argv[2], json.loads(sys.argv[3]), sys.argv[4], sys.argv[5]
+klog.configure("error", stream=open(f"{out_dir}/{tag}.log", "w"))
+probe = cs.OperatorProbe()
+probe.install()
+results = [cs.sim_run(label, argv, device, out_dir, tag, probe) for label, argv in runs]
+for got in results:
+    print(f"{tag} {got['label']}: exit {got['rc']}, {got['wall_s']:.1f} s, C launches "
+          f"{json.dumps(got['entries'])}", flush=True)
+with open(f"{out_dir}/{tag}.json", "w") as f:
+    json.dump(results, f)
+"""
+
+
+def sim_child(device: str, runs: list, out_dir: str, tag: str) -> subprocess.Popen:
+    """SIM_CHILD started in a process of its own; its output to files."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(out_dir, f"{tag}.out"), "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-c", SIM_CHILD, root, device, json.dumps(runs), out_dir, tag],
+            cwd=root, stdout=out, stderr=subprocess.STDOUT, text=True)
+
+
+def sim_child_results(proc: subprocess.Popen, out_dir: str, tag: str, timeout: float) -> list:
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    path = os.path.join(out_dir, f"{tag}.json")
+    if proc.returncode != 0 or not os.path.exists(path):
+        with open(os.path.join(out_dir, f"{tag}.out")) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"phase 4v child {tag}: exit {proc.returncode}: {tail}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def sim_busy_share(passes: list) -> float:
+    wall = sum(p["wall_ms"] for p in passes) / 1e3
+    return sum(p["busy_s"] for p in passes) / wall if wall else 0.0
+
+
+SIM_FAULT_PROBE = r"""
+import io, json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from karpenter_tpu_torch.operator import logging as klog
+from karpenter_tpu_torch.sim import __main__ as sim_cli
+from karpenter_tpu_torch.sim import harness
+
+mode, trace_path = sys.argv[2], sys.argv[3]
+seen = {"restarts": 0, "crashes": 0}
+fault = {}
+if mode == "first-batch":
+    fault["state"] = cs.arm_prime_fault()
+else:
+    # armed once the run has restarted its solver service and its operator:
+    # the rebuilt engines' next primed sweep faults
+    restart, crash = harness.Simulation._restart_solverd, harness.Simulation._crash_restart
+
+    def restarted(sim):
+        restart(sim)
+        seen["restarts"] += 1
+
+    def crashed(sim, exc):
+        crash(sim, exc)
+        seen["crashes"] += 1
+        fault["state"] = cs.arm_prime_fault()
+
+    harness.Simulation._restart_solverd = restarted
+    harness.Simulation._crash_restart = crashed
+stream = io.StringIO()
+klog.configure("info", stream=stream)
+rc = sim_cli.main(["--trace", trace_path, "--seed", str(cs.SIM_SEED), "--device", "cuda",
+                   "--log-level", "info"])
+lines = [json.loads(line) for line in stream.getvalue().splitlines()]
+failed = [e for e in lines if e["message"] == "simulation failed on a device fault"]
+dumped = [e for e in lines if e["message"] == "flight bundle dumped"]
+got = {"mode": mode, "rc": rc, "fired": fault.get("state", {}).get("armed") is False, **seen,
+       "failed": [e.get("exception", "")[-400:] for e in failed][:1],
+       "dumped": [{k: e.get(k) for k in ("bundle", "frames")} for e in dumped][:1]}
+print(json.dumps(got, default=str))
+ok = (rc != 0 and got["fired"] and failed and "KernelError" in failed[0].get("exception", "")
+      and dumped and (mode == "first-batch" or (seen["restarts"] and seen["crashes"])))
+sys.exit(0 if ok else 1)
+"""
+
+
+def sim_fault_probes(out_dir: str) -> dict:
+    """The fault rule on the simulator's path, in two child processes side
+    by side (the fault poisons the card's context): the first batch's
+    primed kt_cube given a bogus pointer, and the same fault armed only
+    after the run restarted its solver service and crash-restarted its
+    operator; each time `sim.__main__.main([..., "--device", "cuda"])` must
+    return nonzero with the KernelError named and the flight ring dumped."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for mode, restarts in (("first-batch", False), ("after-restarts", True)):
+        path = os.path.join(out_dir, f"fault-{mode}.trace.json")
+        with open(path, "w") as f:
+            json.dump(sim_fault_trace(restarts), f)
+        procs[mode] = subprocess.Popen([sys.executable, "-c", SIM_FAULT_PROBE, root, mode, path],
+                                       cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)
+    out: dict = {}
+    try:
+        for mode, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            lines = stdout.strip().splitlines()
+            out[mode] = json.loads(lines[-1]) if lines else {}
+            out[mode]["probe_exit"] = proc.returncode
+            if proc.returncode != 0:
+                out[mode]["stderr"] = stderr[-2000:]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    return out
+
+
+def phase_sim(captured, device=None):
+    """Phase 4v: the simulator (see the module docstring). Returns the
+    path's launches: those of the first run of each leg on the card, leg
+    a's counted in its child process."""
+    from karpenter_tpu_torch.operator import logging as klog
+    from karpenter_tpu_torch.sim.harness import DEVICE_SPECIFIC, VOLATILE, report_without
+
+    t_phase = time.perf_counter()
+    on_card = device is None
+    dev = "cuda" if on_card else "cpu"
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "chiprun_out", "sim_4v")
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, "trace.json")
+    with open(trace_path, "w") as f:
+        json.dump(sim_trace(), f)
+    runs = sim_runs()
+    leg_b = [("trace", ["--trace", trace_path])]
+    # leg b's card run here; beside it, in child processes (all host-bound),
+    # leg a's two same-seed runs on the card, and the CPU engines' runs of
+    # both legs (leg a's over SIM_CPU_CHILDREN processes)
+    children = {"card-a": sim_child(dev, runs, out_dir, "card-a"),
+                "rerun-a": sim_child(dev, runs, out_dir, "rerun-a"),
+                "cpu-b": sim_child("cpu", leg_b, out_dir, "cpu-b")}
+    for i in range(SIM_CPU_CHILDREN):
+        children[f"cpu-a{i}"] = sim_child("cpu", runs[i::SIM_CPU_CHILDREN], out_dir, f"cpu-a{i}")
+    log_file = open(os.path.join(out_dir, "card.log"), "w")
+    klog.configure("error", stream=log_file)
+    probe = OperatorProbe()
+    probe.install()
+    try:
+        probe.keep = True
+        card = {"trace": sim_run("trace", leg_b[0][1], dev, out_dir, "card", probe)}
+        probe.keep = False
+        results = {tag: sim_child_results(proc, out_dir, tag, timeout=900)
+                   for tag, proc in children.items()}
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        probe.remove()
+        klog.configure("warning", stream=sys.stderr)
+        log_file.close()
+
+    card.update({got["label"]: got for got in results["card-a"]})
+    rerun = {got["label"]: got for got in results["rerun-a"]}
+    cpu = {got["label"]: got for tag, got_list in results.items() if tag.startswith("cpu")
+           for got in got_list}
+    path: dict = {}
+    for label, got in card.items():
+        for k, v in got["launches"].items():
+            path[k] = path.get(k, 0) + v
+        log(f"phase 4v {label}: exit {got['rc']}, {got['wall_s']:.1f} s, {len(got['passes'])} "
+            f"passes, digest {got.get('report', {}).get('event_log_digest')}, C launches "
+            f"{json.dumps(got['entries'])}")
+    failures = []
+    scenarios_out = {}
+    for label, _argv in runs + leg_b:
+        got, other = card[label], cpu[label]
+        if got["rc"] != 0 or other["rc"] != 0:
+            failures.append(f"{label}: exit {got['rc']} on {dev}, {other['rc']} on the CPU")
+            continue
+        digest = got["report"]["event_log_digest"]
+        if (digest, got["events_sha256"]) != (other["report"]["event_log_digest"],
+                                              other["events_sha256"]):
+            failures.append(f"{label}: event log differs from the CPU engine's")
+        if report_without(got["report"], DEVICE_SPECIFIC) != report_without(other["report"],
+                                                                            DEVICE_SPECIFIC):
+            failures.append(f"{label}: report outside DEVICE_SPECIFIC differs from the CPU engine's")
+        rec = {"digest": digest, "events": got["events"], "wall_s": round(got["wall_s"], 3),
+               "cpu_wall_s": round(other["wall_s"], 3), "passes": len(got["passes"]),
+               "entries": got["entries"], "launches": got["launches"],
+               "device_busy_share": round(sim_busy_share(got["passes"]), 6)}
+        if label in rerun:
+            again = rerun[label]
+            rec["rerun_wall_s"] = round(again["wall_s"], 3)
+            if again["rc"] != 0 or (again["report"]["event_log_digest"], again["events_sha256"]) \
+                    != (digest, got["events_sha256"]):
+                failures.append(f"{label}: the same-seed rerun's event log differs")
+            elif report_without(again["report"], VOLATILE) != report_without(got["report"],
+                                                                            VOLATILE):
+                failures.append(f"{label}: the same-seed rerun's report differs")
+        scenarios_out[label] = rec
+    digests = {label: card[label].get("report", {}).get("event_log_digest") for label in card}
+    for group in (("mesh-sweep", "mesh-sweep@1", "mesh-sweep@2"),
+                  ("sustained-churn", "sustained-churn/delta-off", "sustained-churn/delta-on")):
+        if len({digests[g] for g in group}) != 1:
+            failures.append(f"digests differ across {group}: {[digests[g] for g in group]}")
+
+    # leg b: the trace at a size users run
+    b = card["trace"]
+    report = b.get("report", {})
+    walls = [p["wall_ms"] for p in b["passes"]]
+    t0 = b["passes"][0]["t"] if b["passes"] else 0.0
+    first_bound = None
+    if b["rc"] == 0:
+        with open(os.path.join(out_dir, "trace.card.events.jsonl")) as f:
+            base_binds = [json.loads(line) for line in f if '"pod-bound"' in line]
+        base_binds = [e["t"] for e in base_binds
+                      if e["pod"].startswith("base-") and "-r" not in e["pod"]]
+        if len(base_binds) == SIM_TRACE_BASE:
+            first_bound = max(base_binds)
+    solving = [p for p in b["passes"] if p["summary"].get("provisioned")]
+    memory = [p["memory_allocated"] for p in b["passes"]]
+    # what moves besides the named residents (sim_resident_bytes)
+    unnamed = [p["memory_allocated"] - p["resident_bytes"] for p in b["passes"]]
+    first_compute = next((i for i, p in enumerate(b["passes"]) if p["frontier_probes"]), None)
+    leg = {
+        "trace": {"base": SIM_TRACE_BASE, "wave": SIM_TRACE_WAVE, "passes": len(b["passes"]),
+                  "pods_submitted": report.get("slo", {}).get("pods_submitted"),
+                  "churn": report.get("churn"), "faults": report.get("faults")},
+        "wall_s": round(b["wall_s"], 3), "cpu_wall_s": round(cpu["trace"]["wall_s"], 3),
+        "pass_wall_ms": {"p50": statistics.median(walls) if walls else None,
+                         "max": max(walls) if walls else None},
+        "cpu_pass_wall_ms": {"p50": statistics.median(p["wall_ms"] for p in cpu["trace"]["passes"])
+                             if cpu["trace"]["passes"] else None},
+        "passes_to_bind_first_batch": None if first_bound is None else
+        sum(1 for p in b["passes"] if 4.0 <= p["t"] - t0 <= first_bound),
+        "host_stall_of_solving_passes": [round(1.0 - p["busy_s"] / (p["wall_ms"] / 1e3), 6)
+                                         for p in solving],
+        "solving_passes": len(solving), "device_busy_share": round(sim_busy_share(b["passes"]), 6),
+        "entries": b["entries"], "launches": b["launches"],
+        "scans": {"count": len(b["scans"]), "designs": sorted({s["design"] for s in b["scans"]}),
+                  "largest_P": max((s["P"] for s in b["scans"]), default=0),
+                  "with_nodes": sum(1 for s in b["scans"] if s["has_nodes"])},
+        "memory_allocated": {"first": memory[:1], "max": max(memory, default=0),
+                             "last": memory[-1:], "distinct": len(set(memory))},
+        "memory_outside_residents": {"first": unnamed[:1], "max": max(unnamed, default=0),
+                                     "last": unnamed[-1:], "distinct": len(set(unnamed))},
+        "first_consolidation_pass": first_compute,
+    }
+    out = {"scenarios": scenarios_out, "trace": leg}
+    if on_card:
+        for entry in ("kt_row_compat", "kt_cube", "kt_uid_project", "kt_solve_scan"):
+            if not b["entries"].get(entry):
+                failures.append(f"leg b launched no {entry}: {b['entries']}")
+        if leg["scans"]["designs"] != ["resident"]:
+            failures.append(f"leg b's scans took {leg['scans']['designs']}")
+        if first_compute is not None:
+            # memory_allocated moves with the cluster (new requirement rows
+            # appended to the resident matrices, the packed tables' LRU, the
+            # script's captured operands): what is left must be flat
+            warm = unnamed[first_compute:]
+            leg["memory_warm_from_pass"] = first_compute
+            if len(set(warm)) != 1:
+                moved = [(i + first_compute, b["passes"][i + first_compute]["t"] - t0, u)
+                         for i, u in enumerate(warm) if i and u != warm[i - 1]]
+                failures.append(f"memory_allocated outside the named residents moved after the "
+                                f"first consolidation (pass {first_compute}): {moved[:12]}")
+        else:
+            failures.append("leg b ran no consolidation")
+        try:
+            checks = {"first_batch": consolidation_kernel_checks(
+                {**probe.captured, "scan": probe.captured["scan_up"]}, "phase 4v (the first batch)")}
+            if "scan" in probe.captured:
+                checks["probe"] = consolidation_kernel_checks(probe.captured, "phase 4v (a probe)")
+            out["kernel_checks"] = checks
+        except AssertionError as e:  # a failure of the phase, raised below
+            failures.append(f"kernel checks: {e}")
+        t0 = time.perf_counter()
+        out["fault"] = sim_fault_probes(out_dir)
+        out["fault_s"] = time.perf_counter() - t0
+        log(f"phase 4v fault probes ({out['fault_s']:.1f} s): {json.dumps(out['fault'])}")
+        failures += [f"fault probe {mode}: {got}" for mode, got in out["fault"].items()
+                     if got.get("probe_exit") != 0]
+    out["phase_s"] = time.perf_counter() - t_phase
+    with open(os.path.join(out_dir, "sim_4v.json"), "w") as f:
+        json.dump({"sim": out, "trace_passes": b["passes"]}, f, default=str)
+    log(json.dumps({"sim": out}, default=str))
+    log(f"phase 4v took {out['phase_s']:.1f} s")
+    assert not failures, failures
+    return path
+
+
 def dispatch_floor(reps=2000, rounds=5) -> dict:
     """The named dispatch's own floor: the empty kernel (kt_noop) launched
     through ktime.dispatch with a kernel name, without a measure() context
@@ -6009,6 +6606,8 @@ def main() -> int:
                              "order given")
     parser.add_argument("--operator", action="store_true",
                         help="build, then phase 4o (the operator) alone")
+    parser.add_argument("--sim", action="store_true",
+                        help="build, then phase 4v (the simulator) alone")
     parser.add_argument("--turns-of", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -6035,6 +6634,10 @@ def main() -> int:
     if args.operator:
         phase_operator(captured)
         log(f"phase 4o done at {time.perf_counter() - t_start:.1f} s")
+        return finish(t_start)
+    if args.sim:
+        phase_sim(captured)
+        log(f"phase 4v done at {time.perf_counter() - t_start:.1f} s")
         return finish(t_start)
     if args.mesh:
         phase_main(captured)
@@ -6070,11 +6673,14 @@ def main() -> int:
         log(f"phase 4d done at {time.perf_counter() - t_start:.1f} s")
         operator_launches = phase_operator(captured)
         log(f"phase 4o done at {time.perf_counter() - t_start:.1f} s")
+        sim_launches = phase_sim(captured)
+        log(f"phase 4v done at {time.perf_counter() - t_start:.1f} s")
         # the main path's launches: phase 4's solves, phase 4s's reconciles
-        # and coalesced batch, phase 4d's frontier computes and phase 4o's
-        # operator passes
+        # and coalesced batch, phase 4d's frontier computes, phase 4o's
+        # operator passes and phase 4v's simulator runs
         path = {k: v + service_launches.get(k, 0) + consolidation_launches.get(k, 0)
-                + operator_launches.get(k, 0) for k, v in launches.items()}
+                + operator_launches.get(k, 0) + sim_launches.get(k, 0)
+                for k, v in launches.items()}
         mesh_launches = phase_mesh(captured)
         log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
         prefix_scan = phase_identity()

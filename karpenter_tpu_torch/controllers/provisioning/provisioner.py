@@ -10,12 +10,14 @@ from __future__ import annotations
 import copy
 from typing import Optional, Sequence
 
+import torch
+
 from karpenter_tpu_torch.apis import labels as wk
 from karpenter_tpu_torch.apis.core import Affinity, NodeAffinity, ObjectMeta, Pod, new_uid
 from karpenter_tpu_torch.apis.nodeclaim import NodeClaim as APINodeClaim
 from karpenter_tpu_torch.controllers.provisioning.batcher import Batcher
 from karpenter_tpu_torch.events.recorder import Event, Recorder
-from karpenter_tpu_torch.mesh import build_solver_mesh
+from karpenter_tpu_torch.mesh import Mesh, build_solver_mesh
 from karpenter_tpu_torch.metrics import global_registry
 from karpenter_tpu_torch.cloudprovider.types import CloudProvider
 from karpenter_tpu_torch.operator.options import Options
@@ -78,6 +80,16 @@ def _type_fingerprint(it) -> tuple:
 _build_solver_mesh = build_solver_mesh
 
 
+def _engine_mesh(shard_devices: int, device):
+    """port: the mesh of an engine on `device`: over the cards
+    (`_build_solver_mesh`) for the card's engine; for a CPU engine the CPU
+    repeated `shard_devices` times (the per-shard plain path, as the
+    reference's CPU dryrun shards over virtual devices), never the cards."""
+    if device is not None and torch.device(device).type == "cpu":
+        return Mesh([torch.device("cpu")] * shard_devices) if shard_devices >= 1 else None
+    return _build_solver_mesh(shard_devices)
+
+
 def default_engine_factory(shard_devices: int = 0, device=None):
     """CatalogEngine per distinct instance-type union. Two cache levels: an
     id-keyed fast path (providers return stable InstanceType objects, so the
@@ -123,8 +135,7 @@ def default_engine_factory(shard_devices: int = 0, device=None):
 
                 kobs.reset_device_memory()
                 engine = CatalogEngine(
-                    all_types, device=device,
-                    mesh=_build_solver_mesh(shard_devices),
+                    all_types, device=device, mesh=_engine_mesh(shard_devices, device),
                 )
                 _ENGINE_CONTENT_CACHE[content_key] = engine
             # hold type refs so ids stay unique for the cache key's lifetime

@@ -96,7 +96,7 @@ class Coalescer:
                         span.fail(err)
                 solve_wall = time.perf_counter() - t0
                 delta = {
-                    name: value - base[name]
+                    name: value - base.get(name, 0)  # port: a counter born in the solve
                     for name, value in ffd.solver_cache_counters().items()
                 }
                 if not mem_live:

@@ -66,6 +66,12 @@ VERBATIM = [
     "operator/leaderelection.py",
     "operator/operator.py",
     "operator/serving.py",
+    "sim/__init__.py",
+    "sim/events.py",
+    "sim/trace.py",
+    "sim/scenarios/__init__.py",
+    "sim/accounting.py",
+    "sim/faults.py",
 ]
 
 # module -> the port-specific parts (see the module docstring), and the
@@ -99,9 +105,10 @@ PORT_SPECIFIC = {
         ['    solver_backend: str = "tpu"  # "tpu" | "host"'],
         ['    solver_backend: str = "tpu"  # "tpu" | "host" (port: "tpu" is the CUDA engine)'],
     )]),
-    # the mesh builder is mesh.build_solver_mesh; the engines' device
+    # the mesh builder is mesh.build_solver_mesh; the engines' device; a
+    # CPU engine's mesh repeats the CPU
     "controllers/provisioning/provisioner.py": (
-        ["_build_solver_mesh", "default_engine_factory"], [],
+        ["_build_solver_mesh", "_engine_mesh", "default_engine_factory"], [],
     ),
     # the daemon's factory takes the device; a failed engine build is the
     # request's error, never a host-loop answer; a KernelError crosses the
@@ -123,8 +130,6 @@ PORT_SPECIFIC = {
             ],
         )],
     ),
-    # a KernelError in the primed sweep fails the batch's requests
-    "solverd/coalescer.py": (["Coalescer._prime"], []),
     # the catalog hash computed in place until aot/compiler.py is ported
     "solverd/fleet.py": (["FleetClient._catalog_hash"], []),
     # --device; the AOT flags refused until aot/compiler.py is ported
@@ -143,6 +148,56 @@ PORT_SPECIFIC = {
     # --device; the AOT flags refused until aot/compiler.py is ported; a
     # KernelError stops the loop with a nonzero exit
     "__main__.py": (["_port_args", "main"], []),
+    # the run's device through every engine rebuild; no RTT pin, no jit
+    # caches; a KernelError from a dying client's close() raised; the
+    # report sections that differ from the reference's by design
+    "sim/harness.py": (
+        ["sim_globals", "Simulation._engine_factory", "Simulation._restart_solverd",
+         "Simulation._crash_restart", "run_scenario", "DEVICE_SPECIFIC", "VOLATILE",
+         "report_without"],
+        [
+            ([], ["        device=None,"]),
+            ([], [
+                "        # port: the device the run's engines are built on, through every",
+                '        # rebuild (solverd restart, crash restart): None is the card, "cpu"',
+                "        # the plain versions of the kernels",
+                "        self.device = device",
+            ]),
+            (
+                ["            self.store, self.provider, clock=self.clock, options=self.options"],
+                [
+                    "            self.store, self.provider, clock=self.clock, options=self.options,",
+                    "            engine_factory=self._engine_factory(),",
+                ],
+            ),
+        ],
+    ),
+    # every cell on the run's device
+    "sim/fleet.py": (
+        ["run_fleet_scenario"],
+        [
+            ([], ["        device=None,"]),
+            ([], [
+                "        # port: `device`, every cell's engines' device (None: the card). The",
+                "        # replicas' services own no engine: a request's scheduler carries",
+                "        # its cell's engine, so the pool solves on the cells' device",
+            ]),
+            ([], ["                device=device,"]),
+        ],
+    ),
+    # --device; the AOT flags refused until aot/compiler.py is ported; a
+    # KernelError ends the run with a nonzero exit and the flight dump
+    "sim/__main__.py": (["__doc__", "main"], []),
+    # a KernelError in the primed sweep fails the batch's requests; a
+    # counter born during a solve (a scan decline reason seen for the first
+    # time) starts from 0
+    "solverd/coalescer.py": (
+        ["Coalescer._prime"],
+        [(
+            ["                    name: value - base[name]"],
+            ["                    name: value - base.get(name, 0)  # port: a counter born in the solve"],
+        )],
+    ),
 }
 
 

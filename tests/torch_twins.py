@@ -27,7 +27,11 @@ The twin tests compare what the two runs record:
 - every `Operator.run_once()` summary, and after the case each Operator's
   events in order and its reconcilers' error counts;
 - after the case, every object of every store the module built on a
-  FakeClock (`repr`, by kind and key).
+  FakeClock (`repr`, by kind and key);
+- every simulator run (`sim.harness.Simulation.run`,
+  `sim.fleet.FleetSimulation.run`, however the case reaches it): its
+  event-log digest, its event log and its report outside the port's
+  `sim.harness.DEVICE_SPECIFIC` sections.
 
 A case parametrized by `pytest.mark.parametrize` is one case a parameter
 set (`Class::method[i]`), and the module's autouse fixtures run around it.
@@ -35,12 +39,17 @@ set (`Class::method[i]`), and the module's autouse fixtures run around it.
 Each run installs the same uid source (`apis.core.set_uid_source`), one
 seeded source for leader identities and command ids, and restarts the
 name, hostname and placeholder counters, so the two packages draw the same
-names. On the reference's side `ffd.STRICT` is set: a fault there raises
+names, and the delta counters, so their reports count the same. On the reference's side `ffd.STRICT` is set: a fault there raises
 instead of falling back to the host loop. On the port's side engines are
 built on the CPU (`device="cpu"`) wherever a case builds one without a
 device: a `CatalogEngine`, the Provisioner's (so the Operator's) and the
 solver daemon's default engine factories, and `python -m
-karpenter_tpu_torch` in process and as a subprocess (`--device cpu`).
+karpenter_tpu_torch` in process and as a subprocess (`--device cpu`),
+and `python -m karpenter_tpu_torch.sim` in process (`--device cpu`).
+
+A few lines of a reference case state a fact of the reference's host route
+that the port, which launches every batch, does not share; the port's leg
+runs such a line as `PORT_LINES` gives it, with the reason beside it.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ import functools
 import importlib
 import importlib.util
 import inspect
+import io
 import itertools
 import os
 import pathlib
@@ -119,11 +129,61 @@ class _Rewrite(ast.NodeTransformer):
         return node
 
 
+# (module, line of the reference case, the port's line): the reference's
+# line states a fact of its host route (no device dispatch, so a host-stall
+# fraction of exactly 1.0 and a report free of measured walls); the port
+# launches every batch — its CPU engine the kernels' plain versions — so its
+# leg states the port's fact: a device batch, and equality outside
+# sim.harness.VOLATILE (the host-stall fraction, a ratio of walls)
+PORT_LINES = [
+    (
+        "test_sim_harness",
+        '        assert eff["host_stall_fraction"] == 1.0  # fully host-paced',
+        '        assert eff["device_batches"] >= 1  # port: every batch launches',
+    ),
+    (
+        "test_sim_harness",
+        "        assert a.report == b.report",
+        "        assert _stable(a.report) == _stable(b.report)  # port: VOLATILE aside",
+    ),
+    (
+        "test_sim_fleet",
+        "        assert again.report == result.report",
+        "        assert _stable(again.report) == _stable(result.report)  # port: VOLATILE aside",
+    ),
+    (
+        "test_recovery",
+        "        assert a.report == b.report",
+        "        assert _stable(a.report) == _stable(b.report)  # port: VOLATILE aside",
+    ),
+    (
+        "test_flight",
+        "        assert a.report == b.report",
+        "        assert _stable(a.report) == _stable(b.report)  # port: VOLATILE aside",
+    ),
+    (
+        "test_kernel_observatory",
+        "        assert ka == kb",
+        "        assert _stable({'kernels': ka}) == _stable({'kernels': kb})  # port: VOLATILE aside",
+    ),
+]
+
+
+def _stable(report: dict) -> dict:
+    """A port report outside sim.harness.VOLATILE."""
+    harness = _m(T, "sim.harness")
+    return harness.report_without(report, harness.VOLATILE)
+
+
 def _source(name: str, pkg: str) -> str:
     with open(os.path.join(TESTS, f"{name}.py")) as f:
         src = f.read()
     if pkg == T:
         src = re.sub(r"\bkarpenter_tpu\b", T, src)
+        for module_, ref_line, port_line in PORT_LINES:
+            if module_ == name:
+                assert src.count(ref_line + "\n") == 1, (name, ref_line)
+                src = src.replace(ref_line + "\n", port_line + "\n")
     return src
 
 
@@ -147,6 +207,7 @@ def module(name: str, pkg: str) -> types.ModuleType:
     ast.fix_missing_locations(tree)
     mod = types.ModuleType(twin_name(name, pkg))
     mod.__file__ = os.path.join(TESTS, f"{name}.py")
+    mod._stable = _stable
     sys.modules[mod.__name__] = mod
     for sibling in SIBLINGS:
         if sibling != name and re.search(rf"^\s*from {sibling} import", _source(name, pkg), re.M):
@@ -510,15 +571,54 @@ def _autouse(mod) -> list:
     ]
 
 
-def _fixture(mod, name: str, mp, tmp: pathlib.Path, stack: contextlib.ExitStack):
-    """A fixture's value; a generator fixture's teardown goes on `stack`."""
+class _Capsys:
+    """pytest's `capsys`: what the case prints, read back."""
+
+    def __init__(self, stack: contextlib.ExitStack):
+        self._out, self._err = io.StringIO(), io.StringIO()
+        stack.enter_context(contextlib.redirect_stdout(self._out))
+        stack.enter_context(contextlib.redirect_stderr(self._err))
+
+    def readouterr(self):
+        out, err = self._out.getvalue(), self._err.getvalue()
+        for buf in (self._out, self._err):
+            buf.seek(0)
+            buf.truncate()
+        return types.SimpleNamespace(out=out, err=err)
+
+
+class _TmpPathFactory:
+    """pytest's `tmp_path_factory`, under the case's temporary directory."""
+
+    def __init__(self, tmp: pathlib.Path):
+        self._tmp = tmp
+
+    def mktemp(self, basename: str) -> pathlib.Path:
+        return pathlib.Path(tempfile.mkdtemp(prefix=basename, dir=self._tmp))
+
+
+def _fixture(mod, name: str, mp, tmp: pathlib.Path, stack: contextlib.ExitStack,
+             inst=None):
+    """A fixture's value (a class's fixture method bound to `inst`); a
+    generator fixture's teardown goes on `stack`."""
     if name == "monkeypatch":
         return mp
     if name == "tmp_path":
         return tmp
-    fx = mod.__dict__[name]
+    if name == "tmp_path_factory":
+        return _TmpPathFactory(tmp)
+    if name == "capsys":
+        return _Capsys(stack)
+    fx = getattr(type(inst), name, None) if inst is not None else None
+    if fx is None:
+        fx = mod.__dict__[name]
     fn = getattr(fx, "_get_wrapped_function", None)
-    out = (fn() if fn else fx.__wrapped__)()
+    body = fn() if fn else fx.__wrapped__
+    params = list(inspect.signature(body).parameters)
+    args = [inst] if params[:1] == ["self"] else []
+    out = body(*args, *[
+        _fixture(mod, p, mp, tmp, stack, inst) for p in params[len(args):]
+    ])
     if inspect.isgenerator(out):
         value = next(out)
         stack.callback(next, out, None)
@@ -563,6 +663,8 @@ def _cpu_factories(mp) -> None:
 
         mp.setattr(module_, name, factory)
     mp.setattr(cli, "main", _cpu_main(cli.main))
+    sim_cli = _m(T, "sim.__main__")
+    mp.setattr(sim_cli, "main", _cpu_main(sim_cli.main))
     catalog = _m(T, "ops.catalog")
 
     class CpuCatalogEngine(catalog.CatalogEngine):
@@ -572,6 +674,24 @@ def _cpu_factories(mp) -> None:
 
     CpuCatalogEngine.__name__ = CpuCatalogEngine.__qualname__ = "CatalogEngine"
     mp.setattr(catalog, "CatalogEngine", CpuCatalogEngine)
+
+
+def _recorded_sims(mp, pkg: str) -> None:
+    """Every simulator run of the leg, recorded: digest, event log, and the
+    report outside the port's DEVICE_SPECIFIC sections."""
+    harness = _m(T, "sim.harness")
+    for module_, cls_name in (("sim.harness", "Simulation"), ("sim.fleet", "FleetSimulation")):
+        cls = getattr(_m(pkg, module_), cls_name)
+
+        def run(self, _real=cls.run):
+            result = _real(self)
+            _record((
+                "sim", result.digest, result.log.to_jsonl(),
+                harness.report_without(result.report, harness.DEVICE_SPECIFIC),
+            ))
+            return result
+
+        mp.setattr(cls, "run", run)
 
 
 @contextlib.contextmanager
@@ -585,6 +705,11 @@ def leg(pkg: str):
         else:
             _cpu_factories(mp)
         _seeded_uuids(mp, pkg)
+        _recorded_sims(mp, pkg)
+        # the delta counters a simulation report carries are the process's
+        # (report["solver"]["delta"]): count from 0, as a fresh process does
+        delta = _m(pkg, "ops.delta")
+        mp.setattr(delta, "COUNTERS", dict.fromkeys(delta.COUNTERS, 0))
         reset(pkg)
         try:
             yield rec
@@ -621,6 +746,7 @@ def run(name: str, case: str, pkg: str) -> list:
             tempfile.TemporaryDirectory() as tmp:
         stack.callback(mp.undo)
         base, _, index = case.partition("[")
+        inst = None
         if "::" in base:
             cls_name, meth = base.split("::")
             inst = mod.__dict__[cls_name]()
@@ -636,14 +762,15 @@ def run(name: str, case: str, pkg: str) -> list:
         for fx in _autouse(mod):
             body = fx._get_wrapped_function()
             out = body(**{
-                p: _fixture(mod, p, mp, pathlib.Path(tmp), stack)
+                p: _fixture(mod, p, mp, pathlib.Path(tmp), stack, inst)
                 for p in inspect.signature(body).parameters
             })
             if inspect.isgenerator(out):
                 next(out)
                 stack.callback(next, out, None)
         kwargs = {
-            p: params[p] if p in params else _fixture(mod, p, mp, pathlib.Path(tmp), stack)
+            p: params[p] if p in params
+            else _fixture(mod, p, mp, pathlib.Path(tmp), stack, inst)
             for p in inspect.signature(fn).parameters
         }
         fn(**kwargs)
