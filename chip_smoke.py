@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mesh     # phases 1-2, 4, 5c and 5b (two or more cards)
     python3 chip_smoke.py --operator # phases 1-2 and 4o (the operator) alone
     python3 chip_smoke.py --sim      # phases 1-2 and 4v (the simulator) alone
+    python3 chip_smoke.py --aot      # phases 1-2 and 4a (the AOT compile service) alone
     python3 chip_smoke.py --turns TREE [TREE ...]   # the group and sweep
                                      # wrappers of each checkout, timed in turns
 
@@ -257,6 +258,27 @@ Phases, in order; any failure exits non-zero:
      restart and an operator crash restart — makes main() exit nonzero with
      the KernelError named and the flight ring dumped. One JSON line
      {"sim": {...}}; the details in chiprun_out/sim_4v/;
+  4a. the AOT compile service (phase_aot; after 4v): on phase 4's catalog
+     with the default ladder, a child process boots a Provisioner with
+     Options(compile_cache_dir=D), D empty, and prewarms (the cold boot:
+     every bucket a fresh compile, nvcc once per source into D); then side
+     by side, three more: the warm boot against the same D (0 fresh
+     compiles, 0 nvcc runs, cache hits == buckets, 0 errors; every kernel
+     the walk launched bit-identical to its plain version at a
+     ladder-padded shape; a 2,000-pod solve on a ladder rung and the 50k
+     reconcile, off the scan's ladder with one off-ladder dispatch, each
+     deciding as without a ladder; /debug/kernels?view=cost with a floor
+     for every bucket; utilization_view's ratio per bucket dispatched; one
+     truncated cache entry in a copy of D evicted and rebuilt, 1 fresh
+     compile), `python -m karpenter_tpu_torch --device cuda
+     --compile-cache-dir D` passing run_once (its boot all cache hits), and
+     the same binary with the warm start's first kt_cube launch given a
+     bogus pointer, which exits 1 with the KernelError named. The design
+     of every scan rung is printed. Each walk must launch every kernel it
+     walks; each padded check runs on the solve's largest call that had
+     padding, with its real and padded dims. One JSON line {"aot": {...}};
+     the walks' launches go into the kernels line as `aot_launches`, apart
+     from the path's `launches`;
   5b. the solver mesh (phase_mesh) on the same workload, on a 1-device
      mesh, on a 2-shard mesh (two cards when the machine has them, else
      cuda:0 twice) and, with four cards or more, on a 4-shard mesh of four
@@ -275,10 +297,12 @@ Phases, in order; any failure exits non-zero:
      nodes-and-limits solve with the scan on CUDA against the plain scan on
      the CPU;
   7. one JSON line {"kernels": [...]}: per kernel its launches on its path
-     (phases 4, 4s, 4d, 4o and 4v, phase 5 for the delta and group kernels, phase 5b for the
+     (phases 4, 4s, 4d, 4o and 4v, phase 5 for the delta and group kernels,
+     phase 5b for the
      sharded twins, phase 3 and the workload checks for fits_matrix and
      stage_plane: fits of the 50k pods' quantized requests against the
-     1008 allocatables, the stage plane of a sweep of the 200 shapes),
+     1008 allocatables, the stage plane of a sweep of the 200 shapes;
+     phase 4a's warm-start walks apart, as `aot_launches`),
      agreement with
      the plain version, and CUDA-event medians of the kernel, the plain
      version and a PyTorch yardstick on the inputs its path gave it,
@@ -1054,6 +1078,15 @@ def cuda_ms(fn, reps=20, warmup=3, rounds=5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def _aotc():
+    """aot/compiler.py: the operations each kernel's bound counts
+    (row_compat_ops, membership_ops, cube_ops, solve_block_ops, scan_ops),
+    the same formulas the AOT warm start's cost tables use."""
+    from karpenter_tpu_torch.aot import compiler
+
+    return compiler
 
 
 def nbytes(*tensors) -> int:
@@ -2485,12 +2518,13 @@ def fleet_env(device=None):
     return build, engine
 
 
-def provisioner_harness(catalog, device=None):
+def provisioner_harness(catalog, device=None, options=None):
     """A Store, a Cluster fed by the StateInformer, and a Provisioner with
-    Options() as they come (solver_backend "tpu": the CUDA engine; the
-    in-process solverd transport) over FakeCloudProvider(catalog). The
-    clock starts at 0, so the pods keep the creation timestamps phase 4's
-    direct solve gave them. `device="cpu"` only for a rehearsal."""
+    `options` (default Options() as they come: solver_backend "tpu", the
+    CUDA engine; the in-process solverd transport) over
+    FakeCloudProvider(catalog). The clock starts at 0, so the pods keep the
+    creation timestamps phase 4's direct solve gave them. `device="cpu"`
+    only for a rehearsal."""
     from karpenter_tpu_torch.cloudprovider.fake import FakeCloudProvider
     from karpenter_tpu_torch.controllers.provisioning.provisioner import (
         Provisioner, default_engine_factory,
@@ -2507,13 +2541,13 @@ def provisioner_harness(catalog, device=None):
     provider = FakeCloudProvider(instance_types=catalog)
     cluster = Cluster(clock, store, provider)
     informer = StateInformer(store, cluster)
-    prov = Provisioner(store, provider, cluster, Recorder(clock=clock), clock, Options(),
+    prov = Provisioner(store, provider, cluster, Recorder(clock=clock), clock, options or Options(),
                        engine_factory=None if device is None else default_engine_factory(
                            device=device))
     return clock, store, cluster, informer, prov
 
 
-def reconcile_workload(catalog, device=None):
+def reconcile_workload(catalog, device=None, options=None):
     """Phase 4's workload in a store: one Ready `default` NodePool and the
     50,000 pending pods, fed to the cluster by the informer, the pods
     triggered and the batch window closed. Returns the harness and the
@@ -2522,7 +2556,7 @@ def reconcile_workload(catalog, device=None):
     from karpenter_tpu_torch.apis.nodepool import NodePool
 
     t0 = time.perf_counter()
-    clock, store, cluster, informer, prov = harness = provisioner_harness(catalog, device)
+    clock, store, cluster, informer, prov = harness = provisioner_harness(catalog, device, options)
     pool = NodePool(metadata=ObjectMeta(name="default"))
     pool.set_condition("Ready", "True")
     store.create(pool)
@@ -3500,7 +3534,7 @@ def consolidation_kernel_checks(ops: dict, label: str = "phase 4d") -> dict:
         "row_compat", lambda: feas.req_rows_vs_targets(table, targets, sk, vi),
         lambda: feas.req_rows_vs_targets_plain(table, packs, key_slots, vi),
         [table] + [a for t in targets for a in t] + [sk, vi], ["row_compat_kernel"],
-        table.shape[0] * N * (table.shape[1] - feas.ROW_FIELDS))
+        _aotc().row_compat_ops(table.shape[0], N, table.shape[1] - feas.ROW_FIELDS))
     cube = ops["cube"]
     mem, kp, idx, rc, oc, cn, av, ow = cube
     Ru = idx.shape[0]
@@ -3509,7 +3543,7 @@ def consolidation_kernel_checks(ops: dict, label: str = "phase 4d") -> dict:
         "cube", lambda: feas.cube_rows(*cube), lambda: feas.cube_rows_plain(*cube),
         (mem[:, :Ru].contiguous(), kp, idx, rc.index_select(0, idx.long()),
          oc.index_select(0, idx.long()), cn, av, ow), ["cube_kernel"],
-        P * I * words(Ru) + P * O * (words(Ru) + words(Kc)))
+        _aotc().cube_ops(P, I, O, Ru, Kc))
     onehot, tmpl, fam = ops["uid_project"]
     R = tmpl.shape[0] * fam.shape[0]
     out["uid_project"] = timed(
@@ -3530,7 +3564,7 @@ def consolidation_kernel_checks(ops: dict, label: str = "phase 4d") -> dict:
     U, D = args[4].shape[0], args[2].shape[1]
     # float64 compares and subtractions per step, as phase 7's scan entry
     # counts them, plus the existing nodes' fit test (N x D)
-    f64_ops = steps * (d["G"] * U * D + 2 * U * D + d["N"] * D)
+    f64_ops = _aotc().scan_ops(steps, d["G"], U, D, d["N"])
     scan_bytes = nbytes(*args) + nbytes(*scan_out)
     out["scan"] = {
         "designs": [picked, other], "N": d["N"], "P": d["P"], "C": d["C"], "G": d["G"], "U": U,
@@ -4565,6 +4599,490 @@ def phase_sim(captured, device=None):
     return path
 
 
+# -- phase 4a: the AOT compile service -----------------------------------------
+
+AOT_SMALL_PODS = 2_000  # the solve on a ladder rung
+AOT_BINARY_PODS = 1_000  # the binary's pending pods
+
+# the cold or warm boot in a process of its own: `python -c AOT_CHILD root
+# mode cache_dir [device]`; its last line is aot_boot's JSON
+AOT_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+got = cs.aot_boot(sys.argv[2], sys.argv[3], sys.argv[4] if len(sys.argv) > 4 else None)
+print(json.dumps(got, default=str))
+"""
+
+# `python -m karpenter_tpu_torch --device cuda --compile-cache-dir D` in
+# process: main() with its Store holding a pool and pending pods; with
+# `fault`, the first kt_cube launch — the warm start's first cube bucket —
+# gets a bogus has_offering pointer
+AOT_MAIN = r"""
+import io, json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from karpenter_tpu_torch import __main__ as cli
+from karpenter_tpu_torch import device as devmod
+from karpenter_tpu_torch.operator import logging as klog
+
+cache_dir, fault = sys.argv[2], sys.argv[3] == "fault"
+real_store = cli.Store
+
+def populated(clock=None):
+    store = real_store(clock=clock)
+    cs.operator_workload(store, cs.AOT_BINARY_PODS)
+    return store
+
+cli.Store = populated
+state = cs.arm_warm_fault() if fault else {"armed": False}
+stream = io.StringIO()
+klog.configure("info", stream=stream)
+rc = cli.main(argv=["--device", "cuda", "--compile-cache-dir", cache_dir, "--metrics-port", "0",
+                    "--health-probe-port", "0"], max_passes=3, pass_interval=0.1)
+lines = [json.loads(line) for line in stream.getvalue().splitlines()]
+walks = [e for e in lines if e["message"] == "AOT warm start complete"]
+failed = [e for e in lines if e["message"].startswith("reconcile pass failed")]
+got = {"rc": rc, "armed": state["armed"], "walks": walks[:1], "nvcc_runs": devmod.nvcc_runs(),
+       "failed": [{"message": e["message"],
+                   "exception": [ln for ln in (e.get("exception") or "").splitlines()
+                                 if "KernelError" in ln][-1:]}
+                  for e in failed][:1]}
+print(json.dumps(got, default=str)[:6000])
+if fault:
+    ok = rc == 1 and not state["armed"] and "KernelError" in json.dumps(failed, default=str) \
+        and not walks
+else:
+    ok = rc == 0 and len(walks) == 1 and walks[0]["fresh_compiles"] == 0 \
+        and walks[0]["cache_hits"] == walks[0]["buckets"] > 0 and devmod.nvcc_runs() == 0
+sys.exit(0 if ok else 1)
+"""
+
+
+def arm_warm_fault() -> dict:
+    """The first kt_cube launch gets a bogus has_offering pointer
+    (feasibility._cube_launch's 17th argument), as arm_prime_fault's does
+    inside a primed sweep. Returns the arming state."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    real_launch = feas.launch
+    state = {"armed": True}
+
+    def faulting(dev, fn, *args):
+        if state["armed"] and getattr(fn, "__name__", "") == "kt_cube":
+            state["armed"] = False
+            args = args[:16] + (16,) + args[17:]
+        return real_launch(dev, fn, *args)
+
+    feas.launch = faulting
+    return state
+
+
+def _sync(device) -> None:
+    if device is None or torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _aot_options(cache_dir: str):
+    from karpenter_tpu_torch.aot import runtime as aotrt
+    from karpenter_tpu_torch.operator.options import Options
+
+    options = Options(compile_cache_dir=cache_dir)
+    aotrt.configure_from_options(options)
+    return options
+
+
+def aot_prewarm(catalog, cache_dir: str, device=None) -> dict:
+    """Boot: a Provisioner with Options(compile_cache_dir=cache_dir) over
+    `catalog`, one Ready pool, prewarm() — the AOT warm start of its
+    engine. Returns the engine, the walk's summary, its wall seconds, nvcc
+    runs, libraries built or loaded and kernel launches."""
+    from karpenter_tpu_torch import device as devmod
+    from karpenter_tpu_torch.apis.core import ObjectMeta
+    from karpenter_tpu_torch.apis.nodepool import NodePool
+
+    options = _aot_options(cache_dir)
+    clock, store, cluster, informer, prov = provisioner_harness(catalog, device, options)
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    pool.set_condition("Ready", "True")
+    store.create(pool)
+    informer.flush()
+    n0, b0, l0 = devmod.nvcc_runs(), devmod.build_count(), _count_launches()
+    t0 = time.perf_counter()
+    prov.prewarm()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    # the content-cached engine the prewarm warm-started
+    engine = prov.engine_factory(prov._gather_instance_types([pool]))
+    prov.solver.close()
+    return {
+        "engine": engine, "summary": engine._aot_summary, "wall_s": wall,
+        "nvcc_runs": devmod.nvcc_runs() - n0, "libraries": devmod.build_count() - b0,
+        "launches": {k: v - l0[k] for k, v in _count_launches().items() if v != l0[k]},
+    }
+
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple):
+        return tuple(_to_cpu(a) for a in x)
+    return x
+
+
+def aot_scan_designs(engine, ladder) -> list:
+    """The scan design (packer.scan_design) and resident bytes of every
+    scan rung of `ladder` at the engine's catalog."""
+    from karpenter_tpu_torch.ops import fused, packer
+
+    out = []
+    for bucket in ladder.buckets("packer.solve_scan"):
+        P, G, C, N, F, T, L = bucket
+        cfg = (int(T), N > 0, L > 0)
+        specs = fused.solve_scan_abstract_args(engine, bucket)
+        d = packer._scan_dims(cfg, specs)
+        out.append({"rung": list(bucket), "design": packer.scan_design(cfg, specs),
+                    "resident_bytes": packer.scan_resident_bytes(d)})
+    return out
+
+
+def aot_small_solve(engine, catalog, device=None) -> dict:
+    """The first AOT_SMALL_PODS of phase 4's pods solved on the warm-started
+    engine (ladder attached, inside measure(): every dispatch fenced), then
+    on a fresh engine without a ladder: the decisions must be equal. Per
+    executable the solve's largest call that had padding (its real dims
+    below its rung, else the largest call) is captured with its real dims,
+    read from the ladder lookup that padded it; each scan launch's design
+    and padded pod, claim and group axes recorded."""
+    from karpenter_tpu_torch.aot import runtime as aotrt
+    from karpenter_tpu_torch.ops import packer
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+    from karpenter_tpu_torch.tracing import kernel as ktime
+
+    captured: dict = {}
+    table = dict(aotrt._EXECUTABLES)
+    ladder = engine.aot_ladder
+    lookups: dict = {}  # kernel -> (real dims, rung) of its latest ladder lookup
+
+    class Recording:
+        """The engine's ladder for the solve, keeping each lookup's dims."""
+
+        def bucket_for(self, kernel, dims, multiple_of=1):
+            bucket = ladder.bucket_for(kernel, dims, multiple_of)
+            lookups[kernel] = (tuple(int(d) for d in dims), bucket)
+            return bucket
+
+        def __getattr__(self, name):
+            return getattr(ladder, name)
+
+    def capture(exe):
+        def call(*args):
+            if not isinstance(engine.aot_ladder, Recording):
+                return exe(*args)  # another solve's call: its dims are not known
+            real, rung = lookups.pop(exe.kernel, (None, None))
+            out = exe(*args)
+            padded = real is not None and rung is not None and any(b > d for b, d in zip(rung, real))
+            rank = (padded, _cells(real or ()))
+            if exe.kernel not in captured or rank > captured[exe.kernel]["rank"]:
+                captured[exe.kernel] = {"rank": rank, "exe": exe, "args": args, "real": real,
+                                        "rung": rung}
+            return out
+
+        return call
+
+    for (kernel, sig, scope), exe in table.items():
+        aotrt.install(kernel, sig, capture(exe), scope=scope)
+    scans: list = []
+    real_scan = packer.solve_scan
+
+    def scan(cfg, args, _design=None):
+        scans.append({"design": packer.scan_design(cfg, args), "P": int(args[0].shape[0]),
+                      "C": int(args[1].shape[0]), "G": int(args[2].shape[0])})
+        return real_scan(cfg, args, _design)
+
+    packer.solve_scan = scan
+    pods = lambda: build_pods()[:AOT_SMALL_PODS]  # noqa: E731 — fresh pods a solve
+    try:
+        ctr = _off_ladder_counts()
+        engine.aot_ladder = Recording()
+        try:
+            with ktime.measure():
+                laddered, measured_ms = solve(engine, catalog, pods())
+        finally:
+            engine.aot_ladder = ladder
+        off = {k: v - ctr.get(k, 0) for k, v in _off_ladder_counts().items() if v != ctr.get(k, 0)}
+        again, ms = solve(engine, catalog, pods())
+        plain_engine = CatalogEngine(catalog, device=device)
+        plain, plain_cold_ms = solve(plain_engine, catalog, pods())
+        plain_again, plain_ms = solve(plain_engine, catalog, pods())
+    finally:
+        packer.solve_scan = real_scan
+        for (kernel, sig, scope), exe in table.items():
+            aotrt.install(kernel, sig, exe, scope=scope)
+    got, want = decisions(laddered), decisions(plain)
+    assert got == want == decisions(again) == decisions(plain_again), \
+        "the 2,000-pod solve on a ladder rung decides otherwise than without one"
+    # ms / plain_ms: a second solve on each warm engine, unfenced
+    return {"ms": ms, "plain_ms": plain_ms, "measured_ms": measured_ms,
+            "plain_cold_ms": plain_cold_ms, "claims": len(got[0]), "scans": scans,
+            "off_ladder": off, "captured": captured}
+
+
+def _cells(dims) -> int:
+    out = 1
+    for d in dims:
+        out *= max(int(d), 1)
+    return out
+
+
+def _off_ladder_counts() -> dict:
+    from karpenter_tpu_torch.metrics import global_registry
+
+    ctr = global_registry.get("karpenter_aot_offladder_dispatches_total")
+    return {k: ctr.value({"kernel": k, "mesh": ""}) for k in (
+        "catalog.row_compat", "feasibility.cube", "packer.solve_block", "packer.solve_scan")}
+
+
+AOT_BLOCK_GROUPS = 40  # solve_block's real groups, zero-padded to its 64 rung
+
+
+def aot_padded_checks(captured: dict) -> dict:
+    """Every kernel the warm walk launched, held bit for bit against its
+    plain version (the same wrapper on CPU copies of the operands) at a
+    ladder-padded shape, padding rows included: the small solve's captured
+    call (its real dims below its rung); solve_block (no solve of the scan
+    path runs it) on AOT_BLOCK_GROUPS random groups zero-padded to its 64
+    rung, as GroupSolver pads them."""
+    from karpenter_tpu_torch.aot import runtime as aotrt
+
+    if "packer.solve_block" not in captured:
+        for (kernel, sig, _scope), exe in sorted(aotrt._EXECUTABLES.items()):
+            if kernel == "packer.solve_block" and sig.startswith("64x"):
+                (R, I), (O, K), D = exe.specs[2].shape, exe.specs[4].shape, exe.specs[7].shape[1]
+                G = AOT_BLOCK_GROUPS
+                args = random_group_inputs(np.random.RandomState(11), G, R, K, I, O, D, exe.device)
+                pad = lambda t: torch.cat([t, t.new_zeros((64 - G, t.shape[1]))])  # noqa: E731
+                captured[kernel] = {"exe": exe, "args": (pad(args[0]), pad(args[1])) + args[2:],
+                                    "real": (G,), "rung": (64,)}
+                break
+    out = {}
+    for kernel, c in sorted(captured.items()):
+        exe, args, real, rung = c["exe"], c["args"], c["real"], c["rung"]
+        assert real is not None and any(b > d for b, d in zip(rung, real)), \
+            f"{kernel}: no call of the solve had padding rows ({real} on {rung})"
+        got = exe(*args)
+        want = exe.fn(*_to_cpu(args))
+        check_equal(f"{kernel} at its ladder bucket", got, want)
+        if isinstance(got, (tuple, list)):
+            got, want = tuple(got), tuple(w.to(exe.device) for w in want)
+        else:
+            want = want.to(exe.device)
+        out[kernel] = {"bucket": exe.sig.split(",")[0], "real": list(real), "rung": list(rung),
+                       "max_abs_err": _max_abs_err(got, want)}
+    return out
+
+
+def aot_reconcile_checks(catalog, options, device=None) -> dict:
+    """The 50k reconcile with the ladder attached (the scan off its ladder:
+    one off-ladder dispatch of packer.solve_scan for the batch, the pow2
+    padding) and on a fresh engine without one: equal decisions."""
+    from karpenter_tpu_torch.aot import runtime as aotrt
+    from karpenter_tpu_torch.controllers.provisioning import provisioner as provmod
+
+    out = {}
+    runs = {}
+    for label in ("ladder", "plain"):
+        if label == "plain":
+            aotrt.configure(None, None)
+            provmod._ENGINE_CONTENT_CACHE.clear()
+        harness, setup_s = reconcile_workload(catalog, device, options if label == "ladder" else None)
+        prov = harness[-1]
+        prov.prewarm()
+        ctr = _off_ladder_counts()
+        t0 = time.perf_counter()
+        results = prov.reconcile()
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        off = {k: v - ctr.get(k, 0) for k, v in _off_ladder_counts().items() if v != ctr.get(k, 0)}
+        runs[label] = decisions(results)
+        out[label] = {"setup_s": setup_s, "reconcile_ms": ms, "nodeclaims": len(results.new_node_claims),
+                      "pod_errors": len(results.pod_errors), "off_ladder": off}
+        prov.solver.close()
+    assert runs["ladder"] == runs["plain"], "the 50k reconcile decides otherwise with the ladder"
+    assert out["ladder"]["off_ladder"].get("packer.solve_scan") == 1, out
+    assert not out["plain"]["off_ladder"], out
+    return out
+
+
+def aot_evict_probe(catalog, cache_dir: str, device=None) -> dict:
+    """A copy of the warm cache with one entry truncated: a fresh engine's
+    warm start evicts it and rebuilds that bucket alone."""
+    import shutil
+
+    from karpenter_tpu_torch import aot
+    from karpenter_tpu_torch.aot import compiler
+    from karpenter_tpu_torch.aot import runtime as aotrt
+    from karpenter_tpu_torch.aot.cache import ExecutableCache
+    from karpenter_tpu_torch.aot.ladder import DEFAULT
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    copy_dir = cache_dir.rstrip("/") + "-evict"
+    shutil.copytree(cache_dir, copy_dir)
+    # this catalog's entry of the first bucket walked
+    first = aotrt.executables()[0]
+    key = compiler.cache_key(compiler.content_hash(catalog), first["kernel"], first["shape"],
+                             DEFAULT.version, scope=first.get("scope", ""))
+    path = os.path.join(copy_dir, key + ".aotx")
+    raw = open(path, "rb").read()
+    open(path, "wb").write(raw[: len(raw) // 2])
+    aotrt.clear_executables()
+    cache = ExecutableCache(copy_dir)
+    aotrt.configure(DEFAULT, cache)
+    summary = aot.warm_start(CatalogEngine(catalog, device=device))
+    assert summary["fresh_compiles"] == 1 and summary["cache_hits"] == summary["buckets"] - 1, summary
+    assert cache.stats()["evictions"] == 1, cache.stats()
+    return {"summary": summary, "evictions": cache.stats()["evictions"], "entry": first}
+
+
+def aot_boot(mode: str, cache_dir: str, device=None) -> dict:
+    """One boot of phase 4a in this process (AOT_CHILD): the cold boot
+    against an empty `cache_dir`, or the warm boot against the filled one
+    and its checks (see the module docstring). Asserts what it checks."""
+    from karpenter_tpu_torch.aot import compiler
+    from karpenter_tpu_torch.aot import runtime as aotrt
+    from karpenter_tpu_torch.observability import efficiency
+    from karpenter_tpu_torch.observability import kernels as kobs
+
+    catalog = build_catalog()
+    boot = aot_prewarm(catalog, cache_dir, device)
+    engine, summary = boot.pop("engine"), boot["summary"]
+    assert summary["errors"] == 0, summary
+    if mode == "cold":
+        assert summary["fresh_compiles"] == summary["buckets"] > 0, summary
+        # the binary's catalog too (the kwok provider's 144 types), so its
+        # boot against this cache is warm
+        from karpenter_tpu_torch.cloudprovider.kwok.instance_types import construct_instance_types
+        from karpenter_tpu_torch.controllers.provisioning import provisioner as provmod
+
+        provmod._ENGINE_CONTENT_CACHE.clear()
+        kwok = aot_prewarm(construct_instance_types(), cache_dir, device)
+        kwok.pop("engine")
+        boot["binary_catalog"] = kwok
+        return boot
+    assert summary["fresh_compiles"] == 0 and boot["nvcc_runs"] == 0, boot
+    assert summary["cache_hits"] == summary["buckets"] > 0, boot
+    ladder = aotrt.active_ladder()
+    boot["designs"] = aot_scan_designs(engine, ladder)
+    boot["buckets"] = [{"kernel": e["kernel"], "shape": e["shape"].split(",")[0]}
+                       for e in aotrt.executables()]
+    small = aot_small_solve(engine, catalog, device)
+    boot["padded"] = aot_padded_checks(small.pop("captured"))
+    walked = {e["kernel"] for e in aotrt.executables()}
+    assert set(boot["padded"]) == walked, (sorted(boot["padded"]), sorted(walked))
+    boot["small_solve"] = small
+    view = kobs.registry().debug_snapshot(view="cost")
+    rows = {(r["kernel"], r["bucket"]): r for r in view["rows"]}
+    assert all(rows.get((e["kernel"], e["shape"]), {}).get("floor_s", 0) > 0
+               for e in aotrt.executables()), view
+    boot["cost_rows"] = len(rows)
+    boot["utilization"] = efficiency.utilization_view()
+    assert boot["utilization"], "no bucket dispatched under measure() has a utilization ratio"
+    boot["reconcile"] = aot_reconcile_checks(catalog, _aot_options(cache_dir), device)
+    boot["evict"] = aot_evict_probe(catalog, cache_dir, device)
+    boot["fingerprint"] = compiler._toolchain_fingerprint()
+    return boot
+
+
+def _aot_child(args: list, root: str) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-c", *args], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _aot_result(name: str, proc: subprocess.Popen, timeout: float) -> tuple:
+    """(exit code, the child's last JSON line, its output's tail)."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = stdout.strip().splitlines()
+    got = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    log(f"phase 4a {name}: exit {proc.returncode}, {json.dumps(got, default=str)[:3000]}")
+    return proc.returncode, got, f"{stdout[-3000:]} {stderr[-3000:]}"
+
+
+# the kernels-line name of each laddered dispatch's kernel
+AOT_WALKED = {
+    "catalog.row_compat": "row_compat", "feasibility.cube": "cube",
+    "feasibility.membership": "membership", "feasibility.cube_sharded": "sharded_cube",
+    "packer.solve_block": "solve_block", "packer.solve_block_sharded": "sharded_solve_block",
+    "packer.solve_scan": "solve_scan", "packer.solve_scan_full": "solve_scan_full",
+    "packer.solve_scan_resume": "solve_scan_resume",
+}
+
+
+def phase_aot(captured, device=None) -> dict:
+    """Phase 4a: the AOT compile service (see the module docstring). Checks
+    that each walk launched every kernel it walks; returns the kernel
+    launches of the cold and warm walks, which are not the path's."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="aot-4a-")
+    cache_dir = os.path.join(tmp, "cache")
+    dev_args = [] if device is None else [str(device)]
+    try:
+        rc, cold, tail = _aot_result(
+            "cold boot", _aot_child([AOT_CHILD, root, "cold", cache_dir, *dev_args], root), 600)
+        assert rc == 0, f"phase 4a cold boot: exit {rc}, {tail}"
+        # the children check what they run and exit 0 when it holds (the
+        # fault probe: the binary exited 1 naming KernelError)
+        t_warm = time.perf_counter()
+        procs = {"warm boot": _aot_child([AOT_CHILD, root, "warm", cache_dir, *dev_args], root)}
+        if device is None:
+            procs["binary"] = _aot_child([AOT_MAIN, root, cache_dir, "boot"], root)
+            procs["binary fault"] = _aot_child([AOT_MAIN, root, cache_dir, "fault"], root)
+        results = {name: _aot_result(name, proc, 600) for name, proc in procs.items()}
+        children_s = time.perf_counter() - t_warm
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, (rc, _got, tail) in results.items():
+        assert rc == 0, f"phase 4a {name}: exit {rc}, {tail}"
+    got = {name: r[1] for name, r in results.items()}
+    warm = got["warm boot"]
+    out = {
+        "cold": {k: cold[k] for k in ("summary", "wall_s", "nvcc_runs", "libraries", "launches")},
+        "cold_binary_catalog": {k: cold["binary_catalog"][k] for k in ("summary", "wall_s", "nvcc_runs")},
+        "warm": {k: warm[k] for k in ("summary", "wall_s", "nvcc_runs", "libraries", "launches")},
+        "designs": warm["designs"], "buckets": warm["buckets"], "padded": warm["padded"],
+        "small_solve": warm["small_solve"], "reconcile": warm["reconcile"],
+        "cost_rows": warm["cost_rows"], "utilization": warm["utilization"],
+        "evict": warm["evict"], "fingerprint": warm["fingerprint"],
+        "binary": got.get("binary"), "binary_fault": got.get("binary fault"),
+        "children_s": children_s, "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"phase 4a cold boot: {json.dumps(out['cold'])}")
+    log(f"phase 4a warm boot: {json.dumps(out['warm'])}")
+    log(f"phase 4a scan rungs: {json.dumps(out['designs'])}; the {AOT_SMALL_PODS}-pod solve's scans "
+        f"{json.dumps(out['small_solve']['scans'])}")
+    log(json.dumps({"aot": out}, default=str))
+    os.makedirs(os.path.join(root, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(root, "chiprun_out", "aot_4a.json"), "w") as f:
+        json.dump({"aot": out, "warm_boot": warm, "cold_boot": cold}, f, default=str, indent=1)
+    walked = sorted({AOT_WALKED[b["kernel"]] for b in warm["buckets"]})
+    launches: dict = {}
+    for name, boot in (("cold", cold), ("cold, binary's catalog", cold["binary_catalog"]),
+                       ("warm", warm)):
+        missing = [k for k in walked if boot["launches"].get(k, 0) <= 0]
+        assert not missing, f"phase 4a {name} boot walked {missing} without launching them"
+        for k, v in boot["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def dispatch_floor(reps=2000, rounds=5) -> dict:
     """The named dispatch's own floor: the empty kernel (kt_noop) launched
     through ktime.dispatch with a kernel name, without a measure() context
@@ -5177,7 +5695,7 @@ def timing_entries(rows, cube, launches, label, phase3=None):
     set_inputs = [a for t in targets for a in t]
     entry("row_compat", run_rows,
           lambda: feas.req_rows_vs_targets_plain(table, packs, key_slots, vi), None,
-          [table] + set_inputs + [sk, vi], ["row_compat_kernel"], R * N * W,
+          [table] + set_inputs + [sk, vi], ["row_compat_kernel"], _aotc().row_compat_ops(R, N, W),
           targets=[t[0].shape[0] for t in targets], breakdown=wrapper_breakdown(run_rows),
           ptxas={k: v for k, v in FEAS_PTXAS.items() if "row_compat_kernel" in k},
           plain_from="req_rows_vs_sets_plain per target on the packs unpacked")
@@ -5191,13 +5709,13 @@ def timing_entries(rows, cube, launches, label, phase3=None):
     entry("membership", lambda: feas.membership_all(mem_u, rc_u),
           lambda: feas.membership_all_plain(mem_u, rc_u),
           lambda: (mem_u.float() @ (~rc_u).float()) < 0.5,
-          (mem_u, rc_u), ["membership_kernel"], P * I * words(Ru))
+          (mem_u, rc_u), ["membership_kernel"], _aotc().membership_ops(P, I, Ru))
     run_cube = lambda: feas.cube_rows(*cube)  # noqa: E731
     entry("cube", run_cube, lambda: feas.cube_rows_plain(*cube),
           lambda: cube_f32(mem_u, rc.index_select(0, idx.long()), oc.index_select(0, idx.long()),
                            cn, kp, av, ow),
           (mem_u, kp, idx, rc_u, oc_u, cn, av, ow), ["cube_kernel"],
-          P * I * words(Ru) + P * O * (words(Ru) + words(Kc)),
+          _aotc().cube_ops(P, I, O, Ru, Kc),
           library_call="the reference's f32 4-matmul form after index_select of the used rows",
           bytes_note="the used rows only, read by index (the gather's padding rows are not read)",
           resident_rows=int(rc.shape[0]), breakdown=wrapper_breakdown(run_cube),
@@ -5259,7 +5777,7 @@ def scan_entries(uid_args, scan, prefix_scan, launches, plain):
     # float64 compares and subtractions per step: the refreshed cfit row
     # (G groups x U rows x D dims), the join's fit test and the committed
     # row (U x D each)
-    f64_ops = steps * (G * U * D + 2 * U * D)
+    f64_ops = _aotc().scan_ops(steps, G, U, D, 0)
     want, plain_ms = cuda_ms_once(lambda: packer.solve_scan_plain(cfg, args))
     check_equal("solve_scan on the main path's operands (resident)", tuple(out), tuple(want))
     check_equal("solve_scan on the main path's operands (global)", tuple(out_global), tuple(want))
@@ -5459,7 +5977,7 @@ def scan_state_entries(scan, resume, launches, plain):
     plain["solve_scan_full"] = (args, want, plain_ms)
     full = _entry(
         "solve_scan_full", launches, _max_abs_err(tuple(out), tuple(want)), ms, plain_ms,
-        nbytes(*args) + nbytes(*out), steps * (G * U * D + 2 * U * D), F64_OPS_PER_S, None, dev_ms,
+        nbytes(*args) + nbytes(*out), _aotc().scan_ops(steps, G, U, D, 0), F64_OPS_PER_S, None, dev_ms,
         steps=steps, us_per_step=dev_ms * 1e3 / steps, device_ms_profiler=prof_ms,
         device_ms_by="CUDA events around the bare launch", design="resident",
         max_abs_err_global=_max_abs_err(tuple(out_global), tuple(want)),
@@ -5487,7 +6005,7 @@ def scan_state_entries(scan, resume, launches, plain):
     resume_entry = _entry(
         "solve_scan_resume", launches, _max_abs_err(tuple(got), tuple(want)), rms,
         cuda_ms_fresh(fresh, lambda st: packer.solve_scan_resume_plain(rcfg, rargs, st, p_lo), rounds=1),
-        resume_bytes(rcfg, rargs, state0, got[:-1], p_lo), rsteps * (RG * RU * RD + 2 * RU * RD),
+        resume_bytes(rcfg, rargs, state0, got[:-1], p_lo), _aotc().scan_ops(rsteps, RG, RU, RD, 0),
         F64_OPS_PER_S, None, rdev_ms, steps=rsteps,
         us_per_step=(rdev_ms * 1e3 / rsteps) if rdev_ms and rsteps else None, p_lo=int(p_lo),
         design="resident", global_ms=rms_global, global_device_ms=rdev_global,
@@ -5603,7 +6121,7 @@ def group_entries(captured, launches, phase3):
         return ((rows_ok & undef_ok & av[None, :]).float() @ onehot) > 0.5
 
     add("offering_reduce", lambda: feas.offering_reduce(*off), lambda: feas.offering_reduce_plain(*off),
-        offering_f32, off[:6], ["cube_kernel"], P * O * (words(R) + words(K)),
+        offering_f32, off[:6], ["cube_kernel"], _aotc().cube_ops(P, 0, O, R, K),
         library_call="the reference's f32 matmul form")
 
     def solve_ops(args):
@@ -5611,7 +6129,7 @@ def group_entries(captured, launches, phase3):
         Rr, Ii = args[2].shape
         Oo, Kk = args[4].shape
         Dd = args[7].shape[1]
-        return G * Ii * words(Rr) + G * Oo * (words(Rr) + words(Kk)) + G * Ii * (Dd + 1)
+        return _aotc().solve_block_ops(G, Rr, Ii, Oo, Kk, Dd)
 
     def yardstick(args):
         """One argmin over the masked price, on feasibility computed
@@ -6196,7 +6714,7 @@ def mesh_entries(captured, launches, plain):
         "sharded_cube", mesh, launches, got, want, cuda_ms(run),
         cuda_ms(lambda: feas.production_cube_plain(*card), reps=5, warmup=1),
         (nbytes(card[0], card[4]) + nbytes(*got)) / n,
-        (P // n) * I * words(R) + (P // n) * O * (words(R) + words(K)), WORD_OPS_PER_S,
+        _aotc().cube_ops(P // n, I, O, R, K), WORD_OPS_PER_S,
         cuda_ms(lambda: cube_f32(*card)), dev_new["total"],
         card_bytes=nbytes(card[1], card[2], card[3], card[5], card[6]),
         shapes=[list(t.shape) for t in card], library_call="the reference's f32 form, unsharded",
@@ -6225,7 +6743,7 @@ def mesh_entries(captured, launches, plain):
         "sharded_solve_block", mesh, launches, got, want, cuda_ms(run),
         cuda_ms(lambda: packer.solve_block_plain(*card), reps=5, warmup=1),
         (nbytes(card[0], card[1]) + nbytes(got)) / n,
-        m * I * words(R) + m * O * (words(R) + words(K)) + m * I * (D + 1), WORD_OPS_PER_S, None,
+        _aotc().solve_block_ops(m, R, I, O, K, D), WORD_OPS_PER_S, None,
         dev_new["total"], card_bytes=nbytes(*card[2:]), shapes=[list(t.shape) for t in card],
         device_ms_by="profiler, kernels' device time per call summed over the launches",
         device_ms_by_kernel=dev_new, breakdown=wrapper_breakdown(run),
@@ -6251,7 +6769,7 @@ def mesh_entries(captured, launches, plain):
         dev_ms, per_device = replicated_launch_ms(mesh, cfg, args)
         entries.append(_sharded_entry(
             name, mesh, launches, tuple(reps[0]), tuple(want), cuda_ms(run, reps=1, warmup=1, rounds=3),
-            plain_ms, nbytes(*args) + nbytes(*reps[0]), steps * (G * U * D + 2 * U * D), F64_OPS_PER_S,
+            plain_ms, nbytes(*args) + nbytes(*reps[0]), _aotc().scan_ops(steps, G, U, D, 0), F64_OPS_PER_S,
             None, dev_ms, steps=steps, plain_from="the plain loop on phase 4's operands",
             device_ms_per_device=per_device,
             replicate_ms=cuda_ms(lambda: [mesh_mod.per_shard(a, mesh) for a in args]),
@@ -6275,7 +6793,7 @@ def mesh_entries(captured, launches, plain):
         cuda_ms_fresh(fresh, run),
         cuda_ms_fresh(lambda: fresh()[0], lambda st: packer.solve_scan_resume_plain(cfg, args, st, p_lo),
                       rounds=1),
-        resume_bytes(cfg, args, states[0], got[0][:-1], p_lo), rsteps * (G * U * D + 2 * U * D),
+        resume_bytes(cfg, args, states[0], got[0][:-1], p_lo), _aotc().scan_ops(rsteps, G, U, D, 0),
         F64_OPS_PER_S, None,
         _per_call(_dev_sum(device_kernel_ms(lambda: run(fresh()), SCAN_KERNELS, reps=5)),
                   mesh.size),
@@ -6608,6 +7126,8 @@ def main() -> int:
                         help="build, then phase 4o (the operator) alone")
     parser.add_argument("--sim", action="store_true",
                         help="build, then phase 4v (the simulator) alone")
+    parser.add_argument("--aot", action="store_true",
+                        help="build, then phase 4a (the AOT compile service) alone")
     parser.add_argument("--turns-of", metavar="TREE", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -6638,6 +7158,10 @@ def main() -> int:
     if args.sim:
         phase_sim(captured)
         log(f"phase 4v done at {time.perf_counter() - t_start:.1f} s")
+        return finish(t_start)
+    if args.aot:
+        phase_aot(captured)
+        log(f"phase 4a done at {time.perf_counter() - t_start:.1f} s")
         return finish(t_start)
     if args.mesh:
         phase_main(captured)
@@ -6675,9 +7199,12 @@ def main() -> int:
         log(f"phase 4o done at {time.perf_counter() - t_start:.1f} s")
         sim_launches = phase_sim(captured)
         log(f"phase 4v done at {time.perf_counter() - t_start:.1f} s")
+        aot_launches = phase_aot(captured)
+        log(f"phase 4a done at {time.perf_counter() - t_start:.1f} s")
         # the main path's launches: phase 4's solves, phase 4s's reconciles
         # and coalesced batch, phase 4d's frontier computes, phase 4o's
-        # operator passes and phase 4v's simulator runs
+        # operator passes and phase 4v's simulator runs (phase 4a's
+        # warm-start walks stand apart, as `aot_launches`)
         path = {k: v + service_launches.get(k, 0) + consolidation_launches.get(k, 0)
                 + operator_launches.get(k, 0) + sim_launches.get(k, 0)
                 for k, v in launches.items()}
@@ -6713,6 +7240,10 @@ def main() -> int:
         log(json.dumps({"launch_floor": launch_floor()}))
         log(json.dumps({"dispatch_floor": dispatch_floor()}))
         assert len(kernels) == len(SOURCE) == len(ENTRY_POINTS), [k["name"] for k in kernels]
+        for k in kernels:
+            # phase 4a's warm-start walks (the cold boot's two catalogs and
+            # the warm boot's one) on zero operands: not the path's launches
+            k["aot_launches"] = aot_launches.get(k["name"], 0)
         for k in kernels:
             if k["name"] in OFF_PATH:
                 # no path runs it: none of its launches may come from a path,

@@ -44,16 +44,6 @@ def _port_args(argv):
 def main(argv=None, max_passes: int | None = None, pass_interval: float = 1.0) -> int:
     device, argv = _port_args(argv)
     options = Options.parse(argv)
-    if (options.aot_ladder and options.aot_ladder != "off") or options.compile_cache_dir:
-        # port: the AOT compile service needs aot/compiler.py, which the
-        # port does not have yet (ROADMAP Queue A item 8)
-        print(
-            "karpenter-tpu: --aot-ladder and --compile-cache-dir need the AOT "
-            "compiler (aot/compiler.py), not yet in this package "
-            "(ROADMAP Queue A item 8)",
-            file=sys.stderr,
-        )
-        return 2
     try:
         # port: the operator runs on the device it was given, or not at all
         resolve_device(device)

@@ -1,11 +1,13 @@
 """AOT runtime state: the executable table, active ladder/cache config,
 and off-ladder accounting.
 
-The executable table maps (kernel name, full shape signature) to a loaded
-XLA executable. `tracing/kernel.dispatch` consults it on every named
-dispatch: a hit executes the AOT executable directly — no trace, no jit
-cache, no compile — which is what makes a warm-started daemon's first solve
-run entirely on prepaid executables. Signatures embed every array dim
+The executable table maps (kernel name, full shape signature) to a
+warm-started executable (aot/compiler.Executable: a callable that checks
+the operands' shapes and dtypes, then calls the kernel's wrapper).
+`tracing/kernel.dispatch` consults it on every named dispatch: a hit calls
+the executable directly — its kernel library built or loaded and its bucket
+launched once at boot — which is what makes a warm-started daemon's first
+solve run entirely on prepaid buckets. Signatures embed every array dim
 (catalog dims included), so executables built for one catalog can never
 serve another.
 
@@ -14,12 +16,12 @@ exceed every configured bucket is counted
 (``karpenter_aot_offladder_dispatches_total{kernel=}``), logged once per
 (kernel, shape), and fired at registered callbacks — the provisioner
 publishes an ``AOTOffLadderDispatch`` warning event. Off-ladder dispatches
-still execute correctly (plain power-of-two padding, a fresh jit compile);
+still execute correctly (plain power-of-two padding, a lazy launch);
 the warning is the ladder-tuning signal, and
 ``/debug/kernels?view=ladder`` is its drill-down.
 
-This module must stay import-light (no jax): it is imported by the
-dispatch hot path and by the observability layer.
+This module must stay import-light: it is imported by the dispatch hot
+path and by the observability layer.
 """
 
 from __future__ import annotations

@@ -16,6 +16,7 @@ from karpenter_tpu_torch.apis import labels as wk
 from karpenter_tpu_torch.apis.core import Affinity, NodeAffinity, ObjectMeta, Pod, new_uid
 from karpenter_tpu_torch.apis.nodeclaim import NodeClaim as APINodeClaim
 from karpenter_tpu_torch.controllers.provisioning.batcher import Batcher
+from karpenter_tpu_torch.device import KernelError
 from karpenter_tpu_torch.events.recorder import Event, Recorder
 from karpenter_tpu_torch.mesh import Mesh, build_solver_mesh
 from karpenter_tpu_torch.metrics import global_registry
@@ -493,6 +494,10 @@ class Provisioner:
 
             try:
                 return aot.warm_start(engine)
+            except KernelError:
+                # port: a kernel that fails to build or to launch fails the
+                # boot — the lazy warmup would hide it
+                raise
             except Exception as e:  # noqa: BLE001 — AOT must never block boot
                 _log.warning(
                     "AOT warm start failed; falling back to lazy warmup",

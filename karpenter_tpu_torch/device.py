@@ -8,7 +8,11 @@ is absent. `device="cpu"` selects the plain torch versions of the kernels.
 shared library with a plain C interface (one nvcc per source, all started
 together) under `_build/`, keyed by a hash of the source and the shared
 headers (`csrc/*.cuh`), and loads each with ctypes. It runs at first use
-of a kernel; nothing is built when the package is imported.
+of a kernel; nothing is built when the package is imported. The AOT
+compile service (aot/compiler.warm_start with a cache directory) points
+the build at the cache's library directory for its walk
+(`use_library_dir`), so a boot against a warm cache loads every library
+and runs no nvcc.
 """
 
 from __future__ import annotations
@@ -67,11 +71,35 @@ BUILD_SECONDS: dict[str, float] = {}
 # libraries built or loaded in this process: the port's one compile.
 # tracing/kernel.dispatch calls a dispatch during which it grew a compile
 _built = 0
+# nvcc processes this process has run (a library loaded from disk runs none)
+_nvcc_runs = 0
+# where libraries are built into and loaded from
+_lib_dir = BUILD_DIR
 
 
 def build_count() -> int:
     """How many kernel libraries this process has built or loaded."""
     return _built
+
+
+def nvcc_runs() -> int:
+    """How many nvcc builds this process has run."""
+    return _nvcc_runs
+
+
+@contextlib.contextmanager
+def use_library_dir(path: str):
+    """Build kernel libraries into, and load them from, `path` (the AOT
+    compile cache's library directory) inside the block, and the build
+    directory again after it. Libraries loaded inside stay loaded."""
+    global _lib_dir
+    with _lock:
+        prev, _lib_dir = _lib_dir, path
+    try:
+        yield
+    finally:
+        with _lock:
+            _lib_dir = prev
 
 
 def resolve_device(device=None) -> torch.device:
@@ -113,14 +141,20 @@ def _sources() -> dict[str, str]:
     }
 
 
-def _so_path(name: str, src: str) -> str:
-    """The library's path, keyed by its source, the headers beside it
+def library_name(name: str, src: str) -> str:
+    """The library's file name, keyed by its source, the headers beside it
     (csrc/*.cuh, which any source may include) and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    return f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _so_path(name: str, src: str) -> str:
+    """The library's path in the build directory (`_build/`, or the AOT
+    cache's library directory inside use_library_dir)."""
+    return os.path.join(_lib_dir, library_name(name, src))
 
 
 def build_kernels() -> dict[str, ctypes.CDLL]:
@@ -130,7 +164,7 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
         todo = {n: s for n, s in _sources().items() if n not in _libs}
         if not todo:
             return dict(_libs)
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(_lib_dir, exist_ok=True)
         procs = {}
         for name, src in todo.items():
             so = _so_path(name, src)
@@ -147,6 +181,8 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
                 so,
                 time.perf_counter(),
             )
+        global _built, _nvcc_runs
+        _nvcc_runs += len(procs)
         failures = []
         for name, (proc, tmp, so, t0) in procs.items():
             out, _ = proc.communicate()
@@ -160,7 +196,6 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
             os.replace(tmp, so)
         if failures:
             raise KernelError("kernel build failed:\n" + "\n".join(failures))
-        global _built
         for name, src in todo.items():
             _libs[name] = ctypes.CDLL(_so_path(name, src))
             _built += 1

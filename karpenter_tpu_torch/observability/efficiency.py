@@ -45,8 +45,10 @@ On the card (this package): the roofline peaks are one H100 row, found by
 ``torch.cuda.get_device_name`` once CUDA is initialized, and the profiler
 service captures with ``torch.profiler`` (CPU activity, plus CUDA activity
 when a card is present), writing a Chrome trace (``trace.json``) into each
-capture's directory. Cost tables stay empty until an AOT warm start feeds
-them (``note_executable``), which this package does not have yet.
+capture's directory. The AOT warm start feeds the cost tables
+(``note_executable``) with the port's executables
+(aot/compiler.Executable), whose ``cost_analysis()`` gives each bucket's
+operations and bytes from the formulas of chip_smoke.py's bound column.
 """
 
 from __future__ import annotations

@@ -33,6 +33,15 @@ reference dispatches its kernel once for each), a sweep as
 catalog without offerings as `feasibility.membership`. The reference's
 host-twin route (`_use_device`, its `record_host` calls) is not ported:
 every batch and sweep here launches on the engine's device.
+
+With an AOT ladder attached (`aot_ladder`, set by aot/compiler.warm_start)
+a row batch pads to its `catalog.row_compat` rung and a sweep's (P, R) to
+its `feasibility.cube` (`_sharded`, `membership`) rung, as the reference's
+device dispatches do; past the largest rung it keeps the power-of-two
+padding and counts the dispatch off-ladder (aot/runtime.note_off_ladder).
+A dispatch's shape signature is its bucket's and the catalog's: the sweep
+passes its used row ids and the resident row matrices it reads by index as
+one tuple (`_cube`), which the signature leaves out.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import mesh as mesh_mod
+from karpenter_tpu_torch.aot import runtime as aotrt
 from karpenter_tpu_torch.apis import labels as wk
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
 from karpenter_tpu_torch.device import device_work, resolve_device
@@ -59,6 +69,22 @@ DEFAULT_RESOURCE_DIMS = (
     wk.RESOURCE_EPHEMERAL_STORAGE,
     wk.RESOURCE_PODS,
 )
+
+
+def _row_compat(rows, slot_key, value_int, *sets):
+    """`catalog.row_compat`'s dispatch: a row table against the target sets
+    (six operands a set: the types', then the offerings'), one launch."""
+    targets = [sets[i:i + 6] for i in range(0, len(sets), 6)]
+    return feas.req_rows_vs_targets(rows, targets, slot_key, value_int)
+
+
+def _cube(membership, key_present, rows, custom_need, available, owner):
+    """`feasibility.cube`'s dispatch: `rows` is (the used row ids, the
+    resident req and offer compat matrices), read by index."""
+    ids, req_compat, offer_compat = rows
+    return feas.cube_rows(
+        membership, key_present, ids, req_compat, offer_compat, custom_need, available, owner
+    )
 
 
 def _req_cache_key(r: Requirement) -> tuple:
@@ -164,6 +190,11 @@ class CatalogEngine:
         # Requirements are shared read-only — driver callers always copy.
         self.solver_joint_cache: dict[frozenset, Optional[tuple]] = {}
         self.solver_fam_trans: dict[tuple, tuple] = {}
+        # AOT bucket ladder (aot/ladder.py), attached by aot.warm_start:
+        # when set, device dispatches pad their variable axes to ladder
+        # buckets so they hit the prepaid executables; None = plain
+        # power-of-two padding (the pre-AOT behavior)
+        self.aot_ladder = None
 
     # -- catalog encoding ---------------------------------------------------
 
@@ -336,19 +367,37 @@ class CatalogEngine:
             er.mask = np.pad(er.mask, ((0, 0), (0, pad)))
 
         I = self.num_instances
+        n = len(new_rows)
         # the batch as one int32 row table, built on the host: one upload
         rows = feas.row_table(er.key, er.complement, er.has_values, er.gt, er.lt, er.mask)
+        # pad the row batch up to its AOT ladder bucket (results for the
+        # padding rows are sliced off below): bulk encodes then dispatch
+        # the warm-started executable
+        if self.aot_ladder is not None:
+            bucket = self.aot_ladder.bucket_for("catalog.row_compat", (n,))
+            if bucket is None:
+                # pow2-normalized shape key: bounded warning/event
+                # cardinality when many distinct batch sizes overflow
+                # the ladder
+                aotrt.note_off_ladder(
+                    "catalog.row_compat", str(1 << max(0, (n - 1).bit_length()))
+                )
+            elif bucket[0] > n:
+                # edge-replicate the last row: a valid row whose
+                # (discarded) results cost nothing extra semantically
+                rows = np.pad(rows, ((0, bucket[0] - n), (0, 0)), mode="edge")
         with device_work("row_compat"):
-            targets = [self._set_args("inst", self._inst_sets)]
+            sets = self._set_args("inst", self._inst_sets)
             if self.num_offerings:
-                targets.append(self._set_args("offer", self._offer_sets))
+                sets += self._set_args("offer", self._offer_sets)
             new_d = ktime.dispatch(
-                lambda *a: feas.req_rows_vs_targets(a[0], targets, *a[1:]),
+                _row_compat,
                 self._to_device(rows),
                 self._dev("slot_key", self._tables.slot_key),
                 self._dev("value_int", self._tables.value_int),
+                *sets,
                 kernel="catalog.row_compat",
-            )
+            )[:n]
             # the fresh rows are appended to the resident device matrices —
             # an O(churn) row batch per pass, never a re-upload of the
             # catalog (the reference's delta-warm append)
@@ -481,11 +530,40 @@ class CatalogEngine:
         # the mesh serves the production cube (offerings present); a
         # membership-only engine is a degenerate catalog, left unsharded
         mesh_n = self.mesh.size if self.mesh is not None and self.num_offerings else 0
+        ladder_kernel = (
+            "feasibility.cube_sharded"
+            if mesh_n
+            else (
+                "feasibility.cube"
+                if self.num_offerings
+                else "feasibility.membership"
+            )
+        )
         if mesh_n:
             # mesh-size-INVARIANT global entity axis: the pow2 bucket
             # aligned to lcm(n, MESH_ALIGN), the reference's padded shape
             align = mesh_mod.mesh_multiple(mesh_n)
             P2 = -(-max(P2, align) // align) * align
+        if self.aot_ladder is not None:
+            # look up by the RAW dims, not the pow2-inflated ones: a tuned
+            # ladder may carry non-power-of-two buckets, and (P2, R2) would
+            # make them unreachable. A mesh constrains the entity axis to
+            # buckets its devices split evenly.
+            bucket = self.aot_ladder.bucket_for(
+                ladder_kernel, (P, R), multiple_of=mesh_n or 1
+            )
+            if bucket is None:
+                # past the largest bucket (or a ladder with no rung this
+                # mesh divides): keep pow2 padding and flag it. The mesh
+                # rides the label so the warning names the device layout
+                # that missed.
+                aotrt.note_off_ladder(
+                    ladder_kernel,
+                    f"{P2}x{R2}",
+                    mesh=feas.mesh_scope(self.mesh) if mesh_n else "",
+                )
+            else:
+                P2, R2 = bucket
         # membership [P2, R2] and key_present [P2, K] side by side in one
         # array: the card's sweep uploads it in one copy
         K = self._key_capacity if key_present is None else key_present.shape[1]
@@ -545,12 +623,14 @@ class CatalogEngine:
             # planes into one buffer, copied back once
             entities_d = self._to_device(entities)
             planes = ktime.dispatch(
-                feas.cube_rows,
+                _cube,
                 entities_d[:, :R2],
                 entities_d[:, R2:],
-                self._to_device(np.asarray(used, dtype=np.int32)),
-                self._req_compat_d,
-                self._offer_compat_d,
+                (
+                    self._to_device(np.asarray(used, dtype=np.int32)),
+                    self._req_compat_d,
+                    self._offer_compat_d,
+                ),
                 self._dev("custom_need", self.offering_custom_need),
                 self._dev("available", self.offering_available),
                 self._dev("owner", self.offering_owner),

@@ -55,8 +55,9 @@ reference does.
 A copy of the reference's module (karpenter_tpu/ops/delta.py) with its
 state in torch tensors. On an engine with a mesh the scan residency holds
 the replicated state, one tensor set per shard, and the group solver
-bypasses its residency (GroupSolver.solve). The AOT ladder is not ported,
-so `_bucket_groups` always takes the pow2 rung.
+bypasses its residency (GroupSolver.solve). `_bucket_groups` takes the
+engine's AOT ladder rung for `packer.solve_block` when one is attached, as
+the reference does.
 """
 
 from __future__ import annotations
@@ -671,9 +672,14 @@ def _download(t: torch.Tensor) -> np.ndarray:
 
 
 def _bucket_groups(engine, g: int) -> int:
-    """Pad a group axis to the solve_block rung: pow2 with a floor of 8 (this
-    package has no AOT ladder, so the reference's ladder branch never
-    applies)."""
+    """Pad a group axis to the solve_block ladder rung (pow2 floor 8 when
+    no ladder is attached) — delta kernels share solve_block's geometry so
+    the steady-state executable universe stays sealed."""
+    ladder = getattr(engine, "aot_ladder", None)
+    if ladder is not None:
+        bucket = ladder.bucket_for("packer.solve_block", (g,))
+        if bucket is not None:
+            return int(bucket[0])
     return max(8, 1 << max(0, (int(g) - 1).bit_length()))
 
 

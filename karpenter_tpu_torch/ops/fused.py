@@ -13,7 +13,10 @@ A copy of the reference's dispatch (karpenter_tpu/ops/fused.py), the
 classic one and, with delta solves on, the scan residency's
 (`_delta_dispatch`, ops/delta.py), each with its mesh twin (an engine with
 a mesh launches the scan replicated on every shard,
-packer.sharded_solve_scan*), without the AOT ladder. Each scan launch
+packer.sharded_solve_scan*), with the AOT ladder's scan rung (an engine's
+`aot_ladder`; past the largest rung the pow2 padding, counted off-ladder),
+and the rung's operand specs for the AOT compiler
+(`solve_scan_abstract_args`, `solve_scan_state_abstract_args`). Each scan launch
 goes through the kernel observatory's choke point (tracing/kernel.dispatch)
 under the reference's names — `packer.solve_scan`, `packer.solve_scan_full`,
 `packer.solve_scan_resume` — with the reference's `aot_scope` on a mesh,
@@ -372,16 +375,35 @@ class _FusedSolve(ffd._DeviceSolve):
         F_real = trans_kind.shape[0]
         N_real = len(self.s.existing_nodes) if has_nodes else 0
 
-        # bucket the variable axes (pow2 floors). The claim axis is sized
-        # from an estimate, NOT the pod count — the loop-carried claim state
-        # is what every iteration updates in place, so its footprint sets
-        # the per-step cost; overflow aborts to the host walk, metered.
+        L = limits[2].shape[0] if has_limits else 0
+
+        # bucket the variable axes so the executable universe is finite;
+        # an attached AOT ladder pins it (warm-startable), else pow2 floors.
+        # The claim axis is sized from an estimate, NOT the pod count — the
+        # loop-carried claim state is what every iteration updates in place,
+        # so its footprint sets the per-step cost; overflow aborts to the
+        # host walk, metered.
         C_est = 2 * self._claim_estimate(open_ok, open_fam, gi_arr) + 64
-        Pb = _pow2(P_real, 512)
-        Gb = _pow2(G_real, 32)
-        Cb = min(_pow2(C_est, 256), _pow2(P_real, 256))
-        Nb = _pow2(N_real, 64) if has_nodes else 0
-        Fb = _pow2(F_real, 64)
+        ladder = getattr(self.engine, "aot_ladder", None)
+        dims = (P_real, G_real, C_est, N_real, F_real, T, L)
+        bucket = (
+            ladder.bucket_for("packer.solve_scan", dims) if ladder else None
+        )
+        if bucket is not None:
+            Pb, Gb, Cb, Nb, Fb = bucket[:5]
+        else:
+            if ladder is not None:
+                from karpenter_tpu_torch.aot import runtime as aotrt
+
+                aotrt.note_off_ladder(
+                    "packer.solve_scan",
+                    "x".join(str(_pow2(d, 1)) for d in dims),
+                )
+            Pb = _pow2(P_real, 512)
+            Gb = _pow2(G_real, 32)
+            Cb = min(_pow2(C_est, 256), _pow2(P_real, 256))
+            Nb = _pow2(N_real, 64) if has_nodes else 0
+            Fb = _pow2(F_real, 64)
 
         D, U, I = self.D, self.U, self.I
         pod_gi = np.full(Pb, -1, dtype=np.int32)
@@ -475,7 +497,7 @@ class _FusedSolve(ffd._DeviceSolve):
                 if mesh is not None:
                     fn = lambda *a: packer.sharded_solve_scan(mesh)(cfg, a)  # noqa: E731
                 else:
-                    fn = lambda *a: packer.solve_scan(cfg, a)  # noqa: E731
+                    fn = packer.solve_scan_fn(*cfg)
                 out = ktime.dispatch(
                     fn, *args, kernel="packer.solve_scan", aot_scope=scope
                 )[: packer.SCAN_N_OUT]
@@ -532,21 +554,21 @@ class _FusedSolve(ffd._DeviceSolve):
 
         def full():
             def call(*a):
-                if mesh is None:
-                    return (packer.solve_scan_full(cfg, a)[:-1],)
                 return tuple(r[:-1] for r in packer.sharded_solve_scan_full(mesh)(cfg, a))
 
             return ktime.dispatch(
-                call, *args, kernel="packer.solve_scan_full", aot_scope=scope
+                packer.solve_scan_full_fn(*cfg) if mesh is None else call,
+                *args, kernel="packer.solve_scan_full", aot_scope=scope,
             )
 
         def resume(states, p_lo):
             # the operands, shard 0's state and p_lo are the dispatch's
             # arguments (its shape signature, as the reference's)
             def call(*_):
-                if mesh is None:
-                    return (packer.solve_scan_resume(cfg, args, states[0], p_lo)[:-1],)
                 return tuple(r[:-1] for r in packer.sharded_solve_scan_resume(mesh)(cfg, args, states, p_lo))
+
+            if mesh is None:
+                call = packer.solve_scan_resume_fn(*cfg)
 
             return ktime.dispatch(
                 call, *args, *states[0], np.int32(p_lo),
@@ -699,6 +721,59 @@ def global_fused_solved() -> None:
     global FUSED_SOLVES
     FUSED_SOLVES += 1
     _FUSED_SOLVES_CTR.inc()
+
+
+def solve_scan_abstract_args(engine, bucket) -> tuple:
+    """The operand specs (aot/compiler.OperandSpec: shape, dtype, the
+    engine's device) of one fused-scan ladder rung — what the AOT
+    warm-start walk launches against. Mirrors
+    _FusedSolve._fused_solve's operands (convert.SCAN_OPERANDS' dtypes)
+    exactly, or warm-started executables would miss at serve time."""
+    from karpenter_tpu_torch.aot.compiler import OperandSpec
+
+    P, G, C, N, F, T, L = (int(d) for d in bucket)
+    has_nodes, has_limits = N > 0, L > 0
+    D = len(engine.resource_dims)
+    I = engine.num_instances
+    U = int(np.unique(engine.allocatable, axis=0).shape[0])
+    shapes = (
+        (P,), (C,), (G, D), (G, D),
+        (U, D), (T, D),
+        (T, G), (T, G), (T, G), (T, G, U),
+        (F, G), (F, G), (T, F, U),
+        (), (),
+        (N, G) if has_nodes else (1, 1),
+        (N, D) if has_nodes else (1, 1),
+        (F, I),
+        (T, I) if has_limits else (1, 1),
+        (T, G, I) if has_limits else (1, 1, 1),
+        (U, I),
+        (I,) if has_limits else (1,),
+        (I, D) if has_limits else (1, 1),
+        (T,),
+        (L, D) if has_limits else (1, 1),
+        (L, D) if has_limits else (1, 1),
+        (L,) if has_limits else (1,),
+    )
+    return tuple(
+        OperandSpec(shape, str(dt).replace("torch.", ""), engine.device)
+        for shape, (_name, dt) in zip(shapes, convert.SCAN_OPERANDS)
+    )
+
+
+def solve_scan_state_abstract_args(engine, bucket) -> tuple:
+    """The specs of the scan's resident state for one ladder rung: the
+    SCAN_STATE_FIELDS tensors (packer._state_spec, the reference's 23
+    components as the port holds them). The AOT walk appends these (plus
+    the p_lo scalar) to the 27 operands for the warm resume."""
+    from karpenter_tpu_torch.aot.compiler import OperandSpec
+
+    P, G, C, N, F, T, L = (int(d) for d in bucket)
+    args = solve_scan_abstract_args(engine, bucket)
+    return tuple(
+        OperandSpec(shape, str(dt).replace("torch.", ""), engine.device)
+        for _name, shape, dt in packer._state_spec((T, N > 0, L > 0), args)
+    )
 
 
 def maybe_attempts(scheduler) -> Sequence:

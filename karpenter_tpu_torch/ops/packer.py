@@ -51,6 +51,7 @@ launches only.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence
 
@@ -662,6 +663,21 @@ class GroupSolver:
         args = self._catalog_args()
         group_bools, group_ints = _pack_groups(grouped)
         G = group_bools.shape[0]
+        ladder = getattr(self.engine, "aot_ladder", None)
+        if ladder is not None:
+            from karpenter_tpu_torch.aot import runtime as aotrt
+
+            bucket = ladder.bucket_for("packer.solve_block", (G,))
+            if bucket is None:
+                # pow2-normalized: bounded warning/event cardinality
+                aotrt.note_off_ladder(
+                    "packer.solve_block",
+                    str(1 << max(0, (G - 1).bit_length())),
+                )
+            elif bucket[0] > G:
+                pad = bucket[0] - G
+                group_bools = np.pad(group_bools, ((0, pad), (0, 0)))
+                group_ints = np.pad(group_ints, ((0, pad), (0, 0)))
         dev = self.engine.device
         with device_work("group solve"):
             # the group rows in one staged upload (one pinned buffer, one copy)
@@ -674,16 +690,33 @@ class GroupSolver:
     def solve_sharded(self, grouped: GroupedPods, mesh):
         """The solve over a mesh: groups sharded over its one axis, the
         catalog replicated. The group axis pads to the reference's mesh-size-
-        INVARIANT global shape, pow2 aligned to lcm(n, MESH_ALIGN); padding
-        rows carry counts 0, pack to 0 nodes / 0 unschedulable on whatever
-        shard they land on (a shard of padding only computes zeros) and are
-        sliced off."""
+        INVARIANT global shape: the AOT ladder's sharded rung when one fits
+        (divisible by the mesh size), else pow2 aligned to lcm(n,
+        MESH_ALIGN); padding rows carry counts 0, pack to 0 nodes / 0
+        unschedulable on whatever shard they land on (a shard of padding
+        only computes zeros) and are sliced off."""
         n = mesh.size
         G = grouped.membership.shape[0]
         group_bools, group_ints = _pack_groups(grouped)
         align = mesh_mod.mesh_multiple(n)
         G2 = max(1 << max(0, (G - 1).bit_length()), align)
         G2 = -(-G2 // align) * align
+        ladder = getattr(self.engine, "aot_ladder", None)
+        scope = feas.mesh_scope(mesh)
+        if ladder is not None:
+            bucket = ladder.bucket_for(
+                "packer.solve_block_sharded", (G,), multiple_of=n
+            )
+            if bucket is None:
+                # off-ladder: the mesh rides the shape label so the event
+                # names the layout that missed
+                from karpenter_tpu_torch.aot import runtime as aotrt
+
+                aotrt.note_off_ladder(
+                    "packer.solve_block_sharded", str(G2), mesh=scope
+                )
+            else:
+                G2 = bucket[0]
         if G2 > G:
             pad = G2 - G
             group_bools = np.pad(group_bools, ((0, pad), (0, 0)))
@@ -696,7 +729,7 @@ class GroupSolver:
                 torch.from_numpy(np.ascontiguousarray(group_ints)),
                 *args,
                 kernel="packer.solve_block_sharded",
-                aot_scope=feas.mesh_scope(mesh),
+                aot_scope=scope,
             ).cpu().numpy()
         return out[:G, 0], out[:G, 1].astype(bool), out[:G, 2], out[:G, 3]
 
@@ -1337,6 +1370,47 @@ def _solve_scan_full(cfg: tuple, args: tuple, name: str, design: Optional[str]) 
     LAUNCHES[name] += 1
     LAUNCHES[f"scan_{design}"] += 1
     return state + (state[0][7],)
+
+
+# the reference's donated resume operands (its 23 state components after the
+# 27 operands). Only a tag here: the AOT cache key of the resume's
+# executable keeps the reference's donation field for parity, while the
+# port donates no buffer (its resume writes the state operands in place)
+SCAN_RESUME_DONATE = tuple(range(27, 27 + 23))
+
+
+def _scan_call(cfg: tuple, *args):
+    return solve_scan(cfg, args)
+
+
+def _scan_full_call(cfg: tuple, *args):
+    return (solve_scan_full(cfg, args)[:-1],)
+
+
+def _scan_resume_call(cfg: tuple, *args):
+    n_state = len(SCAN_STATE_FIELDS)
+    ops, state, p_lo = args[:27], args[27:27 + n_state], args[27 + n_state]
+    return (solve_scan_resume(cfg, ops, state, int(p_lo))[:-1],)
+
+
+def solve_scan_fn(T: int, has_nodes: bool, has_limits: bool):
+    """The named dispatch's callable of one static variant: the 27
+    operands in, solve_scan's outputs out (the AOT compiler's executables
+    call the same)."""
+    return functools.partial(_scan_call, (int(T), bool(has_nodes), bool(has_limits)))
+
+
+def solve_scan_full_fn(T: int, has_nodes: bool, has_limits: bool):
+    """solve_scan_fn's twin for solve_scan_full: the 27 operands in, a
+    one-tuple of the final state out."""
+    return functools.partial(_scan_full_call, (int(T), bool(has_nodes), bool(has_limits)))
+
+
+def solve_scan_resume_fn(T: int, has_nodes: bool, has_limits: bool):
+    """solve_scan_fn's twin for solve_scan_resume: the 27 operands, the
+    state's SCAN_STATE_FIELDS tensors and p_lo in, a one-tuple of the
+    state (written in place) out."""
+    return functools.partial(_scan_resume_call, (int(T), bool(has_nodes), bool(has_limits)))
 
 
 def solve_scan(cfg: tuple, args: tuple, _design: Optional[str] = None) -> tuple:

@@ -141,16 +141,6 @@ def main(argv=None) -> int:
         for name, desc in scenarios.describe().items():
             print(f"{name:20s} {desc}")
         return 0
-    if (args.aot_ladder and args.aot_ladder != "off") or args.compile_cache_dir:
-        # port: the AOT compile service needs aot/compiler.py, which the
-        # port does not have yet (ROADMAP Queue A item 8)
-        print(
-            "karpenter-tpu sim: --aot-ladder and --compile-cache-dir need the "
-            "AOT compiler (aot/compiler.py), not yet in this package "
-            "(ROADMAP Queue A item 8)",
-            file=sys.stderr,
-        )
-        return 2
     try:
         # port: the run's engines are built on the device it was given, or
         # the run does not start

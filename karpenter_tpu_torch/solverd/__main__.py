@@ -92,15 +92,6 @@ def main(argv=None) -> int:
     )
     parser.add_argument("--log-level", default="info")
     ns = parser.parse_args(argv)
-    if (ns.aot_ladder and ns.aot_ladder != "off") or ns.compile_cache_dir:
-        # port: the AOT compile service needs aot/compiler.py, which the
-        # port does not have yet (ROADMAP Queue A item 8)
-        parser.exit(
-            2,
-            "karpenter-solverd: --aot-ladder and --compile-cache-dir need "
-            "the AOT compiler (aot/compiler.py), not yet in this package "
-            "(ROADMAP Queue A item 8)\n",
-        )
     from karpenter_tpu_torch.device import resolve_device
 
     try:

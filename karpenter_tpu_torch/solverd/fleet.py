@@ -196,18 +196,9 @@ class FleetClient(SolverClient):
             return "no-engine"
         cached = getattr(engine, "_fleet_content_hash", None)
         if cached is None:
-            # port: aot.compiler.content_hash computed in place — the port
-            # has no aot/compiler.py yet; the same sha256 of the same
-            # fingerprints, so keys route as the reference's do
-            from karpenter_tpu_torch.controllers.provisioning.provisioner import (
-                _type_fingerprint,
-            )
+            from karpenter_tpu_torch.aot.compiler import content_hash
 
-            cached = hashlib.sha256(
-                repr(
-                    tuple(_type_fingerprint(it) for it in engine.instance_types)
-                ).encode()
-            ).hexdigest()
+            cached = content_hash(engine.instance_types)
             engine._fleet_content_hash = cached
         return cached
 

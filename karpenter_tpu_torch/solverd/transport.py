@@ -901,6 +901,10 @@ def _default_engine_factory(shard_devices: int = 0, device=None):
 
                 try:
                     aot.warm_start(engine)
+                except KernelError:
+                    # port: a kernel that fails to build or to launch is the
+                    # request's error, never hidden behind the lazy path
+                    raise
                 except Exception as e:  # noqa: BLE001 — never fail a solve
                     from karpenter_tpu_torch.operator import logging as klog
 

@@ -165,6 +165,10 @@ def dispatch(fn, *args, kernel: Optional[str] = None, aot_scope: str = ""):
             try:
                 out = aexe(*args)
                 served_aot = True
+            except devmod.KernelError:
+                # port: a device fault of an installed executable fails the
+                # dispatch — launching again lazily would cover it
+                raise
             except Exception as e:  # noqa: BLE001 — degrade to JIT, never fail
                 aotrt.discard(
                     kernel, sig,

@@ -2,16 +2,22 @@
 aot/cache.py, aot/runtime.py, copies of the reference's) against the JAX
 package's, on the CPU.
 
-The reference's tests/test_aot.py cases that need no AOT compiler (the
-compiler is not ported yet: `aot.warm_start` raises the missing module's
-error in the port), each run on both packages with equal results; the
-runtime's executable table consulted by the port's named dispatch; and the
-ladder derived from the port's own observed counts — the fused scan's
-27-operand signature included.
+The reference's tests/test_aot.py scenarios of the ladder, the cache and
+the runtime, each run on both packages with equal results; the runtime's
+executable table consulted by the port's named dispatch; the ladder derived
+from the port's own observed counts — the fused scan's 27-operand signature
+included. Then the port's own parts of the compiler (aot/compiler.py; its
+twins of tests/test_aot.py are tests/test_torch_aot_compiler.py): a
+KernelError from an installed executable or from a warm launch fails the
+dispatch, Provisioner.prewarm() and the daemon's engine rebuild; the
+executable's signature check; corrupt and stale entries evicted and
+rebuilt; a CPU engine's entries missing for another device; and the
+library directory a second boot loads from without nvcc.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import threading
@@ -51,13 +57,12 @@ class Pkg:
 @pytest.fixture
 def clean():
     """Both packages' runtime tables, off-ladder state and registries reset."""
+    import torch_twins as tw
+
     def reset():
         for pkg in PKGS:
-            p = Pkg(pkg)
-            p.kobs.registry().reset()
-            p.runtime.configure(None, None)
-            p.runtime.clear_executables()
-            p.runtime.reset_off_ladder()
+            Pkg(pkg).kobs.registry().reset()
+            tw.reset_aot(pkg)
 
     reset()
     yield
@@ -352,15 +357,243 @@ def test_configure_from_options(clean, tmp_path):
     assert twin(run) == ((True, True, str(tmp_path)), False, True, None)
 
 
-def test_warm_start_waits_for_the_compiler():
-    """aot/__init__.py is a verbatim copy: its lazy compiler import raises
-    Python's error for the absent module until the port has an AOT
-    compiler; the rest of the package's surface is there."""
+def test_warm_start_waits_for_the_compiler(clean):
+    """aot.warm_start reaches the port's compiler (it raised ImportError
+    before aot/compiler.py was ported): without a ladder it runs the lazy
+    warmup and returns None; with one it walks the ladder on the engine's
+    device. The rest of the package's surface is there."""
+    from karpenter_tpu_torch import aot
+    from karpenter_tpu_torch.aot import compiler
+
+    engine = _cpu_engine()
+    assert aot.warm_start(engine) is None and engine._warmed and engine.aot_ladder is None
+    summary = aot.warm_start(_cpu_engine(), ladder=Pkg(PORT).tiny())
+    assert summary == {"buckets": 4, "cache_hits": 0, "fresh_compiles": 4, "already_loaded": 0,
+                       "errors": 0}
+    assert aot.warm_start is not compiler.warm_start and callable(compiler.warm_start)
+    assert aot.Ladder is aot.ladder.Ladder and aot.LADDER_VERSION == aot.ladder.LADDER_VERSION
+
+
+def _cpu_engine():
+    from karpenter_tpu_torch.cloudprovider.kwok.instance_types import construct_instance_types
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    return CatalogEngine(construct_instance_types(), device="cpu")
+
+
+def _kernel_error():
+    from karpenter_tpu_torch.device import KernelError
+
+    return KernelError
+
+
+def _failing_warm(monkeypatch, kernel: str):
+    """Every warm launch of `kernel`'s buckets raises a KernelError, as a
+    kernel that fails to build or to launch does."""
+    from karpenter_tpu_torch.aot import compiler
+
+    KernelError = _kernel_error()
+    real = compiler.Executable.warm
+
+    def warm(self):
+        if self.kernel == kernel:
+            raise KernelError(f"warm start of {self.kernel} at {self.sig}: cudaError 700")
+        return real(self)
+
+    monkeypatch.setattr(compiler.Executable, "warm", warm)
+
+
+# -- the port's parts: faults, the executable, the cache --------------------------------
+
+
+def test_kernel_error_from_an_installed_executable_fails_the_dispatch(clean):
+    """port: a KernelError out of an installed executable leaves the named
+    dispatch — no second, lazy launch, nothing discarded (the reference
+    degrades every failure to its jit path)."""
+    p = Pkg(PORT)
+    KernelError = _kernel_error()
+    lazy = []
+
+    def faulting(*args):
+        raise KernelError("kt_cube: cudaError 700")
+
+    x = torch.ones((5,))
+    sig = p.kobs.shape_signature((x,))
+    p.runtime.install("spec.fault", sig, faulting)
+    ctr = p.metrics.get("karpenter_aot_executable_fallbacks_total")
+    base = ctr.value({"kernel": "spec.fault"})
+    with pytest.raises(KernelError, match="cudaError 700"):
+        p.ktime.dispatch(lambda a: lazy.append(a), x, kernel="spec.fault")
+    assert lazy == [] and p.runtime.lookup("spec.fault", sig) is faulting
+    assert ctr.value({"kernel": "spec.fault"}) == base
+
+
+def test_executable_checks_the_bucket_signature(clean):
+    """An executable takes only its bucket's shapes and dtypes (TypeError
+    otherwise, which the dispatch answers by discarding it and launching
+    lazily); on them it calls the wrapper the lazy path calls."""
+    from karpenter_tpu_torch.aot import compiler
+
+    spec = compiler.OperandSpec((4, 8), "bool", "cpu")
+    exe = compiler.Executable("spec.sig", lambda m: m.sum(), (spec,), "4x8", {"flops": 1.0}, "cpu")
+    assert int(exe(torch.ones((4, 8), dtype=torch.bool))) == 32
+    for bad in (torch.ones((4, 9), dtype=torch.bool), torch.ones((4, 8), dtype=torch.int32)):
+        with pytest.raises(TypeError, match="bucket"):
+            exe(bad)
+    with pytest.raises(TypeError):
+        exe()
+    p = Pkg(PORT)
+    p.runtime.install("spec.sig", "4x9", exe)
+    out = p.ktime.dispatch(lambda m: "lazy", torch.ones((4, 9), dtype=torch.bool), kernel="spec.sig")
+    assert out == "lazy" and p.runtime.lookup("spec.sig", "4x9") is None
+    assert exe.cost_analysis() == {"flops": 1.0} and exe.libraries() == {}
+    # a card's record names every kernel library of the checkout (the
+    # build makes all of them at once), so a changed source makes it stale
+    from karpenter_tpu_torch import device as tdevice
+
+    card = compiler.Executable("spec.sig", None, (), "", {}, "cuda")
+    libs = card.libraries()
+    assert sorted(libs) == sorted(tdevice._sources()) and {"feasibility", "packer", "scan"} <= set(libs)
+    assert all(libs[n] == tdevice.library_name(n, s) for n, s in tdevice._sources().items())
+
+
+def test_kernel_error_in_the_warm_start_fails_prewarm(clean, monkeypatch, tmp_path):
+    """port: Provisioner.prewarm() raises a KernelError of the warm start
+    (the reference logs every failure and falls back to the lazy warmup)."""
+    import torch_twins as tw
+
+    _failing_warm(monkeypatch, "feasibility.cube")
+    options = tw._m(PORT, "operator.options").Options(compile_cache_dir=str(tmp_path))
+    Pkg(PORT).runtime.configure_from_options(options)
+    helpers = tw.module("helpers", PORT)
+    _clock, store, _provider, _cluster, _informer, prov = tw.port_provisioner_harness(options)
+    store.create(helpers.nodepool("workers"))
+    with pytest.raises(_kernel_error(), match="cudaError 700"):
+        prov.prewarm()
+
+
+def test_kernel_error_in_the_warm_start_fails_the_daemon_rebuild(clean, monkeypatch):
+    """port: the daemon's engine rebuild raises the warm start's KernelError,
+    and the request's reply is that error, typed (the reference's rebuild
+    logs it and stays on lazy JIT)."""
+    import torch_twins as tw
+    from karpenter_tpu_torch import solverd as sd
+    from karpenter_tpu_torch.solverd.transport import _default_engine_factory
+    from karpenter_tpu_torch.utils.clock import Clock
+    from test_torch_solverd import seeded_scheduler
+
+    _failing_warm(monkeypatch, "catalog.row_compat")
+    p = Pkg(PORT)
+    p.runtime.configure(p.ladder.DEFAULT, None)
+    factory = _default_engine_factory(device="cpu")
+    catalog = _cpu_engine().instance_types
+    with pytest.raises(_kernel_error(), match="catalog.row_compat"):
+        factory(catalog)
+    svc = sd.SolverService(clock=Clock())
+    daemon = sd.SolverDaemon(svc, address="127.0.0.1:0",
+                             engine_factory=_default_engine_factory(device="cpu")).start()
+    client = sd.SocketClient(daemon.address)
+    try:
+        with tw.leg(PORT), pytest.raises(_kernel_error(), match="cudaError 700"):
+            client.solve(sd.KIND_SOLVE, *seeded_scheduler(PORT, 5, _cpu_engine()), timeout=60.0)
+    finally:
+        client.close()
+        daemon.stop()
+        svc.close()
+
+
+def test_corrupt_entry_is_evicted_and_rebuilt(clean, tmp_path):
+    """One truncated cache entry: the next boot evicts it and rebuilds that
+    bucket alone (one fresh compile), the rest are hits."""
+    p = Pkg(PORT)
+    cache = p.cache.ExecutableCache(str(tmp_path))
+    p.runtime.configure(p.tiny(), cache)
     from karpenter_tpu_torch import aot
 
-    with pytest.raises(ImportError, match="compiler"):
-        aot.warm_start(object())
-    assert aot.Ladder is aot.ladder.Ladder and aot.LADDER_VERSION == aot.ladder.LADDER_VERSION
+    cold = aot.warm_start(_cpu_engine())
+    entries = sorted(n for n in os.listdir(tmp_path) if n.endswith(".aotx"))
+    assert len(entries) == cold["buckets"] == cold["fresh_compiles"]
+    path = os.path.join(tmp_path, entries[0])
+    raw = open(path, "rb").read()
+    open(path, "wb").write(raw[: len(raw) // 2])
+    p.runtime.clear_executables()
+    warm = aot.warm_start(_cpu_engine())
+    assert warm["fresh_compiles"] == 1 and warm["cache_hits"] == warm["buckets"] - 1
+    assert cache.stats()["evictions"] == 1 and os.path.getsize(path) == len(raw)
+
+
+def test_stale_record_is_evicted_and_rebuilt(clean, tmp_path):
+    """A record that parses but names other kernel libraries (the sources
+    changed under an unchanged key) is evicted and its bucket rebuilt."""
+    from karpenter_tpu_torch import aot
+
+    p = Pkg(PORT)
+    cache = p.cache.ExecutableCache(str(tmp_path))
+    p.runtime.configure(p.tiny(), cache)
+    aot.warm_start(_cpu_engine())
+    p.runtime.clear_executables()
+    for name in os.listdir(tmp_path):
+        if name.endswith(".aotx"):
+            key = name[: -len(".aotx")]
+            rec = json.loads(cache.get(key).decode())
+            rec["libraries"] = {"feasibility": "libfeasibility_0000000000000000.so"}
+            cache.put(key, json.dumps(rec).encode())
+    warm = aot.warm_start(_cpu_engine())
+    assert warm["cache_hits"] == 0 and warm["fresh_compiles"] == warm["buckets"]
+    assert cache.stats()["evictions"] == warm["buckets"]
+
+
+def test_cpu_entries_miss_for_another_device(clean, tmp_path, monkeypatch):
+    """The fingerprint names the device: entries a CPU engine wrote are
+    misses for a card (another device string), never wrong loads."""
+    from karpenter_tpu_torch import aot
+    from karpenter_tpu_torch.aot import compiler
+
+    p = Pkg(PORT)
+    cache = p.cache.ExecutableCache(str(tmp_path))
+    p.runtime.configure(p.tiny(), cache)
+    assert "device=cpu" in compiler._toolchain_fingerprint() or torch.cuda.is_available()
+    cold = aot.warm_start(_cpu_engine())
+    key_cpu = compiler.cache_key("cat", "feasibility.cube", "1x4", 1)
+    monkeypatch.setattr(compiler, "_device_name", lambda: "NVIDIA H100 80GB HBM3")
+    assert compiler.cache_key("cat", "feasibility.cube", "1x4", 1) != key_cpu
+    assert "device=NVIDIA H100 80GB HBM3" in compiler._toolchain_fingerprint()
+    p.runtime.clear_executables()
+    other = aot.warm_start(_cpu_engine())
+    assert other["cache_hits"] == 0 and other["fresh_compiles"] == cold["buckets"]
+    assert cache.stats()["evictions"] == 0
+
+
+def test_library_dir_second_boot_runs_no_nvcc(monkeypatch, tmp_path):
+    """device.py with a library directory (the AOT cache's): the first boot
+    runs nvcc once per source into it; a second process (nothing loaded)
+    loads every library from it and runs no nvcc — build_count grows,
+    nvcc_runs does not; the build directory is back after each block. nvcc
+    is a stand-in that writes its -o file, and ctypes.CDLL is stubbed."""
+    from karpenter_tpu_torch import device as tdevice
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n: > "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(tdevice, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(tdevice, "ctypes", types.SimpleNamespace(CDLL=lambda path: path))
+    monkeypatch.setattr(tdevice, "_libs", {})
+    build_dir = tdevice._lib_dir
+    libdir = tmp_path / "cache" / "kernels" / "tag"
+    n_src = len(tdevice._sources())
+    runs, built = tdevice.nvcc_runs(), tdevice.build_count()
+    with tdevice.use_library_dir(str(libdir)):
+        libs = tdevice.build_kernels()
+    assert tdevice._lib_dir == build_dir  # the block's end restores it
+    assert tdevice.nvcc_runs() == runs + n_src and tdevice.build_count() == built + n_src
+    assert sorted(os.listdir(libdir)) == sorted(
+        tdevice.library_name(n, s) for n, s in tdevice._sources().items()
+    )
+    assert all(path.startswith(str(libdir)) for path in libs.values())
+    monkeypatch.setattr(tdevice, "_libs", {})  # a second process
+    with tdevice.use_library_dir(str(libdir)):
+        tdevice.build_kernels()
+    assert tdevice.nvcc_runs() == runs + n_src and tdevice.build_count() == built + 2 * n_src
 
 
 def test_ladder_from_the_ports_observed_scan(clean, monkeypatch):

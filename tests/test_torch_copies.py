@@ -5,7 +5,8 @@ is renamed (`karpenter_tpu` -> `karpenter_tpu_torch`). A copy with CUDA
 replacements may differ only inside its port-specific parts, listed here by
 name: module-level functions, classes, methods (`Class.method`), a class's
 docstring (`Class.__doc__`), the module docstring (`__doc__`), assignments
-(with the comment block above them), and import lines the port adds. Every
+(with the comment block above them), and import lines the port adds. A
+reference part the port leaves out is listed with a leading `-`. Every
 other line must be the reference's. One case per module.
 """
 
@@ -21,10 +22,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 VERBATIM = [
-    "aot/__init__.py",
     "aot/ladder.py",
     "aot/cache.py",
-    "aot/runtime.py",
     "observability/slo.py",
     "observability/flight.py",
     "ops/topo_counts.py",
@@ -72,26 +71,58 @@ VERBATIM = [
     "sim/scenarios/__init__.py",
     "sim/accounting.py",
     "sim/faults.py",
+    "solverd/fleet.py",
 ]
 
 # module -> the port-specific parts (see the module docstring), and the
 # replacements of lines inside a shared function: (reference lines, port
 # lines), each matched exactly
 PORT_SPECIFIC = {
+    # the docstrings say what an executable and a cache entry are here
+    "aot/__init__.py": (["__doc__"], []),
+    "aot/runtime.py": (["__doc__"], []),
+    # the compiler: the toolchain fingerprint names torch, CUDA, nvcc, the
+    # device and the nvcc flags; operand specs in place of
+    # ShapeDtypeStructs; the port's executables and cache records; a
+    # KernelError of a warm launch fails the boot; the cost formulas of
+    # chip_smoke.py's bound column; no x64 lowering, no RTT probe
+    "aot/compiler.py": (
+        ["__doc__", "_ENGINE_DEVICE", "_NVCC_VERSION", "_nvcc_version", "_device_name",
+         "_toolchain_fingerprint", "words", "row_compat_ops", "membership_ops", "cube_ops",
+         "solve_block_ops", "scan_ops", "OperandSpec", "_Deferred", "_sds", "_dtype_name",
+         "_materialize", "_nbytes", "Executable", "_plan", "_cost",
+         "_cube_plans", "_resident_rows", "_row_compat_plans", "_mesh_shardings",
+         "_sharded_cube_plans", "_sharded_solve_block_plans", "-_X64Lower",
+         "_solve_scan_plans", "_solve_block_plans", "_ensure_executable", "_library_dir",
+         "warm_start"],
+        [(["import pickle"], ["import json", "import subprocess"])],
+    ),
     "observability/kernels.py": (["sample_device_memory"], []),
+    # the fence; a KernelError of an installed executable fails the dispatch
     "tracing/kernel.py": (
         ["__doc__", "_cache_size", "_cuda_devices", "_fence"],
-        [(
-            [
-                "            try:",
-                "                import jax",
-                "",
-                "                jax.block_until_ready(out)",
-                "            except Exception:  # noqa: BLE001 — host twins return plain numpy",
-                "                pass",
-            ],
-            ["            _fence(out)"],
-        )],
+        [
+            (
+                [
+                    "            try:",
+                    "                import jax",
+                    "",
+                    "                jax.block_until_ready(out)",
+                    "            except Exception:  # noqa: BLE001 — host twins return plain numpy",
+                    "                pass",
+                ],
+                ["            _fence(out)"],
+            ),
+            (
+                [],
+                [
+                    "            except devmod.KernelError:",
+                    "                # port: a device fault of an installed executable fails the",
+                    "                # dispatch — launching again lazily would cover it",
+                    "                raise",
+                ],
+            ),
+        ],
     ),
     "observability/efficiency.py": (
         ["__doc__", "DEVICE_PEAKS", "_device_peaks", "DeviceProfiler.__doc__",
@@ -106,13 +137,15 @@ PORT_SPECIFIC = {
         ['    solver_backend: str = "tpu"  # "tpu" | "host" (port: "tpu" is the CUDA engine)'],
     )]),
     # the mesh builder is mesh.build_solver_mesh; the engines' device; a
-    # CPU engine's mesh repeats the CPU
+    # CPU engine's mesh repeats the CPU; a KernelError of the AOT warm
+    # start fails the boot
     "controllers/provisioning/provisioner.py": (
-        ["_build_solver_mesh", "_engine_mesh", "default_engine_factory"], [],
+        ["_build_solver_mesh", "_engine_mesh", "default_engine_factory",
+         "Provisioner._warm_engine"], [],
     ),
-    # the daemon's factory takes the device; a failed engine build is the
-    # request's error, never a host-loop answer; a KernelError crosses the
-    # wire typed
+    # the daemon's factory takes the device; a failed engine build (a
+    # KernelError of its AOT warm start too) is the request's error, never a
+    # host-loop answer; a KernelError crosses the wire typed
     "solverd/transport.py": (
         ["_default_engine_factory", "_ERROR_TYPES"],
         [(
@@ -130,9 +163,7 @@ PORT_SPECIFIC = {
             ],
         )],
     ),
-    # the catalog hash computed in place until aot/compiler.py is ported
-    "solverd/fleet.py": (["FleetClient._catalog_hash"], []),
-    # --device; the AOT flags refused until aot/compiler.py is ported
+    # --device
     "solverd/__main__.py": (["main"], []),
     # a KernelError on any probe of a frontier round fails the compute
     # before the walk; the walk's comments say so; reconcile's comment
@@ -145,8 +176,7 @@ PORT_SPECIFIC = {
     "controllers/disruption/controller.py": (["Controller.reconcile"], []),
     # a KernelError is counted as any error is, then raised out of the pass
     "operator/harness.py": (["ReconcilerHarness._run"], []),
-    # --device; the AOT flags refused until aot/compiler.py is ported; a
-    # KernelError stops the loop with a nonzero exit
+    # --device; a KernelError stops the loop with a nonzero exit
     "__main__.py": (["_port_args", "main"], []),
     # the run's device through every engine rebuild; no RTT pin, no jit
     # caches; a KernelError from a dying client's close() raised; the
@@ -185,8 +215,8 @@ PORT_SPECIFIC = {
             ([], ["                device=device,"]),
         ],
     ),
-    # --device; the AOT flags refused until aot/compiler.py is ported; a
-    # KernelError ends the run with a nonzero exit and the flight dump
+    # --device; a KernelError ends the run with a nonzero exit and the
+    # flight dump
     "sim/__main__.py": (["__doc__", "main"], []),
     # a KernelError in the primed sweep fails the batch's requests; a
     # counter born during a solve (a scan decline reason seen for the first
@@ -236,7 +266,7 @@ def _spans(source: str, names) -> set[int]:
         return None
 
     for name in names:
-        parts = name.split(".")
+        parts = name.lstrip("-").split(".")
         if parts == ["__doc__"]:
             add(tree.body[0], with_comments=False)
             continue
@@ -286,8 +316,10 @@ def test_copy_differs_only_in_port_specific_parts(rel):
         if stray_ref or stray_port:
             bad.append((tag, [ref_lines[i] for i in stray_ref], [port_lines[j] for j in stray_port]))
     assert not bad, f"{rel}: differences outside its port-specific parts: {bad}"
-    # every listed part exists in the port
-    assert all(_spans(port, [n]) for n in names), names
+    # every listed part exists in the port, but those it leaves out, which
+    # exist in the reference only
+    assert all(bool(_spans(port, [n])) != n.startswith("-") for n in names), names
+    assert all(_spans(ref, [n]) for n in names if n.startswith("-")), names
 
 
 def test_copies_import_the_port_only():

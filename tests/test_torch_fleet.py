@@ -3,8 +3,8 @@
 Every case of tests/test_fleet.py (failover over per-replica breakers,
 affinity routing, request-id dedup, tenant fairness, graceful drain, the
 admission pipeline) runs on both packages with its own assertions
-(tests/torch_twins.py). Beside them, the routing key: the port computes
-the catalog hash in place (its `aot/compiler.py` is not ported yet), and it
+(tests/torch_twins.py). Beside them, the routing key: the port's catalog
+hash (its `aot.compiler.content_hash`, as the reference's fleet imports it)
 must equal the reference's `aot.compiler.content_hash` on the kwok catalog
 and on its x7 copy; a fleet of either package must then order its
 replicas alike for every key, so each key lands on the same replica.

@@ -245,12 +245,65 @@ def test_main_runs_passes_on_the_cpu(monkeypatch):
     assert any(e["message"] == "operator stopped" and e["passes"] == 2 for e in lines)
 
 
-@pytest.mark.parametrize(
-    "flags", [["--aot-ladder", "default"], ["--compile-cache-dir", "/nonexistent/cache"]]
-)
-def test_main_exits_2_on_the_aot_flags(monkeypatch, flags):
-    rc, _ = _main(monkeypatch, CPU + flags)
-    assert rc == 2
+def _with_a_nodepool(monkeypatch):
+    """The binary's store holds a Ready NodePool, so its first pass prewarms
+    an engine."""
+    cli = tw._m(T, "__main__")
+    helpers = tw.module("helpers", T)
+    real = cli.Store
+
+    def store(*args, **kwargs):
+        s = real(*args, **kwargs)
+        s.create(helpers.nodepool("workers"))
+        return s
+
+    monkeypatch.setattr(cli, "Store", store)
+
+
+@pytest.fixture
+def aot_reset():
+    """No AOT state before and after the case (a content-cached engine
+    would be warm already)."""
+    tw.reset_aot(T)
+    yield tw._m(T, "aot.runtime")
+    tw.reset_aot(T)
+
+
+@pytest.mark.parametrize("flags", [["--aot-ladder", "default"], ["--compile-cache-dir", None]])
+def test_main_exits_2_on_the_aot_flags(monkeypatch, tmp_path, aot_reset, flags):
+    """The AOT flags boot the binary (they exited 2 before the port had its
+    AOT compiler): the first pass warm-starts the CPU engine on the default
+    ladder, with a cache directory when one is given."""
+    flags = [str(tmp_path / "cache") if f is None else f for f in flags]
+    _with_a_nodepool(monkeypatch)
+    base = aot_reset.stats()
+    rc, lines = _main(monkeypatch, CPU + flags, max_passes=2)
+    assert rc == 0
+    assert aot_reset.stats_delta(base)["warm_starts"] == 1
+    walks = [e for e in lines if e["message"] == "AOT warm start complete"]
+    assert walks and walks[0]["fresh_compiles"] == walks[0]["buckets"] > 0
+    if "--compile-cache-dir" in flags:
+        assert any(n.endswith(".aotx") for n in os.listdir(tmp_path / "cache"))
+
+
+def test_main_exits_1_on_a_kernel_error_in_the_warm_start(monkeypatch, tmp_path, aot_reset):
+    """port: a KernelError in a bucket's warm launch stops the binary with
+    exit 1 and names it — no lazy fallback (the reference's warm start logs
+    it and boots on)."""
+    KernelError = _kernel_error()
+    compiler = tw._m(T, "aot.compiler")
+
+    def warm(self):
+        raise KernelError(f"warm start of {self.kernel} at {self.sig}: cudaError 700")
+
+    monkeypatch.setattr(compiler.Executable, "warm", warm)
+    _with_a_nodepool(monkeypatch)
+    rc, lines = _main(monkeypatch, CPU + ["--compile-cache-dir", str(tmp_path)])
+    assert rc == 1
+    messages = [e["message"] for e in lines]
+    assert "reconcile pass failed on a device fault; stopping" in messages
+    assert "KernelError" in json.dumps(lines)
+    assert "AOT warm start complete" not in messages
 
 
 def test_main_without_a_card_exits_2_and_never_falls_back(monkeypatch):

@@ -1,8 +1,10 @@
 """The operator's debug endpoints (`operator/serving.py`) in the port
-against the JAX package's: the cases of tests/test_serving_debug.py run on
-both packages with their own assertions (tests/torch_twins.py), but those
-that dispatch a jax program (the efficiency views' `_wired`); the device
-profile's capture from the Operator runs the port's torch.profiler."""
+against the JAX package's: every case of tests/test_serving_debug.py runs
+on both packages with its own assertions (tests/torch_twins.py). The
+efficiency views' `_wired` dispatches a plain callable in the port and
+notes an executable of the port's AOT compiler as its cost entry
+(`torch_twins.PORT_LINES`); the device profile's capture from the Operator
+runs the port's torch.profiler."""
 
 from __future__ import annotations
 
@@ -15,12 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch_twins as tw  # noqa: E402
 
-# these cases compile and dispatch a jax.jit program in the case itself
-NEEDS_JAX = {
-    "TestKernelsEfficiencyViews::test_cost_view_and_drilldown",
-    "TestKernelsEfficiencyViews::test_cost_view_unknown_kernel_404",
-    "TestKernelsEfficiencyViews::test_timeline_view",
-}
+# every case runs on both packages: the cost and timeline views' jax
+# program has the port's counterpart in PORT_LINES
+NEEDS_JAX: set = set()
 
 
 @pytest.mark.parametrize(

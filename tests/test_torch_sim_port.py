@@ -5,8 +5,9 @@ the twin files that hold it to the reference (tests/test_torch_sim_*.py):
   restart, an operator crash restart, every cell of a fleet — on the CPU,
   and with a stand-in card the engine factory is asked for the card each
   time;
-- `python -m karpenter_tpu_torch.sim` exits 2 on the AOT flags and without
-  a card, and never falls back to the CPU;
+- `python -m karpenter_tpu_torch.sim` runs with the AOT flags (the report
+  counts the warm start), exits 2 without a card, and never falls back to
+  the CPU;
 - a KernelError from a solve (through the flaky-solver wrapper too) or from
   a dying client's `close()` in a restart leaves `run()`, and `main` exits
   nonzero with the flight ring dumped;
@@ -29,6 +30,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import torch_twins as tw  # noqa: E402
 from test_torch_observatory import as_port_counts  # noqa: E402
 
 from karpenter_tpu_torch.controllers.provisioning import provisioner as provmod  # noqa: E402
@@ -176,12 +178,24 @@ def test_mesh_sweep_digest_equal_across_cpu_mesh_sizes():
 # -- the CLI --------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flag", [["--aot-ladder", "default"], ["--compile-cache-dir", "/nonexistent"]])
-def test_main_exits_2_on_the_aot_flags(flag, monkeypatch, capsys):
-    monkeypatch.setattr(harness, "run_scenario", pytest.fail)
-    monkeypatch.setattr(sim_cli, "run_scenario", pytest.fail)
-    assert sim_cli.main(["-s", "steady-state", "--device", "cpu", *flag]) == 2
-    assert "aot/compiler.py" in capsys.readouterr().err
+@pytest.mark.parametrize("flag", [["--aot-ladder", "default"], ["--compile-cache-dir", None]])
+def test_main_exits_2_on_the_aot_flags(flag, monkeypatch, capsys, tmp_path):
+    """The AOT flags run the simulator (they exited 2 before the port had
+    its AOT compiler): the report's kernels.aot counts the boot's warm
+    start, on the CPU engines."""
+    import json
+
+    flag = [str(tmp_path / "cache") if f is None else f for f in flag]
+    tw.reset_aot(tw.T)
+    try:
+        assert sim_cli.main(["-s", "steady-state", "--seed", "7", "--device", "cpu", *flag]) == 0
+    finally:
+        tw.reset_aot(tw.T)
+    report = json.loads(capsys.readouterr().out)
+    assert report["kernels"]["aot"]["warm_starts"] >= 1
+    assert report["kernels"]["aot"]["fresh_compiles"] > 0
+    if "--compile-cache-dir" in flag:
+        assert any(n.endswith(".aotx") for n in os.listdir(tmp_path / "cache"))
 
 
 @pytest.mark.parametrize("argv", [[], ["-s", "steady-state"], ["-s", "steady-state", "--device", "cuda"]])

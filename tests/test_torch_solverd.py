@@ -12,7 +12,7 @@ equal. Beside them:
   a coalesced batch's primed sweep fails the batch's requests (the
   reference's priming swallows it), and a daemon whose engine build fails
   returns that error (the reference's daemon solves on the host instead);
-- `python -m karpenter_tpu_torch.solverd` refuses the AOT flags, and as a
+- `python -m karpenter_tpu_torch.solverd` starts with the AOT flags, and as a
   subprocess on the CPU serves a solve equal to the in-process one, then
   drains and exits 0 on SIGTERM;
 - neither the solve frame nor the daemon's reply carries a torch.Tensor.
@@ -23,6 +23,7 @@ from __future__ import annotations
 import io
 import os
 import pickle
+import json
 import signal
 import subprocess
 import sys
@@ -300,12 +301,29 @@ def _solverd(*args, **kwargs):
     )
 
 
-@pytest.mark.parametrize("flag", [["--aot-ladder", "default"], ["--compile-cache-dir", "cache"]])
-def test_main_refuses_aot_flags(flag):
-    proc = _solverd("--device", "cpu", "--listen", "127.0.0.1:0", *flag)
-    out, _ = proc.communicate(timeout=60)
-    assert proc.returncode == 2, out
-    assert "ROADMAP Queue A item 8" in out
+@pytest.mark.parametrize("flag", [["--aot-ladder", "default"], ["--compile-cache-dir", None]])
+def test_main_refuses_aot_flags(flag, tmp_path):
+    """The AOT flags start the daemon (they exited 2 before the port had its
+    AOT compiler): it listens with the compile service on, and drains and
+    exits 0 on SIGTERM."""
+    flag = [str(tmp_path / "cache") if f is None else f for f in flag]
+    address = str(tmp_path / "s.sock")
+    proc = _solverd("--device", "cpu", "--listen", address, *flag)
+    deadline = time.monotonic() + 60.0
+    try:
+        while not os.path.exists(address):
+            assert proc.poll() is None, proc.communicate()[0]
+            assert time.monotonic() < deadline, "daemon did not bind"
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, out
+    listening = [json.loads(line) for line in out.splitlines() if "solver daemon listening" in line]
+    assert listening and listening[0]["aot"] is True, out
 
 
 def test_main_refuses_a_missing_card():

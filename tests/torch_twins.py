@@ -48,8 +48,17 @@ karpenter_tpu_torch` in process and as a subprocess (`--device cpu`),
 and `python -m karpenter_tpu_torch.sim` in process (`--device cpu`).
 
 A few lines of a reference case state a fact of the reference's host route
-that the port, which launches every batch, does not share; the port's leg
-runs such a line as `PORT_LINES` gives it, with the reason beside it.
+that the port, which launches every batch, does not share, or use jax
+itself (a jit program, its caches); the port's leg runs such a line as
+`PORT_LINES` gives it, with the reason beside it.
+
+Every bucket an AOT warm start walks (`aot.compiler._ensure_executable`) is
+recorded: the kernel, the bucket's dims (the first operand's shape; a row
+batch's row count), its scope and donation fields, and whether it was
+already loaded, a cache hit or a fresh compile. The reference walks a row
+rung once for each target set (the types', the offerings'), the port once
+for both (its row batch is one launch): the reference's second record of a
+row rung is folded into the first.
 """
 
 from __future__ import annotations
@@ -166,7 +175,71 @@ PORT_LINES = [
         "        assert ka == kb",
         "        assert _stable({'kernels': ka}) == _stable({'kernels': kb})  # port: VOLATILE aside",
     ),
+    # the AOT cases: the port has no jit caches to drop (a second boot
+    # loads the kernel libraries it finds), no host twin to pin, and its
+    # named dispatch takes a plain callable on torch tensors
+    (
+        "test_aot",
+        "        jax.clear_caches()",
+        "        pass  # port: no jit caches; built kernel libraries stay loaded",
+    ),
+    (
+        "test_aot",
+        "        prev = catmod.FORCE_BACKEND",
+        "        prev = None  # port: every sweep launches on the engine's device",
+    ),
+    (
+        "test_aot",
+        '        catmod.FORCE_BACKEND = "device"',
+        "        pass  # port: no host twin to route around",
+    ),
+    (
+        "test_aot",
+        "            catmod.FORCE_BACKEND = prev",
+        "            pass  # port: nothing was pinned",
+    ),
+    (
+        "test_aot",
+        "        f = jax.jit(lambda x: x * 2.0)",
+        "        f = lambda x: x * 2.0  # port: the named dispatch calls a plain callable",
+    ),
+    (
+        "test_aot",
+        "        import jax.numpy as jnp",
+        "        import torch as jnp  # port: on torch tensors",
+    ),
+    (
+        "test_perf_floor",
+        "            jax.clear_caches()",
+        "            pass  # port: no jit caches; built kernel libraries stay loaded",
+    ),
+    # the efficiency views: the dispatched program is a plain callable, its
+    # cost entry an executable of the port's AOT compiler
+    (
+        "test_serving_debug",
+        "        f = jax.jit(lambda x: x @ x)",
+        "        f = lambda x: x @ x  # port: a plain callable",
+    ),
+    (
+        "test_serving_debug",
+        "            f.lower(jax.ShapeDtypeStruct((8, 8), np.float32)).compile(),",
+        "            _port_executable(f),  # port: the AOT compiler's executable",
+    ),
 ]
+
+
+def _port_executable(fn):
+    """An 8x8 float32 matmul bucket as the port's AOT compiler records it
+    (aot/compiler.Executable): its cost is 2 * 8^3 operations and the two
+    operands' and the output's bytes."""
+    import torch
+
+    compiler = _m(T, "aot.compiler")
+    spec = compiler.OperandSpec((8, 8), "float32", "cpu")
+    return compiler.Executable(
+        "spec.eff", fn, (spec,), "8x8", {"flops": 2.0 * 8 ** 3, "bytes accessed": 3.0 * 8 * 8 * 4},
+        torch.device("cpu"),
+    )
 
 
 def _stable(report: dict) -> dict:
@@ -182,7 +255,7 @@ def _source(name: str, pkg: str) -> str:
         src = re.sub(r"\bkarpenter_tpu\b", T, src)
         for module_, ref_line, port_line in PORT_LINES:
             if module_ == name:
-                assert src.count(ref_line + "\n") == 1, (name, ref_line)
+                assert src.count(ref_line + "\n") >= 1, (name, ref_line)
                 src = src.replace(ref_line + "\n", port_line + "\n")
     return src
 
@@ -208,6 +281,7 @@ def module(name: str, pkg: str) -> types.ModuleType:
     mod = types.ModuleType(twin_name(name, pkg))
     mod.__file__ = os.path.join(TESTS, f"{name}.py")
     mod._stable = _stable
+    mod._port_executable = _port_executable
     sys.modules[mod.__name__] = mod
     for sibling in SIBLINGS:
         if sibling != name and re.search(rf"^\s*from {sibling} import", _source(name, pkg), re.M):
@@ -626,6 +700,20 @@ def _fixture(mod, name: str, mp, tmp: pathlib.Path, stack: contextlib.ExitStack,
     return out
 
 
+def reset_aot(pkg: str) -> None:
+    """What an AOT warm start leaves behind in a process, dropped: the
+    runtime's ladder, cache and executables, its off-ladder record, the
+    efficiency cost tables (a simulator report carries their size) and the
+    Provisioner's content-cached engines (a cached engine keeps its
+    ladder)."""
+    rt = _m(pkg, "aot.runtime")
+    rt.configure(None, None)
+    rt.clear_executables()
+    rt.reset_off_ladder()
+    _m(pkg, "observability.efficiency").tables().reset()
+    _m(pkg, "controllers.provisioning.provisioner")._ENGINE_CONTENT_CACHE.clear()
+
+
 def reset(pkg: str, seed: int = 0) -> None:
     """The same names and uids in either package."""
     _m(pkg, "apis.core").set_uid_source(random.Random(seed))
@@ -694,6 +782,33 @@ def _recorded_sims(mp, pkg: str) -> None:
         mp.setattr(cls, "run", run)
 
 
+def _recorded_warm_starts(mp, pkg: str) -> None:
+    """Every bucket an AOT warm start walks, recorded with its outcome (see
+    the module docstring)."""
+    compiler = _m(pkg, "aot.compiler")
+    real = compiler._ensure_executable
+
+    def ensure(plan, catalog_hash, ladder, cache, registry, summary):
+        before = dict(summary)
+        real(plan, catalog_hash, ladder, cache, registry, summary)
+        outcome = sorted(k for k in summary if k != "buckets" and summary[k] != before[k])
+        kernel, sig = plan[0], plan[3]
+        dims = sig.split(",")[0]
+        if kernel == "catalog.row_compat":
+            dims = dims.split("x")[0]
+        scope = plan[4] if len(plan) > 4 else ""
+        donation = plan[5] if len(plan) > 5 else ""
+        item = ("aot-bucket", kernel, dims, scope, donation, outcome)
+        if (
+            pkg == J and kernel == "catalog.row_compat" and _LEG
+            and _LEG[-1].obs and _LEG[-1].obs[-1] == item
+        ):
+            return  # the rung's second target set: one launch in the port
+        _record(item)
+
+    mp.setattr(compiler, "_ensure_executable", ensure)
+
+
 @contextlib.contextmanager
 def leg(pkg: str):
     """One run's recording, names and settings."""
@@ -706,6 +821,7 @@ def leg(pkg: str):
             _cpu_factories(mp)
         _seeded_uuids(mp, pkg)
         _recorded_sims(mp, pkg)
+        _recorded_warm_starts(mp, pkg)
         # the delta counters a simulation report carries are the process's
         # (report["solver"]["delta"]): count from 0, as a fresh process does
         delta = _m(pkg, "ops.delta")
