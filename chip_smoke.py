@@ -7,8 +7,9 @@
     python3 chip_smoke.py --operator # phases 1-2 and 4o (the operator) alone
     python3 chip_smoke.py --sim      # phases 1-2 and 4v (the simulator) alone
     python3 chip_smoke.py --aot      # phases 1-2 and 4a (the AOT compile service) alone
-    python3 chip_smoke.py --turns TREE [TREE ...]   # the group and sweep
-                                     # wrappers of each checkout, timed in turns
+    python3 chip_smoke.py --turns TREE [TREE ...]   # the group, sweep, fits
+                                     # and stage wrappers of each checkout,
+                                     # timed in turns
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -29,9 +30,17 @@ Phases, in order; any failure exits non-zero:
      2 and 4, F 1, 7 and 64, U 1, 33 and 70, I 1, 31 and 1008 (all-false
      rows among them) and at the workload's shape, the masks also as row
      ranges of one buffer and one byte past 16-byte alignment;
-     fits_matrix (int32 and float32) and stage_plane on random inputs
-     (phase 7 checks them again on the workload's inputs; those launches
-     are the only ones they have: no path of the reference runs them);
+     fits_matrix (int32 and float32) and stage_plane on random inputs and
+     on the card tests' edges of their tiling (tests/torch_inputs.py: I
+     across the wide, mid and narrow instances, D 0, 4 and 11, P a
+     multiple of no row tile; NaN, the infinities, -0.0 or the int32 clip
+     values in both operands; the operands one element in; stage planes
+     of sizes no multiple of 16, with true bytes that are not 1, 0, 1 and
+     4 bytes past alignment), the profiler seeing all nine instances of
+     the two kernels run (phase 7 checks them again
+     on the workload's inputs and B7 on a [50000, 1008] plane; those
+     launches are the only ones they have: no path of the reference runs
+     them);
      offering_reduce (kt_cube with no compat plane) on ragged P/R/O/K
      (K=0, an offering never available);
      kt_group_solve in its four modes (solve_block, solve_block_core,
@@ -352,7 +361,12 @@ masks from the host to famu_ok on the card: the checkout's own
 composition) and its device work alone; B12, a delta pass's kernels on the
 workload's first 128 groups (delta_pass, or where the checkout lacks it
 solve_block_scatter then delta_finalize) and the delta group pass through
-GroupResidency.solve cold, count-only and with new shapes. Each checked
+GroupResidency.solve cold, count-only and with new shapes; B4
+fits_matrix on the workload's quantized requests against its allocatables
+([50000, 4] x [1008, 4], int32 and float32) and B7 stage_plane on planes of
+[200, 1008] and [50000, 1008], with ptxas's report and the SASS of the
+checkout's fits_matrix_kernel and stage_plane_kernel (sass_loops: the
+instructions per 16 bytes stored). Each checked
 against its plain version, then its
 wrapper ms, device ms by kernel, device operations, host us by part and C
 launches per call; all in chiprun_out/turns.json.
@@ -487,7 +501,8 @@ SCAN_BLOCK_SIZES = (256, 512, 1024)
 PTXAS: dict = {}  # scan kernel -> ptxas's report, filled by phase_build
 GROUP_PTXAS: dict = {}  # the same for kt_group_solve's kernel
 FEAS_PTXAS: dict = {}  # the same for kt_row_compat's and kt_cube's kernels
-FEAS_KERNELS = ["row_compat_kernel", "cube_kernel", "uid_project_kernel"]
+FEAS_KERNELS = ["row_compat_kernel", "cube_kernel", "uid_project_kernel", "fits_matrix_kernel",
+                "stage_plane_kernel"]
 
 
 def log(msg: str) -> None:
@@ -1175,6 +1190,64 @@ def ptxas_report(text: str, names) -> dict:
     return out
 
 
+def sass_loops(lib_path: str, names) -> dict:
+    """Per compiled function whose mangled name holds one of `names`, from
+    `cuobjdump -sass` of the built library: its SASS instructions and those
+    of its innermost storing loop (the shortest span of a backward branch
+    that holds a global store): the loop's instructions, compares (ISETP /
+    FSETP), stores, the bytes they write and the instructions per 16 bytes
+    written (16 outputs of a bool or uint8 kernel). {} where the toolkit
+    has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300).stdout
+    widths = {"128": 16, "64": 8, "U8": 1, "S8": 1, "U16": 2, "S16": 2}
+    funcs: dict = {}
+    fn = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if any(n in m.group(1) for n in names) else None
+            if fn:
+                funcs[fn] = []
+            continue
+        m = fn and re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);", line)
+        if m:
+            funcs[fn].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for fn, ins in funcs.items():
+        best = None
+        for addr, op, args in ins:
+            tgt = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+            if not tgt or int(tgt.group(1), 16) >= addr:
+                continue
+            body = [(o, a) for x, o, a in ins if int(tgt.group(1), 16) <= x <= addr]
+            if any(o.startswith("STG") for o, _ in body) and (best is None or len(body) < len(best)):
+                best = body
+        rec = {"instructions": len(ins)}
+        if best:
+            stores = [o for o, _ in best if o.startswith("STG")]
+            nbytes_ = sum(next((w for k, w in widths.items() if o.endswith("." + k)), 4) for o in stores)
+            rec["loop"] = {"instructions": len(best), "setp": sum(o.startswith(("ISETP", "FSETP"))
+                                                                  for o, _ in best),
+                           "stores": stores, "store_bytes": nbytes_,
+                           "instructions_per_16_bytes": 16 * len(best) / nbytes_}
+        out[fn] = rec
+    return out
+
+
+def library_path(name: str) -> str:
+    """The built library of csrc/<name>.cu in the build directory."""
+    from karpenter_tpu_torch import device
+
+    return device._so_path(name, device._sources()[name])
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int64) if t.dtype == torch.float64 else t
 
@@ -1417,36 +1490,87 @@ def check_resident_bytes(cfg, args) -> None:
     assert got == want, f"scan_resident_bytes {got} != the kernel's {want} for {d}"
 
 
+# the template instances of fits_matrix_kernel and stage_plane_kernel (the
+# wide, mid and narrow instance of each), as the profiler names them
+FITS_STAGE_INSTANCES = frozenset(
+    [("fits_matrix_kernel", f"{t}, {w}") for t in ("int", "float") for w in (16, 4, 1)]
+    + [("stage_plane_kernel", w) for w in ("uint4", "unsigned int", "unsigned char")])
+
+
 def fits_stage_checks(captured, dev=torch.device("cuda")):
     """B4 (fits_matrix, int32 and float32) and B7 (stage_plane) against
-    their plain versions, bit for bit, on random inputs with zero
-    capacities and ragged shapes. Their launches here and in
-    fits_stage_entries' workload checks are their only ones."""
+    their plain versions, bit for bit: random inputs with zero capacities
+    and ragged shapes; the card tests' edge cases of the kernels' tiling
+    (tests/torch_inputs.py: FITS_EDGE_CASES with NaN, the infinities and
+    -0.0 or the quantizer's clip values in both operands, the operands
+    also one element in; STAGE_EDGE_SHAPES, sizes no multiple of 16, with
+    true bytes that are not 1, each also 1 and 4 bytes past alignment). The
+    profiler must see every instance of both kernels (the wide, mid and
+    narrow) run. Their launches here and in fits_stage_entries' workload
+    checks are their only ones."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
     from karpenter_tpu_torch.ops import feasibility as feas
 
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_inputs import (FITS_EDGE_CASES, STAGE_EDGE_SHAPES, bool_tensor, fits_edge_inputs,
+                              offset_copy, stage_edge_inputs)
+
+    t0 = time.perf_counter()
     rng = np.random.RandomState(2)
     n0 = {k: feas.LAUNCHES[k] for k in ("fits_matrix", "stage_plane")}
     n = 0
-    for P, I, D in ((1, 1, 1), (37, 1008, 4), (256, 1008, 4), (5, 33, 6), (300, 7, 0), (70000, 9, 4),
-                    (9, 40, 11), (2049, 300, 8)):
-        for dtype in (np.int32, np.float32):
-            alloc = rng.randint(0, 8, size=(I, D)).astype(dtype)
-            alloc[rng.rand(I, D) < 0.2] = 0
-            req = rng.randint(0, 8, size=(P, D)).astype(dtype)
-            req[rng.rand(P, D) < 0.3] = 0
-            if dtype == np.float32:
-                req += rng.choice([0.0, 0.25, -0.5], size=(P, D)).astype(np.float32)
-            r, a = _to(req, dev), _to(alloc, dev)
-            check_equal(f"fits_matrix {np.dtype(dtype).name} P={P} I={I} D={D}",
-                        feas.fits_matrix(r, a), feas.fits_matrix_plain(r, a))
-            n += 1
-    for shape in ((1,), (7, 1008), (256, 1008), (3, 5, 77), (1 << 20,)):
-        planes = [_to(rng.rand(*shape) < q, dev) for q in (0.8, 0.7, 0.6)]
-        check_equal(f"stage_plane {shape}", feas.stage_plane(*planes), feas.stage_plane_plain(*planes))
-        n += 1
+
+    def check_fits(label, r, a, want):
+        check_equal(f"fits_matrix {label}", feas.fits_matrix(r, a), want.to(dev))
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for P, I, D in ((1, 1, 1), (37, 1008, 4), (256, 1008, 4), (5, 33, 6), (300, 7, 0),
+                        (70000, 9, 4), (9, 40, 11), (2049, 300, 8)):
+            for dtype in (np.int32, np.float32):
+                alloc = rng.randint(0, 8, size=(I, D)).astype(dtype)
+                alloc[rng.rand(I, D) < 0.2] = 0
+                req = rng.randint(0, 8, size=(P, D)).astype(dtype)
+                req[rng.rand(P, D) < 0.3] = 0
+                if dtype == np.float32:
+                    req += rng.choice([0.0, 0.25, -0.5], size=(P, D)).astype(np.float32)
+                r, a = torch.from_numpy(req), torch.from_numpy(alloc)
+                check_fits(f"{np.dtype(dtype).name} P={P} I={I} D={D}", r.to(dev), a.to(dev),
+                           feas.fits_matrix_plain(r, a))
+                n += 1
+        for case in FITS_EDGE_CASES:
+            for dtype in (np.int32, np.float32):
+                req, alloc = (torch.from_numpy(x) for x in fits_edge_inputs(case, dtype))
+                want = feas.fits_matrix_plain(req, alloc)
+                r, a = req.to(dev), alloc.to(dev)
+                label = f"{np.dtype(dtype).name} edges P, I, D = {case}"
+                check_fits(label, r, a, want)
+                check_fits(f"{label}, both operands one element in", offset_copy(r, 1),
+                           offset_copy(a, 1), want)
+                check_fits(f"{label}, requests one row in", r[1:], a, want[1:])
+                n += 3
+        for shape in STAGE_EDGE_SHAPES:
+            for raw in (False, True):
+                planes = [bool_tensor(p) for p in stage_edge_inputs(shape, raw)]
+                want = feas.stage_plane_plain(*planes).to(dev)
+                for offset in (0, 1, 4):
+                    check_equal(f"stage_plane {shape} raw={raw} offset={offset}",
+                                feas.stage_plane(*(offset_copy(p.to(dev), offset) for p in planes)),
+                                want)
+                    n += 1
+        torch.cuda.synchronize()
+    seen = {m.groups() for ev in prof.key_averages()
+            for m in [re.search(r"(fits_matrix_kernel|stage_plane_kernel)<([^>]*)>", ev.key)] if m}
     captured["phase3_launches"] = {k: feas.LAUNCHES[k] - n0[k] for k in n0}
     log(f"kernel checks: {n} fits_matrix and stage_plane cases bit-identical to the plain "
-        f"versions; launches {json.dumps(captured['phase3_launches'])}")
+        f"versions in {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps(captured['phase3_launches'])}; instances the profiler saw ({len(seen)}): "
+        f"{json.dumps(sorted(f'{k}<{t}>' for k, t in seen))}")
+    assert seen == FITS_STAGE_INSTANCES, \
+        f"instances run {sorted(seen)}, want {sorted(FITS_STAGE_INSTANCES)}"
+    captured["fits_stage_instances"] = sorted(f"{k}<{t}>" for k, t in seen)
 
 
 def assert_resident(launches, label) -> None:
@@ -6213,6 +6337,7 @@ def fits_stage_entries(captured, launches):
     launches go in `check_launches`."""
     from karpenter_tpu_torch.ops import feasibility as feas
 
+    t0 = time.perf_counter()
     engine, reqs, requests = captured["workload"]
     dev = engine.device
     n0 = {k: feas.LAUNCHES[k] for k in ("fits_matrix", "stage_plane")}
@@ -6256,21 +6381,51 @@ def fits_stage_entries(captured, launches):
         )
     err, ms, pms, nb, ops, rate, dev_ms, shapes = timed["int32"]
     f32 = timed["float32"]
+    instances = captured.get("fits_stage_instances", [])
+    plane = torch.empty_like(checked["int32"][0])  # the store floor: fill_ of a [P, I] bool plane
+
+    def own(kernel, table):
+        return {k: v for k, v in table.items() if kernel in k}
+
     entries.append(_entry(
         "fits_matrix", launches, err, ms, pms, nb, ops, rate, None, dev_ms, shapes=shapes,
         check_launches=checks["fits_matrix"], dtype="int32", ms_float32=f32[1], plain_ms_float32=f32[2], device_ms_float32=f32[6],
         bound_ms_float32=max(f32[3] / HBM_BYTES_PER_S, f32[4] / f32[5]) * 1e3,
-        max_abs_err_float32=f32[0],
+        max_abs_err_float32=f32[0], instances_checked=[k for k in instances if "fits_matrix" in k],
+        store_floor_ms=cuda_ms(lambda: plane.fill_(True)),
+        ptxas=own("fits_matrix_kernel", FEAS_PTXAS),
     ))
     got, want = got_plane, want_plane
+    # the size of the fits plane above, where bytes bound the kernel: three
+    # random planes of [P, I] made on the card from a seed (the codes' cost
+    # does not depend on the data)
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    big = tuple(torch.rand(len(req_q), len(alloc_q), generator=gen, device=dev) < q
+                for q in (0.8, 0.7, 0.6))
+    m0 = feas.LAUNCHES["stage_plane"]
+    got_big, want_big = feas.stage_plane(*big), feas.stage_plane_plain(*big)
+    checks["stage_plane"] += feas.LAUNCHES["stage_plane"] - m0
+    check_equal(f"stage_plane on a {list(big[0].shape)} plane", got_big, want_big)
+    big_dev = _dev_sum(device_kernel_ms(lambda: feas.stage_plane(*big), ["stage_plane_kernel"]))
+    large = {"shape": list(big[0].shape), "max_abs_err": _max_abs_err(got_big, want_big),
+             "ms": cuda_ms(lambda: feas.stage_plane(*big)),
+             "plain_ms": cuda_ms(lambda: feas.stage_plane_plain(*big), reps=3, warmup=1),
+             "device_ms": big_dev, "bound_ms": nbytes(*big, got_big) / HBM_BYTES_PER_S * 1e3}
+    del big, got_big, want_big
+    large["phase_s"] = time.perf_counter() - t1
     # up to three tests and a select per element
     entries.append(_entry(
         "stage_plane", launches, _max_abs_err(got, want), cuda_ms(lambda: feas.stage_plane(*planes)),
         cuda_ms(lambda: feas.stage_plane_plain(*planes), reps=5, warmup=1), nbytes(*planes, got),
         4 * got.numel(), WORD_OPS_PER_S, None,
         _dev_sum(device_kernel_ms(lambda: feas.stage_plane(*planes), ["stage_plane_kernel"])),
-        shapes=[list(planes[0].shape)] * 3, check_launches=checks["stage_plane"],
+        shapes=[list(planes[0].shape)] * 3, check_launches=checks["stage_plane"], large=large,
+        instances_checked=[k for k in instances if "stage_plane" in k],
+        ptxas=own("stage_plane_kernel", FEAS_PTXAS),
     ))
+    log(f"fits_matrix and stage_plane checked and timed in {time.perf_counter() - t0:.1f} s (the "
+        f"{large['shape']} plane {large['phase_s']:.1f} s)")
     return entries
 
 
@@ -6977,6 +7132,34 @@ def delta_turns(full, dev) -> dict:
     return {"B12 a delta pass's kernels (128-group frontier, 256 groups)": (run, check)}
 
 
+def fits_stage_turns(engine, requests, dev) -> dict:
+    """B4 on the workload's quantized requests against its allocatables
+    ([50000, 4] x [1008, 4], int32 and float32) and B7 on seeded random
+    planes of [200, 1008] (the 200 shapes' sweep) and [50000, 1008] (the
+    fits plane's size; the codes' cost does not depend on the data): each
+    name's run and its check against the plain version."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    scales = feas.resource_scales(engine.resource_dims)
+    req_q = feas.quantize_resources(requests, ceil=True, scales=scales).astype(np.int32)
+    alloc_q = feas.quantize_resources(engine.allocatable, ceil=False, scales=scales).astype(np.int32)
+    runs = {}
+    for dtype in (np.int32, np.float32):
+        r, a = _to(req_q.astype(dtype), dev), _to(alloc_q.astype(dtype), dev)
+        name = f"B4 fits_matrix {np.dtype(dtype).name} {list(r.shape)} x {list(a.shape)}"
+        runs[name] = (lambda r=r, a=a: feas.fits_matrix(r, a),
+                      lambda r=r, a=a, name=name: check_equal(
+                          name, feas.fits_matrix(r, a), feas.fits_matrix_plain(r, a)))
+    rng = np.random.RandomState(18)
+    for shape in ((200, len(alloc_q)), (len(req_q), len(alloc_q))):
+        planes = tuple(_to(rng.rand(*shape) < q, dev) for q in (0.8, 0.7, 0.6))
+        name = f"B7 stage_plane {list(shape)}"
+        runs[name] = (lambda planes=planes: feas.stage_plane(*planes),
+                      lambda planes=planes, name=name: check_equal(
+                          name, feas.stage_plane(*planes), feas.stage_plane_plain(*planes)))
+    return runs
+
+
 def _device_ops(dev_ms: dict) -> float:
     """Device operations a call (kernels and copies) from device_per_call's
     launches_seen."""
@@ -7034,7 +7217,11 @@ def turns_of(tree: str) -> dict:
     runs.update(sweep_runs)
     runs.update(famu_turns(dev))
     runs.update(delta_turns(full, dev))
-    out = {"tree": tree, "device": torch.cuda.get_device_name(0), "kernels": {}}
+    runs.update(fits_stage_turns(engine, requests, dev))
+    fs = ["fits_matrix_kernel", "stage_plane_kernel"]
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0), "kernels": {},
+           "fits_stage_code": {"ptxas": ptxas_report(device.BUILD_LOG.get("feasibility", ""), fs),
+                               "sass": sass_loops(library_path("feasibility"), fs)}}
     real = feas.launch
 
     def per_call_launches(run):

@@ -518,33 +518,128 @@ __global__ void noop_kernel() {}
 // positive request against a zero capacity fails. float32 (the reference's
 // own test passes it) and int32 (the quantized units of the exact path).
 //
-// Elementwise: one thread per type i (along x, so each bool row is written
-// coalesced) walking entity rows p = blockIdx.y, +gridDim.y, ...; the
-// type's first FITS_DMAX capacities stay in registers for the whole walk
-// (4 dims on the solve path), the request row is one broadcast load per dim.
-// Bound by bytes: P*I output bytes against P*D + I*D inputs. A thread per
-// (p, i) would spend each thread's life on one dependent load and one byte
-// store; walking ~50 rows per thread keeps the stores streaming.
-constexpr int FITS_DMAX = 8;
-constexpr int FITS_ROW_BLOCKS = 1024;  // grid.y: rows walked per thread = P / 1024
+// Bound by the bytes it writes (P*I bools against P*D + I*D inputs), and
+// close behind them by its compares (P*I*D): at the workload's [50000, 4] x
+// [1008, 4] 50.4 MB take 0.015 ms at 3.35 TB/s and 201.6 M compares 0.012 ms
+// at 64 a clock an SM. So the design spends few instructions per output
+// byte (a chain of 4 predicate compares, a select and a share of the
+// packing: 117 SASS instructions per 16 outputs) and writes 16 bytes a
+// store. The compare chains, not the stores, set its time (PERF.md, B4):
+//   - a thread owns W consecutive types (16, 4 or 1: the wide, mid and
+//     narrow instances, picked by the C entry from I and the output's
+//     alignment) and holds their first FITS_DREG capacities in registers
+//     for every row it visits, padded with the type's largest value so a
+//     missing dim always fits without a branch;
+//   - a block is ct threads of W types along the row (a tile of the type
+//     axis, grid.x) times rpb rows; it stages a tile of request rows in
+//     shared memory with coalesced loads, FITS_DREG values a row (padded
+//     with the smallest value), and a thread reads its row's values with
+//     one 16-byte broadcast load;
+//   - a row's W results are packed into the bytes of 32-bit words and leave
+//     in one W-byte store, neighbouring threads on neighbouring addresses
+//     (a 1008-type row is 63 16-byte stores);
+//   - the grid is persistent: one block an SM walks the row tiles
+//     (grid.y), so each block loads its capacities once (two blocks an SM
+//     ran no faster).
+// Dims past FITS_DREG read both operands from global memory (L1): correct
+// for any D, fast for the solve path's D = 4. The compares are C++'s <=
+// without fast-math, as JAX's: NaN on either side fails, -0.0 <= 0.0 holds.
+constexpr int FITS_DREG = 4;             // dims a thread holds in registers
+constexpr int FITS_THREADS = 256;        // most threads a block
+constexpr int FITS_ROWS_PER_THREAD = 8;  // rows a thread takes from a staged tile
+constexpr int FITS_BLOCKS_PER_SM = 1;
+constexpr int SMS = 132;                 // the H100 SXM's SMs
+
+template <typename T> struct FitsRange;
+template <> struct FitsRange<int32_t> {
+  static __device__ __forceinline__ int32_t lo() { return INT32_MIN; }
+  static __device__ __forceinline__ int32_t hi() { return INT32_MAX; }
+};
+template <> struct FitsRange<float> {
+  static __device__ __forceinline__ float lo() { return __int_as_float(0xff800000); }  // -inf
+  static __device__ __forceinline__ float hi() { return __int_as_float(0x7f800000); }  // +inf
+};
 
 template <typename T>
-__global__ void fits_matrix_kernel(const T* __restrict__ req, const T* __restrict__ alloc,
-                                   uint8_t* __restrict__ out, int P, int I, int D) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= I) return;
-  T cap[FITS_DMAX];
+struct alignas(16) FitsQuad {
+  T v[FITS_DREG];
+};
+
+// W result bytes (one a type, 0 or 1) to out[0, W) in one store.
+template <int W>
+__device__ __forceinline__ void store_bytes(uint8_t* out, const uint32_t (&w)[(W + 3) / 4]) {
+  if constexpr (W == 16) {
+    *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (W == 4) {
+    *reinterpret_cast<uint32_t*>(out) = w[0];
+  } else {
+    *out = static_cast<uint8_t>(w[0]);
+  }
+}
+
+// Rows r = first, first + step, ... < rows of the staged tile whose row 0
+// is entity row p0. MORE: D > FITS_DREG, the dims past the registers read
+// from global memory.
+template <typename T, int W, bool MORE>
+__device__ __forceinline__ void fits_rows(const FitsQuad<T>* tile, const T (&cap)[W][FITS_DREG],
+                                          const T* __restrict__ req, const T* __restrict__ alloc,
+                                          uint8_t* __restrict__ out, long long p0, int first,
+                                          int step, int rows, int i0, int I, int D) {
+  for (int r = first; r < rows; r += step) {
+    const FitsQuad<T> q = tile[r];
+    const long long p = p0 + r;
+    uint32_t w[(W + 3) / 4] = {};
 #pragma unroll
-  for (int d = 0; d < FITS_DMAX; ++d)
-    if (d < D) cap[d] = alloc[static_cast<size_t>(i) * D + d];
-  for (int p = blockIdx.y; p < P; p += gridDim.y) {
-    const T* r = req + static_cast<size_t>(p) * D;
-    bool ok = true;
+    for (int j = 0; j < W; ++j) {
+      bool ok = true;
 #pragma unroll
-    for (int d = 0; d < FITS_DMAX; ++d)
-      if (d < D) ok &= r[d] <= cap[d];
-    for (int d = FITS_DMAX; d < D; ++d) ok &= r[d] <= alloc[static_cast<size_t>(i) * D + d];
-    out[static_cast<size_t>(p) * I + i] = ok;
+      for (int d = 0; d < FITS_DREG; ++d) ok &= q.v[d] <= cap[j][d];
+      if (MORE) {
+        for (int d = FITS_DREG; d < D; ++d)
+          ok &= req[p * D + d] <= alloc[static_cast<long long>(i0 + j) * D + d];
+      }
+      w[j / 4] |= static_cast<uint32_t>(ok) << (8 * (j % 4));
+    }
+    store_bytes<W>(out + p * I + i0, w);
+  }
+}
+
+// blockDim.x = ct * rpb: thread t owns types [i0, i0 + W) in row slot
+// t / ct; grid.x tiles the types ct * W at a time, grid.y walks the row
+// tiles of tile_rows = rpb * FITS_ROWS_PER_THREAD rows. W > 1 needs
+// I % W == 0 and out aligned to W bytes.
+template <typename T, int W>
+__global__ void __launch_bounds__(FITS_THREADS, FITS_BLOCKS_PER_SM)
+fits_matrix_kernel(const T* __restrict__ req, const T* __restrict__ alloc,
+                   uint8_t* __restrict__ out, int P, int I, int D, int ct, int tile_rows) {
+  extern __shared__ __align__(16) unsigned char fits_smem[];
+  const FitsQuad<T>* tile = reinterpret_cast<const FitsQuad<T>*>(fits_smem);
+  T* staged = reinterpret_cast<T*>(fits_smem);
+  const int t = threadIdx.x;
+  const int rpb = blockDim.x / ct;
+  const int i0 = (blockIdx.x * ct + t % ct) * W;
+  const bool active = i0 < I;
+  T cap[W][FITS_DREG];
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+#pragma unroll
+    for (int d = 0; d < FITS_DREG; ++d)
+      cap[j][d] = active && d < D ? alloc[static_cast<long long>(i0 + j) * D + d]
+                                  : FitsRange<T>::hi();
+  const long long stride = static_cast<long long>(gridDim.y) * tile_rows;
+  for (long long p0 = static_cast<long long>(blockIdx.y) * tile_rows; p0 < P; p0 += stride) {
+    const int rows = P - p0 < tile_rows ? static_cast<int>(P - p0) : tile_rows;
+    __syncthreads();  // every thread is done with the previous tile
+    for (int k = t; k < rows * FITS_DREG; k += blockDim.x) {
+      const int r = k / FITS_DREG, d = k % FITS_DREG;
+      staged[k] = d < D ? req[(p0 + r) * D + d] : FitsRange<T>::lo();
+    }
+    __syncthreads();
+    if (!active) continue;
+    if (D > FITS_DREG)
+      fits_rows<T, W, true>(tile, cap, req, alloc, out, p0, t / ct, rpb, rows, i0, I, D);
+    else
+      fits_rows<T, W, false>(tile, cap, req, alloc, out, p0, t / ct, rpb, rows, i0, I, D);
   }
 }
 
@@ -552,28 +647,112 @@ __global__ void fits_matrix_kernel(const T* __restrict__ req, const T* __restric
 // B7: the uint8 first-failing-stage code of each (entity, type) pair from
 // the cube's three bool planes, in the funnel's order: requirements (1),
 // resources (2), offerings (3), survived (0) — the reference's nested
-// jnp.where. One thread per element, grid-stride; bound by bytes (3 bytes
-// read, 1 written per element).
-__global__ void stage_plane_kernel(const uint8_t* __restrict__ compat,
-                                   const uint8_t* __restrict__ fits,
-                                   const uint8_t* __restrict__ offer,
-                                   uint8_t* __restrict__ out, long long n) {
-  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; k < n;
+// jnp.where. Bound by bytes (3 read, 1 written an element).
+//
+// A thread takes W elements a step (16, 4 or 1: the wide, mid and narrow
+// instances, picked by the C entry from the four pointers' alignment): one
+// W-byte load from each plane, the codes made branch-free on 32-bit words
+// of four elements, one W-byte store; a grid-stride loop over the n / W
+// vectors, then block 0 makes the n % W elements left, one a thread. Each
+// plane's bytes are first made 0 or 1 (nonzero_bytes), so any non-zero
+// byte counts as true, as the plain version reads a bool: the codes do not
+// rely on torch storing bool as 0/1.
+constexpr int STAGE_THREADS = 256;
+constexpr int STAGE_BLOCKS_PER_SM = 8;
+
+// 0x01 in each byte of x that is not zero, 0x00 in each that is: bit 7 of
+// (b & 0x7f) + 0x7f is set iff b's low seven bits are not all zero (no
+// carry leaves the byte), and OR b adds b's own bit 7.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  return ((((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) >> 7) & 0x01010101u;
+}
+
+// The codes of four elements, a byte each: 1 where !c, else 2 where !f,
+// else 3 where !o, else 0. On 0/1 bytes no term carries out of its byte.
+__device__ __forceinline__ uint32_t stage_codes(uint32_t c, uint32_t f, uint32_t o) {
+  constexpr uint32_t ONE = 0x01010101u;
+  c = nonzero_bytes(c);
+  f = nonzero_bytes(f);
+  o = nonzero_bytes(o);
+  return (c ^ ONE) | ((c & (f ^ ONE)) << 1) | ((c & f & (o ^ ONE)) * 3u);
+}
+
+__device__ __forceinline__ uint4 stage_codes(uint4 c, uint4 f, uint4 o) {
+  return make_uint4(stage_codes(c.x, f.x, o.x), stage_codes(c.y, f.y, o.y),
+                    stage_codes(c.z, f.z, o.z), stage_codes(c.w, f.w, o.w));
+}
+
+__device__ __forceinline__ uint8_t stage_codes(uint8_t c, uint8_t f, uint8_t o) {
+  return static_cast<uint8_t>(stage_codes(uint32_t{c}, uint32_t{f}, uint32_t{o}));
+}
+
+template <typename V>  // uint4, uint32_t or uint8_t: W = sizeof(V) elements a step
+__global__ void __launch_bounds__(STAGE_THREADS)
+stage_plane_kernel(const uint8_t* __restrict__ compat, const uint8_t* __restrict__ fits,
+                   const uint8_t* __restrict__ offer, uint8_t* __restrict__ out, long long n) {
+  constexpr int W = sizeof(V);
+  const long long nv = n / W;
+  const V* c = reinterpret_cast<const V*>(compat);
+  const V* f = reinterpret_cast<const V*>(fits);
+  const V* o = reinterpret_cast<const V*>(offer);
+  V* dst = reinterpret_cast<V*>(out);
+  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; k < nv;
        k += static_cast<long long>(gridDim.x) * blockDim.x)
-    out[k] = !compat[k] ? 1 : (!fits[k] ? 2 : (!offer[k] ? 3 : 0));
+    dst[k] = stage_codes(c[k], f[k], o[k]);
+  if (W > 1 && blockIdx.x == 0 && threadIdx.x < n - nv * W) {
+    const long long k = nv * W + threadIdx.x;
+    out[k] = stage_codes(compat[k], fits[k], offer[k]);
+  }
 }
 
 constexpr int MAX_GRID_Y = 65535;
 
+inline bool aligned_to(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename T, int W>
+int launch_fits_w(const T* req, const T* alloc, uint8_t* out, int P, int I, int D,
+                  cudaStream_t stream) {
+  const int chunks = (I + W - 1) / W;
+  const int ct = chunks < FITS_THREADS ? chunks : FITS_THREADS;
+  const int rpb = FITS_THREADS / ct;
+  const int tile_rows = rpb * FITS_ROWS_PER_THREAD;
+  const int gx = (chunks + ct - 1) / ct;
+  const long long row_tiles = (static_cast<long long>(P) + tile_rows - 1) / tile_rows;
+  long long gy = (SMS * FITS_BLOCKS_PER_SM + gx - 1) / gx;
+  if (gy > row_tiles) gy = row_tiles;
+  if (gy > MAX_GRID_Y) gy = MAX_GRID_Y;
+  const size_t shmem = static_cast<size_t>(tile_rows) * sizeof(FitsQuad<T>);
+  fits_matrix_kernel<T, W><<<dim3(gx, static_cast<unsigned>(gy)), ct * rpb, shmem, stream>>>(
+      req, alloc, out, P, I, D, ct, tile_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_fits(const void* req, const void* alloc, void* out, int P, int I, int D,
                 void* stream) {
+  if (P < 0 || I < 0 || D < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0 || I == 0) return 0;
-  const dim3 block(256);
-  const dim3 grid((I + 255) / 256, P < FITS_ROW_BLOCKS ? P : FITS_ROW_BLOCKS);
-  fits_matrix_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(req), static_cast<const T*>(alloc), static_cast<uint8_t*>(out),
-      P, I, D);
+  const T* r = static_cast<const T*>(req);
+  const T* a = static_cast<const T*>(alloc);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (I % 16 == 0 && aligned_to(out, 16)) return launch_fits_w<T, 16>(r, a, o, P, I, D, s);
+  if (I % 4 == 0 && aligned_to(out, 4)) return launch_fits_w<T, 4>(r, a, o, P, I, D, s);
+  return launch_fits_w<T, 1>(r, a, o, P, I, D, s);
+}
+
+template <typename V>
+int launch_stage(const void* compat, const void* fits, const void* offer, void* out, long long n,
+                 cudaStream_t stream) {
+  const long long vec_blocks =
+      (n / static_cast<long long>(sizeof(V)) + STAGE_THREADS - 1) / STAGE_THREADS;
+  const long long most = SMS * STAGE_BLOCKS_PER_SM;
+  const long long blocks = vec_blocks < 1 ? 1 : (vec_blocks < most ? vec_blocks : most);
+  stage_plane_kernel<V><<<static_cast<unsigned>(blocks), STAGE_THREADS, 0, stream>>>(
+      static_cast<const uint8_t*>(compat), static_cast<const uint8_t*>(fits),
+      static_cast<const uint8_t*>(offer), static_cast<uint8_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -679,8 +858,8 @@ int kt_uid_project(const void* onehot, const void* tmpl, const void* fam, void* 
   const long long rows = F > 0 ? static_cast<long long>(T) * F : T;
   if (rows == 0 || U == 0) return 0;
   if (rows > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const bool wide = I % 16 == 0 && aligned(onehot) && aligned(tmpl) && (F == 0 || aligned(fam));
+  const bool wide = I % 16 == 0 && aligned_to(onehot, 16) && aligned_to(tmpl, 16) &&
+                    (F == 0 || aligned_to(fam, 16));
   const dim3 grid(static_cast<unsigned>(rows)), block(UID_WARPS * 32);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) {
@@ -703,6 +882,9 @@ int kt_noop(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// req [P, D] and alloc [I, D] of the entry's type, out [P, I] bool: the
+// wide instance when I % 16 == 0 and out is 16-byte aligned, the mid when
+// I % 4 == 0 and 4-byte, else the narrow.
 int kt_fits_matrix_f32(const void* req, const void* alloc, void* out, int P, int I, int D,
                        void* stream) {
   return launch_fits<float>(req, alloc, out, P, I, D, stream);
@@ -713,15 +895,19 @@ int kt_fits_matrix_i32(const void* req, const void* alloc, void* out, int P, int
   return launch_fits<int32_t>(req, alloc, out, P, I, D, stream);
 }
 
+// compat, fits, offer and out: n bytes each. The wide instance when all
+// four are 16-byte aligned, the mid when 4-byte, else the narrow.
 int kt_stage_plane(const void* compat, const void* fits, const void* offer, void* out,
                    long long n, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const long long blocks = (n + 255) / 256;
-  const dim3 grid(static_cast<unsigned>(blocks < 132 * 32 ? blocks : 132 * 32));
-  stage_plane_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(compat), static_cast<const uint8_t*>(fits),
-      static_cast<const uint8_t*>(offer), static_cast<uint8_t*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  const auto all_aligned = [&](uintptr_t b) {
+    return aligned_to(compat, b) && aligned_to(fits, b) && aligned_to(offer, b) && aligned_to(out, b);
+  };
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (all_aligned(16)) return launch_stage<uint4>(compat, fits, offer, out, n, s);
+  if (all_aligned(4)) return launch_stage<uint32_t>(compat, fits, offer, out, n, s);
+  return launch_stage<uint8_t>(compat, fits, offer, out, n, s);
 }
 
 }  // extern "C"

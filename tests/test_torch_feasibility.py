@@ -27,7 +27,10 @@ from karpenter_tpu_torch.ops import encoding as tenc
 from karpenter_tpu_torch.ops import feasibility as tfeas
 
 import torch_inputs
-from torch_inputs import cube_inputs, fits_inputs, onehot, row_inputs, stage_inputs, to_torch
+from torch_inputs import (
+    FITS_EDGE_CASES, STAGE_EDGE_SHAPES, bool_tensor, cube_inputs, fits_edge_inputs, fits_inputs, onehot,
+    row_inputs, stage_edge_inputs, stage_inputs, to_torch,
+)
 
 torch.set_num_threads(1)
 
@@ -101,6 +104,33 @@ def test_stage_plane_matches_jax(seed):
     assert got.dtype == torch.uint8 and want.dtype == np.uint8
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), tfeas.stage_plane_np(*planes))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("case", FITS_EDGE_CASES)
+def test_fits_matrix_edges_match_jax(case, dtype):
+    """The edges of the kernel's tiling (I across its three instances, D = 0
+    and past 4, P a multiple of no row tile) with NaN, the infinities and
+    -0.0 (float32) or the quantizer's clip values (int32) in both operands:
+    the port's fits_matrix bit for bit against the reference's."""
+    req, alloc = fits_edge_inputs(case, dtype)
+    want = np.asarray(jfeas.fits_matrix(jnp.asarray(req), jnp.asarray(alloc)))
+    got = tfeas.fits_matrix(to_torch(req), to_torch(alloc))
+    assert got.dtype == torch.bool and tuple(got.shape) == case[:2]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("raw", [False, True])
+@pytest.mark.parametrize("shape", STAGE_EDGE_SHAPES)
+def test_stage_plane_edges_match_jax(shape, raw):
+    """Planes whose size is no multiple of 16 (the kernel's tail) and, raw,
+    bool tensors whose true bytes are not 1: the port's stage_plane reads
+    any non-zero byte as true, equal to the reference's on 0/1 planes."""
+    planes = stage_edge_inputs(shape, raw)
+    want = np.asarray(jfeas.stage_plane(*(jnp.asarray(p != 0) for p in planes)))
+    got = tfeas.stage_plane(*(bool_tensor(p) for p in planes))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_unpack_mask_high_bit():

@@ -25,10 +25,11 @@ from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
 from karpenter_tpu_torch.device import KernelError  # noqa: E402
 from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    FAMU_F, FAMU_I, FAMU_T, FAMU_U, GROUP_KERNEL_SHAPES, PASS_CASES, SCAN_EDGE_CASES,
-    SWEEP_ROW_CASES, core_inputs, cube_inputs, famu_inputs, fits_inputs, frontier_inputs,
-    group_inputs, group_kernel_inputs, mesh_kernel_inputs, offering_inputs, pass_inputs, row_inputs,
-    scan_edge_inputs, scan_inputs, stage_inputs, sweep_inputs, target_inputs, to_torch, uid_inputs,
+    FAMU_F, FAMU_I, FAMU_T, FAMU_U, FITS_EDGE_CASES, GROUP_KERNEL_SHAPES, PASS_CASES,
+    SCAN_EDGE_CASES, STAGE_EDGE_SHAPES, SWEEP_ROW_CASES, bool_tensor, core_inputs, cube_inputs,
+    famu_inputs, fits_edge_inputs, fits_inputs, frontier_inputs, group_inputs, group_kernel_inputs,
+    mesh_kernel_inputs, offering_inputs, offset_copy, pass_inputs, row_inputs, scan_edge_inputs,
+    scan_inputs, stage_edge_inputs, stage_inputs, sweep_inputs, target_inputs, to_torch, uid_inputs,
 )
 
 SEEDS = range(8)
@@ -344,6 +345,44 @@ def test_fits_matrix_and_stage_plane_match_plain_on_card(cuda_device, seed):
     assert tfeas.LAUNCHES["stage_plane"] == n0["stage_plane"] + 1
     with pytest.raises(KernelError):
         tfeas.fits_matrix(req, alloc.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("case", FITS_EDGE_CASES)
+def test_fits_matrix_edges_match_plain_on_card(cuda_device, case, dtype):
+    """B4 on the edges of its tiling (the wide, mid and narrow instances by
+    I; D = 0 and past the 4 register dims; P a multiple of no row tile) with
+    NaN, the infinities, -0.0 or the int32 clip values, bit for bit against
+    the plain version; again with the operands at an offset of one element
+    (the output is the wrapper's own, so the instance stays I's)."""
+    req, alloc = (to_torch(a) for a in fits_edge_inputs(case, dtype))
+    want = tfeas.fits_matrix_plain(req, alloc)
+    r, a = req.to(cuda_device), alloc.to(cuda_device)
+    n0 = tfeas.LAUNCHES["fits_matrix"]
+    for rr, aa in ((r, a), (offset_copy(r, 1), offset_copy(a, 1)), (r[1:], a)):
+        got = tfeas.fits_matrix(rr, aa)
+        assert got.dtype == torch.bool
+        assert torch.equal(got.cpu(), want[1:] if rr.shape[0] < r.shape[0] else want)
+    assert tfeas.LAUNCHES["fits_matrix"] == n0 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("raw", [False, True])
+@pytest.mark.parametrize("shape", STAGE_EDGE_SHAPES)
+def test_stage_plane_edges_match_plain_on_card(cuda_device, shape, raw):
+    """B7 on sizes no multiple of 16 and, raw, on bool planes whose true
+    bytes are not 1, against the plain version on the CPU (which reads any
+    non-zero byte as true); each plane as it is (the wide instance), 1 byte
+    past alignment (narrow) and 4 (mid)."""
+    planes = [bool_tensor(p) for p in stage_edge_inputs(shape, raw)]
+    want = tfeas.stage_plane_plain(*planes)
+    n0 = tfeas.LAUNCHES["stage_plane"]
+    for offset in (0, 1, 4):
+        dev = [offset_copy(p.to(cuda_device), offset) for p in planes]
+        got = tfeas.stage_plane(*dev)
+        assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+    assert tfeas.LAUNCHES["stage_plane"] == n0 + 3
 
 
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:

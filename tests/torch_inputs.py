@@ -463,6 +463,77 @@ def stage_inputs(seed: int):
     return tuple(rng.rand(*shape) < p for p in (0.8, 0.7, 0.6))
 
 
+# fits_matrix's edge cases (P, I, D): I across the kernel's wide (I % 16 ==
+# 0), mid (I % 4 == 0) and narrow instances, D = 0 and D past the 4 dims a
+# thread holds in registers, P = 517 a multiple of no row tile (those are
+# multiples of 8 rows)
+FITS_EDGE_CASES = tuple((517, I, D) for I in (1, 7, 33, 36, 300, 1008, 1009) for D in (0, 4, 11))
+# values sprinkled into both operands: float32's edges of <= (NaN, the
+# infinities, -0.0 against 0.0) and int32's clip values of
+# quantize_resources (requests clip to [-2**31 + 1, 2**31 - 1], capacities
+# to [-2**31 + 1, 2**30])
+FITS_EDGE_VALUES = {
+    np.float32: (np.nan, np.inf, -np.inf, -0.0, 0.0),
+    np.int32: (-(2**31) + 1, 2**30, 2**31 - 1, 0),
+}
+
+
+def fits_edge_inputs(case: tuple, dtype, seed: int = 0):
+    """Requests [P, D] and allocatables [I, D] of `dtype` for a case of
+    FITS_EDGE_CASES: requests mostly below capacities (so that rows past 4
+    dims still fit somewhere), zero capacities, and about a tenth of each
+    operand's cells replaced by FITS_EDGE_VALUES."""
+    P, I, D = case
+    rng = np.random.RandomState(600 + 31 * seed + I + D)
+    edges = np.array(FITS_EDGE_VALUES[dtype], dtype=dtype)
+
+    def operand(n, lo, hi):
+        a = rng.randint(lo, hi, size=(n, D)).astype(dtype)
+        a[rng.rand(n, D) < 0.1] = 0
+        m = rng.rand(n, D) < 0.1
+        a[m] = edges[rng.randint(0, len(edges), size=int(m.sum()))]
+        return a
+
+    return operand(P, 0, 6), operand(I, 2, 8)
+
+
+# stage_plane's edge shapes: numel % 16 != 0 (the kernel's scalar tail)
+# but for the workload's [200, 1008] and a plane of 2**20 (a grid of more
+# than one block per SM)
+STAGE_EDGE_SHAPES = ((1,), (15,), (17,), (7, 1009), (3, 5, 77), (200, 1008), (1 << 20,))
+
+
+def stage_edge_inputs(shape: tuple, raw: bool = False, seed: int = 0):
+    """Three planes of `shape` for stage_plane: bool arrays, or with `raw`
+    uint8 arrays whose true bytes are any of 1, 2, 127, 128 and 255 (viewed
+    as torch.bool by bool_tensor: a bool tensor the wrapper accepts whose
+    bytes are not 0/1)."""
+    rng = np.random.RandomState(700 + seed + sum(shape))
+    planes = tuple(rng.rand(*shape) < p for p in (0.8, 0.7, 0.6))
+    if not raw:
+        return planes
+    trues = np.array([1, 2, 127, 128, 255], dtype=np.uint8)
+    return tuple(np.where(p, trues[rng.randint(0, len(trues), size=shape)], 0).astype(np.uint8)
+                 for p in planes)
+
+
+def bool_tensor(a: np.ndarray) -> torch.Tensor:
+    """A torch.bool tensor of a bool array, or of a uint8 array's bytes as
+    they are (no normalization to 0/1)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.view(torch.bool) if t.dtype == torch.uint8 else t
+
+
+def offset_copy(t: torch.Tensor, elements: int) -> torch.Tensor:
+    """t's values in a fresh buffer `elements` elements past its start:
+    contiguous, and off 16-byte alignment when elements * itemsize is no
+    multiple of 16."""
+    flat = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = flat[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 # kt_group_solve's shapes in the card tests (G, R, K, I, O, D): R past 2048
 # (past the 64 mask words the kernel once held), K past 2048, K = 0, I past
 # a block of 1024 threads (two chunks of types), a single group and type,
