@@ -7,9 +7,9 @@
     python3 chip_smoke.py --operator # phases 1-2 and 4o (the operator) alone
     python3 chip_smoke.py --sim      # phases 1-2 and 4v (the simulator) alone
     python3 chip_smoke.py --aot      # phases 1-2 and 4a (the AOT compile service) alone
-    python3 chip_smoke.py --turns TREE [TREE ...]   # the group, sweep, fits
-                                     # and stage wrappers of each checkout,
-                                     # timed in turns
+    python3 chip_smoke.py --turns TREE [TREE ...]   # the group, sweep, fits,
+                                     # stage, membership and scatter wrappers
+                                     # of each checkout, timed in turns
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -55,7 +55,15 @@ Phases, in order; any failure exits non-zero:
      one never available) on meshes repeating the card 1-3 times, the
      entity rows staged from the host or read in place on the card, one
      launch per call; delta_scatter with edge-padded duplicate slots and
-     delta_finalize; the fused scan on the 27 operands of four small solves
+     delta_finalize; membership (B2) and delta_scatter (B11) on the card
+     tests' edges (tests/torch_inputs.py: B2's wide, mid and narrow
+     instances in their register forms of 8 and 16 rows and their walking
+     form, R 0, 12, 16, 17, 33 and 128, P 1, N 1, row_ok random, all false
+     and all true, operands 1-4 bytes past alignment, true bytes that are
+     not 1; B11 with no slot, negative slots, slots past either end,
+     edge-padded duplicates and more slots than rows), the profiler seeing
+     all nine B2 instances and B11's kernel run; the fused scan on the 27
+     operands of four small solves
      this script sets up (no nodes/limits; existing nodes with seeded
      usage; a second NodePool with a cpu limit; both at once with two
      templates), in both of the kernel's designs (resident, which the
@@ -335,7 +343,11 @@ Phases, in order; any failure exits non-zero:
      The kernels of no path (OFF_PATH: fits_matrix, stage_plane,
      offering_reduce, solve_block_core, solve_block_scatter, delta_scatter,
      membership) have 0 launches, held so, and phase 3's and phase 7's
-     check launches under `check_launches`; row_compat's and cube's entries
+     check launches under `check_launches`; membership's entry also holds
+     its sweep (every rung of the ladder's feasibility.membership at 1008
+     types, the top rung at 144, and [50000, 16] x [16, 1008]) and
+     delta_scatter's (n 8, 64 and 512 into 2n), each checked and timed;
+     row_compat's and cube's entries
      (on the row batch and the sweep the main path gave them) also hold the
      host time by part and ptxas's report. Beside the kernels line, the
      launch floor: an empty kernel's device time and a no-op's host time
@@ -364,9 +376,13 @@ solve_block_scatter then delta_finalize) and the delta group pass through
 GroupResidency.solve cold, count-only and with new shapes; B4
 fits_matrix on the workload's quantized requests against its allocatables
 ([50000, 4] x [1008, 4], int32 and float32) and B7 stage_plane on planes of
-[200, 1008] and [50000, 1008], with ptxas's report and the SASS of the
-checkout's fits_matrix_kernel and stage_plane_kernel (sass_loops: the
-instructions per 16 bytes stored). Each checked
+[200, 1008] and [50000, 1008]; B2 membership_all at phase 7's shape
+([16, 7] x [7, 1008]), at every rung of the ladder's feasibility.membership
+against 1008 types, the top rung against 144 and at [50000, 16] x [16,
+1008]; B11 at n 8, 64 and 512 into 2n; with ptxas's report and the SASS of
+the checkout's fits_matrix_kernel, stage_plane_kernel, membership_kernel
+and delta_scatter_kernel (sass_loops: the instructions per 16 bytes
+stored) and the launch floor. Each checked
 against its plain version, then its
 wrapper ms, device ms by kernel, device operations, host us by part and C
 launches per call; all in chiprun_out/turns.json.
@@ -502,7 +518,7 @@ PTXAS: dict = {}  # scan kernel -> ptxas's report, filled by phase_build
 GROUP_PTXAS: dict = {}  # the same for kt_group_solve's kernel
 FEAS_PTXAS: dict = {}  # the same for kt_row_compat's and kt_cube's kernels
 FEAS_KERNELS = ["row_compat_kernel", "cube_kernel", "uid_project_kernel", "fits_matrix_kernel",
-                "stage_plane_kernel"]
+                "stage_plane_kernel", "membership_kernel"]
 
 
 def log(msg: str) -> None:
@@ -1571,6 +1587,73 @@ def fits_stage_checks(captured, dev=torch.device("cuda")):
     assert seen == FITS_STAGE_INSTANCES, \
         f"instances run {sorted(seen)}, want {sorted(FITS_STAGE_INSTANCES)}"
     captured["fits_stage_instances"] = sorted(f"{k}<{t}>" for k, t in seen)
+
+
+# the template instances of membership_kernel (B2: the wide, mid and
+# narrow instance, each in its register forms of 8 and 16 rows and its
+# walking form, 0), as the profiler names them
+MEMBERSHIP_INSTANCES = frozenset(
+    [("membership_kernel", f"{w}, {rows}") for w in (16, 4, 1) for rows in (8, 16, 0)])
+
+
+def membership_scatter_checks(captured, dev=torch.device("cuda")):
+    """B2 (membership_all) and B11 (delta_scatter_rows) on the card tests'
+    edge cases (tests/torch_inputs.py: MEMBERSHIP_EDGE_CASES with a random,
+    an all-false and an all-true row_ok, SCATTER_EDGE_CASES), bit for bit
+    against their plain versions: B2's operands as they are, with
+    membership 3 and row_ok 1 bytes past alignment, and on true bytes that
+    are not 1 with membership 1 and row_ok 4 bytes past; B11's in place,
+    its slots and rows also one element in. The profiler must see all nine
+    B2 instances and B11's kernel run. These launches count in phase 3's,
+    the check_launches of both kernels' entries."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops import packer
+
+    ti = _test_inputs()
+    t0 = time.perf_counter()
+    n0 = (feas.LAUNCHES["membership"], packer.LAUNCHES["delta_scatter"])
+    n = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for case in ti.MEMBERSHIP_EDGE_CASES:
+            for fill in ti.MEMBERSHIP_OK_FILLS:
+                # the plain version on the card, on the 0/1 operands
+                want = feas.membership_all_plain(*(torch.from_numpy(a).to(dev) for a in
+                                                   ti.membership_edge_inputs(case, fill)))
+                # row_ok's offset picks the instance where N allows the wide one
+                for raw, m_off, o_off in ((False, 0, 0), (False, 3, 1), (True, 1, 4)):
+                    mem, ok = (ti.bool_tensor(a).to(dev) for a in ti.membership_edge_inputs(case, fill, raw))
+                    got = feas.membership_all(ti.offset_copy(mem, m_off), ti.offset_copy(ok, o_off))
+                    check_equal(f"membership {case} {fill} raw={raw} offsets {m_off}, {o_off}", got, want)
+                    assert int(got.view(torch.uint8).max()) <= 1, f"membership {case}: a byte past 1"
+                    n += 1
+        for case in ti.SCATTER_EDGE_CASES:
+            core, slots, rows = (torch.from_numpy(a) for a in ti.scatter_edge_inputs(case))
+            want = packer.delta_scatter_rows_plain(core.clone(), slots, rows).to(dev)
+            s, r = slots.to(dev), rows.to(dev)
+            for off in (0, 1):
+                d = core.to(dev)
+                check_equal(f"delta_scatter {case} offset {off}",
+                            packer.delta_scatter_rows(d, ti.offset_copy(s, off), ti.offset_copy(r, off)), want)
+                n += 1
+        torch.cuda.synchronize()
+    seen = {m.groups() for ev in prof.key_averages()
+            for m in [re.search(r"(membership_kernel)<([^>]*)>", ev.key)] if m}
+    scatter_seen = any("delta_scatter_kernel" in ev.key for ev in prof.key_averages())
+    launches = {"membership": feas.LAUNCHES["membership"] - n0[0],
+                "delta_scatter": packer.LAUNCHES["delta_scatter"] - n0[1]}
+    captured["membership_scatter_s"] = {"phase 3": time.perf_counter() - t0}
+    log(f"kernel checks: {n} membership and delta_scatter edge cases bit-identical to the plain "
+        f"versions in {captured['membership_scatter_s']['phase 3']:.1f} s; launches "
+        f"{json.dumps(launches)}; instances the profiler saw ({len(seen)}): "
+        f"{json.dumps(sorted(f'{k}<{t}>' for k, t in seen))}, delta_scatter_kernel {scatter_seen}")
+    assert seen == MEMBERSHIP_INSTANCES, \
+        f"instances run {sorted(seen)}, want {sorted(MEMBERSHIP_INSTANCES)}"
+    assert scatter_seen, "the profiler saw no delta_scatter_kernel"
+    captured["membership_instances"] = sorted(f"{k}<{t}>" for k, t in seen)
 
 
 def assert_resident(launches, label) -> None:
@@ -5772,6 +5855,96 @@ def _dev_sum(dev_ms: dict):
     return sum(vals) if vals else None
 
 
+# B2's bandwidth shape: on no path; the stores, not the launch, set its time
+MEMBERSHIP_BANDWIDTH_SHAPE = (50000, 16, 1008)
+
+
+def _test_inputs():
+    """tests/torch_inputs.py, the edge and rung inputs the card tests share."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_inputs
+
+    return torch_inputs
+
+
+def membership_shapes(dev) -> list:
+    """B2's timed shapes past phase 7's sweep, as (label, membership, row_ok)
+    on the card: every rung of the ladder's feasibility.membership (P x R)
+    against the catalog x7's 1008 types, the top rung against the kwok
+    catalog's 144, and the bandwidth shape, made on the card from a seeded
+    generator (about 4 rows an entity, 9 in 10 compatible)."""
+    ti = _test_inputs()
+    out = []
+    for (P, R), N in [(r, 1008) for r in ti.MEMBERSHIP_RUNGS] + [(ti.MEMBERSHIP_RUNGS[-1], 144)]:
+        mem, ok = ti.membership_rung_inputs(P, R, N)
+        out.append((f"[{P}, {R}] x [{R}, {N}]", _to(mem, dev), _to(ok, dev)))
+    P, R, N = MEMBERSHIP_BANDWIDTH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out.append((f"[{P}, {R}] x [{R}, {N}]", torch.rand(P, R, generator=gen, device=dev) < 4.0 / R,
+                torch.rand(R, N, generator=gen, device=dev) < 0.9))
+    return out
+
+
+def scatter_shapes(dev) -> list:
+    """B11's timed shapes past phase 7's frontier, as (label, core, slots,
+    rows) on the card: n rows into 2n at the ladder's solve_block rungs."""
+    ti = _test_inputs()
+    return [(f"n={n} into {2 * n}",) + tuple(_to(a, dev) for a in ti.scatter_edge_inputs(n))
+            for n in ti.SCATTER_RUNGS]
+
+
+def membership_instance(ok: torch.Tensor) -> str:
+    """The kt_membership instance the C entry picks for this row_ok (the
+    wrapper's own output is aligned to 16 bytes)."""
+    R, N = ok.shape
+    w = next((w for w in (16, 4) if N % w == 0 and ok.data_ptr() % w == 0), 1)
+    return f"membership_kernel<{w}, {8 if R <= 8 else 16 if R <= 16 else 0}>"
+
+
+def membership_sweep(dev) -> tuple:
+    """Phase 7's B2 sweep: each of membership_shapes checked against the
+    plain version, then timed (wrapper ms by CUDA events, device ms by the
+    profiler) beside its bytes bound. Returns (records, the checks'
+    launches from LAUNCHES, seconds)."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    t0 = time.perf_counter()
+    records, checks = [], 0
+    for label, m, o in membership_shapes(dev):
+        l0 = feas.LAUNCHES["membership"]
+        got = feas.membership_all(m, o)
+        checks += feas.LAUNCHES["membership"] - l0
+        check_equal(f"membership {label}", got, feas.membership_all_plain(m, o))
+        run = lambda m=m, o=o: feas.membership_all(m, o)  # noqa: E731
+        nb = nbytes(m, o, got)
+        records.append({"shape": label, "instance": membership_instance(o), "ms": cuda_ms(run),
+                        "device_ms": device_kernel_ms(run, ["membership_kernel"])["membership_kernel"],
+                        "bytes": nb, "bound_ms": nb / HBM_BYTES_PER_S * 1e3})
+    return records, checks, time.perf_counter() - t0
+
+
+def scatter_sweep(dev) -> tuple:
+    """Phase 7's B11 sweep: each of scatter_shapes checked against the plain
+    version in place, then timed on a copy of its core (rewriting the same
+    rows is idempotent). Returns (records, the checks' launches, seconds)."""
+    from karpenter_tpu_torch.ops import packer
+
+    t0 = time.perf_counter()
+    records, checks = [], 0
+    for label, core, slots, rows in scatter_shapes(dev):
+        l0 = packer.LAUNCHES["delta_scatter"]
+        got = packer.delta_scatter_rows(core.clone(), slots, rows)
+        checks += packer.LAUNCHES["delta_scatter"] - l0
+        check_equal(f"delta_scatter {label}", got, packer.delta_scatter_rows_plain(core.clone(), slots, rows))
+        c = core.clone()
+        run = lambda c=c, s=slots, r=rows: packer.delta_scatter_rows(c, s, r)  # noqa: E731
+        nb = nbytes(slots, rows) + nbytes(rows)
+        records.append({"shape": label, "ms": cuda_ms(run),
+                        "device_ms": device_kernel_ms(run, ["delta_scatter_kernel"])["delta_scatter_kernel"],
+                        "bytes": nb, "bound_ms": nb / HBM_BYTES_PER_S * 1e3})
+    return records, checks, time.perf_counter() - t0
+
+
 def timing_entries(rows, cube, launches, label, phase3=None):
     """The feasibility kernels on the given inputs — `rows` a row batch as
     req_rows_vs_targets takes it, `cube` a sweep as cube_rows takes it:
@@ -5791,12 +5964,12 @@ def timing_entries(rows, cube, launches, label, phase3=None):
     def words(n):
         return (n + 31) // 32
 
-    def entry(name, kernel, plain, library, inputs, device_names, word_ops, **extra):
+    def entry(name, kernel, plain, library, inputs, device_names, word_ops, checks=0, **extra):
         l0 = _count_launches()[name]
         got, want = kernel(), plain()
         check_equal(f"{name} on {label}", got, want)
         if name in OFF_PATH and phase3 is not None:
-            extra["check_launches"] = phase3[name] + _count_launches()[name] - l0
+            extra["check_launches"] = phase3[name] + checks + _count_launches()[name] - l0
         gots = got if isinstance(got, tuple) else (got,)
         entries.append(_entry(
             name, launches, _max_abs_err(got, want), cuda_ms(kernel),
@@ -5830,10 +6003,19 @@ def timing_entries(rows, cube, launches, label, phase3=None):
     rc_u, oc_u = rc.index_select(0, idx.long()), oc.index_select(0, idx.long())
     mem_u = mem[:, :Ru].contiguous()
     P, I, (O, Kc) = mem.shape[0], rc.shape[1], cn.shape
+    sweep = {}
+    if phase3 is not None:
+        # the ladder's rungs and the bandwidth shape, beside the path's sweep
+        records, checks, secs = membership_sweep(mem_u.device)
+        sweep = {"checks": checks, "sweep": records, "sweep_s": secs}
+        log(f"membership sweep: {len(records)} shapes bit-identical to the plain version, timed in "
+            f"{secs:.1f} s")
     entry("membership", lambda: feas.membership_all(mem_u, rc_u),
           lambda: feas.membership_all_plain(mem_u, rc_u),
           lambda: (mem_u.float() @ (~rc_u).float()) < 0.5,
-          (mem_u, rc_u), ["membership_kernel"], _aotc().membership_ops(P, I, Ru))
+          (mem_u, rc_u), ["membership_kernel"], _aotc().membership_ops(P, I, Ru),
+          instance=membership_instance(rc_u),
+          ptxas={k: v for k, v in FEAS_PTXAS.items() if "membership_kernel" in k}, **sweep)
     run_cube = lambda: feas.cube_rows(*cube)  # noqa: E731
     entry("cube", run_cube, lambda: feas.cube_rows_plain(*cube),
           lambda: cube_f32(mem_u, rc.index_select(0, idx.long()), oc.index_select(0, idx.long()),
@@ -6207,6 +6389,7 @@ def group_entries(captured, launches, phase3):
     delta_finalize the core rows it gathers too). `launches`: the group
     path's counts; `phase3`: phase 3's launches of the OFF_PATH wrappers,
     to which these checks add theirs as `check_launches`."""
+    from karpenter_tpu_torch import device
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import packer
 
@@ -6216,12 +6399,12 @@ def group_entries(captured, launches, phase3):
     def words(n):
         return (n + 31) // 32
 
-    def add(name, kernel, plain, library, inputs, device_names, ops, out_bytes=None, **extra):
+    def add(name, kernel, plain, library, inputs, device_names, ops, out_bytes=None, checks=0, **extra):
         l0 = _count_launches()[name]
         got, want = kernel(), plain()
         check_equal(f"{name} on the group path's inputs", got, want)
         if name in OFF_PATH:
-            extra["check_launches"] = phase3[name] + _count_launches()[name] - l0
+            extra["check_launches"] = phase3[name] + checks + _count_launches()[name] - l0
         entries.append(_entry(
             name, counts, _max_abs_err(got, want), cuda_ms(kernel),
             cuda_ms(plain, reps=5, warmup=1),
@@ -6315,10 +6498,15 @@ def group_entries(captured, launches, phase3):
     turns = [{"which": w, "ms": cuda_ms(f, rounds=41)}
              for w, f in (("kernel", scatter), ("index_put_", index_put), ("index_put_", index_put),
                           ("kernel", scatter))]
+    records, checks, secs = scatter_sweep(core.device)
+    log(f"delta_scatter sweep: {len(records)} shapes bit-identical to the plain version, timed in "
+        f"{secs:.1f} s")
     add("delta_scatter", scatter, lambda: packer.delta_scatter_rows_plain(c_p, slots, rows),
-        index_put, (slots, rows), ["delta_scatter_kernel"], 0,
+        index_put, (slots, rows), ["delta_scatter_kernel"], 0, checks=checks,
         out_bytes=nbytes(rows), library_call="index_put_ (core[slots] = rows)", cap=int(core.shape[0]),
-        turns=turns, breakdown=wrapper_breakdown(scatter), bare_launch_ms=bare_launch_ms(scatter))
+        turns=turns, breakdown=wrapper_breakdown(scatter), bare_launch_ms=bare_launch_ms(scatter),
+        sweep=records, sweep_s=secs,
+        ptxas=ptxas_report(device.BUILD_LOG.get("packer", ""), ["delta_scatter_kernel"]))
 
     fcore, order, counts_ = captured["delta_finalize"]
     Gb = order.shape[0]
@@ -7030,6 +7218,9 @@ def sweep_turns(engine, dev) -> tuple:
             kp_d, *cat[1:])
         b3_want = want_cube
     cube = lambda: feas.production_cube(mem_d, rc_g, oc_g, cat[0], kp_d, *cat[1:])  # noqa: E731
+    # B2 at phase 7's shape: the sweep's entities against its used rows
+    mem_u, rc_u = mem_d[:, :R].contiguous(), rc_d[idx64]
+    b2 = lambda: feas.membership_all(mem_u, rc_u)  # noqa: E731
     requests = np.zeros((P, len(engine.resource_dims)), dtype=np.float32)
     sweep = lambda: engine.feasibility(row_sets, requests, key_present)  # noqa: E731
 
@@ -7057,6 +7248,8 @@ def sweep_turns(engine, dev) -> tuple:
         "B1 row batch vs types and offerings": (b1, lambda: check_equal("B1", b1(), b1_want)),
         f"B3 the sweep's kernels ({label})": (b3, lambda: check_equal("B3", b3(), b3_want)),
         f"B3 production_cube ({label})": (cube, lambda: check_equal("production_cube", cube(), want_cube)),
+        f"B2 membership_all [{P2}, {R}] x [{R}, {rc_u.shape[1]}]": (b2, lambda: check_equal(
+            "B2", b2(), feas.membership_all_plain(mem_u, rc_u))),
         "CatalogEngine.feasibility sweep": (sweep, sweep_check),
     }
     return runs, row_batch
@@ -7218,10 +7411,24 @@ def turns_of(tree: str) -> dict:
     runs.update(famu_turns(dev))
     runs.update(delta_turns(full, dev))
     runs.update(fits_stage_turns(engine, requests, dev))
-    fs = ["fits_matrix_kernel", "stage_plane_kernel"]
+    for label, m, o in membership_shapes(dev):
+        runs[f"B2 membership_all {label}"] = (
+            lambda m=m, o=o: feas.membership_all(m, o),
+            lambda m=m, o=o, label=label: check_equal(
+                f"B2 {label}", feas.membership_all(m, o), feas.membership_all_plain(m, o)))
+    for label, core, s, r in scatter_shapes(dev):
+        c = core.clone()
+        runs[f"B11 delta_scatter_rows {label}"] = (
+            lambda c=c, s=s, r=r: packer.delta_scatter_rows(c, s, r),
+            lambda core=core, s=s, r=r, label=label: check_equal(
+                f"B11 {label}", packer.delta_scatter_rows(core.clone(), s, r),
+                packer.delta_scatter_rows_plain(core.clone(), s, r)))
+    fs = ["fits_matrix_kernel", "stage_plane_kernel", "membership_kernel"]
     out = {"tree": tree, "device": torch.cuda.get_device_name(0), "kernels": {},
-           "fits_stage_code": {"ptxas": ptxas_report(device.BUILD_LOG.get("feasibility", ""), fs),
-                               "sass": sass_loops(library_path("feasibility"), fs)}}
+           "code": {"ptxas": {**ptxas_report(device.BUILD_LOG.get("feasibility", ""), fs),
+                              **ptxas_report(device.BUILD_LOG.get("packer", ""), ["delta_scatter_kernel"])},
+                    "sass": {**sass_loops(library_path("feasibility"), fs),
+                             **sass_loops(library_path("packer"), ["delta_scatter_kernel"])}}}
     real = feas.launch
 
     def per_call_launches(run):
@@ -7272,6 +7479,7 @@ def turns_of(tree: str) -> dict:
     # operations and host parts as above)
     for label, rec in delta_group_pass_timings((engine, reqs, requests)).items():
         out["kernels"][f"delta group pass, {label}"] = rec
+    out["launch_floor"] = launch_floor()
     return out
 
 
@@ -7363,6 +7571,7 @@ def main() -> int:
         return finish(t_start)
     l0 = _count_launches()
     phase_kernel_checks()
+    membership_scatter_checks(captured)
     # phase 3's launches of the wrappers no path runs, for their phase-7
     # entries' check_launches
     phase3 = {k: _count_launches()[k] - l0[k] for k in OFF_PATH}
@@ -7427,6 +7636,9 @@ def main() -> int:
         log(json.dumps({"launch_floor": launch_floor()}))
         log(json.dumps({"dispatch_floor": dispatch_floor()}))
         assert len(kernels) == len(SOURCE) == len(ENTRY_POINTS), [k["name"] for k in kernels]
+        for k in kernels:
+            if k["name"] == "membership":
+                k["instances_checked"] = captured["membership_instances"]
         for k in kernels:
             # phase 4a's warm-start walks (the cold boot's two catalogs and
             # the warm boot's one) on zero operands: not the path's launches

@@ -50,6 +50,26 @@ constexpr int32_t NO_LT = INT32_MAX;    // encoding.NO_LT: no upper bound
 constexpr int32_t NOT_INT = INT32_MIN;  // encoding.NOT_INT: non-integer slot
 constexpr int TILE = 32;                // entities per thread (one bit each)
 constexpr int THREADS = 128;
+constexpr int SMS = 132;                // the H100 SXM's SMs
+constexpr int MAX_GRID_Y = 65535;
+
+inline bool aligned_to(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// Bit 7 of each byte of x set iff that byte is not zero (the other bits
+// are not meaningful): bit 7 of (b & 0x7f) + 0x7f is set iff b's low seven
+// bits are not all zero (no carry leaves the byte), and OR b adds b's own
+// bit 7. Any non-zero byte reads as true, so no kernel relies on torch
+// storing bool as 0/1.
+__device__ __forceinline__ uint32_t nonzero_high(uint32_t x) {
+  return ((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x;
+}
+
+// 0x01 in each byte of x that is not zero, 0x00 in each that is.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  return (nonzero_high(x) >> 7) & 0x01010101u;
+}
 
 // ---------------------------------------------------------------------------
 // B1: compat[r, col_t + n] — does requirement row r intersect set n of
@@ -165,49 +185,270 @@ __global__ void row_compat_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B2: out[p, n] = every row of entity p is compatible with target n.
+// B2: out[p, n] = every row of entity p is compatible with target n: no row
+// r with mem[p, r] and !ok[r, n] (mem [P, R], ok [R, N], out [P, N], bool).
 //
-// One thread per (target n, tile of 32 entities). Rows are walked 32 at a
-// time: the first 32 threads pack the tile's membership bits for those rows
-// into shared memory, every thread packs the 32 incompatibility bits of its
-// own column (~ok[r, n]), and one AND per entity tests all 32 rows at once.
-// Reads of `ok` are coalesced across the warp (consecutive n).
-__global__ void membership_kernel(const uint8_t* __restrict__ mem,
-                                  const uint8_t* __restrict__ ok,
-                                  uint8_t* __restrict__ out, int P, int R,
-                                  int N) {
-  __shared__ uint32_t memw[TILE];
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p0 = blockIdx.y * TILE;
-  uint32_t bad = 0;  // bit j: entity p0 + j has a row incompatible with n
-  for (int r0 = 0; r0 < R; r0 += 32) {
-    const int rn = min(32, R - r0);
-    __syncthreads();
-    if (threadIdx.x < TILE) {
-      const int p = p0 + threadIdx.x;
-      uint32_t w = 0;
-      if (p < P) {
-        const uint8_t* mp = mem + static_cast<size_t>(p) * R + r0;
-        for (int b = 0; b < rn; ++b) w |= static_cast<uint32_t>(mp[b] != 0) << b;
-      }
-      memw[threadIdx.x] = w;
+// Bound by the bytes it writes (P*N outputs against P*R + R*N inputs); at
+// the ladder's rungs (P <= 1024, R <= 64, N = 1008) a call moves at most
+// 1.2 MB, so there launch latency and dependent trips to memory set the
+// time. Two forms, each in a wide, a mid and a narrow instance (W = 16, 4,
+// 1, picked by the C entry from N and the alignment of ok and out):
+//
+// The register form (R <= RMAX, 8 or 16 rows: the sweep's entities hold
+// up to 8 rows, the ladder's rungs 4 and 16) is bit-sliced:
+//   - a warp owns a tile of 32 targets [n0, n0 + 32) and walks tiles of 32
+//     entities, lane l holding entity p0 + l's 32 results as the bits of
+//     one word;
+//   - lane l reads target n0 + l's byte of each ok row (32 contiguous bytes
+//     a row) and __ballot_sync turns the row into one word of 32 target
+//     bits, the same in every lane: a set row then costs one AND for 32
+//     targets; the words stay in registers for every entity tile the warp
+//     visits (the grid is persistent over the entities);
+//   - lane l reads its own entity's R membership bytes (a warp load spans
+//     32 R <= 512 bytes), the first tile's in the same trip as the ok
+//     bytes and each later tile's while the one before it is used, and
+//     ANDs the words of the rows its entity holds;
+//   - the warp writes its 32 x 32 tile row by row: __shfl_sync brings an
+//     entity's word to the lanes that store its row and a multiply spreads
+//     4 bits into 4 bytes, so every store instruction writes whole 32-byte
+//     rows (W = 16: two lanes a row; W = 4: eight; W = 1: 32);
+//   - the rows are unrolled to RMAX and predicated, with no branch: a
+//     break at R measured slower at R = 16 than the predicated rows.
+//
+// The walking form (R > 16) reads only the rows an entity holds (about 4
+// of R): a thread owns W consecutive targets and a warp one entity at a
+// time; lane l reads byte r0 + l of the entity's row for every chunk of 32
+// rows (up to MEM_CHUNKS chunks at once) and a ballot a chunk gives the
+// entity's row bits, the same in every lane; the set rows' ok bytes (W a
+// load, from L1 / L2) are read MEM_WALK at a time and ANDed as bytes, and
+// each thread writes its W outputs in one store. The bit-sliced form
+// would rebuild 32 words a chunk for every entity tile: slower at R = 64
+// on an H100.
+//
+// Any non-zero byte of mem or ok reads as true, and each output byte is
+// exactly 0 or 1.
+constexpr int MEM_THREADS = 256;      // 8 warps a block
+constexpr int MEM_BLOCKS_PER_SM = 2;
+constexpr int MEM_RREG = 16;          // most rows of the register form
+constexpr int MEM_CHUNKS = 4;         // the walking form: 32-row chunks balloted at once (bits[0-3])
+constexpr int MEM_WALK = 4;           // the walking form: set rows whose ok loads fly together
+
+// Bits 0-3 of x as four 0/1 bytes: bit i lands on bit 8i (i + 7k is a
+// multiple of 8 only for k = i, and no two terms overlap, so nothing
+// carries).
+__device__ __forceinline__ uint32_t expand4(uint32_t x) {
+  return ((x & 0xfu) * 0x00204081u) & 0x01010101u;
+}
+
+// The register form's tile of results: lane l's acc holds entity p0 + l's
+// bits for targets [n0, n0 + 32). Writes out[p0 + e, n0 + t] for p0 + e < P
+// and n0 + t < N, every store instruction whole rows of 32 bytes.
+template <int W>
+__device__ __forceinline__ void store_tile(uint8_t* __restrict__ out, uint32_t acc, long long p0,
+                                           long long n0, int P, int N, int lane) {
+  constexpr unsigned FULL = 0xffffffffu;
+  if constexpr (W == 16) {  // lane l: half l % 2 of row l / 2 + 16 h
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = lane / 2 + 16 * h;
+      const uint32_t a = __shfl_sync(FULL, acc, e) >> (16 * (lane & 1));
+      const long long n = n0 + 16 * (lane & 1);
+      if (p0 + e < P && n < N)
+        *reinterpret_cast<uint4*>(out + (p0 + e) * N + n) =
+            make_uint4(expand4(a), expand4(a >> 4), expand4(a >> 8), expand4(a >> 12));
     }
-    __syncthreads();
-    if (n < N) {
-      uint32_t badw = 0;
-      for (int b = 0; b < rn; ++b)
-        badw |= static_cast<uint32_t>(ok[static_cast<size_t>(r0 + b) * N + n] == 0) << b;
-      if (badw) {
-        for (int j = 0; j < TILE; ++j)
-          bad |= static_cast<uint32_t>((memw[j] & badw) != 0) << j;
-      }
+  } else if constexpr (W == 4) {  // lane l: word l % 8 of row l / 8 + 4 i
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = lane / 8 + 4 * i;
+      const uint32_t a = __shfl_sync(FULL, acc, e) >> (4 * (lane & 7));
+      const long long n = n0 + 4 * (lane & 7);
+      if (p0 + e < P && n < N) *reinterpret_cast<unsigned int*>(out + (p0 + e) * N + n) = expand4(a);
+    }
+  } else {  // lane l: byte l of every row
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const uint32_t a = __shfl_sync(FULL, acc, e);
+      if (p0 + e < P && n0 + lane < N) out[(p0 + e) * N + n0 + lane] = static_cast<uint8_t>((a >> lane) & 1u);
     }
   }
-  if (n < N) {
-    const int pn = min(TILE, P - p0);
-    for (int j = 0; j < pn; ++j)
-      out[static_cast<size_t>(p0 + j) * N + n] = !((bad >> j) & 1u);
+}
+
+// Entity p's membership bytes of rows [0, min(R, RMAX)), 0 past them or P.
+template <int RMAX>
+__device__ __forceinline__ void load_membership(uint8_t (&m)[RMAX], const uint8_t* __restrict__ mem,
+                                                long long p, int P, int R) {
+#pragma unroll
+  for (int k = 0; k < RMAX; ++k) m[k] = p < P && k < R ? mem[p * R + k] : 0;
+}
+
+// The register form's work on one entity tile: the AND of the words of
+// the rows each lane's entity holds, then the tile's stores.
+template <int W, int RMAX>
+__device__ __forceinline__ void membership_tile(const uint8_t (&m)[RMAX], const uint32_t (&word)[RMAX],
+                                                uint8_t* __restrict__ out, long long p0,
+                                                long long n0, int P, int N, int lane) {
+  uint32_t acc = 0xffffffffu;
+#pragma unroll
+  for (int k = 0; k < RMAX; ++k)
+    if (m[k] != 0) acc &= word[k];
+  store_tile<W>(out, acc, p0, n0, P, N, lane);
+}
+
+// W target bytes in 32-bit words: W / 4 of them, or one byte in a word.
+template <int W>
+struct MemWords {
+  static constexpr int NW = W >= 4 ? W / 4 : 1;
+  uint32_t w[NW];
+};
+
+template <int W>
+__device__ __forceinline__ MemWords<W> load_targets(const uint8_t* p) {
+  MemWords<W> v;
+  if constexpr (W == 16) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    v.w[0] = q.x, v.w[1] = q.y, v.w[2] = q.z, v.w[3] = q.w;
+  } else if constexpr (W == 4) {
+    v.w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    v.w[0] = __ldg(p);
   }
+  return v;
+}
+
+// The walking form's W outputs: acc's words hold bit 7 of a byte set where
+// the target passed every row; one W-byte store of 0/1 bytes.
+template <int W>
+__device__ __forceinline__ void store_targets(uint8_t* p, const uint32_t (&acc)[MemWords<W>::NW]) {
+  uint32_t b[MemWords<W>::NW];
+#pragma unroll
+  for (int j = 0; j < MemWords<W>::NW; ++j) b[j] = (acc[j] >> 7) & 0x01010101u;
+  if constexpr (W == 16) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(b[0], b[1], b[2], b[3]);
+  } else if constexpr (W == 4) {
+    *reinterpret_cast<unsigned int*>(p) = b[0];
+  } else {
+    *p = static_cast<uint8_t>(b[0]);
+  }
+}
+
+// blockDim.x = MEM_THREADS. RMAX > 0, the register form (R <= RMAX): warp
+// w of block x owns target tile 8x + w, grid.y walks the entity tiles.
+// RMAX = 0, the walking form: grid.x tiles the targets 32 W at a time,
+// grid.y walks the entities, a warp one at a time. W > 1 needs N % W == 0
+// and ok and out aligned to W bytes.
+template <int W, int RMAX>
+__global__ void __launch_bounds__(MEM_THREADS, MEM_BLOCKS_PER_SM)
+membership_kernel(const uint8_t* __restrict__ mem, const uint8_t* __restrict__ ok,
+                  uint8_t* __restrict__ out, int P, int R, int N) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  if constexpr (RMAX > 0) {
+    const long long n0 = (static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32) * 32;
+    if (n0 >= N) return;  // the whole warp
+    const bool has_n = n0 + lane < N;
+    const long long tiles = (static_cast<long long>(P) + 31) / 32;
+    const long long step = gridDim.y;
+    long long t = blockIdx.y;
+    uint8_t ma[RMAX], mb[RMAX], o[RMAX];
+    load_membership(ma, mem, t * 32 + lane, P, R);
+#pragma unroll
+    for (int k = 0; k < RMAX; ++k) o[k] = k < R && has_n ? ok[k * static_cast<long long>(N) + n0 + lane] : 0;
+    uint32_t word[RMAX];
+#pragma unroll
+    for (int k = 0; k < RMAX; ++k) word[k] = __ballot_sync(FULL, o[k] != 0);
+    // two tiles a turn, so that each tile's loads fly while the one
+    // before it is used, with no copy between the buffers
+    while (t < tiles) {
+      load_membership(mb, mem, (t + step) * 32 + lane, P, R);
+      membership_tile<W>(ma, word, out, t * 32, n0, P, N, lane);
+      t += step;
+      if (t >= tiles) break;
+      load_membership(ma, mem, (t + step) * 32 + lane, P, R);
+      membership_tile<W>(mb, word, out, t * 32, n0, P, N, lane);
+      t += step;
+    }
+  } else {
+    constexpr int NW = MemWords<W>::NW;
+    const long long n0 = (static_cast<long long>(blockIdx.x) * 32 + lane) * W;
+    const bool active = n0 < N;
+    const long long warps = blockDim.x / 32;
+    const long long step = gridDim.y * warps;
+    for (long long p = blockIdx.y * warps + threadIdx.x / 32; p < P; p += step) {
+      const uint8_t* row = mem + p * R;
+      uint32_t acc[NW];
+#pragma unroll
+      for (int j = 0; j < NW; ++j) acc[j] = FULL;
+      for (int g = 0; g < R; g += 32 * MEM_CHUNKS) {
+        // every chunk's membership byte first, then the ballots
+        uint8_t m[MEM_CHUNKS];
+#pragma unroll
+        for (int c = 0; c < MEM_CHUNKS; ++c) {
+          const int r = g + 32 * c + lane;
+          m[c] = r < R ? row[r] : 0;
+        }
+        uint32_t bits[MEM_CHUNKS];  // the same in every lane
+#pragma unroll
+        for (int c = 0; c < MEM_CHUNKS; ++c) bits[c] = __ballot_sync(FULL, m[c] != 0);
+        // the set rows, MEM_WALK loads in flight (the chunks unrolled, so
+        // the bit words stay in registers)
+        while ((bits[0] | bits[1] | bits[2] | bits[3]) != 0) {
+          int r[MEM_WALK];
+#pragma unroll
+          for (int k = 0; k < MEM_WALK; ++k) {
+            r[k] = -1;
+#pragma unroll
+            for (int c = 0; c < MEM_CHUNKS; ++c) {
+              if (r[k] < 0 && bits[c] != 0) {
+                r[k] = g + 32 * c + __ffs(bits[c]) - 1;
+                bits[c] &= bits[c] - 1;
+              }
+            }
+          }
+          MemWords<W> v[MEM_WALK];
+#pragma unroll
+          for (int k = 0; k < MEM_WALK; ++k) {
+#pragma unroll
+            for (int j = 0; j < NW; ++j) v[k].w[j] = FULL;
+            if (active && r[k] >= 0) v[k] = load_targets<W>(ok + r[k] * static_cast<long long>(N) + n0);
+          }
+#pragma unroll
+          for (int k = 0; k < MEM_WALK; ++k)
+#pragma unroll
+            for (int j = 0; j < NW; ++j) acc[j] &= nonzero_high(v[k].w[j]);
+        }
+      }
+      if (active) store_targets<W>(out + p * N + n0, acc);
+    }
+  }
+}
+
+template <int W, int RMAX>
+int launch_membership_w(const uint8_t* mem, const uint8_t* ok, uint8_t* out, int P, int R, int N,
+                        cudaStream_t stream) {
+  const long long warps = MEM_THREADS / 32;
+  // the register form: a warp a tile of 32 targets, grid.y over tiles of
+  // 32 entities; the walking form: a lane W targets, grid.y over entities
+  // a warp at a time
+  const long long gx = RMAX > 0 ? ((static_cast<long long>(N) + 31) / 32 + warps - 1) / warps
+                                : ((static_cast<long long>(N) + W - 1) / W + 31) / 32;
+  long long gy = RMAX > 0 ? (static_cast<long long>(P) + 31) / 32 : (P + warps - 1) / warps;
+  // one wave: every block resident at once, each warp walking its share
+  // of the entities (the register form builds its words once)
+  const long long wave = (SMS * MEM_BLOCKS_PER_SM + gx - 1) / gx;
+  if (gy > wave) gy = wave;
+  if (gy > MAX_GRID_Y) gy = MAX_GRID_Y;
+  membership_kernel<W, RMAX><<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
+                               MEM_THREADS, 0, stream>>>(mem, ok, out, P, R, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int launch_membership(const uint8_t* mem, const uint8_t* ok, uint8_t* out, int P, int R, int N,
+                      cudaStream_t stream) {
+  if (R <= 8) return launch_membership_w<W, 8>(mem, ok, out, P, R, N, stream);
+  if (R <= MEM_RREG) return launch_membership_w<W, MEM_RREG>(mem, ok, out, P, R, N, stream);
+  return launch_membership_w<W, 0>(mem, ok, out, P, R, N, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -548,7 +789,6 @@ constexpr int FITS_DREG = 4;             // dims a thread holds in registers
 constexpr int FITS_THREADS = 256;        // most threads a block
 constexpr int FITS_ROWS_PER_THREAD = 8;  // rows a thread takes from a staged tile
 constexpr int FITS_BLOCKS_PER_SM = 1;
-constexpr int SMS = 132;                 // the H100 SXM's SMs
 
 template <typename T> struct FitsRange;
 template <> struct FitsRange<int32_t> {
@@ -660,13 +900,6 @@ fits_matrix_kernel(const T* __restrict__ req, const T* __restrict__ alloc,
 constexpr int STAGE_THREADS = 256;
 constexpr int STAGE_BLOCKS_PER_SM = 8;
 
-// 0x01 in each byte of x that is not zero, 0x00 in each that is: bit 7 of
-// (b & 0x7f) + 0x7f is set iff b's low seven bits are not all zero (no
-// carry leaves the byte), and OR b adds b's own bit 7.
-__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
-  return ((((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) >> 7) & 0x01010101u;
-}
-
 // The codes of four elements, a byte each: 1 where !c, else 2 where !f,
 // else 3 where !o, else 0. On 0/1 bytes no term carries out of its byte.
 __device__ __forceinline__ uint32_t stage_codes(uint32_t c, uint32_t f, uint32_t o) {
@@ -703,12 +936,6 @@ stage_plane_kernel(const uint8_t* __restrict__ compat, const uint8_t* __restrict
     const long long k = nv * W + threadIdx.x;
     out[k] = stage_codes(compat[k], fits[k], offer[k]);
   }
-}
-
-constexpr int MAX_GRID_Y = 65535;
-
-inline bool aligned_to(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename T, int W>
@@ -786,15 +1013,23 @@ int kt_row_compat(const void* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// mem [P, R], ok [R, N] and out [P, N] bool: the wide instance when N % 16
+// == 0 and ok and out are 16-byte aligned, the mid when N % 4 == 0 and
+// they are 4-byte aligned, else the narrow; each in its register form for
+// R <= 8 or R <= 16, else its walking form.
 int kt_membership(const void* mem, const void* ok, void* out, int P, int R, int N,
                   void* stream) {
+  if (P < 0 || R < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0 || N == 0) return 0;
-  const dim3 block(THREADS);
-  const dim3 grid((N + THREADS - 1) / THREADS, (P + TILE - 1) / TILE);
-  membership_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mem), static_cast<const uint8_t*>(ok),
-      static_cast<uint8_t*>(out), P, R, N);
-  return static_cast<int>(cudaGetLastError());
+  const uint8_t* m = static_cast<const uint8_t*>(mem);
+  const uint8_t* k = static_cast<const uint8_t*>(ok);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N % 16 == 0 && aligned_to(ok, 16) && aligned_to(out, 16))
+    return launch_membership<16>(m, k, o, P, R, N, s);
+  if (N % 4 == 0 && aligned_to(ok, 4) && aligned_to(out, 4))
+    return launch_membership<4>(m, k, o, P, R, N, s);
+  return launch_membership<1>(m, k, o, P, R, N, s);
 }
 
 // mem [P, mem_stride] and key_present [P, kp_stride] bool entity rows

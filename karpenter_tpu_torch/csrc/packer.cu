@@ -391,19 +391,29 @@ size_t group_smem_bytes(int R, int K, int D) {
   return (static_cast<size_t>((R + 31) / 32) + (K + 31) / 32 + D + 1) * sizeof(int32_t);
 }
 
-// core[slots[j], c] = rows[j, c]; a negative slot counts from the end, a
-// slot outside [0, cap) is dropped (the reference's scatter semantics).
-// Duplicate (edge-padded) slots carry equal values, so their races are
-// harmless.
-__global__ void delta_scatter_kernel(int32_t* __restrict__ core, const int32_t* __restrict__ slots,
-                                     const int32_t* __restrict__ rows, int n, int cap) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n * 3) return;
-  const int j = k / 3, c = k % 3;
+// B11: core[slots[j], :] = rows[j, :]; a negative slot counts from the
+// end, a slot outside [0, cap) is dropped (the reference's scatter
+// semantics). Duplicate (edge-padded) slots carry equal values, so their
+// races are harmless. At most a few KB a call: bound by the launch and by
+// its dependent trips to memory. Thread k writes element k % 3 of row
+// k / 3 (a warp a few rows, so a store instruction writes whole rows) and
+// issues its slot's load and its value's load together, before the
+// bounds test: one trip. Small blocks spread the scattered stores over
+// the SMs (on an H100, one block of a thread a row took twice the time of
+// six blocks at n = 512: one SM's stores to 1,536 scattered words).
+constexpr int SCATTER_THREADS = 128;
+
+__global__ void __launch_bounds__(SCATTER_THREADS)
+delta_scatter_kernel(int32_t* __restrict__ core, const int32_t* __restrict__ slots,
+                     const int32_t* __restrict__ rows, int n, int cap) {
+  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (k >= 3LL * n) return;
+  const long long j = k / 3;
   int slot = slots[j];
+  const int32_t v = rows[k];
   if (slot < 0) slot += cap;
   if (slot < 0 || slot >= cap) return;
-  core[static_cast<size_t>(slot) * 3 + c] = rows[k];
+  core[static_cast<long long>(slot) * 3 + (k - 3 * j)] = v;
 }
 
 // out[j] = finalize(core[order[j]], counts[j]); a negative index counts
@@ -480,12 +490,15 @@ int kt_group_solve(const void* group_bools, const void* group_ints, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// core [cap, 3] int32 (written in place), slots [n] int32, rows [n, 3] int32
+// core [cap, 3] int32 (written in place), slots [n] int32, rows [n, 3] int32:
+// a thread an element, blocks of SCATTER_THREADS.
 int kt_delta_scatter(void* core, const void* slots, const void* rows, int n, int cap,
                      void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const int threads = 256, blocks = (n * 3 + threads - 1) / threads;
-  delta_scatter_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long blocks = (3LL * n + SCATTER_THREADS - 1) / SCATTER_THREADS;
+  delta_scatter_kernel<<<static_cast<unsigned>(blocks), SCATTER_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(core), static_cast<const int32_t*>(slots),
       static_cast<const int32_t*>(rows), n, cap);
   return static_cast<int>(cudaGetLastError());

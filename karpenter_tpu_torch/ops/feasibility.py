@@ -602,8 +602,6 @@ def _membership_kernel(membership: torch.Tensor, row_ok: torch.Tensor) -> torch.
     N = row_ok.shape[1]
     _check("membership", membership, torch.bool, (P, R), dev)
     _check("row_ok", row_ok, torch.bool, (R, N), dev)
-    if (P + _TILE - 1) // _TILE > _MAX_GRID_Y:
-        raise KernelError(f"membership: {P} entities exceed the kernel's grid")
     out = torch.empty((P, N), dtype=torch.bool, device=dev)
     rc = launch(dev, _lib().kt_membership, _ptr(membership), _ptr(row_ok), _ptr(out), P, R, N)
     _raise_on(rc, "membership")

@@ -28,8 +28,9 @@ from karpenter_tpu_torch.ops import feasibility as tfeas
 
 import torch_inputs
 from torch_inputs import (
-    FITS_EDGE_CASES, STAGE_EDGE_SHAPES, bool_tensor, cube_inputs, fits_edge_inputs, fits_inputs, onehot,
-    row_inputs, stage_edge_inputs, stage_inputs, to_torch,
+    FITS_EDGE_CASES, MEMBERSHIP_EDGE_CASES, MEMBERSHIP_OK_FILLS, STAGE_EDGE_SHAPES, bool_tensor,
+    cube_inputs, fits_edge_inputs, fits_inputs, membership_edge_inputs, onehot, row_inputs,
+    stage_edge_inputs, stage_inputs, to_torch,
 )
 
 torch.set_num_threads(1)
@@ -61,6 +62,21 @@ def test_membership_matches_jax(seed):
     membership, req_compat = cube_inputs(seed)[:2]
     want = np.asarray(jfeas.membership_all(jnp.asarray(membership), jnp.asarray(req_compat)))
     got = tfeas.membership_all(to_torch(membership), to_torch(req_compat))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("fill", MEMBERSHIP_OK_FILLS)
+@pytest.mark.parametrize("case", MEMBERSHIP_EDGE_CASES)
+def test_membership_edges_match_jax(case, fill):
+    """The edges of kt_membership's instances (N across the wide, mid and
+    narrow ones, R on either side of the 16 register rows, past a ballot
+    of 32 rows and at 128; R = 0, P = 1, N = 1) with a random, an all-false
+    and an all-true row_ok: the port's membership_all bit for bit against
+    the reference's f32 count."""
+    membership, row_ok = membership_edge_inputs(case, fill)
+    want = np.asarray(jfeas.membership_all(jnp.asarray(membership), jnp.asarray(row_ok)))
+    got = tfeas.membership_all(to_torch(membership), to_torch(row_ok))
+    assert got.dtype == torch.bool and tuple(got.shape) == (case[0], case[2])
     np.testing.assert_array_equal(got.numpy(), want)
 
 

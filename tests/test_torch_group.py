@@ -31,7 +31,9 @@ from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from karpenter_tpu_torch.ops import delta as tdelta  # noqa: E402
 from karpenter_tpu_torch.ops import feasibility as tfeas  # noqa: E402
 from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
-from torch_inputs import core_inputs, group_inputs, offering_inputs, onehot, to_torch  # noqa: E402
+from torch_inputs import (  # noqa: E402
+    SCATTER_EDGE_CASES, core_inputs, group_inputs, offering_inputs, onehot, scatter_edge_inputs, to_torch,
+)
 
 torch.set_num_threads(1)
 
@@ -117,6 +119,19 @@ def test_delta_scatter_and_finalize_plain_match_jax(seed):
     _same(got, want)
     want_f = jpacker.delta_finalize(jnp.asarray(want), jnp.asarray(order), jnp.asarray(counts))
     _same(tpacker.delta_finalize(got, to_torch(order), to_torch(counts)), want_f)
+
+
+@pytest.mark.parametrize("case", SCATTER_EDGE_CASES)
+def test_delta_scatter_edges_match_jax(case):
+    """No slot, negative slots, slots past either end, edge-padded
+    duplicates and more slots than core rows: the port's delta_scatter_rows
+    in place, bit for bit against the reference's scatter."""
+    core, slots, rows = scatter_edge_inputs(case)
+    want = np.asarray(jpacker.delta_scatter_rows(jnp.asarray(core), jnp.asarray(slots), jnp.asarray(rows)))
+    t_core = to_torch(core.copy())
+    got = tpacker.delta_scatter_rows(t_core, to_torch(slots), to_torch(rows))
+    assert got is t_core
+    _same(got, want)
 
 
 def test_group_core_from_numpy():

@@ -25,11 +25,14 @@ from karpenter_tpu_torch.ops import packer as tpacker  # noqa: E402
 from karpenter_tpu_torch.device import KernelError  # noqa: E402
 from karpenter_tpu_torch.mesh import Mesh  # noqa: E402
 from torch_inputs import (  # noqa: E402
-    FAMU_F, FAMU_I, FAMU_T, FAMU_U, FITS_EDGE_CASES, GROUP_KERNEL_SHAPES, PASS_CASES,
-    SCAN_EDGE_CASES, STAGE_EDGE_SHAPES, SWEEP_ROW_CASES, bool_tensor, core_inputs, cube_inputs,
+    FAMU_F, FAMU_I, FAMU_T, FAMU_U, FITS_EDGE_CASES, GROUP_KERNEL_SHAPES, MEMBERSHIP_EDGE_CASES,
+    MEMBERSHIP_OK_FILLS, MEMBERSHIP_RUNGS, PASS_CASES, SCAN_EDGE_CASES, SCATTER_EDGE_CASES,
+    SCATTER_RUNGS, STAGE_EDGE_SHAPES, SWEEP_ROW_CASES, bool_tensor, core_inputs, cube_inputs,
     famu_inputs, fits_edge_inputs, fits_inputs, frontier_inputs, group_inputs, group_kernel_inputs,
-    mesh_kernel_inputs, offering_inputs, offset_copy, pass_inputs, row_inputs, scan_edge_inputs,
-    scan_inputs, stage_edge_inputs, stage_inputs, sweep_inputs, target_inputs, to_torch, uid_inputs,
+    membership_edge_inputs, membership_rung_inputs, mesh_kernel_inputs, offering_inputs,
+    offset_copy, pass_inputs, raw_bytes, row_inputs, scan_edge_inputs, scan_inputs,
+    scatter_edge_inputs, stage_edge_inputs, stage_inputs, sweep_inputs, target_inputs, to_torch,
+    uid_inputs,
 )
 
 SEEDS = range(8)
@@ -383,6 +386,124 @@ def test_stage_plane_edges_match_plain_on_card(cuda_device, shape, raw):
         got = tfeas.stage_plane(*dev)
         assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
     assert tfeas.LAUNCHES["stage_plane"] == n0 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", MEMBERSHIP_OK_FILLS)
+@pytest.mark.parametrize("case", MEMBERSHIP_EDGE_CASES)
+def test_membership_edges_match_plain_on_card(cuda_device, case, fill):
+    """B2 on the edges of its instances (N across the wide, mid and narrow
+    ones, R on either side of the register forms' rows and past a chunk of 32,
+    R = 0, P = 1, N = 1; row_ok random, all false, all true), bit for bit
+    against the plain version: as they are, with row_ok 4 and 1 bytes and
+    membership 1 and 3 bytes past alignment, each also on bytes that are
+    true but not 1. Every output byte is 0 or 1."""
+    want = tfeas.membership_all_plain(*(to_torch(a) for a in membership_edge_inputs(case, fill)))
+    n0 = tfeas.LAUNCHES["membership"]
+    calls = 0
+    for raw in (False, True):
+        mem, ok = (bool_tensor(a).to(cuda_device) for a in membership_edge_inputs(case, fill, raw))
+        for m_off, o_off in ((0, 0), (1, 4), (3, 1)):
+            got = tfeas.membership_all(offset_copy(mem, m_off), offset_copy(ok, o_off))
+            assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
+            assert int(got.view(torch.uint8).max()) <= 1
+            calls += 1
+    assert tfeas.LAUNCHES["membership"] == n0 + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1008, 144, 1004, 1009])
+@pytest.mark.parametrize("rung", MEMBERSHIP_RUNGS)
+def test_membership_rungs_match_plain_on_card(cuda_device, rung, N):
+    """B2 at every rung of the ladder's feasibility.membership (P x R) against
+    the catalog x7's 1008 types and the kwok catalog's 144 (the wide
+    instance), 1004 (mid) and 1009 (narrow): row_ok as it is and 4 and 1
+    bytes past alignment, on 0/1 bytes and on true bytes that are not 1."""
+    P, R = rung
+    mem, ok = membership_rung_inputs(P, R, N)
+    want = tfeas.membership_all_plain(to_torch(mem), to_torch(ok))
+    rng = np.random.RandomState(P + R + N)
+    for raw in (False, True):
+        m, o = ((bool_tensor(raw_bytes(a, rng)) if raw else to_torch(a)).to(cuda_device) for a in (mem, ok))
+        for offset in (0, 4, 1):
+            assert torch.equal(tfeas.membership_all(m, offset_copy(o, offset)).cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCATTER_EDGE_CASES + SCATTER_RUNGS)
+def test_delta_scatter_edges_match_plain_on_card(cuda_device, case):
+    """B11 on no slot, negative slots, slots past either end, edge-padded
+    duplicates and more slots than core rows, and at the ladder's
+    solve_block rungs (n rows into 2n), in place and bit for bit against
+    the plain version; again with slots and rows one element past their
+    buffers' start (off 16-byte alignment)."""
+    core, slots, rows = (to_torch(a) for a in scatter_edge_inputs(case))
+    want = tpacker.delta_scatter_rows_plain(core.clone(), slots, rows)
+    n0 = tpacker.LAUNCHES["delta_scatter"]
+    s, r = slots.to(cuda_device), rows.to(cuda_device)
+    for ss, rr in ((s, r), (offset_copy(s, 1), offset_copy(r, 1))):
+        d = core.to(cuda_device)
+        got = tpacker.delta_scatter_rows(d, ss, rr)
+        assert got is d and torch.equal(got.cpu(), want)
+    assert tpacker.LAUNCHES["delta_scatter"] == n0 + 2 * bool(slots.shape[0])
+
+
+@pytest.mark.cuda
+def test_membership_and_scatter_work_on_the_current_stream_on_card(cuda_device):
+    """With the default stream held busy, B2 in each of its nine instances
+    (wide, mid and narrow by N: 1008, 1004, 1009; R = 4 and 16 in its
+    register forms, R = 64 walking) and B11 at the top solve_block rung,
+    launched under another torch.cuda.Stream, finish on that stream and
+    equal the plain versions while the default stream still sleeps."""
+    runs, want = [], []
+    for R in (4, 16, 64):
+        for N in (1008, 1004, 1009):
+            mem, ok = membership_rung_inputs(1024, R, N)
+            m, o = to_torch(mem).to(cuda_device), to_torch(ok).to(cuda_device)
+            runs.append(lambda m=m, o=o: tfeas.membership_all(m, o))
+            want.append(tfeas.membership_all_plain(to_torch(mem), to_torch(ok)))
+    core, slots, rows = (to_torch(a) for a in scatter_edge_inputs(SCATTER_RUNGS[-1]))
+    want.append(tpacker.delta_scatter_rows_plain(core.clone(), slots, rows))
+    s, r = slots.to(cuda_device), rows.to(cuda_device)
+    runs.append(lambda: tpacker.delta_scatter_rows(core.to(cuda_device), s, r))
+    for run in runs:  # warm: build and load the kernels before the clock starts
+        run()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device=cuda_device)
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s on the default stream
+    with torch.cuda.stream(side):
+        got = [run().cpu() for run in runs]
+    busy = not torch.cuda.default_stream(cuda_device).query()
+    torch.cuda.synchronize()
+    assert busy, "the side stream's work waited for the default stream"
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_membership_and_scatter_refuse_bad_operands_on_card(cuda_device):
+    """A breach of kt_membership's or kt_delta_scatter's contract raises
+    KernelError and launches nothing: a wrong dtype, a row count that
+    disagrees, operands that are not contiguous or not on the card."""
+    mem, ok = (to_torch(a).to(cuda_device) for a in membership_rung_inputs(64, 16, 1008))
+    core, slots, rows = (to_torch(a).to(cuda_device) for a in scatter_edge_inputs(SCATTER_RUNGS[1]))
+    l0 = {**tfeas.LAUNCHES, **tpacker.LAUNCHES}
+    bad = (
+        lambda: tfeas.membership_all(mem.view(torch.uint8), ok),
+        lambda: tfeas.membership_all(mem, ok.view(torch.uint8)),
+        lambda: tfeas.membership_all(mem, ok[:-1]),
+        lambda: tfeas.membership_all(mem, ok.t().contiguous().t()),
+        lambda: tfeas.membership_all(mem[:, ::2], ok[::2]),
+        lambda: tfeas.membership_all(mem, ok.cpu()),
+        lambda: tpacker.delta_scatter_rows(core, slots[:-1], rows),
+        lambda: tpacker.delta_scatter_rows(core.long(), slots, rows),
+        lambda: tpacker.delta_scatter_rows(core, slots, rows.t().contiguous().t()),
+        lambda: tpacker.delta_scatter_rows(core, slots.cpu(), rows),
+    )
+    for call in bad:
+        with pytest.raises(KernelError):
+            call()
+    assert {**tfeas.LAUNCHES, **tpacker.LAUNCHES} == l0
 
 
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:

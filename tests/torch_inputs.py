@@ -668,3 +668,101 @@ def pass_inputs(case: str, seed: int):
     order = np.pad(order, (0, Gb - g), mode="edge")
     counts = np.pad(rng.randint(0, 100, size=g).astype(np.int32), (0, Gb - g))
     return (core, slots, gb, gi, order, counts) + tuple(args[2:])
+
+
+# membership_all's edge cases (P, R, N), B2: the kernel's wide (N % 16 ==
+# 0), mid (N % 4 == 0) and narrow instances, each in its register forms (R
+# <= 8, R <= 16) and its walking form (R > 16); R = 0; P = 1 and N = 1; R =
+# 8, 12 and 16 and 17 on either side of the register forms' rows, 33 (a
+# second chunk of 32 rows) and 128 (four chunks); phase 7's sweep shape
+# [16, 7] x [7, 1008]; P past one wave of entity tiles (66 tiles of 32 at
+# N = 1008), so that a warp walks more than two tiles
+MEMBERSHIP_EDGE_CASES = (
+    (1, 7, 1008), (16, 7, 1008), (9, 0, 1008), (9, 5, 1), (33, 16, 1009), (33, 16, 36),
+    (300, 12, 1008), (40, 8, 1004), (70, 17, 144), (70, 33, 1008), (17, 128, 1004),
+    (17, 128, 37), (4133, 4, 1008), (2300, 20, 1008),
+)
+# what row_ok holds: random (most rows compatible), all false, all true
+MEMBERSHIP_OK_FILLS = ("random", "false", "true")
+TRUE_BYTES = np.array([1, 2, 127, 128, 255], dtype=np.uint8)
+
+
+def raw_bytes(a: np.ndarray, rng) -> np.ndarray:
+    """A bool array as uint8 whose true bytes are any of 1, 2, 127, 128 and
+    255 (viewed as torch.bool by bool_tensor: bytes that are not 0/1)."""
+    return np.where(a, TRUE_BYTES[rng.randint(0, len(TRUE_BYTES), size=a.shape)], 0).astype(np.uint8)
+
+
+def membership_edge_inputs(case: tuple, fill: str = "random", raw: bool = False, seed: int = 0):
+    """membership [P, R] and row_ok [R, N] for a case of MEMBERSHIP_EDGE_CASES:
+    about 4 rows an entity (as the sweep's entities hold), entity 0 with
+    none and, when R > 1, the last entity with every row; row_ok random
+    (9 in 10 compatible), all false or all true (`fill`). With `raw`,
+    uint8 arrays whose true bytes are not all 1 (raw_bytes)."""
+    P, R, N = case
+    rng = np.random.RandomState(1700 + 31 * seed + P + 7 * R + N + MEMBERSHIP_OK_FILLS.index(fill))
+    mem = rng.rand(P, R) < min(1.0, 4.0 / max(R, 1))
+    mem[0] = False
+    if R > 1 and P > 1:
+        mem[-1] = True
+    ok = {"random": rng.rand(R, N) < 0.9, "false": np.zeros((R, N), dtype=bool),
+          "true": np.ones((R, N), dtype=bool)}[fill]
+    if raw:
+        return raw_bytes(mem, rng), raw_bytes(ok, rng)
+    return mem, ok
+
+
+# the ladder's feasibility.membership rungs (karpenter_tpu_torch/aot/ladder.py
+# DEFAULT), P x R, at the catalog x7's 1008 types and the kwok catalog's 144
+MEMBERSHIP_RUNGS = tuple((p, r) for p in (1, 8, 64, 128, 256, 512, 1024) for r in (4, 16, 64))
+
+
+def membership_rung_inputs(P: int, R: int, N: int, seed: int = 0):
+    """membership [P, R] (about 4 rows an entity) and row_ok [R, N] (9 in 10
+    compatible) at a ladder rung."""
+    rng = np.random.RandomState(1800 + 31 * seed + P + 7 * R + N)
+    return rng.rand(P, R) < min(1.0, 4.0 / R), rng.rand(R, N) < 0.9
+
+
+# delta_scatter_rows' edge cases (B11): no slot; negative slots (counting
+# from the end); slots past either end (dropped); edge-padded duplicate
+# slots; more slots than core rows (duplicates carrying equal rows, some
+# out of range)
+SCATTER_EDGE_CASES = ("empty", "negative", "past_cap", "edge_padded", "more_than_cap")
+# the ladder's packer.solve_block rungs: a frontier of n rows into 2n
+SCATTER_RUNGS = (8, 64, 512)
+
+
+def scatter_edge_inputs(case: str, seed: int = 0):
+    """(core [cap, 3], slots [n], rows [n, 3]) int32 for a case of
+    SCATTER_EDGE_CASES or, for an int, a frontier of that many rows at
+    distinct slots of a core of twice as many rows. Slots that land on one
+    core row carry equal rows, as the residency's do."""
+    rng = np.random.RandomState(1900 + 31 * seed + (case if isinstance(case, int)
+                                                       else SCATTER_EDGE_CASES.index(case)))
+    cap = 2 * case if isinstance(case, int) else 64
+    core = np.stack([rng.randint(0, 50, size=cap), rng.randint(0, 3, size=cap),
+                     rng.randint(-1, 12, size=cap)], axis=1).astype(np.int32)
+    table = np.stack([rng.randint(0, 1008, size=cap), rng.randint(0, 2, size=cap),
+                      rng.randint(0, 200, size=cap)], axis=1).astype(np.int32)
+    if isinstance(case, int):
+        slots = rng.permutation(cap)[:case]
+    elif case == "empty":
+        slots = np.zeros(0, dtype=np.int64)
+    elif case == "negative":
+        slots = rng.permutation(cap)[:40]
+        slots[::2] -= cap
+    elif case == "past_cap":
+        slots = rng.permutation(cap)[:40]
+        slots[:6] = [cap, cap + 1, 2 * cap + 5, -cap - 1, -2 * cap, 2**31 - 1]
+    elif case == "edge_padded":
+        slots = np.pad(rng.permutation(cap)[:37], (0, 3), mode="edge")
+    else:
+        slots = rng.randint(-2 * cap, 2 * cap, size=3 * cap)
+    slots = slots.astype(np.int32)
+    norm = np.where(slots < 0, slots.astype(np.int64) + cap, slots)
+    kept = (norm >= 0) & (norm < cap)
+    rows = np.stack([rng.randint(0, 1008, size=len(slots)), rng.randint(0, 2, size=len(slots)),
+                     rng.randint(0, 200, size=len(slots))], axis=1).astype(np.int32)
+    rows[kept] = table[norm[kept]]
+    return core, slots, rows.reshape(-1, 3)
