@@ -4,14 +4,24 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # phases 1-3 only (build + kernel checks)
     python3 chip_smoke.py --mesh     # phases 1-2, 4, 5c and 5b (two or more cards)
+    python3 chip_smoke.py --consolidation  # phases 1-2 and 4d (the consolidation
+                                     # search) alone
     python3 chip_smoke.py --operator # phases 1-2 and 4o (the operator) alone
     python3 chip_smoke.py --sim      # phases 1-2 and 4v (the simulator) alone
     python3 chip_smoke.py --aot      # phases 1-2 and 4a (the AOT compile service) alone
+    python3 chip_smoke.py --host-route  # phases 1-2 and 4h (the catalog's host route), its
+                                     # ladders to 65,536 entities and 512 rows
     python3 chip_smoke.py --turns TREE [TREE ...]   # the group, sweep, fits,
                                      # stage, membership and scatter wrappers
                                      # of each checkout, timed in turns
 
-Phases, in order; any failure exits non-zero:
+Phases, in order, but for the side phases 4d, 4o, 4v and 4a: each makes
+its own workload and reads nothing an earlier phase left, so the full run
+starts each in a process of its own (`--<phase> --child`) right after the
+build, on the libraries it built, runs phases 3 to 4c beside them, and
+joins them (their output relayed, their launches and host-route batches
+read from their last lines) before phase 4h times the card. Any failure
+exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the CUDA kernels from karpenter_tpu_torch/csrc (nvcc, sm_90a, one
      nvcc per source, all started together) and print ptxas's registers and
@@ -81,8 +91,10 @@ Phases, in order; any failure exits non-zero:
      and read just after, and every scan launch must have taken the
      resident design (here, in phase 5 and in phase 5b). Exactly one
      kt_row_compat launch a row batch (types and offerings together) and
-     one kt_cube launch a sweep, in each solve, and no kt_membership; the
-     sweeps' shapes are logged. One kt_uid_project launch a scan solve
+     one kt_cube launch a sweep, in each solve, and no kt_membership; no
+     batch on the host route's twins (ops/catalog.py: an unpinned CUDA
+     engine keeps every batch on the card); the sweeps' shapes are logged,
+     and each walk solve's time in Python's garbage collector. One kt_uid_project launch a scan solve
      (famu_ok); in one more warm solve the famu_ok build, recorded op by
      op, is the masks' one upload and that one launch, and a profiled warm
      solve holds no elementwise & kernel. Then the slice-1 path (scan off, the
@@ -135,7 +147,9 @@ Phases, in order; any failure exits non-zero:
      churn passes, one group pass with new shapes and one warm topology
      solve: each batch's named dispatches equal the wrapper launches
      LAUNCHES counted in the same window under DISPATCH_OF (a warm scan
-     solve is exactly feasibility.cube 1 and packer.solve_scan 1, a churn
+     solve is packer.solve_scan 1 and its sweep where `_use_device`
+     decided at this process's measured round trip: on the card
+     feasibility.cube 1, a host record and no dispatch otherwise; a churn
      pass one packer.solve_scan_resume, the group pass one
      packer.delta_pass); no compile in the phase and no steady recompile;
      every dispatch fenced with block_s > 0; each batch's device_busy_s
@@ -147,6 +161,20 @@ Phases, in order; any failure exits non-zero:
      one warm solve whose trace.json parses, its kernel events counted; in
      a child process, a fence after a kt_delta_finalize launch given a
      bogus pointer raises KernelError. One JSON line {"observatory": {...}};
+  4h. the catalog's host route (phase_host_route; after 4c): the card's
+     round trip as ops/catalog.device_rtt_s probes it (the process's
+     cached probe, and 50 fresh probes: median and spread); the main
+     path's catalog and the same types without offerings, swept at P = 1,
+     2, 4, ... entities and R = 1, 4, 16 rows, and row batches of 1, 7, 31,
+     32 rows (--host-route: to 65,536 entities and 64, 512 rows too): each
+     shape's engine call pinned to the device (FORCE_BACKEND, one launch)
+     and to the host (the numpy twins, no launch, one host batch), their
+     bits equal, timed in turns on the host clock; the kernel alone by CUDA
+     events; the port's route (the card, unpinned), the reference's rule at
+     the measured round trip and at the sim's 100 us pin, and which side
+     was faster; in a child process a probe that raises fails a fresh CUDA
+     engine's warm-up with KernelError and a nonzero exit. chiprun_out/host_route.json;
+     one JSON line {"host_route": {...}};
   4s. the solver service (phase_service; after 4c): phase 4's workload
      (the 50,000 pods and one Ready `default` NodePool created in a Store,
      fed to the Cluster by the StateInformer; FakeCloudProvider over the
@@ -159,7 +187,10 @@ Phases, in order; any failure exits non-zero:
      NodeClaims in the store, have 0 pod errors, one device solve and no
      fallback, the engine on the card, the service's last_batch_dispatches
      equal to the named launches inside its batch, the registry sealed
-     after the first reconcile and 0 steady recompiles; the set-up, the
+     after the first reconcile and 0 steady recompiles, the row bootstrap
+     and every row batch and sweep on the card (no batch on the host
+     route's twins, a cold reconcile launching kt_row_compat, kt_cube,
+     kt_uid_project and kt_solve_scan); the set-up, the
      prewarm, each reconcile and its parts (pending pods, scheduler build,
      the solverd round trip, decision marks, claim creation) are timed,
      beside last_batch_seconds and last_batch_host_stall. Launch counts
@@ -178,7 +209,7 @@ Phases, in order; any failure exits non-zero:
      overlap printed. Last, in a child process, a coalesced batch whose
      primed sweep launches kt_cube with a bogus pointer: both requests
      fail with KernelError. One JSON line {"service": {...}};
-  4d. the consolidation search (phase_consolidation; after 4s): bench.py's
+  4d. the consolidation search (phase_consolidation; a side phase): bench.py's
      consolidation legs in the port's API (consolidation_env: the kwok
      catalog, a Provisioner with Options() as they come, the disruption
      Queue and Controller, one Ready `workers` NodePool and N
@@ -208,12 +239,13 @@ Phases, in order; any failure exits non-zero:
      in chiprun_out/consolidation_1k_profile.txt). Then kt_solve_scan at
      a 1k probe's operands (existing nodes, N=1024) in both designs, and
      the path's largest row batch and sweep, against their plain versions
-     bit for bit, timed; and in child processes, side by side, a frontier
+     bit for bit, timed; and in child processes started with the phase
+     and run beside it (in_background), a frontier
      round whose primed kt_cube gets a bogus pointer: reconcile() raises
      KernelError, in-process and through a SocketClient to the sidecar
      (the module's entry point, the fault armed there). One JSON line
      {"consolidation": {...}};
-  4o. the operator (phase_operator; after 4d): the port's binary path on
+  4o. the operator (phase_operator; a side phase): the port's binary path on
      the card — a FakeClock, a Store, KwokCloudProvider (its 144 types),
      Operator(store, provider, clock=clock, options=Options()), one Ready
      `workers` NodePool with the defaults (WhenEmptyOrUnderutilized,
@@ -233,15 +265,17 @@ Phases, in order; any failure exits non-zero:
      the same store (NodeClaims by name with NodePool, instance type, zone
      and capacity type; every pod's node; the commands in order); harness
      errors 0 in both. kt_row_compat, kt_cube, kt_uid_project and
-     kt_solve_scan must have launched, every scan resident, and each is
+     kt_solve_scan must have launched, no batch on the host route's twins,
+     every scan resident, and each is
      held bit for bit against its plain version at the phase's operands
      (the scale-up's scan, and a probe's with nodes when one ran on the
-     card). In child processes, side by side: the scale-up's primed kt_cube
+     card). In child processes started with the phase and run beside it:
+     the scale-up's primed kt_cube
      given a bogus pointer makes run_once() raise KernelError (counted
      once, not backed off), and __main__.main(["--device", "cuda", ...])
      returns nonzero after one failed pass, logging its flight dump. One
      JSON line {"operator": {...}};
-  4v. the simulator (phase_sim; after 4o): `python -m
+  4v. the simulator (phase_sim; a side phase): `python -m
      karpenter_tpu_torch.sim` through sim.__main__.main(..., "--device",
      "cuda") (sim_run), each pass inside ktime.measure() and a batch scope
      (SimPasses), the launch counts zeroed just before each run and read
@@ -251,7 +285,10 @@ Phases, in order; any failure exits non-zero:
      sustained-churn with --delta-solve off and on; each run's event log
      (its digest and its bytes) and its report outside
      sim.harness.DEVICE_SPECIFIC equal to the same run on device="cpu"
-     engines, and the event log and the report outside sim.harness.VOLATILE
+     engines (its report["kernels"] whole wherever neither run dispatched
+     the scan: there the fused gate differs by design, the CPU engine's
+     `auto` takes the walk), under the sim's pinned round trip (both
+     route every batch alike, the small ones to the host twins), and the event log and the report outside sim.harness.VOLATILE
      equal to a second same-seed run on the card; the mesh-sweep digests
      equal across mesh sizes and the sustained-churn ones with delta off and
      on. Leg b: a version-1 trace at a size users run, written by the phase
@@ -261,21 +298,23 @@ Phases, in order; any failure exits non-zero:
      churn group every 10 s from 20 s that lives 60 s, a graceful spot
      interruption of 2 nodes at 120 s and a reclaim at 200 s; 300 s at a
      2 s tick) through --trace, equal to the CPU engines' run; it must
-     launch kt_row_compat, kt_cube, kt_uid_project and kt_solve_scan (every
-     scan resident), each held bit for bit against its plain version at the
-     operands the leg gave it; the wall per pass (p50, max), the passes to
+     launch kt_uid_project and kt_solve_scan (every scan resident) and make
+     row batches and sweeps (launched, or on the twins where the pinned
+     route sends them), each kernel held bit for bit against its plain
+     version at the operands the leg gave it (a host-routed batch's
+     operands uploaded for the check, no launch on the path); the wall per pass (p50, max), the passes to
      bind the first batch, the host-stall share of the solving passes and
      memory_allocated (from the first consolidation compute on, flat
      outside the named residents: the engines' resident row matrices, the
      packed tables' LRU, the operands kept for the checks). Leg b's card
      run goes in this process; beside it, in child processes, leg a's two
      runs on the card and the CPU engines' runs of both legs. In two more,
-     side by side, a bogus pointer in a
+     started with them, a bogus pointer in a
      primed kt_cube — the first batch's, and one after a solver-service
      restart and an operator crash restart — makes main() exit nonzero with
      the KernelError named and the flight ring dumped. One JSON line
      {"sim": {...}}; the details in chiprun_out/sim_4v/;
-  4a. the AOT compile service (phase_aot; after 4v): on phase 4's catalog
+  4a. the AOT compile service (phase_aot; a side phase): on phase 4's catalog
      with the default ladder, a child process boots a Provisioner with
      Options(compile_cache_dir=D), D empty, and prewarms (the cold boot:
      every bucket a fresh compile, nvcc once per source into D); then side
@@ -349,7 +388,11 @@ Phases, in order; any failure exits non-zero:
      delta_scatter's (n 8, 64 and 512 into 2n), each checked and timed;
      row_compat's and cube's entries
      (on the row batch and the sweep the main path gave them) also hold the
-     host time by part and ptxas's report. Beside the kernels line, the
+     host time by part and ptxas's report; row_compat, membership, cube
+     and offering_reduce also the numpy twin the host route runs in their
+     place (`twin_ms`, its bits equal to the kernel's). A line
+     {"host_records": ...} before the kernels line counts the path's
+     host-route batches (the kernels line counts launches only). Beside the kernels line, the
      launch floor: an empty kernel's device time and a no-op's host time
      through device.launch; and the dispatch floor: the same kernel through
      a named ktime.dispatch, without and with a measure() context (which
@@ -393,6 +436,7 @@ Imports torch, numpy and karpenter_tpu_torch only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import itertools
@@ -919,6 +963,8 @@ def _pending_pod(name, uid, sel, requests, ts):
 
 
 def build_pods():
+    """The workload's NUM_PODS pending pods, objects of their own on every
+    call (a solve marks its pods): a fifth of a deep copy's time."""
     shapes, picks = bench_shapes()
     return [
         _pending_pod(f"pod-{i:05d}", f"uid-{i:05d}", *shapes[s], float(i % 13))
@@ -1109,6 +1155,48 @@ def cuda_ms(fn, reps=20, warmup=3, rounds=5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def gc_timer():
+    """[seconds, collections] the Python garbage collector spent while
+    open (gc.callbacks)."""
+    import gc
+
+    out, start = [0.0, 0], []
+
+    def cb(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            out[0] += time.perf_counter() - start.pop()
+            out[1] += 1
+
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def _catmod():
+    """ops/catalog.py: the host route's constants and decisions."""
+    from karpenter_tpu_torch.ops import catalog
+
+    return catalog
+
+
+def in_background(fn, *args):
+    """fn(*args) on a thread started now, so that a phase's fault probes
+    (child processes it only waits on) run beside the phase's own work;
+    `.result()` joins it and re-raises what it raised."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    try:
+        return pool.submit(fn, *args)
+    finally:
+        pool.shutdown(wait=False)
 
 
 def _aotc():
@@ -1729,6 +1817,7 @@ def phase_main(captured, device=None):
         return real_drive(self)
 
     mode0 = fused.FUSED_MODE
+    host0 = dict(HOST_BATCHES)
     feas.req_rows_vs_targets, feas.cube_rows, feas.uid_project_factored, packer.solve_scan = (
         rows_shim, cube_shim, uid_shim, scan_shim)
     ffd._NativeDriver.drive = drive_shim
@@ -1739,7 +1828,7 @@ def phase_main(captured, device=None):
         runs = []
         for label in ("cold", "warm", "warm"):
             before, c0 = _count_launches(), dict(calls)
-            results, ms = solve(engine, catalog, copy.deepcopy(pods))
+            results, ms = solve(engine, catalog, build_pods())
             runs.append((label, ms, results,
                          {k: v - before[k] for k, v in _count_launches().items()},
                          {k: v - c0[k] for k, v in calls.items()}))
@@ -1760,7 +1849,11 @@ def phase_main(captured, device=None):
         packer.reset_launch_counts()
         calls.update(row_batches=0, sweeps=0)
         for label, eng in (("cold", walk_engine), ("warm", walk_engine)):
-            results, ms = solve(eng, catalog, copy.deepcopy(pods))
+            solve_pods = build_pods()
+            with gc_timer() as gc_s:
+                results, ms = solve(eng, catalog, solve_pods)
+            log(f"solve {label} (walk): {ms:.1f} ms wall, of it {gc_s[0] * 1e3:.1f} ms in "
+                f"{gc_s[1]} Python garbage collections")
             walk_runs.append((label, ms, results))
         walk_launches = _count_launches()
         walk_calls = dict(calls)
@@ -1801,6 +1894,9 @@ def phase_main(captured, device=None):
         assert walk_launches[name] > 0, f"{name} never launched on the walk path"
     # B2 runs on neither path: the sweep's compat half is kt_cube's
     assert launches["membership"] == walk_launches["membership"] == 0, "kt_membership launched"
+    # the unpinned card keeps every row batch and sweep (ops/catalog.py
+    # `_card_keeps_work`): none took the host route's twins
+    assert HOST_BATCHES == host0, f"phase 4: host-route batches {HOST_BATCHES}, before {host0}"
     assert walk_launches["row_compat"] == walk_calls["row_batches"] and \
         walk_launches["cube"] == walk_calls["sweeps"], (walk_launches, walk_calls)
     first = captured["decisions"] = decisions(runs[0][2])
@@ -1814,8 +1910,8 @@ def phase_main(captured, device=None):
     log("solve wall ms, scan: cold {:.1f} warm {:.1f} {:.1f} | walk: cold {:.1f} warm {:.1f} "
         "(the walk's cold includes building the native walk); decisions identical".format(
             *(r[1] for r in runs), *(r[1] for r in walk_runs)))
-    profile_warm_solve(engine, catalog, pods)
-    famu_ok_ops(engine, catalog, pods)
+    profile_warm_solve(engine, catalog)
+    famu_ok_ops(engine, catalog)
     return launches
 
 
@@ -1825,7 +1921,7 @@ FAMU_VIEW_OPS = {"slice", "view", "alias", "empty", "detach", "lift_fresh", "as_
 FAMU_COPY_OPS = {"_to_copy", "copy_"}
 
 
-def famu_ok_ops(engine, catalog, pods) -> None:
+def famu_ok_ops(engine, catalog) -> None:
     """One more warm solve, its famu_ok build (fused._FusedSolve._famu_ok)
     recorded op by op: every aten op it dispatches (a TorchDispatchMode
     around the build) and the kernel launches it counts. It must be the
@@ -1863,7 +1959,7 @@ def famu_ok_ops(engine, catalog, pods) -> None:
 
     fused._FusedSolve._famu_ok = staticmethod(shim)
     try:
-        solve(engine, catalog, copy.deepcopy(pods))
+        solve(engine, catalog, build_pods())
     finally:
         fused._FusedSolve._famu_ok = static
     assert len(builds) == 1, f"{len(builds)} famu_ok builds in one solve"
@@ -1873,7 +1969,7 @@ def famu_ok_ops(engine, catalog, pods) -> None:
     assert len(copies) == 1 and not other and launches == 1, \
         f"famu_ok build: aten ops {ops}, {launches} uid_project launches"
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        solve(engine, catalog, copy.deepcopy(pods))
+        solve(engine, catalog, build_pods())
     kernels = {}
     for ev in prof.key_averages():
         if (getattr(ev, "self_device_time_total", 0.0) or 0.0) > 0:
@@ -2455,7 +2551,7 @@ def phase_observatory(captured, device=None):
         fused.FUSED_MODE = "off" if kind == "walk" else "on"
         delta.configure(mode="on" if kind in ("churn", "group") else "off", resolve_full_every=0)
         if kind in ("scan", "walk"):
-            solve_pods = copy.deepcopy(pods)
+            solve_pods = build_pods()
             return lambda: solve(engines[kind], catalog, solve_pods)[1]
         if kind == "churn":
             return lambda: solve(engines[kind], catalog, churn[k])[1]
@@ -2486,14 +2582,29 @@ def phase_observatory(captured, device=None):
             for k in range(warm):
                 prepared(kind, k)()
         reg.seal()
-        for kind, k in measured:
-            label = f"{kind} {k}"
-            run = prepared(kind, k)
-            before = _count_launches()
-            with ktime.measure() as acc, reg.batch_scope(label) as batch:
-                ms = run()
-            launches = {n: v - before[n] for n, v in _count_launches().items() if v != before[n]}
-            batches.append((label, ms, dict(acc), batch, launches))
+        # each batch's route decisions (ops/catalog.py `_use_device`: host
+        # cells, rate, on the device), at this process's measured round trip
+        catmod = _catmod()
+        real_use, routes = catmod._use_device, []
+
+        def use_device(cells, rate, dev_):
+            out_ = real_use(cells, rate, dev_)
+            routes.append((cells, rate, out_))
+            return out_
+
+        catmod._use_device = use_device
+        try:
+            for kind, k in measured:
+                label = f"{kind} {k}"
+                run = prepared(kind, k)
+                before = _count_launches()
+                del routes[:]
+                with ktime.measure() as acc, reg.batch_scope(label) as batch:
+                    ms = run()
+                launches = {n: v - before[n] for n, v in _count_launches().items() if v != before[n]}
+                batches.append((label, ms, dict(acc), batch, launches, list(routes)))
+        finally:
+            catmod._use_device = real_use
         compiles = devmod.build_count() - builds0
         snapshot = reg.debug_snapshot()
         counts = reg.counts_snapshot()
@@ -2503,7 +2614,7 @@ def phase_observatory(captured, device=None):
         delta.configure(mode=dmode0, resolve_full_every=every0)
         delta.invalidate_all("chip-smoke")
     out: dict = {"batches": {}}
-    for label, ms, acc, batch, launches in batches:
+    for label, ms, acc, batch, launches, decided in batches:
         unnamed = {n: v for n, v in launches.items() if n not in DISPATCH_OF}
         want = {DISPATCH_OF[n]: v for n, v in launches.items() if n in DISPATCH_OF}
         entry = {
@@ -2513,19 +2624,29 @@ def phase_observatory(captured, device=None):
             "host_stall_fraction": batch["host_stall_fraction"], "enqueue_s": acc["enqueue_s"],
             "block_s": acc["block_s"], "execute_s": acc["execute_s"],
             "timeline": [(e["kernel"], e["enqueue_s"], e["block_s"]) for e in batch["timeline"]],
+            "routes": decided, "host_records": batch["host_records"],
         }
         out["batches"][label] = entry
         log(f"observatory {label}: {ms:.1f} ms wall, dispatches {json.dumps(batch['kernels'])}, "
             f"launches {json.dumps(launches)}, device busy {batch['device_busy_s']:.6f} s, "
             f"host stall fraction {batch['host_stall_fraction']}, block {acc['block_s']:.6f} s, "
-            f"enqueue {acc['enqueue_s']:.6f} s")
+            f"enqueue {acc['enqueue_s']:.6f} s, routes (cells, rate, device) {json.dumps(decided)}, "
+            f"host records {batch['host_records']}")
         assert batch["kernels"] == want, f"{label}: dispatches {batch['kernels']}, launches {launches}"
         assert set(unnamed) <= UNNAMED_LAUNCHES, f"{label}: launches without a dispatch {unnamed}"
         assert batch["dispatches"] == batch["fenced"] == acc["dispatches"] > 0, (label, batch, acc)
         assert acc["compiles"] == 0 and all(e["block_s"] > 0 for e in batch["timeline"]), \
             f"{label}: compiles {acc['compiles']}, timeline {batch['timeline']}"
     b = out["batches"]
-    assert b["scan 2"]["kernels"] == {"feasibility.cube": 1, "packer.solve_scan": 1}, b["scan 2"]
+    # the warm scan batch: the scan, and its one sweep where `_use_device`
+    # sent it: on the device one feasibility.cube dispatch, on the host one
+    # host record and none
+    sweeps = [on for _c, rate, on in b["scan 2"]["routes"]
+              if rate == _catmod()._HOST_MATMUL_CELLS_PER_S]
+    assert len(sweeps) == 1, b["scan 2"]
+    want_scan = {"packer.solve_scan": 1, **({"feasibility.cube": 1} if sweeps[0] else {})}
+    assert b["scan 2"]["kernels"] == want_scan, b["scan 2"]
+    assert b["scan 2"]["host_records"] == (0 if sweeps[0] else 1), b["scan 2"]
     assert b["churn 2"]["kernels"].get("packer.solve_scan_resume") == 1, b["churn 2"]
     assert b["churn 3"]["kernels"].get("packer.solve_scan_resume") == 1, b["churn 3"]
     assert b["group 2"]["kernels"] == {"packer.delta_pass": 1}, b["group 2"]
@@ -2571,7 +2692,7 @@ def phase_observatory(captured, device=None):
     prof_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "profiles")
     profiler = efficiency.configure_profiler(profile_dir=prof_dir)
     assert profiler.available() and "cuda" in profiler.activities(), profiler.activities()
-    solve_pods = copy.deepcopy(pods)
+    solve_pods = build_pods()
     fused.FUSED_MODE = "on"
     try:
         armed = profiler.arm("chip-smoke", seconds=4.0, cooldown=0)
@@ -2605,6 +2726,440 @@ def phase_observatory(captured, device=None):
     log(f"fault probe: {out['fault']['message']}")
     out["phase_s"] = time.perf_counter() - t_phase
     log(json.dumps({"observatory": out}))
+    return out
+
+
+# -- phase 4h: the catalog's host route -----------------------------------------
+
+HOST_ROUTE_P = tuple(1 << k for k in range(17))  # entities a sweep: 1 .. 65,536
+HOST_ROUTE_R = (1, 4, 16)  # rows a sweep uses
+HOST_ROUTE_ROWS = (1, 7, 31, 32, 64, 512)  # rows a row batch
+# the whole script's phase 4h stops its ladders here, past the reference
+# rule's switch from the host to the device (2e5 host cells at the sim's
+# 100 us: P2 x R2 of 23 with offerings, 199 without); the full ladders,
+# whose largest twins take seconds a call, run with --host-route
+HOST_ROUTE_P_MAX, HOST_ROUTE_ROWS_MAX = 256, 32
+RTT_PROBES = 50
+SIM_PIN_S = 100e-6  # sim/harness.PINNED_RTT_S, the reference's pin
+
+# run in a child process: the engine device's round-trip probe raises (its
+# copy back fails as a lost card's would); the warm-up of a fresh CUDA
+# engine (the Provisioner's prewarm and the AOT warm start call it first)
+# must fail with the KernelError, never route to the host twins, and the
+# process exits nonzero
+PROBE_FAULT = r"""
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from karpenter_tpu_torch.ops import catalog as catmod
+from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+real_cpu = torch.Tensor.cpu
+
+def cpu(self, *a, **kw):
+    if self.is_cuda and self.numel() == 8:
+        raise RuntimeError("CUDA error: unspecified launch failure (stand-in for a lost card)")
+    return real_cpu(self, *a, **kw)
+
+catmod._RTT_CACHE.clear()
+torch.Tensor.cpu = cpu
+catalog = cs.build_catalog()
+engine = CatalogEngine(catalog, device="cuda")
+engine.warmup()
+print("PROBE_FAULT: the warm-up returned", flush=True)
+"""
+
+
+def probe_fault_start() -> subprocess.Popen:
+    """PROBE_FAULT in a process of its own, started beside the phase's
+    ladders; probe_fault_result reads it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, "-c", PROBE_FAULT, here], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def probe_fault_result(proc: subprocess.Popen) -> dict:
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    proc.stdout, proc.stderr = stdout, stderr
+    tail = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ""
+    assert proc.returncode != 0 and "PROBE_FAULT: the warm-up returned" not in proc.stdout, \
+        (proc.returncode, proc.stdout[-2000:], proc.stderr[-2000:])
+    assert "KernelError: rtt probe: RuntimeError: CUDA error" in proc.stderr, proc.stderr[-2000:]
+    return {"rc": proc.returncode, "raised": tail}
+
+
+# host-route batches of the catalog engine in this process, by the kernel
+# each stood in for (the numpy twins of kt_row_compat, kt_cube and
+# kt_membership): counted by install_host_counts()'s shims, never a launch.
+# HOST_HOOKS: callables (kind, engine, operands) handed the kernel operands
+# a host-routed row batch or sweep would have launched with (uploads, no
+# launch), for the checks that hold a kernel at a path's shapes where the
+# sim's pinned route sends the path's batches to the twins (phase 4v)
+HOST_BATCHES = {"row_compat": 0, "cube": 0, "membership": 0}
+HOST_HOOKS: list = []
+
+
+def host_route_operands(engine, kind: str, *args) -> tuple:
+    """The kernel operands of a host-routed batch on the engine's device: a
+    row batch (`kind` "row_compat", args: the encoded rows) as
+    req_rows_vs_targets takes it, a sweep ("cube", args: used, membership,
+    key_present) as cube_rows takes it."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    if kind == "row_compat":
+        (er,) = args
+        table = engine._to_device(feas.row_table(er.key, er.complement, er.has_values, er.gt,
+                                                 er.lt, er.mask))
+        sets = [engine._set_args("inst", engine._inst_sets)]
+        if engine.num_offerings:
+            sets.append(engine._set_args("offer", engine._offer_sets))
+        return (table, sets, engine._dev("slot_key", engine._tables.slot_key),
+                engine._dev("value_int", engine._tables.value_int))
+    used, membership, key_present = args
+    R2 = membership.shape[1]
+    ent = engine._to_device(np.concatenate([membership, key_present], axis=1))
+    return (ent[:, :R2], ent[:, R2:], engine._to_device(np.asarray(used, dtype=np.int32)),
+            engine._req_compat_d, engine._offer_compat_d,
+            engine._dev("custom_need", engine.offering_custom_need),
+            engine._dev("available", engine.offering_available),
+            engine._dev("owner", engine.offering_owner))
+
+
+def install_host_counts() -> None:
+    """Count every host-route batch into HOST_BATCHES and hand its kernel
+    operands to HOST_HOOKS (idempotent)."""
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    if getattr(CatalogEngine, "_host_batches_counted", False):
+        return
+    real_rows, real_sweep = CatalogEngine._row_compat_host, CatalogEngine._host_sweep
+
+    def rows(self, er):
+        HOST_BATCHES["row_compat"] += 1
+        for hook in HOST_HOOKS:
+            hook("row_compat", self, host_route_operands(self, "row_compat", er))
+        return real_rows(self, er)
+
+    def sweep(self, P, used, membership, key_present, fits):
+        HOST_BATCHES["cube" if self.num_offerings else "membership"] += 1
+        if self.num_offerings:
+            for hook in HOST_HOOKS:
+                hook("cube", self, host_route_operands(self, "cube", used, membership, key_present))
+        return real_sweep(self, P, used, membership, key_present, fits)
+
+    CatalogEngine._row_compat_host, CatalogEngine._host_sweep = rows, sweep
+    CatalogEngine._host_batches_counted = True
+
+
+def host_route_engine(catalog, dev, rows: int):
+    """A CUDA engine with `rows` resident non-trivial rows (instance-type
+    pairs, each rejecting most types), computed on the device."""
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.ops import catalog as catmod
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+    from karpenter_tpu_torch.scheduling.requirements import Operator, Requirement
+
+    engine = CatalogEngine(catalog, device=dev)
+    names = [it.name for it in catalog]
+    ids = [engine.row_id(Requirement(wk.LABEL_INSTANCE_TYPE, Operator.IN, [names[2 * i], names[2 * i + 1]]))
+           for i in range(rows)]
+    catmod.FORCE_BACKEND = "device"
+    try:
+        engine._ensure_rows()
+    finally:
+        catmod.FORCE_BACKEND = None
+    return engine, ids
+
+
+def _wall_ms(fn) -> tuple:
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def in_turns_ms(host, device, first, budget_s=0.2, max_rounds=20) -> tuple:
+    """Host-clock ms of a call of each side in turns. `first`: the ms of
+    one call of each already made (the device's, then the host's: the
+    checked calls), which size the rounds: rounds of (host, device, device,
+    host) filling about `budget_s`, the first calls then dropped as
+    warm-ups; or, when that pair alone took longer than half the budget,
+    the first calls are the measurement. Returns (host median, device
+    median, calls timed a side)."""
+    h0, d0 = first
+    pair_s = (h0 + d0) / 1e3
+    if pair_s > budget_s / 2:
+        return h0, d0, 1
+    h, d = [], []
+    for _ in range(max(1, min(max_rounds, int(budget_s / pair_s / 2)))):
+        h.append(_wall_ms(host)[1])
+        d += [_wall_ms(device)[1], _wall_ms(device)[1]]
+        h.append(_wall_ms(host)[1])
+    return statistics.median(h), statistics.median(d), len(h)
+
+
+def _pinned(side, fn, counted, label):
+    """fn() under FORCE_BACKEND=side, checked: on the device exactly one
+    launch of `counted` (a feasibility.LAUNCHES key) and no host record of
+    the route, on the host none and one."""
+    from karpenter_tpu_torch.ops import catalog as catmod
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    def run():
+        l0, h0 = feas.LAUNCHES[counted], HOST_BATCHES[counted]
+        catmod.FORCE_BACKEND = side
+        try:
+            out = fn()
+        finally:
+            catmod.FORCE_BACKEND = None
+        got = (feas.LAUNCHES[counted] - l0, HOST_BATCHES[counted] - h0)
+        assert got == ((1, 0) if side == "device" else (0, 1)), (label, side, got)
+        return out
+
+    return run
+
+
+def _routes(cells, rate, dev, rows=None) -> dict:
+    """Where a batch of `cells` host cells goes: the port's route
+    (`_use_device` unpinned: an unpinned card keeps every batch), the
+    reference's rule at this process's measured round trip, and the route
+    under the sim's 100 us pin; a row batch (`rows`) also under the
+    reference's DEVICE_MIN_ROW_BATCH gate."""
+    catmod = _catmod()
+    gate = rows is None or rows >= catmod.DEVICE_MIN_ROW_BATCH
+    side = lambda on: "device" if on else "host"  # noqa: E731
+    out = {"route": side((gate or catmod._card_keeps_work(dev))
+                         and catmod._use_device(cells, rate, dev)),
+           "rule": side(gate and cells / rate > catmod.device_rtt_s(dev))}
+    catmod.PINNED_RTT = SIM_PIN_S
+    try:
+        out["route_at_pin"] = side(gate and catmod._use_device(cells, rate, dev))
+    finally:
+        catmod.PINNED_RTT = None
+    return out
+
+
+def host_route_sweeps(label, catalog, dev, ladder=HOST_ROUTE_P) -> list:
+    """Every (P, R) of HOST_ROUTE_P x HOST_ROUTE_R: the engine's sweep
+    (`CatalogEngine.feasibility`) pinned to the device (the entity rows'
+    upload, one kt_cube or kt_membership launch, the copy back) and to the
+    host (the numpy twins), in turns on the host clock, each call checked
+    to launch once or not at all, their bits compared; the kernel alone by
+    CUDA events (the table's method); the port's route, the reference's
+    rule at the measured RTT and the route at the sim's pin (_routes). Both sides share the rest of the
+    sweep (the membership build, the resource fits)."""
+    from karpenter_tpu_torch.ops import catalog as catmod
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    out = []
+    rng = np.random.RandomState(20)
+    for R in HOST_ROUTE_R:
+        engine, ids = host_route_engine(catalog, dev, R)
+        I, O = engine.num_instances, engine.num_offerings
+        kname = "cube" if O else "membership"
+        D = len(engine.resource_dims)
+        for P in ladder:
+            # entity p constrained by row p mod R and a random subset of the rest
+            pick = rng.rand(P, R) < 0.5
+            pick[np.arange(P), np.arange(P) % R] = True
+            row_sets = [[ids[j] for j in np.flatnonzero(p)] for p in pick]
+            used = sorted({r for rs in row_sets for r in rs})
+            requests = np.zeros((P, D))
+            P2 = 1 << max(0, (P - 1).bit_length())
+            R2 = 1 << max(0, (len(used) - 1).bit_length())
+            cells = P2 * R2 * (I + O)
+            routes = _routes(cells, catmod._HOST_MATMUL_CELLS_PER_S, dev)
+            tag = f"{label} P={P} R={len(used)}"
+            sweep = lambda: engine.feasibility(row_sets, requests)  # noqa: E731
+            on_device = _pinned("device", sweep, kname, tag)
+            on_host = _pinned("host", sweep, kname, tag)
+            (a, d0), (b, h0) = _wall_ms(on_device), _wall_ms(on_host)
+            for field in ("compat", "has_offering"):
+                assert np.array_equal(getattr(a, field), getattr(b, field)), \
+                    f"{tag}: the twin's {field} differs from {kname}'s"
+            host_ms, device_ms, calls = in_turns_ms(on_host, on_device, (h0, d0))
+            # the kernel alone on the sweep's device operands
+            membership = np.zeros((P2, R2 + engine._key_capacity), dtype=bool)
+            col = {r: i for i, r in enumerate(used)}
+            for p, rs in enumerate(row_sets):
+                membership[p, [col[r] for r in rs]] = True
+            ent_d = engine._to_device(membership)
+            if O:
+                idx = engine._to_device(np.asarray(used, dtype=np.int32))
+                cat = (engine._dev("custom_need", engine.offering_custom_need),
+                       engine._dev("available", engine.offering_available),
+                       engine._dev("owner", engine.offering_owner))
+                kernel = lambda: feas.cube_rows(ent_d[:, :R2], ent_d[:, R2:], idx,  # noqa: E731
+                                                engine._req_compat_d, engine._offer_compat_d, *cat)
+            else:
+                rc = engine._gather_rows(engine._req_compat_d,
+                                         engine._to_device(np.asarray(used, dtype=np.int64)), R2)
+                mem_d = ent_d[:, :R2].contiguous()
+                kernel = lambda: feas.membership_all(mem_d, rc)  # noqa: E731
+            kernel_ms = cuda_ms(kernel, reps=5, warmup=1, rounds=3)
+            faster = "host" if host_ms < device_ms else "device"
+            row = {"catalog": label, "P": P, "R": len(used), "P2": P2, "R2": R2, "cells": cells,
+                   "host_ms": host_ms, "device_ms": device_ms, "kernel_ms": kernel_ms,
+                   "calls": calls, **routes, "faster": faster}
+            row["rule_picks_faster"] = row["rule"] == faster
+            row["route_picks_faster"] = row["route"] == faster
+            out.append(row)
+            log(f"4h sweep {tag} ({P2}x{R2}, {cells} cells): host (twins) {host_ms:.4f} ms, "
+                f"device {device_ms:.4f} ms (kernel {kname} {kernel_ms:.4f}); the port's route "
+                f"{row['route']}; the reference's rule at the measured RTT {row['rule']}, at "
+                f"100 us {row['route_at_pin']}; faster: {faster}")
+    return out
+
+
+def host_route_rows(catalog, dev, sizes=HOST_ROUTE_ROWS) -> list:
+    """Row batches of HOST_ROUTE_ROWS fresh rows (instance-type pairs, no
+    new value) against the types and the offerings: `_ensure_rows` pinned
+    to the host (the numpy twin once a target set, the rows uploaded and
+    appended) and to the device (the row table's upload, one kt_row_compat
+    launch, the appends, the copy back), in turns, each call checked to
+    launch once or not at all, their bits compared; the kernel alone by
+    CUDA events; the route at the measured RTT and at the pin."""
+    import itertools as it_
+
+    from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.ops import catalog as catmod
+    from karpenter_tpu_torch.ops import encoding as enc
+    from karpenter_tpu_torch.ops import feasibility as feas
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+    from karpenter_tpu_torch.scheduling.requirements import Operator, Requirement
+
+    engine = CatalogEngine(catalog, device=dev)
+    engine.warmup()
+    pairs = it_.combinations(sorted({it.name for it in catalog}), 2)
+    base = {k: getattr(engine, k) for k in (
+        "_rows", "_row_ids", "_computed_rows", "_req_compat", "_offer_compat", "_req_compat_d",
+        "_offer_compat_d", "_row_trivial")}
+    out = []
+    for n in sizes:
+        batch = [Requirement(wk.LABEL_INSTANCE_TYPE, Operator.IN, list(next(pairs))) for _ in range(n)]
+
+        def fresh():
+            """The batch on the engine's base rows, computed (the route's
+            work), its rows as each side left them."""
+            for k, v in base.items():
+                setattr(engine, k, v.copy() if isinstance(v, (list, dict)) else v)
+            for r in batch:
+                engine.row_id(r)
+            engine._ensure_rows()
+            return (engine._req_compat[-n:], engine._offer_compat[-n:],
+                    engine._req_compat_d[-n:], engine._offer_compat_d[-n:])
+
+        cells = n * (engine.num_instances + engine.num_offerings) * engine._word_capacity * 32
+        routes = _routes(cells, catmod._HOST_ROW_CELLS_PER_S, dev, rows=n)
+        on_device = _pinned("device", fresh, "row_compat", f"row batch of {n}")
+        on_host = _pinned("host", fresh, "row_compat", f"row batch of {n}")
+        (a_out, d0), (b_out, h0) = _wall_ms(on_device), _wall_ms(on_host)
+        for a, b in zip(a_out, b_out):
+            a, b = (x.cpu().numpy() if isinstance(x, torch.Tensor) else x for x in (a, b))
+            assert np.array_equal(a, b), f"row batch of {n}: the twin differs from kt_row_compat"
+        host_ms, device_ms, calls = in_turns_ms(on_host, on_device, (h0, d0))
+        er = enc.encode_requirement_rows(engine.vocab, batch, engine._word_capacity)
+        table = engine._to_device(feas.row_table(er.key, er.complement, er.has_values, er.gt, er.lt,
+                                                 er.mask))
+        sets = [engine._set_args("inst", engine._inst_sets), engine._set_args("offer", engine._offer_sets)]
+        tables = (engine._dev("slot_key", engine._tables.slot_key),
+                  engine._dev("value_int", engine._tables.value_int))
+        kernel_ms = cuda_ms(lambda: feas.req_rows_vs_targets(table, sets, *tables), reps=5, warmup=1,
+                            rounds=3)
+        faster = "host" if host_ms < device_ms else "device"
+        row = {"rows": n, "cells": cells, "host_ms": host_ms, "device_ms": device_ms,
+               "kernel_ms": kernel_ms, "calls": calls, **routes, "faster": faster}
+        row["rule_picks_faster"] = row["rule"] == faster
+        row["route_picks_faster"] = row["route"] == faster
+        out.append(row)
+        log(f"4h row batch n={n} ({cells} cells): host (twin) {host_ms:.4f} ms, device "
+            f"{device_ms:.4f} ms (kernel kt_row_compat {kernel_ms:.4f}); the port's route "
+            f"{row['route']}; the reference's rule at the measured RTT {row['rule']}, at 100 us "
+            f"{row['route_at_pin']}; faster: {faster}")
+    for k, v in base.items():
+        setattr(engine, k, v)
+    return out
+
+
+def phase_host_route(captured, device=None, full=False) -> dict:
+    """Phase 4h: the catalog's host route on the card. The engine device's
+    round trip as `device_rtt_s` measures it (the process's cached figure,
+    then RTT_PROBES fresh probes: median and spread); sweeps of the main
+    path's catalog and of one without offerings at every (P, R) of
+    HOST_ROUTE_P x HOST_ROUTE_R, and row batches of HOST_ROUTE_ROWS rows:
+    each side's ms, the port's route, the reference's rule at the measured
+    RTT and the route at the sim's pin, which side was faster, the twin's bits equal to the kernel's, and each
+    FORCE_BACKEND pin launching (or not) as it says; then a probe that
+    raises, in a child process. Inside the whole script the ladders stop at
+    HOST_ROUTE_P_MAX entities and HOST_ROUTE_ROWS_MAX rows; `full` (the
+    --host-route run) takes them to the end."""
+    from karpenter_tpu_torch.cloudprovider.types import InstanceType, Offerings
+    from karpenter_tpu_torch.ops import catalog as catmod
+
+    t_phase = time.perf_counter()
+    install_host_counts()
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    force0, pin0 = catmod.FORCE_BACKEND, catmod.PINNED_RTT
+    catmod.FORCE_BACKEND, catmod.PINNED_RTT = None, None
+    fault_proc = probe_fault_start()
+    try:
+        rtt = catmod.device_rtt_s(dev)
+        probes = []
+        for _ in range(RTT_PROBES):
+            catmod._RTT_CACHE.pop(dev, None)
+            probes.append(catmod.device_rtt_s(dev))
+        catmod._RTT_CACHE[dev] = rtt  # the process's figure, which its decisions read
+        probes_us = sorted(p * 1e6 for p in probes)
+        rtt_out = {"rtt_us": rtt * 1e6, "probes": RTT_PROBES,
+                   "median_us": statistics.median(probes_us), "min_us": probes_us[0],
+                   "p10_us": probes_us[len(probes_us) // 10],
+                   "p90_us": probes_us[(9 * len(probes_us)) // 10], "max_us": probes_us[-1]}
+        log(f"4h rtt on {dev}: device_rtt_s {rtt * 1e6:.2f} us (this process's cached probe); "
+            f"{RTT_PROBES} fresh probes median {rtt_out['median_us']:.2f} us, min "
+            f"{rtt_out['min_us']:.2f}, p10 {rtt_out['p10_us']:.2f}, p90 {rtt_out['p90_us']:.2f}, max "
+            f"{rtt_out['max_us']:.2f}")
+        catalog = build_catalog()
+        bare = [InstanceType(name=it.name, requirements=it.requirements, offerings=Offerings([]),
+                             capacity=it.capacity, overhead=it.overhead) for it in catalog]
+        ladder = HOST_ROUTE_P if full else tuple(p for p in HOST_ROUTE_P if p <= HOST_ROUTE_P_MAX)
+        sizes = HOST_ROUTE_ROWS if full else tuple(n for n in HOST_ROUTE_ROWS
+                                                   if n <= HOST_ROUTE_ROWS_MAX)
+        sweeps = host_route_sweeps("offerings", catalog, dev, ladder)
+        sweeps += host_route_sweeps("no offerings", bare, dev, ladder)
+        rows = host_route_rows(catalog, dev, sizes)
+        fault = probe_fault_result(fault_proc)
+    finally:
+        catmod.FORCE_BACKEND, catmod.PINNED_RTT = force0, pin0
+        if fault_proc.poll() is None:
+            fault_proc.kill()
+            fault_proc.wait()
+    log(f"4h probe fault: exit {fault['rc']}, {fault['raised']}")
+    wrong = [(r["catalog"], r["P"], r["R"]) for r in sweeps if not r["rule_picks_faster"]]
+    wrong_rows = [r["rows"] for r in rows if not r["rule_picks_faster"]]
+    port_wrong = [(r["catalog"], r["P"], r["R"]) for r in sweeps if not r["route_picks_faster"]]
+    port_wrong_rows = [r["rows"] for r in rows if not r["route_picks_faster"]]
+    assert all(r["route"] == "device" for r in sweeps + rows), "the unpinned card routed to the host"
+    out = {"rtt": rtt_out, "full": full, "sweeps": sweeps, "rows": rows, "probe_fault": fault,
+           "sweeps_rule_picks_slower": wrong, "rows_rule_picks_slower": wrong_rows,
+           "sweeps_route_picks_slower": port_wrong, "rows_route_picks_slower": port_wrong_rows,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"4h the reference's rule picks the slower side at {len(wrong)} of {len(sweeps)} sweep "
+        f"shapes {json.dumps(wrong)} and at row batches {wrong_rows}; the port's route (the "
+        f"card) at {len(port_wrong)} sweep shapes {json.dumps(port_wrong)} and at row batches "
+        f"{port_wrong_rows}")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "host_route.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    log(json.dumps({"host_route": {k: out[k] for k in (
+        "rtt", "sweeps_rule_picks_slower", "rows_rule_picks_slower", "sweeps_route_picks_slower",
+        "rows_route_picks_slower", "phase_s")}}))
+    captured["host_route"] = out
     return out
 
 
@@ -2867,6 +3422,7 @@ def phase_service(captured, device=None):
                     {n: v - before[n] for n, v in _count_launches().items() if v != before[n]})
 
         service.coalescer.execute = execute
+        host0 = dict(HOST_BATCHES)
         t0 = time.perf_counter()
         prov.prewarm()
         prewarm_s = time.perf_counter() - t0
@@ -2888,6 +3444,7 @@ def phase_service(captured, device=None):
             "parts_s": parts, "nodeclaims": len(results.new_node_claims),
             "nodeclaims_in_store": claims_in_store, "pod_errors": len(results.pod_errors),
             "launches": launches, "batch_launches": batch_launches,
+            "host_batches": {k: v - host0[k] for k, v in HOST_BATCHES.items()},
             "last_batch_dispatches": stats["last_batch_dispatches"],
             "last_batch_seconds": stats["last_batch_seconds"],
             "last_batch_host_stall": stats["last_batch_host_stall"],
@@ -2914,6 +3471,9 @@ def phase_service(captured, device=None):
         if label == "cold":
             for name in ("row_compat", "cube", "uid_project", "solve_scan"):
                 assert launches.get(name, 0) > 0, f"cold reconcile: no {name} launch: {launches}"
+        # the row bootstrap (the prewarm's) and every row batch and sweep of
+        # the reconcile on the card: none on the host route's twins
+        assert not any(row["host_batches"].values()), f"{label}: host-route batches {row}"
         prov.solver.close()
     assert reconciles[1][2] is reconciles[0][2], "the warm harness built a second engine"
     out["provisioner"] = {label: row for label, row, _ in reconciles}
@@ -3306,6 +3866,19 @@ class ConsolidationProbe:
                     e = obs.obs.setdefault("ineligible", {})
                     e[reason] = e.get(reason, 0) + ffd.DEVICE_FALLBACKS - f0
 
+        def host_hook(kind, engine, ops):
+            """A batch the sim's pinned route sent to the numpy twins (no
+            launch): its kernel operands kept like a launched batch's, for
+            the checks at the path's shapes."""
+            if kind == "row_compat" and obs.keep and \
+                    ops[0].shape[0] >= obs.captured.get("rows_size", -1):
+                obs.captured["row_compat"], obs.captured["rows_size"] = ops, ops[0].shape[0]
+            size = ops[0].shape[0] * (ops[2].shape[0] + 1)
+            if kind == "cube" and obs.keep and size >= obs.captured.get("cube_size", -1):
+                obs.captured["cube"], obs.captured["cube_size"] = ops, size
+
+        self.host_hook = host_hook
+        HOST_HOOKS.append(host_hook)
         feas.req_rows_vs_targets, feas.cube_rows = rows_shim, cube_shim
         ffd.solve_device = solve_device_shim
         feas.launch = packer.launch = launch_shim
@@ -3321,6 +3894,7 @@ class ConsolidationProbe:
         from karpenter_tpu_torch.solverd.coalescer import Coalescer
 
         r = self.real
+        HOST_HOOKS.remove(self.host_hook)
         feas.req_rows_vs_targets, feas.cube_rows = r["rows"], r["cube"]
         feas.launch = packer.launch = r["launch"]
         packer.solve_scan, Coalescer._prime = r["scan"], r["prime"]
@@ -3420,7 +3994,12 @@ runpy.run_module("karpenter_tpu_torch.solverd", run_name="__main__", alter_sys=T
 def arm_prime_fault() -> dict:
     """The first kt_cube launch inside a coalesced batch's primed sweep
     (ffd.prime_joint_masks) gets a bogus has_offering pointer
-    (feasibility._cube_launch's 17th argument). Returns the arming state."""
+    (feasibility._cube_launch's 17th argument). While armed the primed
+    sweep is pinned to the device route (FORCE_BACKEND, as the reference's
+    device tests pin it), for the sim's pinned round trip (phase 4v's
+    probes), which would send a small prime to the numpy twins and make no
+    launch to fault. Returns the arming state."""
+    from karpenter_tpu_torch.ops import catalog as catmod
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import ffd
 
@@ -3429,10 +4008,13 @@ def arm_prime_fault() -> dict:
 
     def prime(engine, pairs):
         state["in_prime"] = True
+        force, catmod.FORCE_BACKEND = catmod.FORCE_BACKEND, "device" if state["armed"] else \
+            catmod.FORCE_BACKEND
         try:
             return real_prime(engine, pairs)
         finally:
             state["in_prime"] = False
+            catmod.FORCE_BACKEND = force
 
     def faulting(dev, fn, *args):
         if state["armed"] and state["in_prime"] and getattr(fn, "__name__", "") == "kt_cube":
@@ -3515,6 +4097,8 @@ def phase_consolidation(captured, device=None):
         for k, v in launches.items():
             path[k] = path.get(k, 0) + v
 
+    # the fault rule (in-process and through the sidecar), beside the legs
+    faults = in_background(consolidation_fault_probes) if on_card else None
     probe.install()
     try:
         for n_nodes, reps in CONSOLIDATION_NODES:
@@ -3694,9 +4278,10 @@ def phase_consolidation(captured, device=None):
 
     # the fault rule: in-process and through the sidecar
     t0 = time.perf_counter()
-    out["fault"] = consolidation_fault_probes() if on_card else {}
-    out["fault_s"] = time.perf_counter() - t0
-    log(f"phase 4d fault probes ({out['fault_s']:.1f} s): {json.dumps(out['fault'])}")
+    out["fault"] = faults.result() if faults else {}
+    out["fault_wait_s"] = time.perf_counter() - t0
+    log(f"phase 4d fault probes (run beside the legs, waited {out['fault_wait_s']:.1f} s): "
+        f"{json.dumps(out['fault'])}")
     out["launches"] = {k: v for k, v in path.items() if v}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 4d took {out['phase_s']:.1f} s")
@@ -4067,12 +4652,14 @@ def phase_operator(captured, device=None):
     log_file = open(os.path.join(out_dir, "operator_4o.log"), "w")
     klog.configure("info", stream=log_file)
     cpu_proc = operator_cpu_run(OPERATOR_PODS)
+    faults = in_background(operator_fault_probes) if on_card else None
     probe.install()
     try:
         probe.keep = True
-        t0 = time.perf_counter()
+        t0, host0 = time.perf_counter(), dict(HOST_BATCHES)
         state, passes, env = operator_run(OPERATOR_PODS, device, probe)
         out["run_s"] = time.perf_counter() - t0
+        out["host_batches"] = {k: v - host0[k] for k, v in HOST_BATCHES.items()}
         probe.keep = False
         errors = {k: v for k, v in env.op.harness._errors.items() if v}
         env.op.shutdown()
@@ -4143,6 +4730,8 @@ def phase_operator(captured, device=None):
             assert r["named"] == want, (i, r["named"], r["launches"])
         for entry in ("kt_row_compat", "kt_cube", "kt_uid_project", "kt_solve_scan"):
             assert entries.get(entry, 0) > 0, f"phase 4o launched no {entry}: {entries}"
+        # the unpinned card keeps every row batch and sweep
+        assert not any(out["host_batches"].values()), f"phase 4o: {out['host_batches']}"
         assert all(s["design"] == "resident" for r in passes for s in r["scans"]), "a scan took global"
         assert len(warm) > 1 and min(warm) == max(warm), \
             f"memory_allocated moved over the warm passes (from pass {first_probe}): {memory}"
@@ -4152,9 +4741,10 @@ def phase_operator(captured, device=None):
             checks["probe"] = consolidation_kernel_checks(probe.captured, "phase 4o (a probe)")
         out["kernel_checks"] = checks
         t0 = time.perf_counter()
-        out["fault"] = operator_fault_probes()
-        out["fault_s"] = time.perf_counter() - t0
-        log(f"phase 4o fault probes ({out['fault_s']:.1f} s): {json.dumps(out['fault'])}")
+        out["fault"] = faults.result()
+        out["fault_wait_s"] = time.perf_counter() - t0
+        log(f"phase 4o fault probes (run beside the run, waited {out['fault_wait_s']:.1f} s): "
+            f"{json.dumps(out['fault'])}")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 4o took {out['phase_s']:.1f} s")
     with open(os.path.join(out_dir, "operator_4o.json"), "w") as f:
@@ -4254,6 +4844,14 @@ def operator_fault_probes() -> dict:
 # -- phase 4v: the simulator --------------------------------------------------
 
 SIM_SEED = 7
+# the fused gate (ops/fused.py fused_enabled): `auto` takes the scan on a
+# CUDA engine and the walk on a CPU one, so where a run dispatched the scan
+# its dispatch counts, and with them its last batch's, differ from the CPU
+# engines' run by design; report_without's (path, reason) entries
+SCAN_GATE = (
+    (("kernels",), "the scan's dispatches where the card's `auto` takes it"),
+    (("solver", "last_batch_dispatches"), "the last batch's scan dispatch"),
+)
 # leg b's trace (sim_trace): the first batch, the wave, pods a group, the
 # churn groups' size
 SIM_TRACE_BASE = 3_000
@@ -4451,9 +5049,11 @@ def sim_run(label: str, argv: list, device: str, out_dir: str, tag: str, probe) 
     Returns the exit code, the report, the event log's sha256 and line
     count, the wall s, the passes, the wrapper and C launches and the
     scans."""
+    import gc
     import hashlib
 
     from karpenter_tpu_torch.controllers.provisioning import provisioner as provmod
+    from karpenter_tpu_torch.observability import efficiency as effmod
     from karpenter_tpu_torch.ops import delta as delta_mod
     from karpenter_tpu_torch.ops import feasibility as feas
     from karpenter_tpu_torch.ops import packer
@@ -4468,13 +5068,22 @@ def sim_run(label: str, argv: list, device: str, out_dir: str, tag: str, probe) 
     if device == "cuda":
         provmod._build_solver_mesh = _repeated_cards
     # the delta counters a report carries (report["solver"]["delta"]) are the
-    # process's: each run counts from 0, as the CLI in a process of its own
+    # process's, and so is the profiler's capture sequence its efficiency
+    # section counts from: each run counts from 0, as the CLI in a process
+    # of its own
     delta_mod.COUNTERS = dict.fromkeys(delta_mod.COUNTERS, 0)
+    effmod.profiler().reset()
+    # the engines an earlier run or phase left in the content cache: the
+    # run's sim_globals drops them at its start, and their card memory would
+    # go back at some later collection, mid-run, where the memory rule reads
+    # it (a run in a process of its own has none)
+    provmod._ENGINE_CONTENT_CACHE.clear()
+    gc.collect()
     passes.install()
     probe.obs = {"primes": []}
     feas.reset_launch_counts()
     packer.reset_launch_counts()
-    t0 = time.perf_counter()
+    t0, host0 = time.perf_counter(), dict(HOST_BATCHES)
     try:
         rc = sim_cli.main(argv + ["--seed", str(SIM_SEED), "--device", device,
                                   "--report", report_path, "--events", events_path])
@@ -4489,6 +5098,8 @@ def sim_run(label: str, argv: list, device: str, out_dir: str, tag: str, probe) 
         "entries": dict(probe.obs.get("entries", {})),
         "scans": [{k: s[k] for k in ("design", "has_nodes", "P", "N", "n_pods")}
                   for s in probe.obs.get("scans", [])],
+        # the batches the sim's pinned route sent to the numpy twins
+        "host_batches": {k: v - host0[k] for k, v in HOST_BATCHES.items()},
     }
     if rc == 0:
         with open(report_path) as f:
@@ -4511,6 +5122,7 @@ from karpenter_tpu_torch.operator import logging as klog
 
 device, runs, out_dir, tag = sys.argv[2], json.loads(sys.argv[3]), sys.argv[4], sys.argv[5]
 klog.configure("error", stream=open(f"{out_dir}/{tag}.log", "w"))
+cs.install_host_counts()
 probe = cs.OperatorProbe()
 probe.install()
 results = [cs.sim_run(label, argv, device, out_dir, tag, probe) for label, argv in runs]
@@ -4652,6 +5264,7 @@ def phase_sim(captured, device=None):
     # leg b's card run here; beside it, in child processes (all host-bound),
     # leg a's two same-seed runs on the card, and the CPU engines' runs of
     # both legs (leg a's over SIM_CPU_CHILDREN processes)
+    faults = in_background(sim_fault_probes, out_dir) if on_card else None
     children = {"card-a": sim_child(dev, runs, out_dir, "card-a"),
                 "rerun-a": sim_child(dev, runs, out_dir, "rerun-a"),
                 "cpu-b": sim_child("cpu", leg_b, out_dir, "cpu-b")}
@@ -4686,9 +5299,10 @@ def phase_sim(captured, device=None):
             path[k] = path.get(k, 0) + v
         log(f"phase 4v {label}: exit {got['rc']}, {got['wall_s']:.1f} s, {len(got['passes'])} "
             f"passes, digest {got.get('report', {}).get('event_log_digest')}, C launches "
-            f"{json.dumps(got['entries'])}")
+            f"{json.dumps(got['entries'])}, host-route batches {json.dumps(got['host_batches'])}")
     failures = []
     scenarios_out = {}
+    kernels_equal = []
     for label, _argv in runs + leg_b:
         got, other = card[label], cpu[label]
         if got["rc"] != 0 or other["rc"] != 0:
@@ -4698,12 +5312,20 @@ def phase_sim(captured, device=None):
         if (digest, got["events_sha256"]) != (other["report"]["event_log_digest"],
                                               other["events_sha256"]):
             failures.append(f"{label}: event log differs from the CPU engine's")
-        if report_without(got["report"], DEVICE_SPECIFIC) != report_without(other["report"],
-                                                                            DEVICE_SPECIFIC):
+        # where the card's run dispatched the scan, the fused gate differs by
+        # design (SCAN_GATE); elsewhere report["kernels"] is compared whole
+        scanned = any(k.startswith("packer.solve_scan")
+                      for r in (got, other) for k in r["report"]["kernels"]["kernels"])
+        skip = DEVICE_SPECIFIC + VOLATILE + (SCAN_GATE if scanned else ())
+        if report_without(got["report"], skip) != report_without(other["report"], skip):
             failures.append(f"{label}: report outside DEVICE_SPECIFIC differs from the CPU engine's")
+        if not scanned:
+            kernels_equal.append(label)
         rec = {"digest": digest, "events": got["events"], "wall_s": round(got["wall_s"], 3),
                "cpu_wall_s": round(other["wall_s"], 3), "passes": len(got["passes"]),
                "entries": got["entries"], "launches": got["launches"],
+               "host_batches": got["host_batches"], "kernels_compared": not scanned,
+               "kernels_digest": got["report"]["kernels"]["digest"],
                "device_busy_share": round(sim_busy_share(got["passes"]), 6)}
         if label in rerun:
             again = rerun[label]
@@ -4720,6 +5342,10 @@ def phase_sim(captured, device=None):
                   ("sustained-churn", "sustained-churn/delta-off", "sustained-churn/delta-on")):
         if len({digests[g] for g in group}) != 1:
             failures.append(f"digests differ across {group}: {[digests[g] for g in group]}")
+    log(f"phase 4v: report['kernels'] equal to the CPU engine's, digest included, in "
+        f"{len(kernels_equal)} runs {kernels_equal}; the others dispatched the scan (SCAN_GATE)")
+    if not kernels_equal:
+        failures.append("no run's report['kernels'] was compared with the CPU engine's")
 
     # leg b: the trace at a size users run
     b = card["trace"]
@@ -4764,10 +5390,16 @@ def phase_sim(captured, device=None):
         "first_consolidation_pass": first_compute,
     }
     out = {"scenarios": scenarios_out, "trace": leg}
+    leg["host_batches"] = b["host_batches"]
     if on_card:
-        for entry in ("kt_row_compat", "kt_cube", "kt_uid_project", "kt_solve_scan"):
+        for entry in ("kt_uid_project", "kt_solve_scan"):
             if not b["entries"].get(entry):
                 failures.append(f"leg b launched no {entry}: {b['entries']}")
+        # row batches and sweeps: launched, or on the numpy twins where the
+        # sim's pinned route sent them
+        for entry, kind in (("kt_row_compat", "row_compat"), ("kt_cube", "cube")):
+            if not b["entries"].get(entry, 0) + b["host_batches"][kind]:
+                failures.append(f"leg b made no {kind} batch: {b['entries']}, {b['host_batches']}")
         if leg["scans"]["designs"] != ["resident"]:
             failures.append(f"leg b's scans took {leg['scans']['designs']}")
         if first_compute is not None:
@@ -4792,9 +5424,10 @@ def phase_sim(captured, device=None):
         except AssertionError as e:  # a failure of the phase, raised below
             failures.append(f"kernel checks: {e}")
         t0 = time.perf_counter()
-        out["fault"] = sim_fault_probes(out_dir)
-        out["fault_s"] = time.perf_counter() - t0
-        log(f"phase 4v fault probes ({out['fault_s']:.1f} s): {json.dumps(out['fault'])}")
+        out["fault"] = faults.result()
+        out["fault_wait_s"] = time.perf_counter() - t0
+        log(f"phase 4v fault probes (run beside the legs, waited {out['fault_wait_s']:.1f} s): "
+            f"{json.dumps(out['fault'])}")
         failures += [f"fault probe {mode}: {got}" for mode, got in out["fault"].items()
                      if got.get("probe_exit") != 0]
     out["phase_s"] = time.perf_counter() - t_phase
@@ -5440,7 +6073,7 @@ def phase_mesh(captured, device=None):
             delta.configure(mode="off")
             scan_ms = []
             for _ in ("cold", "warm"):
-                results, ms = solve(engine, catalog, copy.deepcopy(pods))
+                results, ms = solve(engine, catalog, build_pods())
                 assert decisions(results) == want, f"{label}: the scan solve decided unlike phase 4"
                 scan_ms.append(ms)
             if n == 2:
@@ -5703,10 +6336,10 @@ def phase_group(captured, device=None):
     return launches
 
 
-def profile_warm_solve(engine, catalog, pods):
+def profile_warm_solve(engine, catalog):
     """One more warm solve, after the launch counts were read, profiled
     (profile_run)."""
-    solve_pods = copy.deepcopy(pods)
+    solve_pods = build_pods()
     profile_run(lambda: solve(engine, catalog, solve_pods), "profiled warm solve",
                 "warm_solve_profile.txt")
 
@@ -5824,6 +6457,47 @@ def _max_abs_err(got, want) -> float:
     wants = want if isinstance(want, tuple) else (want,)
     return max(float((g.double() - w.double()).abs().max()) if g.numel() else 0.0
                for g, w in zip(gots, wants))
+
+
+def twin_ms(name: str, got, inputs) -> dict:
+    """The numpy host twin that the catalog's host route runs in place of
+    kernel `name`, on host copies of the kernel's inputs (the copies made
+    outside the timing): host-clock ms a call (median of 5 after one
+    warm-up), its bits held equal to the kernel's output."""
+    from karpenter_tpu_torch.ops import feasibility as feas
+
+    host = [t.cpu().numpy() if isinstance(t, torch.Tensor) else t for t in inputs]
+    if name == "row_compat":
+        table, targets, sk, vi = host
+        words = table[:, feas.ROW_FIELDS:].view(np.uint32)
+        rows = (table[:, 0], table[:, 1] != 0, table[:, 2] != 0, table[:, 3], table[:, 4], words)
+        sets = [tuple(np.asarray(x.cpu().numpy()) for x in t) for t in targets]
+        sets = [(t[0], t[1], t[2], t[3], t[4], t[5].view(np.uint32)) for t in sets]
+        run = lambda: np.concatenate(  # noqa: E731
+            [feas.req_rows_vs_sets_np(*rows, *t, sk, vi) for t in sets], axis=1)
+    elif name == "membership":
+        run = lambda: feas.membership_all_np(*host)  # noqa: E731
+    elif name == "cube":
+        mem, kp, rc, oc, cn, av, ow = host
+        run = lambda: (feas.membership_all_np(mem, rc),  # noqa: E731
+                       feas.offering_reduce_np(mem, oc, cn, kp, av, ow, rc.shape[1]))
+    else:  # offering_reduce
+        run = lambda: feas.offering_reduce_np(*host)  # noqa: E731
+    out = run()
+    # cube_rows writes both planes into one [2, P, I] buffer
+    want = tuple(got) if isinstance(got, tuple) or name == "cube" else (got,)
+    outs = out if isinstance(out, tuple) else (out,)
+    for a, b in zip(outs, want):
+        assert np.array_equal(a, b.cpu().numpy()), f"{name}: the numpy twin differs from the kernel"
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"twin_ms": statistics.median(times),
+            "twin": {"row_compat": "req_rows_vs_sets_np per target", "membership": "membership_all_np",
+                     "cube": "membership_all_np + offering_reduce_np",
+                     "offering_reduce": "offering_reduce_np"}[name]}
 
 
 def _entry(name, launches, err, ms, plain_ms, bytes_moved, ops, ops_rate, library_ms, dev_ms,
@@ -5964,10 +6638,14 @@ def timing_entries(rows, cube, launches, label, phase3=None):
     def words(n):
         return (n + 31) // 32
 
-    def entry(name, kernel, plain, library, inputs, device_names, word_ops, checks=0, **extra):
+    def entry(name, kernel, plain, library, inputs, device_names, word_ops, checks=0, twin=None,
+              **extra):
         l0 = _count_launches()[name]
         got, want = kernel(), plain()
         check_equal(f"{name} on {label}", got, want)
+        if twin is not None:
+            # the numpy twin the host route runs in the kernel's place
+            extra.update(twin_ms(name, got, twin))
         if name in OFF_PATH and phase3 is not None:
             extra["check_launches"] = phase3[name] + checks + _count_launches()[name] - l0
         gots = got if isinstance(got, tuple) else (got,)
@@ -5994,6 +6672,7 @@ def timing_entries(rows, cube, launches, label, phase3=None):
           lambda: feas.req_rows_vs_targets_plain(table, packs, key_slots, vi), None,
           [table] + set_inputs + [sk, vi], ["row_compat_kernel"], _aotc().row_compat_ops(R, N, W),
           targets=[t[0].shape[0] for t in targets], breakdown=wrapper_breakdown(run_rows),
+          twin=rows,
           ptxas={k: v for k, v in FEAS_PTXAS.items() if "row_compat_kernel" in k},
           plain_from="req_rows_vs_sets_plain per target on the packs unpacked")
 
@@ -6014,7 +6693,7 @@ def timing_entries(rows, cube, launches, label, phase3=None):
           lambda: feas.membership_all_plain(mem_u, rc_u),
           lambda: (mem_u.float() @ (~rc_u).float()) < 0.5,
           (mem_u, rc_u), ["membership_kernel"], _aotc().membership_ops(P, I, Ru),
-          instance=membership_instance(rc_u),
+          instance=membership_instance(rc_u), twin=(mem_u, rc_u),
           ptxas={k: v for k, v in FEAS_PTXAS.items() if "membership_kernel" in k}, **sweep)
     run_cube = lambda: feas.cube_rows(*cube)  # noqa: E731
     entry("cube", run_cube, lambda: feas.cube_rows_plain(*cube),
@@ -6025,6 +6704,7 @@ def timing_entries(rows, cube, launches, label, phase3=None):
           library_call="the reference's f32 4-matmul form after index_select of the used rows",
           bytes_note="the used rows only, read by index (the gather's padding rows are not read)",
           resident_rows=int(rc.shape[0]), breakdown=wrapper_breakdown(run_cube),
+          twin=(mem_u, kp, rc_u, oc_u, cn, av, ow),
           ptxas={k: v for k, v in FEAS_PTXAS.items() if "cube_kernel" in k})
     return entries
 
@@ -6399,10 +7079,14 @@ def group_entries(captured, launches, phase3):
     def words(n):
         return (n + 31) // 32
 
-    def add(name, kernel, plain, library, inputs, device_names, ops, out_bytes=None, checks=0, **extra):
+    def add(name, kernel, plain, library, inputs, device_names, ops, out_bytes=None, checks=0,
+            twin=None, **extra):
         l0 = _count_launches()[name]
         got, want = kernel(), plain()
         check_equal(f"{name} on the group path's inputs", got, want)
+        if twin is not None:
+            # the numpy twin the host route runs in the kernel's place
+            extra.update(twin_ms(name, got, twin))
         if name in OFF_PATH:
             extra["check_launches"] = phase3[name] + checks + _count_launches()[name] - l0
         entries.append(_entry(
@@ -6429,7 +7113,7 @@ def group_entries(captured, launches, phase3):
 
     add("offering_reduce", lambda: feas.offering_reduce(*off), lambda: feas.offering_reduce_plain(*off),
         offering_f32, off[:6], ["cube_kernel"], _aotc().cube_ops(P, 0, O, R, K),
-        library_call="the reference's f32 matmul form")
+        library_call="the reference's f32 matmul form", twin=off)
 
     def solve_ops(args):
         G = args[0].shape[0]
@@ -7508,6 +8192,105 @@ def run_turns(trees) -> int:
     return 0
 
 
+# -- side phases: 4d, 4o, 4v and 4a beside phases 4 to 4c ----------------------
+
+# each makes its own workload and checks, and reads nothing an earlier phase
+# left: the full run starts each in a process of its own after the build
+# (side_phases_start) and joins them after phase 4c (side_phases_join)
+SIDE_PHASES = {
+    "consolidation": ("4d", phase_consolidation),
+    "operator": ("4o", phase_operator),
+    "sim": ("4v", phase_sim),
+    "aot": ("4a", phase_aot),
+}
+
+
+def side_phase_child(name: str) -> int:
+    """`--<name> --child`: one side phase in a process of its own, on the
+    libraries the full run built (loaded, no nvcc). Its last line is the
+    phase's launches and this process's host-route batches."""
+    import signal
+
+    from karpenter_tpu_torch import device
+
+    # the run's process ending ends this one (SIGTERM, side_phases_start)
+    # and every process it started (its process group)
+    signal.signal(signal.SIGTERM, lambda *_: os.killpg(0, signal.SIGKILL))
+    torch.set_num_threads(2)
+    device.build_kernels()
+    install_host_counts()
+    label, phase = SIDE_PHASES[name]
+    t0 = time.perf_counter()
+    launches = phase({})
+    print(json.dumps({"side_phase": label, "launches": launches, "host_batches": HOST_BATCHES,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def side_phases_start() -> dict:
+    """Every side phase started in a process of its own (a session of its
+    own, so that stopping it stops the processes it started), its output to
+    temporary files."""
+    import tempfile
+
+    procs = {}
+    for name in SIDE_PHASES:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), f"--{name}", "--child"],
+            stdout=out, stderr=err, text=True, start_new_session=True,
+            preexec_fn=_term_on_parent_death), out, err)
+    return procs
+
+
+def _term_on_parent_death() -> None:
+    """In a forked child before exec: SIGTERM it when this process ends
+    (prctl PR_SET_PDEATHSIG)."""
+    import signal
+
+    ctypes.CDLL(None).prctl(1, signal.SIGTERM)
+
+
+def side_phases_stop(procs: dict) -> None:
+    """Kill what is left of the side phases' process groups."""
+    import signal
+
+    for proc, _out, _err in procs.values():
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def side_phases_join(procs: dict, t_start: float, deadline_s: float = 900.0) -> dict:
+    """Wait for each side phase (at most `deadline_s` from the script's
+    start), relay its output, and return its last line; a phase that
+    failed fails the run."""
+    results = {}
+    try:
+        for name, (proc, out, err) in procs.items():
+            label = SIDE_PHASES[name][0]
+            try:
+                rc = proc.wait(timeout=max(1.0, t_start + deadline_s - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            out.seek(0)
+            err.seek(0)
+            lines, errors = out.read().splitlines(), err.read()
+            for line in lines[:-1]:
+                print(line, flush=True)
+            sys.stderr.write(errors)
+            sys.stderr.flush()
+            assert rc == 0 and lines, f"phase {label} (a process of its own): exit {rc}, " \
+                f"last lines {lines[-3:]}, stderr {errors[-3000:]}"
+            results[name] = json.loads(lines[-1])
+            log(f"phase {label} ran beside phases 4 to 4c: {results[name]['seconds']:.1f} s, "
+                f"joined at {time.perf_counter() - t_start:.1f} s")
+    finally:
+        side_phases_stop(procs)
+    return results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true", help="build and check kernels only")
@@ -7517,14 +8300,20 @@ def main() -> int:
     parser.add_argument("--turns", nargs="+", metavar="TREE",
                         help="time the group and sweep wrappers of each checkout in turns, in the "
                              "order given")
+    parser.add_argument("--consolidation", action="store_true",
+                        help="build, then phase 4d (the consolidation search) alone")
     parser.add_argument("--operator", action="store_true",
                         help="build, then phase 4o (the operator) alone")
     parser.add_argument("--sim", action="store_true",
                         help="build, then phase 4v (the simulator) alone")
     parser.add_argument("--aot", action="store_true",
                         help="build, then phase 4a (the AOT compile service) alone")
+    parser.add_argument("--host-route", action="store_true",
+                        help="build, then phase 4h (the catalog's host route) alone")
     parser.add_argument("--turns-of", metavar="TREE", help=argparse.SUPPRESS)
+    parser.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    alone = next((name for name in SIDE_PHASES if getattr(args, name)), None)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card", file=sys.stderr)
         return 2
@@ -7541,22 +8330,22 @@ def main() -> int:
         return 2
     sys.path.insert(0, root)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
+    if args.child:
+        return side_phase_child(alone)
 
     t_start = time.perf_counter()
     phase_device()
     phase_build()
     captured: dict = {}
-    if args.operator:
-        phase_operator(captured)
-        log(f"phase 4o done at {time.perf_counter() - t_start:.1f} s")
+    install_host_counts()
+    if args.host_route:
+        phase_host_route(captured, full=True)
+        log(f"phase 4h done at {time.perf_counter() - t_start:.1f} s")
         return finish(t_start)
-    if args.sim:
-        phase_sim(captured)
-        log(f"phase 4v done at {time.perf_counter() - t_start:.1f} s")
-        return finish(t_start)
-    if args.aot:
-        phase_aot(captured)
-        log(f"phase 4a done at {time.perf_counter() - t_start:.1f} s")
+    if alone:
+        label, phase = SIDE_PHASES[alone]
+        phase(captured)
+        log(f"phase {label} done at {time.perf_counter() - t_start:.1f} s")
         return finish(t_start)
     if args.mesh:
         phase_main(captured)
@@ -7569,6 +8358,18 @@ def main() -> int:
         plain_scans(captured, plain)
         log(json.dumps({"mesh_kernels": mesh_entries(captured, mesh_launches, plain)}))
         return finish(t_start)
+    # phases 4d, 4o, 4v and 4a run beside phases 3 to 4c, each in a process
+    # of its own, and are joined before phase 4h times the card
+    side = side_phases_start() if not args.quick else {}
+    try:
+        return full_run(args, captured, side, t_start)
+    finally:
+        side_phases_stop(side)
+
+
+def full_run(args, captured: dict, side: dict, t_start: float) -> int:
+    """Phases 3 to 8 of the run (the module docstring), the side phases
+    `side` joined after phase 4c."""
     l0 = _count_launches()
     phase_kernel_checks()
     membership_scatter_checks(captured)
@@ -7578,6 +8379,16 @@ def main() -> int:
     fits_stage_checks(captured)
     log(f"phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
     if not args.quick:
+        # the main path's host-route batches (phases 4 to 4s here, 4d, 4o
+        # and 4v in their processes, phase 4h's own apart): the kernels
+        # line counts launches
+        host_path = dict.fromkeys(HOST_BATCHES, 0)
+
+        def host_since(mark):
+            for k, v in HOST_BATCHES.items():
+                host_path[k] += v - mark[k]
+
+        mark = dict(HOST_BATCHES)
         launches = phase_main(captured)
         log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
         delta_launches = phase_delta(captured)
@@ -7587,22 +8398,26 @@ def main() -> int:
         log(f"phase 5c done at {time.perf_counter() - t_start:.1f} s")
         phase_observatory(captured)
         log(f"phase 4c done at {time.perf_counter() - t_start:.1f} s")
+        host_since(mark)
+        got = side_phases_join(side, t_start)
+        log(f"phases 4d, 4o, 4v and 4a joined at {time.perf_counter() - t_start:.1f} s")
+        phase_host_route(captured)
+        log(f"phase 4h done at {time.perf_counter() - t_start:.1f} s")
+        mark = dict(HOST_BATCHES)
         service_launches = phase_service(captured)
         log(f"phase 4s done at {time.perf_counter() - t_start:.1f} s")
-        consolidation_launches = phase_consolidation(captured)
-        log(f"phase 4d done at {time.perf_counter() - t_start:.1f} s")
-        operator_launches = phase_operator(captured)
-        log(f"phase 4o done at {time.perf_counter() - t_start:.1f} s")
-        sim_launches = phase_sim(captured)
-        log(f"phase 4v done at {time.perf_counter() - t_start:.1f} s")
-        aot_launches = phase_aot(captured)
-        log(f"phase 4a done at {time.perf_counter() - t_start:.1f} s")
+        host_since(mark)
+        for name in ("consolidation", "operator", "sim"):
+            for k, v in got[name]["host_batches"].items():
+                host_path[k] += v
+        aot_launches = got["aot"]["launches"]
         # the main path's launches: phase 4's solves, phase 4s's reconciles
-        # and coalesced batch, phase 4d's frontier computes, phase 4o's
-        # operator passes and phase 4v's simulator runs (phase 4a's
-        # warm-start walks stand apart, as `aot_launches`)
-        path = {k: v + service_launches.get(k, 0) + consolidation_launches.get(k, 0)
-                + operator_launches.get(k, 0) + sim_launches.get(k, 0)
+        # and coalesced batch, and, each counted in its own process, phase
+        # 4d's frontier computes, phase 4o's operator passes and phase 4v's
+        # simulator runs (phase 4a's warm-start walks stand apart, as
+        # `aot_launches`)
+        path = {k: v + service_launches.get(k, 0)
+                + sum(got[name]["launches"].get(k, 0) for name in ("consolidation", "operator", "sim"))
                 for k, v in launches.items()}
         mesh_launches = phase_mesh(captured)
         log(f"phase 5b done at {time.perf_counter() - t_start:.1f} s")
@@ -7635,6 +8450,14 @@ def main() -> int:
         kernels += mesh_entries(captured, mesh_launches, plain)
         log(json.dumps({"launch_floor": launch_floor()}))
         log(json.dumps({"dispatch_floor": dispatch_floor()}))
+        # the kernels line counts launches only; the batches the route
+        # served by the numpy twins stand on a line of their own
+        log(json.dumps({"host_records": {
+            "path_batches": host_path,
+            "note": "row batches and sweeps of phases 4 to 4v (4d, 4o and 4v counted in their "
+                    "processes) that the catalog's host route ran through the numpy twins, by "
+                    "the kernel each stood in for: phase 4v's leg b under the sim's pinned round "
+                    "trip (leg a runs in child processes); the unpinned card routes none"}}))
         assert len(kernels) == len(SOURCE) == len(ENTRY_POINTS), [k["name"] for k in kernels]
         for k in kernels:
             if k["name"] == "membership":

@@ -698,8 +698,9 @@ def warm_start(
     port: with a cache on a CUDA engine, the kernel libraries are built
     into or loaded from the cache's library directory (_library_dir) for
     the walk, the build directory again after it; the
-    fingerprint names the engine's device; there is no dispatch cost model
-    to probe (the reference's catmod.device_rtt_s()).
+    fingerprint names the engine's device; the routing probe is the
+    engine device's (`catmod.device_rtt_s(engine.device)`), and its
+    failure, a KernelError, fails the boot.
 
     Returns the walk summary (buckets / cache_hits / fresh_compiles /
     already_loaded / errors), or None when AOT is disabled."""
@@ -715,6 +716,7 @@ def warm_start(
         engine.warmup()
         return getattr(engine, "_aot_summary", None)
     from karpenter_tpu_torch.apis import labels as wk
+    from karpenter_tpu_torch.ops import catalog as catmod
 
     summary = {
         "buckets": 0,
@@ -731,6 +733,7 @@ def warm_start(
     for key in sorted(set(wk.WELL_KNOWN_LABELS) | {wk.LABEL_HOSTNAME}):
         engine.vocab.key_id(key)
     engine._maybe_reencode()
+    catmod.device_rtt_s(engine.device)  # device init + routing probe
     token = _ENGINE_DEVICE.set(engine.device)
     libraries = (
         devmod.use_library_dir(_library_dir(cache))

@@ -13,12 +13,14 @@ resource-vector comparison against allocatable, and `has_offering` reduces
 offering-level compatibility over each instance type's offerings.
 
 The engine lives on one torch device. On a CUDA engine every row batch and
-every sweep launches the hand-written kernels (ops/feasibility.py); on a
-`device="cpu"` engine the same calls run their plain torch versions. Both
-are exact, so the results are identical. The per-row compat matrices stay
-resident on the device, where each sweep reads the rows it uses in place,
-by index (`feasibility.cube_rows`); a host copy serves the per-set
-`masks_for_rows`. On the card a row batch is one upload (its row table),
+every sweep launches the hand-written kernels (ops/feasibility.py) unless a
+pin below routes it; on a `device="cpu"` engine the same calls run their
+plain torch versions, or the host twins where the cost model below sends
+them. All are exact, so the
+results are identical. The per-row compat matrices stay resident on the
+device, where each sweep reads the rows it uses in place, by index
+(`feasibility.cube_rows`); a host copy serves the per-set `masks_for_rows`
+and the host twins. On the card a row batch is one upload (its row table),
 one kt_row_compat launch against the types and the offerings, two appends
 and one copy back; a sweep is two uploads (the entity rows, the row ids),
 one kt_cube launch and one copy back. The resource `fits` test stays
@@ -30,9 +32,23 @@ Every launch goes through the kernel observatory's choke point
 `catalog.row_compat` (one dispatch for the types and the offerings; the
 reference dispatches its kernel once for each), a sweep as
 `feasibility.cube`, a mesh sweep as `feasibility.cube_sharded` and a
-catalog without offerings as `feasibility.membership`. The reference's
-host-twin route (`_use_device`, its `record_host` calls) is not ported:
-every batch and sweep here launches on the engine's device.
+catalog without offerings as `feasibility.membership`.
+
+The reference's host route is ported with its decisions: `_use_device`
+weighs a batch's host cost (cells over the reference's host rates)
+against the engine device's measured round trip (`device_rtt_s`, one
+probe per torch device), before any padding. A row batch under
+`DEVICE_MIN_ROW_BATCH` rows, or too small to pay the trip, runs the numpy
+twin `feasibility.req_rows_vs_sets_np`; a sweep too small runs
+`membership_all_np` and `offering_reduce_np`. Each host run is counted
+with `record_host` under the kernel's name and the shape the reference
+records. A host row batch's rows still reach the resident device
+matrices, by one upload and an append (no launch). The model routes a
+CPU engine, and a CUDA engine only under a pin: `FORCE_BACKEND` pins the
+route, `PINNED_RTT` the round trip (the simulator pins 100 us, so that
+both packages route every batch alike). Unpinned, a CUDA engine keeps
+every batch on the card (`_card_keeps_work`). A probe that fails is a
+KernelError, never a reason to take the host route.
 
 With an AOT ladder attached (`aot_ladder`, set by aot/compiler.warm_start)
 a row batch pads to its `catalog.row_compat` rung and a sweep's (P, R) to
@@ -53,15 +69,16 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import mesh as mesh_mod
-from karpenter_tpu_torch.aot import runtime as aotrt
 from karpenter_tpu_torch.apis import labels as wk
+from karpenter_tpu_torch.aot import runtime as aotrt
 from karpenter_tpu_torch.cloudprovider.types import InstanceType
 from karpenter_tpu_torch.device import device_work, resolve_device
+from karpenter_tpu_torch.observability import kernels as kobs
 from karpenter_tpu_torch.ops import delta as delta_mod
 from karpenter_tpu_torch.ops import encoding as enc
 from karpenter_tpu_torch.ops import feasibility as feas
-from karpenter_tpu_torch.scheduling.requirements import Operator, Requirement, Requirements
 from karpenter_tpu_torch.tracing import kernel as ktime
+from karpenter_tpu_torch.scheduling.requirements import Operator, Requirement, Requirements
 
 DEFAULT_RESOURCE_DIMS = (
     wk.RESOURCE_CPU,
@@ -93,6 +110,86 @@ def _req_cache_key(r: Requirement) -> tuple:
     # emitted claim requirements — conflating rows that differ only in
     # minValues would stamp one template's minValues onto another's claims.
     return (r.key, r.complement, r.greater_than, r.less_than, frozenset(r.values), r.min_values)
+
+
+# port: keyed by the engine's torch device, not a process-wide backend: a CPU
+# engine and a CUDA engine can share one process
+_RTT_CACHE: dict[torch.device, float] = {}
+
+# Deterministic-routing override: when set, device_rtt_s returns this value
+# instead of measuring, so the host-vs-device dispatch decision becomes a
+# pure function of cube sizes. The simulator pins it (sim/harness.py) so
+# same-seed runs — and CI runs on different machines — route identically
+# and report["kernels"] dispatch counts stay byte-deterministic.
+PINNED_RTT: Optional[float] = None
+
+
+def device_rtt_s(device) -> float:
+    """Measured round-trip latency of one tiny dispatch+fetch on `device`,
+    cached per device and process.
+
+    port: the probe is the port's own dispatch pattern in miniature: eight
+    floats uploaded, one op on the device, the result copied back; once to
+    warm, then timed. Its failure is a KernelError (device.device_work) and
+    is not cached: a broken device fails the batch, it never sends the work
+    to the host twins. The card's measured figure is in PERF.md (phase 4h
+    of chip_smoke.py).
+    """
+    if PINNED_RTT is not None:
+        return PINNED_RTT
+    device = torch.device(device)
+    rtt = _RTT_CACHE.get(device)
+    if rtt is None:
+        import time as _time
+
+        with device_work("rtt probe"):
+            host = torch.ones((8,), dtype=torch.float32)
+            (host.to(device) + 1).cpu()  # warm
+            host = torch.full((8,), 2.0, dtype=torch.float32)
+            t0 = _time.perf_counter()
+            (host.to(device) + 1).cpu()
+            rtt = _time.perf_counter() - t0
+        _RTT_CACHE[device] = rtt
+    return rtt
+
+
+# Host-twin throughput estimates (cells/second), deliberately conservative so
+# the device keeps the large cubes. Calibrated on one x86 core with float32
+# BLAS for the membership matmuls.
+_HOST_MATMUL_CELLS_PER_S = 2.0e9
+_HOST_ROW_CELLS_PER_S = 0.5e9
+
+# "device" / "host" pin the dispatch for tests and benchmarks; None = adaptive.
+FORCE_BACKEND: Optional[str] = None
+
+# Row batches below this stay on the exact numpy twin REGARDLESS of the RTT
+# cost model. The row kernel's inputs are unpadded — the row count and the
+# set tables' word capacity vary — so small steady-state dispatches (joint
+# requirement rows interned a few per claim family) would compile a fresh
+# executable per novel shape, violating the kernel observatory's
+# zero-recompile steady-state contract for a ~ms win. Only bulk encodes
+# (catalog bootstrap) amortize a compile.
+DEVICE_MIN_ROW_BATCH = 32
+
+
+def _card_keeps_work(device) -> bool:
+    """port: an unpinned CUDA engine keeps every row batch and every sweep
+    on the card, whatever their size. DEVICE_MIN_ROW_BATCH's reason, a
+    compile per novel shape, is the reference's: the port's kernels are
+    built once, not per shape, and the card beats the twins at the main
+    path's shapes (PERF.md, phase 4h of chip_smoke.py). The cost model, the
+    row gate included, routes a CPU engine, and a CUDA one under
+    FORCE_BACKEND or PINNED_RTT (the simulator's pin)."""
+    return FORCE_BACKEND is None and PINNED_RTT is None and torch.device(device).type == "cuda"
+
+
+def _use_device(host_cells: float, cells_per_s: float, device) -> bool:
+    # port: `device`, the engine's, whose round trip is weighed
+    if FORCE_BACKEND == "device" or _card_keeps_work(device):
+        return True
+    if FORCE_BACKEND == "host":
+        return False
+    return host_cells / cells_per_s > device_rtt_s(device)
 
 
 @dataclass
@@ -344,10 +441,18 @@ class CatalogEngine:
         )
 
     def _ensure_rows(self) -> None:
-        """Compute compat matrices for any rows added since the last call:
-        the batch's row table uploaded in one copy, one row_compat launch
-        against the types and the offerings together, its two column
-        ranges appended to the resident matrices, one copy back."""
+        """Compute compat matrices for any rows added since the last call.
+        Batches whose estimated host cost exceeds the measured device RTT run
+        on device; incremental joint rows use the exact numpy twin.
+
+        port: on the device the batch's row table is uploaded in one copy,
+        one row_compat launch runs against the types and the offerings
+        together, its two column ranges are appended to the resident
+        matrices and copied back once. On the host the twin runs for each
+        target set, and its rows are uploaded in one copy and appended to
+        the resident matrices, which every sweep on the device reads. An
+        unpinned CUDA engine runs every batch on the device
+        (`_card_keeps_work`)."""
         if self._computed_rows == len(self._rows):
             return
         new_rows = self._rows[self._computed_rows :]
@@ -366,8 +471,60 @@ class CatalogEngine:
             pad = self._word_capacity - er.mask.shape[1]
             er.mask = np.pad(er.mask, ((0, 0), (0, pad)))
 
+        # row kernel work ~ R * (I + O) * G slot-cells on host
+        slots = self._word_capacity * 32  # G = word_capacity * WORD value slots
+        host_cells = (
+            len(new_rows) * (self.num_instances + self.num_offerings) * max(slots, 1)
+        )
+        # FORCE_BACKEND="device" (the test/bench pin) must still reach the
+        # device row kernel for small batches — only adaptive routing gates
+        # on the batch size.
+        #
+        # The reference's delta-warm exception: with delta solves on and a
+        # device copy of the compat matrices resident, a small batch takes
+        # the device kernel so that its rows can be appended there.
+        # port: the same question of the same cache. The reference's cache
+        # gains "req_compat" only inside this exception, so it never holds
+        # it and the exception never fires; the port's never holds it
+        # either (its resident matrices are `_req_compat_d` /
+        # `_offer_compat_d`, appended on every batch), so both route alike.
+        delta_warm = (
+            delta_mod.delta_enabled()
+            and FORCE_BACKEND != "host"
+            and self.mesh is None
+            and "req_compat" in self._device_cache
+        )
+        on_device = (
+            (len(new_rows) >= DEVICE_MIN_ROW_BATCH or FORCE_BACKEND == "device"
+             or _card_keeps_work(self.device))  # port: the unpinned card
+            and _use_device(host_cells, _HOST_ROW_CELLS_PER_S, self.device)
+        ) or delta_warm
+        if on_device:
+            new = self._row_compat_device(er, len(new_rows))
+        else:
+            kobs.registry().record_host(
+                "catalog.row_compat",
+                f"{len(new_rows)}r,{self.num_instances}i,{self.num_offerings}o",
+            )
+            new = self._row_compat_host(er)
         I = self.num_instances
-        n = len(new_rows)
+        new_inst, new_off = new[:, :I], new[:, I:]
+        if delta_warm:
+            delta_mod.note_rows("device_appended", len(new_rows))
+        self._req_compat = np.concatenate([self._req_compat, new_inst], axis=0)
+        self._offer_compat = np.concatenate([self._offer_compat, new_off], axis=0)
+        # Rows that constrain NO catalog entry (all-True columns) are
+        # identity elements of the AND-reduce; queries prune them so the
+        # sweep's row axis stays tiny.
+        self._row_trivial = np.concatenate(
+            [self._row_trivial, new_inst.all(axis=1) & new_off.all(axis=1)]
+        )
+        self._computed_rows = len(self._rows)
+
+    def _row_compat_device(self, er: enc.EncodedReqs, n: int) -> np.ndarray:
+        """A row batch on the device: [n, I + O] bool, its rows appended to
+        the resident matrices."""
+        I = self.num_instances
         # the batch as one int32 row table, built on the host: one upload
         rows = feas.row_table(er.key, er.complement, er.has_values, er.gt, er.lt, er.mask)
         # pad the row batch up to its AOT ladder bucket (results for the
@@ -400,23 +557,33 @@ class CatalogEngine:
             )[:n]
             # the fresh rows are appended to the resident device matrices —
             # an O(churn) row batch per pass, never a re-upload of the
-            # catalog (the reference's delta-warm append)
-            resident = self._req_compat_d.shape[0]
-            self._req_compat_d = torch.cat([self._req_compat_d, new_d[:, :I]])
-            self._offer_compat_d = torch.cat([self._offer_compat_d, new_d[:, I:]])
-            new = new_d.cpu().numpy()
-        new_inst, new_off = new[:, :I], new[:, I:]
-        if delta_mod.delta_enabled() and resident and self.mesh is None:
-            delta_mod.note_rows("device_appended", len(new_rows))
-        self._req_compat = np.concatenate([self._req_compat, new_inst], axis=0)
-        self._offer_compat = np.concatenate([self._offer_compat, new_off], axis=0)
-        # Rows that constrain NO catalog entry (all-True columns) are
-        # identity elements of the AND-reduce; queries prune them so the
-        # sweep's row axis stays tiny.
-        self._row_trivial = np.concatenate(
-            [self._row_trivial, new_inst.all(axis=1) & new_off.all(axis=1)]
-        )
-        self._computed_rows = len(self._rows)
+            # catalog
+            self._append_resident(new_d)
+            return new_d.cpu().numpy()
+
+    def _row_compat_host(self, er: enc.EncodedReqs) -> np.ndarray:
+        """A row batch through the numpy twin, once for each target set as
+        the reference runs it: [n, I + O] bool, uploaded in one copy and
+        appended to the resident matrices (no launch, no named dispatch)."""
+        row_args = (er.key, er.complement, er.has_values, er.gt, er.lt, er.mask)
+        tables = (self._tables.slot_key, self._tables.value_int)
+        parts = []
+        for sets in (self._inst_sets, self._offer_sets) if self.num_offerings else (self._inst_sets,):
+            parts.append(feas.req_rows_vs_sets_np(
+                *row_args, sets.present, sets.complement, sets.has_values, sets.gt, sets.lt,
+                sets.mask, *tables,
+            ))
+        if not self.num_offerings:
+            parts.append(np.zeros((len(er), 0), dtype=bool))
+        new = np.concatenate(parts, axis=1)
+        with device_work("row_compat"):
+            self._append_resident(self._to_device(new))
+        return new
+
+    def _append_resident(self, new_d: torch.Tensor) -> None:
+        I = self.num_instances
+        self._req_compat_d = torch.cat([self._req_compat_d, new_d[:, :I]])
+        self._offer_compat_d = torch.cat([self._offer_compat_d, new_d[:, I:]])
 
     # -- queries ------------------------------------------------------------
 
@@ -473,11 +640,13 @@ class CatalogEngine:
         return self.masks_for_rows(self.rows_for(reqs), [r.key for r in reqs])
 
     def warmup(self) -> "CatalogEngine":
-        """Pay the cold costs before the first real batch: the kernel build
-        (on a CUDA engine) and the catalog's row/compat bootstrap.
-        Idempotent."""
+        """Pay the cold costs before the first real batch: the device's
+        round-trip probe (`device_rtt_s`, which initializes the device), the
+        kernel build (on a CUDA engine) and the catalog's row/compat
+        bootstrap. Idempotent."""
         if getattr(self, "_warmed", False):
             return self
+        device_rtt_s(self.device)  # device init + the routing probe
         probe = Requirements(
             Requirement(wk.LABEL_OS, Operator.EXISTS),
             Requirement(wk.LABEL_ARCH, Operator.EXISTS),
@@ -517,7 +686,11 @@ class CatalogEngine:
         this query, and both axes are padded to power-of-two buckets (the
         shapes the reference pads to). Padded membership rows are all-False,
         so they read compatible and are sliced off; the membership columns
-        past the used rows are padding, which cube_rows skips by count."""
+        past the used rows are padding, which cube_rows skips by count.
+        Dispatch is latency-aware (see device_rtt_s): cubes too small to
+        amortize the measured device round-trip run through the exact numpy
+        twins (port: on a CPU engine or a pinned one; an unpinned CUDA
+        engine sweeps on the card, `_card_keeps_work`)."""
         self._ensure_rows()
         P = len(row_sets)
         used = sorted(
@@ -527,6 +700,13 @@ class CatalogEngine:
         R = max(1, len(used))
         P2 = 1 << max(0, (P - 1).bit_length())
         R2 = 1 << max(0, (R - 1).bit_length())
+        # Routing is decided on the PLAIN pow2 dims (identical to pre-AOT
+        # behavior); only a sweep that actually goes to the device pads up
+        # to its AOT ladder bucket — the host twin must not compute over
+        # ladder-inflated matrices, and bucket inflation must not skew the
+        # host-vs-device decision.
+        host_cells = P2 * R2 * (self.num_instances + self.num_offerings)
+        on_device = _use_device(host_cells, _HOST_MATMUL_CELLS_PER_S, self.device)
         # the mesh serves the production cube (offerings present); a
         # membership-only engine is a degenerate catalog, left unsharded
         mesh_n = self.mesh.size if self.mesh is not None and self.num_offerings else 0
@@ -539,12 +719,12 @@ class CatalogEngine:
                 else "feasibility.membership"
             )
         )
-        if mesh_n:
+        if on_device and mesh_n:
             # mesh-size-INVARIANT global entity axis: the pow2 bucket
             # aligned to lcm(n, MESH_ALIGN), the reference's padded shape
             align = mesh_mod.mesh_multiple(mesh_n)
             P2 = -(-max(P2, align) // align) * align
-        if self.aot_ladder is not None:
+        if on_device and self.aot_ladder is not None:
             # look up by the RAW dims, not the pow2-inflated ones: a tuned
             # ladder may carry non-power-of-two buckets, and (P2, R2) would
             # make them unreachable. A mesh constrains the entity axis to
@@ -584,6 +764,8 @@ class CatalogEngine:
         )
         if key_present is not None:
             entities[:P, R2:] = key_present
+        if not on_device:
+            return self._host_sweep(P, used, membership, entities[:, R2:], fits)
 
         with device_work("sweep"):
             if self.num_offerings == 0:
@@ -637,6 +819,54 @@ class CatalogEngine:
                 kernel="feasibility.cube",
             ).cpu().numpy()
             return Feasibility(planes[0, :P], fits, planes[1, :P])
+
+    def _host_sweep(self, P, used, membership, key_present_p, fits) -> Feasibility:
+        """A sweep through the numpy twins, on the plain pow2 dims, from the
+        host copies of the row matrices. Host-twin records mirror the device
+        kernel they stand in for, with the SAME bucket key the reference's
+        device dispatch would produce (its operand tuple: the [O, I] owner
+        one-hot it dispatches enters by shape), so the /debug/kernels
+        drill-down shows both sides of the routing decision under one shape
+        bucket."""
+        I, O = self.num_instances, self.num_offerings
+        R2 = membership.shape[1]
+        req_compat_h = np.zeros((R2, I), dtype=bool)
+        if used:
+            req_compat_h[: len(used)] = self._req_compat[used]
+        compat = feas.membership_all_np(membership, req_compat_h)[:P]
+        if O == 0:
+            kobs.registry().record_host(
+                "feasibility.membership",
+                kobs.shape_signature((membership, req_compat_h)),
+            )
+            return Feasibility(compat, fits, np.zeros((P, I), dtype=bool))
+        offer_compat_h = np.zeros((R2, O), dtype=bool)
+        if used:
+            offer_compat_h[: len(used)] = self._offer_compat[used]
+        kobs.registry().record_host(
+            "feasibility.cube",
+            kobs.shape_signature(
+                (
+                    membership,
+                    req_compat_h,
+                    offer_compat_h,
+                    self.offering_custom_need,
+                    key_present_p,
+                    self.offering_available,
+                    np.broadcast_to(False, (O, I)),
+                )
+            ),
+        )
+        has_offering = feas.offering_reduce_np(
+            membership,
+            offer_compat_h,
+            self.offering_custom_need,
+            key_present_p,
+            self.offering_available,
+            self.offering_owner,
+            I,
+        )[:P]
+        return Feasibility(compat, fits, has_offering)
 
     def _gather_rows(self, matrix: torch.Tensor, idx: torch.Tensor, R2: int) -> torch.Tensor:
         """Rows `idx` of a device-resident compat matrix, padded with

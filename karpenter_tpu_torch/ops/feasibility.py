@@ -25,6 +25,10 @@ against the types and the offerings in one kt_row_compat launch) and
 `cube_rows` (the cube over the engine's resident row matrices, read by
 index, in one kt_cube launch; the entity rows may be two column ranges of
 one uploaded array).
+Three numpy functions are the reference's host twins, copied:
+`req_rows_vs_sets_np`, `membership_all_np` and `offering_reduce_np`. The
+catalog engine's host route runs them on host arrays, where its cost
+model says the device's round trip costs more than the work.
 The kernels read the catalog's constant tables packed (`pack_sets`,
 `key_slot_words`, `cube_pack`); the packs are made here on a catalog's
 first call and kept while their source tensors are the same objects,
@@ -233,6 +237,108 @@ def uid_onehot_matrix(uid_of_type: np.ndarray, num_uniq: int) -> np.ndarray:
     I = uid_of_type.shape[0]
     out = np.zeros((num_uniq, I), dtype=bool)
     out[uid_of_type, np.arange(I)] = True
+    return out
+
+
+# -- the host twins (copies of the reference's numpy functions) -------------------
+#
+# The catalog engine's host route (ops/catalog.py `_use_device`) runs these
+# for row batches and sweeps too small to pay the device's round trip. They
+# are numpy on the host, never a kernel's stand-in on a CUDA tensor, and
+# their bool outputs equal kt_row_compat's, kt_membership's and kt_cube's
+# bit for bit.
+
+
+def req_rows_vs_sets_np(
+    row_key: np.ndarray,
+    row_complement: np.ndarray,
+    row_has_values: np.ndarray,
+    row_gt: np.ndarray,
+    row_lt: np.ndarray,
+    row_mask: np.ndarray,
+    set_present: np.ndarray,
+    set_complement: np.ndarray,
+    set_has_values: np.ndarray,
+    set_gt: np.ndarray,
+    set_lt: np.ndarray,
+    set_mask: np.ndarray,
+    slot_key: np.ndarray,
+    value_int: np.ndarray,
+) -> np.ndarray:
+    """Host twin of req_rows_vs_sets: identical integer/bool semantics in
+    numpy, for incremental row batches too small to pay device dispatch
+    (the sequential FFD simulation interns joint-requirement rows one claim
+    at a time)."""
+
+    def unpack(words: np.ndarray) -> np.ndarray:
+        shifts = np.arange(WORD, dtype=np.uint32)
+        bits = (words[..., None] >> shifts) & np.uint32(1)
+        return bits.reshape(*words.shape[:-1], words.shape[-1] * WORD).astype(bool)
+
+    present = set_present[:, row_key].T
+    s_comp = set_complement[:, row_key].T
+    s_hasv = set_has_values[:, row_key].T
+    s_gt = set_gt[:, row_key].T
+    s_lt = set_lt[:, row_key].T
+
+    g = np.maximum(row_gt[:, None], s_gt)
+    l = np.minimum(row_lt[:, None], s_lt)
+    bounds_empty = (g != NO_GT) & (l != NO_LT) & (g >= l)
+    both_complement = row_complement[:, None] & s_comp
+
+    row_bits = unpack(row_mask)
+    set_bits = unpack(set_mask)
+    key_slots = slot_key[None, :] == row_key[:, None]
+    a_bits = np.where(row_complement[:, None], ~row_bits, row_bits) & key_slots
+    b_raw = set_bits[None, :, :]
+    b_bits = np.where(s_comp[:, :, None], ~b_raw, b_raw)
+    unbounded = (g == NO_GT) & (l == NO_LT)
+    is_int = value_int != NOT_INT
+    in_range = (
+        is_int[None, None, :]
+        & (value_int[None, None, :] > g[:, :, None])
+        & (value_int[None, None, :] < l[:, :, None])
+    )
+    bounds = unbounded[:, :, None] | in_range
+    candidates = a_bits[:, None, :] & b_bits & bounds
+    any_candidate = np.any(candidates, axis=-1)
+
+    has_intersection = np.where(
+        bounds_empty, False, np.where(both_complement, True, any_candidate)
+    )
+    row_exempt = (row_complement & row_has_values) | (~row_complement & ~row_has_values)
+    set_exempt = (s_comp & s_hasv) | (~s_comp & ~s_hasv)
+    exempt = row_exempt[:, None] & set_exempt
+    return ~present | has_intersection | exempt
+
+
+def membership_all_np(membership: np.ndarray, row_ok: np.ndarray) -> np.ndarray:
+    """Host twin of membership_all (float32 BLAS; counts are small integers
+    represented exactly, so the <0.5 threshold is bit-identical)."""
+    bad = membership.astype(np.float32) @ (~row_ok).astype(np.float32)
+    return bad < 0.5
+
+
+def offering_reduce_np(
+    membership: np.ndarray,
+    offer_compat: np.ndarray,
+    custom_need: np.ndarray,
+    key_present: np.ndarray,
+    available: np.ndarray,
+    offering_owner: np.ndarray,
+    num_instances: int,
+) -> np.ndarray:
+    """Host twin of offering_reduce. The offering→instance any-reduce uses a
+    per-row scatter instead of the [O, I] one-hot matmul — the host path only
+    runs for cubes small enough that the matmul would be waste."""
+    offer_rows_ok = membership_all_np(membership, offer_compat)  # [P, O]
+    bad = custom_need.astype(np.float32) @ (~key_present).astype(np.float32).T
+    undef_ok = (bad < 0.5).T  # [P, O]
+    offer_ok = offer_rows_ok & undef_ok & available[None, :]
+    P = membership.shape[0]
+    out = np.zeros((P, num_instances), dtype=bool)
+    for p in range(P):
+        out[p, offering_owner[offer_ok[p]]] = True
     return out
 
 

@@ -118,8 +118,10 @@ def build_pod(name: str, group: str, spec: dict) -> Pod:
 # the measured RTT is wall-clock and machine-dependent, so borderline
 # cubes could route host on one run and device on the next — and
 # report["kernels"] dispatch counts would not be a pure function of
-# (scenario, seed). 100µs sits at the co-located-chip scale: small
-# cubes keep the exact host twins, large cubes keep the device.
+# (scenario, seed). port: 100 us is the reference's pin, kept so that both
+# packages route every batch alike: small cubes keep the exact host twins,
+# large cubes keep the device. It is a routing constant, not a measured
+# figure (the card's round trip is in PERF.md, phase 4h).
 PINNED_RTT_S = 100e-6
 
 
@@ -137,6 +139,7 @@ def sim_globals(seed: int, clock: FakeClock):
     from karpenter_tpu_torch.observability import flight as flightmod
     from karpenter_tpu_torch.observability import kernels as kobs
     from karpenter_tpu_torch.observability import slo as slomod
+    from karpenter_tpu_torch.ops import catalog as catmod
 
     from karpenter_tpu_torch.observability import efficiency as effmod
 
@@ -161,13 +164,12 @@ def sim_globals(seed: int, clock: FakeClock):
     # the run, not of process history
     effmod.profiler().reset()
     provmod._ENGINE_CONTENT_CACHE.clear()
-    # port: no RTT pin. The port's catalog engine has no host route: every
-    # row batch and every sweep launches its kernel, whatever the measured
-    # RTT, so report["kernels"] is already a pure function of (scenario,
-    # seed) and there is nothing to pin
+    pinned_prev = catmod.PINNED_RTT
+    catmod.PINNED_RTT = PINNED_RTT_S
     try:
         yield
     finally:
+        catmod.PINNED_RTT = pinned_prev
         apicore.set_uid_source(None)
         clock.disable_blocking_sleep()
 
@@ -877,35 +879,38 @@ def run_scenario(
 # each with its reason. Every other part of a report is byte-identical to
 # the reference's on the same (trace, seed), and so is the event log. A
 # path is a tuple of keys, "*" any key or list index; in a fleet report it
-# applies to the report and to each tenant's.
+# applies to the report and to each tenant's. Under the pinned RTT both
+# packages route every row batch and sweep alike (ops/catalog.py), so the
+# host records, the last batch's dispatches and the delta counters agree;
+# what differs is how a dispatch to the device is bucketed and, for a row
+# batch, counted (none of the registered scenarios sends one to the device
+# under the pin; an AOT warm start walks the row rungs), and with it the
+# flight frames that count dispatches. A run that dispatches nothing to
+# the device, as most scenarios under the pin, gives the reference's whole
+# report.
+_ROW_RUNG = ("a row batch on the device is one kt_row_compat launch against the "
+             "types and the offerings, two dispatches in the reference (one a "
+             "target set); an AOT warm start walks the row rungs so, one "
+             "executable a rung where the reference loads two")
 DEVICE_SPECIFIC = (
     (
-        ("kernels",),
-        "dispatch counts by kernel, shape bucket and phase: under the pinned "
-        "RTT the reference sends small row batches and sweeps to its host "
-        "twins (host_dispatches), the port launches every one and counts one "
-        "row dispatch where the reference counts two; with them the digest "
-        "and the aot, efficiency and delta appendices",
+        ("kernels", "kernels", "*", "shapes"),
+        "a device dispatch is bucketed by the port's operands: the sweep's "
+        "entity rows and the catalog's own arrays, not the resident row "
+        "matrices kt_cube reads by index (ops/catalog.py `_cube`); the row "
+        "batch's one row table; the mesh's per-shard copies; host records "
+        "share the reference's buckets",
     ),
-    (
-        ("solver", "last_batch_dispatches"),
-        "the last batch's device dispatches: 0 where the reference's host "
-        "twins served it",
-    ),
-    (
-        ("solver", "delta", "delta_rows_device_appended"),
-        "rows appended to the resident device matrices: the port's engine "
-        "holds them from its first row batch, the reference's only once a "
-        "device sweep ran",
-    ),
-    (
-        ("flight", "ring_digest"),
-        "every frame carries the kernels source's dispatch deltas",
-    ),
-    (
-        ("flight", "bundles", "*", "sha256"),
-        "a bundle's digest is over those frames",
-    ),
+    (("kernels", "kernels", "catalog.row_compat", "dispatches"), _ROW_RUNG),
+    (("kernels", "kernels", "catalog.row_compat", "phases"), _ROW_RUNG),
+    (("kernels", "digest"), "over those buckets and counts"),
+    (("kernels", "aot", "executables_loaded"), _ROW_RUNG),
+    (("kernels", "aot", "fresh_compiles"), _ROW_RUNG),
+    (("kernels", "aot", "cache_hits"), _ROW_RUNG),
+    (("kernels", "aot", "cache_misses"), _ROW_RUNG),
+    (("kernels", "efficiency", "cost_tables", "entries"), _ROW_RUNG),
+    (("flight", "ring_digest"), "its frames count the dispatches above"),
+    (("flight", "bundles", "*", "sha256"), "a bundle's digest is over those frames"),
     (
         ("explain", "fused_declines"),
         "the scan's declines: the card's engine tries the scan on a batch of "
@@ -914,10 +919,10 @@ DEVICE_SPECIFIC = (
 )
 
 # port: the part of a report that is measured, not counted. Wherever a
-# batch dispatches a kernel the host-stall fraction is a ratio of walls:
-# on the reference only off its host route, on the port always (a CPU
-# engine dispatches the kernels' plain versions). Two same-seed runs give
-# equal reports outside it.
+# batch dispatches to the device the host-stall fraction is a ratio of
+# walls (a CPU engine dispatches the kernels' plain versions), in the
+# reference too; a run whose batches all take the host twins reports
+# exactly 1.0. Two same-seed runs give equal reports outside it.
 VOLATILE = (
     (
         ("kernels", "efficiency", "host_stall_fraction"),

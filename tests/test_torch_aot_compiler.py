@@ -90,6 +90,7 @@ def device_programs(monkeypatch):
     from test_torch_delta import _x64
 
     monkeypatch.setattr(_m(J, "ops.catalog"), "FORCE_BACKEND", "device")
+    monkeypatch.setattr(_m(T, "ops.catalog"), "FORCE_BACKEND", "device")
     monkeypatch.setattr(_m(J, "ops.packer"), "scan_x64", _x64)
     for pkg in (J, T):
         _m(pkg, "aot.runtime").reset_off_ladder()

@@ -609,6 +609,7 @@ def test_ladder_from_the_ports_observed_scan(clean, monkeypatch):
 
     monkeypatch.setattr(jpacker, "scan_x64", _x64)
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     monkeypatch.setattr(jfused, "FUSED_MODE", "on")
     monkeypatch.setattr(tfused, "FUSED_MODE", "on")
 

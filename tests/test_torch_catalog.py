@@ -99,6 +99,7 @@ def build_queries(pkg: str, seed: int, n: int = 24):
 @pytest.fixture
 def device_backend(monkeypatch):
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
 
 
 def engines(seed: int):

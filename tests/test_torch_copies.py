@@ -98,6 +98,26 @@ PORT_SPECIFIC = {
         [(["import pickle"], ["import json", "import subprocess"])],
     ),
     "observability/kernels.py": (["sample_device_memory"], []),
+    # the catalog engine on a torch device: the row batch's one launch
+    # against both target sets and the sweep's kt_cube over the resident
+    # rows by index (`_row_compat`, `_cube`, the resident matrices, the
+    # mesh's gathered rows); the host route with the reference's decisions,
+    # its RTT probed and cached per torch device (`_RTT_CACHE`,
+    # `device_rtt_s`, `_use_device`) and a host batch's rows appended to the
+    # resident matrices; the reference's [O, I] owner one-hot is not built
+    # (the host sweep's record names it by shape)
+    "ops/catalog.py": (
+        ["__doc__", "_row_compat", "_cube", "_RTT_CACHE", "device_rtt_s", "_card_keeps_work",
+         "_use_device",
+         "CatalogEngine.__doc__", "CatalogEngine.__init__", "CatalogEngine._encode_catalog",
+         "CatalogEngine._ensure_rows", "CatalogEngine._row_compat_device",
+         "CatalogEngine._row_compat_host", "CatalogEngine._append_resident",
+         "CatalogEngine._dev", "CatalogEngine._mesh_dev", "CatalogEngine._host_words",
+         "CatalogEngine._to_device", "CatalogEngine._set_args", "CatalogEngine.warmup",
+         "CatalogEngine.state_arrays", "CatalogEngine.feasibility",
+         "CatalogEngine._host_sweep", "CatalogEngine._gather_rows"],
+        [(["import jax.numpy as jnp"], [])],
+    ),
     # the fence; a KernelError of an installed executable fails the dispatch
     "tracing/kernel.py": (
         ["__doc__", "_cache_size", "_cuda_devices", "_fence"],
@@ -178,12 +198,13 @@ PORT_SPECIFIC = {
     "operator/harness.py": (["ReconcilerHarness._run"], []),
     # --device; a KernelError stops the loop with a nonzero exit
     "__main__.py": (["_port_args", "main"], []),
-    # the run's device through every engine rebuild; no RTT pin, no jit
-    # caches; a KernelError from a dying client's close() raised; the
-    # report sections that differ from the reference's by design
+    # the run's device through every engine rebuild; the RTT pin's comment
+    # states no figure of the reference's hardware; no jit caches; a
+    # KernelError from a dying client's close() raised; the report sections
+    # that differ from the reference's by design
     "sim/harness.py": (
-        ["sim_globals", "Simulation._engine_factory", "Simulation._restart_solverd",
-         "Simulation._crash_restart", "run_scenario", "DEVICE_SPECIFIC", "VOLATILE",
+        ["PINNED_RTT_S", "Simulation._engine_factory", "Simulation._restart_solverd",
+         "Simulation._crash_restart", "run_scenario", "_ROW_RUNG", "DEVICE_SPECIFIC", "VOLATILE",
          "report_without"],
         [
             ([], ["        device=None,"]),
@@ -262,6 +283,8 @@ def _spans(source: str, names) -> set[int]:
             if isinstance(node, ast.Assign) and any(
                 isinstance(t, ast.Name) and t.id == name for t in node.targets
             ):
+                return node
+            if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", None) == name:
                 return node
         return None
 

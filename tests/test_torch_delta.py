@@ -252,6 +252,7 @@ def delta_fused(monkeypatch):
     residency dropped before and after, fresh name counters."""
     monkeypatch.setattr(jpacker, "scan_x64", _x64)
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     monkeypatch.setattr(jfused, "FUSED_MODE", "on")
     monkeypatch.setattr(tfused, "FUSED_MODE", "on")
     for mod in (jnodeclaim, tnodeclaim):
@@ -760,18 +761,26 @@ def test_ffd_counters_carry_delta_series(delta_on):
 
 
 def test_catalog_appends_fresh_rows_on_the_device(delta_on):
-    """With delta on and the compat matrices resident, a churn pass's new
-    rows are appended to the device matrices (metered), the earlier rows
-    untouched."""
-    engine = engine_for(PORT)
-    rq = _m(PORT, "scheduling.requirements")
-    wk = _m(PORT, "apis.labels")
-    engine.rows_for(rq.Requirements(rq.Requirement(wk.LABEL_OS, rq.Operator.IN, ["linux"])))
-    engine._ensure_rows()
-    before = engine._req_compat_d.clone()
-    c0 = delta.delta_counters().get("delta_rows_device_appended", 0)
-    engine.rows_for(rq.Requirements(rq.Requirement(wk.LABEL_ARCH, rq.Operator.IN, ["arm64"])))
-    engine._ensure_rows()
-    assert delta.delta_counters()["delta_rows_device_appended"] == c0 + 1
+    """With delta on, a churn pass's new rows are appended to the resident
+    device matrices, the earlier rows untouched, whichever route computed
+    them. A one-row batch takes the host twin, as in the reference, whose
+    delta-warm exception never fires (nothing stores the resident copy it
+    asks for): so no row is metered as device-appended, in either
+    package."""
+    c0 = {pkg: _m(pkg, "ops.delta").delta_counters().get("delta_rows_device_appended", 0)
+          for pkg in (JAX, PORT)}
+    for pkg in (JAX, PORT):
+        engine = engine_for(pkg)
+        rq = _m(pkg, "scheduling.requirements")
+        wk = _m(pkg, "apis.labels")
+        engine.rows_for(rq.Requirements(rq.Requirement(wk.LABEL_OS, rq.Operator.IN, ["linux"])))
+        engine._ensure_rows()
+        if pkg == PORT:
+            before = engine._req_compat_d.clone()
+        engine.rows_for(rq.Requirements(rq.Requirement(wk.LABEL_ARCH, rq.Operator.IN, ["arm64"])))
+        engine._ensure_rows()
+    for pkg in (JAX, PORT):
+        assert _m(pkg, "ops.delta").delta_counters().get("delta_rows_device_appended", 0) == c0[pkg]
+    assert engine._req_compat_d.shape[0] == before.shape[0] + 1
     assert torch.equal(engine._req_compat_d[: before.shape[0]], before)
     assert np.array_equal(engine._req_compat_d.numpy(), engine._req_compat)

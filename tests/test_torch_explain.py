@@ -70,6 +70,7 @@ def explain_both(monkeypatch):
     hostname and placeholder counters; everything restored after."""
     monkeypatch.setattr(jpacker, "scan_x64", _x64)
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     monkeypatch.setattr(jffd, "STRICT", True)
     for mod in (jnodeclaim, tnodeclaim):
         monkeypatch.setattr(mod, "_hostname_counter", itertools.count(1))

@@ -114,24 +114,29 @@ def test_sweep_packs_follow_their_sources_on_card(cuda_device):
         assert torch.equal(tfeas.req_rows_vs_targets(table, sets, slot_key, value_int), want)
 
 
-@pytest.mark.cuda
-def test_engine_row_batch_and_sweep_launch_once_on_card(cuda_device):
-    """A CUDA CatalogEngine: one kt_row_compat launch a row batch (types and
-    offerings together), one kt_cube launch a sweep and no kt_membership,
-    with the planes of a device="cpu" engine."""
+def _engine_queries():
     from karpenter_tpu_torch.apis import labels as wk
-    from karpenter_tpu_torch.cloudprovider.kwok.instance_types import construct_instance_types
-    from karpenter_tpu_torch.ops.catalog import CatalogEngine
     from karpenter_tpu_torch.scheduling.requirements import Operator, Requirement, Requirements
 
-    catalog = construct_instance_types()
-    queries = [
+    return [
         Requirements(Requirement(wk.LABEL_ARCH, Operator.IN, ["arm64"])),
         Requirements(Requirement(wk.LABEL_TOPOLOGY_ZONE, Operator.NOT_IN, ["kwok-zone-1"]),
                      Requirement(wk.CAPACITY_TYPE_LABEL_KEY, Operator.IN, ["spot"])),
         Requirements(Requirement("example.com/team", Operator.IN, ["a"])),
         Requirements(),
     ]
+
+
+@pytest.mark.cuda
+def test_engine_row_batch_and_sweep_launch_once_on_card(cuda_device):
+    """A CUDA CatalogEngine: one kt_row_compat launch a row batch (types and
+    offerings together), one kt_cube launch a sweep and no kt_membership,
+    with the planes of a device="cpu" engine."""
+    from karpenter_tpu_torch.cloudprovider.kwok.instance_types import construct_instance_types
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    catalog = construct_instance_types()
+    queries = _engine_queries()
     results = []
     for device in (cuda_device, "cpu"):
         engine = CatalogEngine(catalog, device=device)
@@ -145,6 +150,39 @@ def test_engine_row_batch_and_sweep_launch_once_on_card(cuda_device):
     (cc, co, crc, coc, moved), (pc, po, prc, poc, _) = results
     assert moved == {"row_compat": 1, "cube": 1}, moved
     for got, want in ((cc, pc), (co, po), (crc, prc), (coc, poc)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_engine_small_batches_take_the_host_twins_on_card(cuda_device, monkeypatch):
+    """The same small batches on a CUDA engine under the simulator's pinned
+    round trip (100 us): the 5-row batch (under DEVICE_MIN_ROW_BATCH) and
+    the 4-entity sweep run the numpy twins, launch nothing, and their rows
+    still reach the resident device matrices; every plane equals the device
+    route's."""
+    from karpenter_tpu_torch.cloudprovider.kwok.instance_types import construct_instance_types
+    from karpenter_tpu_torch.ops import catalog as tcatalog
+    from karpenter_tpu_torch.ops.catalog import CatalogEngine
+
+    catalog = construct_instance_types()
+    queries = _engine_queries()
+    results = {}
+    for force in ("device", None):
+        monkeypatch.setattr(tcatalog, "FORCE_BACKEND", force)
+        monkeypatch.setattr(tcatalog, "PINNED_RTT", 100e-6)
+        engine = CatalogEngine(catalog, device=cuda_device)
+        rows = [engine.rows_for(q) for q in queries]
+        l0 = dict(tfeas.LAUNCHES)
+        engine._ensure_rows()
+        f = engine.feasibility(rows, np.zeros((len(rows), len(engine.resource_dims))),
+                               engine.key_presence(queries))
+        moved = {k: v - l0[k] for k, v in tfeas.LAUNCHES.items() if v != l0[k]}
+        assert engine._req_compat_d.is_cuda
+        np.testing.assert_array_equal(engine._req_compat_d.cpu().numpy(), engine._req_compat)
+        np.testing.assert_array_equal(engine._offer_compat_d.cpu().numpy(), engine._offer_compat)
+        results[force] = (moved, f.compat, f.has_offering, engine._req_compat, engine._offer_compat)
+    assert results["device"][0] == {"row_compat": 1, "cube": 1} and results[None][0] == {}
+    for got, want in zip(results[None][1:], results["device"][1:]):
         np.testing.assert_array_equal(got, want)
 
 

@@ -103,6 +103,7 @@ def force_device(monkeypatch):
     """The reference's sweep pinned to its device programs (its adaptive
     routing would send these small cubes to the numpy twins)."""
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
 
 
 # -- mesh.py: alignment, scope, construction -------------------------------------
@@ -469,6 +470,7 @@ def fused_mesh(monkeypatch):
     dropped before and after."""
     monkeypatch.setattr(jpacker, "scan_x64", _x64)
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     monkeypatch.setattr(jfused, "FUSED_MODE", "on")
     monkeypatch.setattr(tfused, "FUSED_MODE", "on")
     for mod in (jnodeclaim, tnodeclaim):

@@ -15,8 +15,9 @@ against the JAX package's, on the CPU.
    in real float64). The port's counts must equal the reference's but for
    DESIGNED_DIFFERENCES, applied by `as_port_counts`.
 3. The steady-batch floor on both packages: the reference's own floor test
-   (tests/test_perf_floor.py) run with `scan_x64` patched, and the port's
-   counterpart, whose warm scan solve also dispatches its sweep.
+   (tests/test_perf_floor.py) run with `scan_x64` patched, and the same
+   floor on both packages under one pinned round trip: the warm scan solve
+   is one dispatch, its sweep served by the host twin.
 4. The scan's 27-operand shape signature: equal in both packages for the
    same solve, and parsed by the ladder into the same rung.
 5. The port's fence: CUDA outputs only, an event on each device's current
@@ -82,14 +83,6 @@ DESIGNED_DIFFERENCES = {
     "uid_project": (
         "B6 (famu_ok) has no named dispatch in the reference "
         "(ops/fused.py:434-436) and none in the port"
-    ),
-    "steady scan batch": (
-        "the reference's warm fused solve is {packer.solve_scan: 1} because "
-        "its adaptive routing (_use_device, ops/catalog.py:59-117) sends the "
-        "small warm sweep to its host twin (a record_host); the port has no "
-        "host-twin route (ROADMAP Queue C item 2) and dispatches the sweep "
-        "as feasibility.cube; with FORCE_BACKEND='device' the reference "
-        "dispatches it too"
     ),
 }
 
@@ -283,6 +276,7 @@ def test_repeat_sweeps_zero_recompiles(registries, monkeypatch):
     port nothing builds once the kernels are loaded (on the CPU nothing
     builds at all)."""
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     for pkg in PKGS:
         catalog = _m(pkg, "cloudprovider.kwok.instance_types").construct_instance_types()
         kw = {"device": "cpu"} if pkg == PORT else {}
@@ -380,6 +374,7 @@ def twin(monkeypatch, registries):
     Yields the registries."""
     monkeypatch.setattr(jpacker, "scan_x64", _x64)
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     monkeypatch.setattr(jffd, "STRICT", True)
     for mod in (jnodeclaim, tnodeclaim):
         monkeypatch.setattr(mod, "_hostname_counter", itertools.count(1))
@@ -598,20 +593,25 @@ def test_reference_steady_batch_floor_with_scan_x64_patched(registries, monkeypa
 
 
 def test_steady_batch_floor_on_both_packages(registries, monkeypatch):
-    """A warm fused solve: the reference's steady batch is ONE dispatch,
-    its sweep served by the host twin; the port's is the scan and the
-    sweep, the designed "steady scan batch" difference — and the
-    reference's own batch is the port's once its sweep is pinned to the
-    device."""
+    """A warm fused solve under the simulator's pinned round trip (100 us):
+    the steady batch is ONE dispatch in both packages, its sweep served by
+    the host twin (one host record) — the reference's floor. Pinned to the
+    device, both dispatch the scan and the sweep."""
+    from karpenter_tpu_torch.ops import catalog as tcatalog
+
     monkeypatch.setattr(jpacker, "scan_x64", _x64)
     _fused(monkeypatch, True)
-    ref = steady_batch(JAX, registries[JAX])
-    assert ref == {"kernels": {"packer.solve_scan": 1}, "host_records": 1}
-    assert registries[JAX].debug_snapshot("feasibility.cube")["host_dispatches"] >= 1
-    port = steady_batch(PORT, registries[PORT])
-    assert port == {"kernels": {"feasibility.cube": 1, "packer.solve_scan": 1}, "host_records": 0}
-    monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
-    assert steady_batch(JAX, registries[JAX]) == port
+    for cat in (jcatalog, tcatalog):
+        monkeypatch.setattr(cat, "PINNED_RTT", 100e-6)
+    floor = {"kernels": {"packer.solve_scan": 1}, "host_records": 1}
+    for pkg in PKGS:
+        assert steady_batch(pkg, registries[pkg]) == floor, pkg
+        assert registries[pkg].debug_snapshot("feasibility.cube")["host_dispatches"] >= 1, pkg
+    for cat in (jcatalog, tcatalog):
+        monkeypatch.setattr(cat, "FORCE_BACKEND", "device")
+    pinned = {pkg: steady_batch(pkg, registries[pkg]) for pkg in PKGS}
+    assert pinned[PORT] == pinned[JAX] == {
+        "kernels": {"feasibility.cube": 1, "packer.solve_scan": 1}, "host_records": 0}
     last = registries[PORT].last_batches(1)[-1]
     assert last["label"] == "perf-floor" and last["dispatches"] == 2 and last["phase"] == "steady"
 

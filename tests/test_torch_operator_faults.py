@@ -93,9 +93,11 @@ def test_provisioner_kernel_error_leaves_run_once():
 
 def test_provisioner_kernel_error_from_a_kernel_wrapper(monkeypatch):
     """The fault raised where a launch would raise it: the CPU engine's
-    feasibility sweep."""
+    feasibility sweep, routed to the device (the batch is small enough
+    for the host twin otherwise)."""
     KernelError = _kernel_error()
     feas = tw._m(T, "ops.feasibility")
+    monkeypatch.setattr(tw._m(T, "ops.catalog"), "FORCE_BACKEND", "device")
     monkeypatch.setattr(feas, "cube_rows", _raising(KernelError("kt_cube: cudaError 700")))
     with tw.leg(T):
         clock, store, op, _ = _operator(T)

@@ -70,6 +70,7 @@ def fresh(monkeypatch):
     float64, device programs on, and fresh hostname/placeholder counters."""
     monkeypatch.setattr(jpacker, "scan_x64", _x64)
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     monkeypatch.setattr(jfused, "FUSED_MODE", "on")
     monkeypatch.setattr(tfused, "FUSED_MODE", "on")
 

@@ -11,6 +11,9 @@ the twin files that hold it to the reference (tests/test_torch_sim_*.py):
 - a KernelError from a solve (through the flaky-solver wrapper too) or from
   a dying client's `close()` in a restart leaves `run()`, and `main` exits
   nonzero with the flight ring dumped;
+- under the sim's pinned round trip both packages route every row batch
+  and sweep alike: the kernels section, the last batch's dispatches, the
+  delta counters and the flight ring and bundles are the reference's;
 - each entry of `sim.harness.DEVICE_SPECIFIC` is shown to differ between the
   packages (or between the card's scan and a CPU engine's walk), while the
   event log and the rest of the report stay equal;
@@ -235,12 +238,15 @@ def _write(tmp_path, trace) -> str:
 @pytest.fixture
 def faulting_sweep(monkeypatch):
     """Every sweep of the catalog engine raises KernelError, as a fault
-    fenced on the card would."""
+    fenced on the card would; every sweep is routed to the device
+    (FORCE_BACKEND overrides the sim's pinned round trip), where the
+    launch is."""
 
     def cube_rows(*args):
         raise KernelError("stand-in device fault in kt_cube")
 
     monkeypatch.setattr(feas, "cube_rows", cube_rows)
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
 
 
 def test_kernel_error_from_a_solve_leaves_run(faulting_sweep):
@@ -308,23 +314,36 @@ def test_plain_error_from_close_in_a_restart_is_swallowed(event, monkeypatch):
 
 
 def _run_both(name, seed=7, force_device=False, **port_kwargs):
-    """`name` on the reference (ffd.STRICT; FORCE_BACKEND="device" when
-    asked) and on the port's CPU engines; each result with its flight
+    """`name` on the reference (ffd.STRICT) and on the port's CPU engines,
+    both under the sim's pinned round trip or, when asked, both pinned to
+    the device (FORCE_BACKEND="device"); each result with its flight
     recorder's ring and bundles as they stood at the end of the run."""
     from karpenter_tpu.observability import flight as jflight
     from karpenter_tpu.ops import catalog as jcatalog
     from karpenter_tpu.ops import ffd as jffd
     from karpenter_tpu.sim import harness as jharness
     from karpenter_tpu.sim import scenarios as jscenarios
+    from karpenter_tpu_torch.ops import catalog as tcatalog
 
+    from karpenter_tpu.ops import delta as jdelta
+    from karpenter_tpu_torch.ops import delta as tdelta
+
+    options = port_kwargs.pop("options", None)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jffd, "STRICT", True)
+        # a report's solver.delta is the process's delta counters: each run
+        # counts from 0, as in a process of its own (torch_twins does the same)
+        for mod in (jdelta, tdelta):
+            mp.setattr(mod, "COUNTERS", dict.fromkeys(mod.COUNTERS, 0))
         if force_device:
-            mp.setattr(jcatalog, "FORCE_BACKEND", "device")
-        ref = jharness.run_scenario(jscenarios.resolve(name, seed), seed)
-    ref_flight = (list(jflight.recorder()._ring), list(jflight.recorder()._bundles))
-    port = harness.run_scenario(scenarios.resolve(name, seed), seed, device="cpu", **port_kwargs)
-    port_flight = (list(flightmod.recorder()._ring), list(flightmod.recorder()._bundles))
+            for cat in (jcatalog, tcatalog):
+                mp.setattr(cat, "FORCE_BACKEND", "device")
+        ref = jharness.run_scenario(jscenarios.resolve(name, seed), seed,
+                                    options=options and options[0])
+        ref_flight = (list(jflight.recorder()._ring), list(jflight.recorder()._bundles))
+        port = harness.run_scenario(scenarios.resolve(name, seed), seed, device="cpu",
+                                    options=options and options[1], **port_kwargs)
+        port_flight = (list(flightmod.recorder()._ring), list(flightmod.recorder()._bundles))
     return (ref, ref_flight), (port, port_flight)
 
 
@@ -334,48 +353,56 @@ def steady():
 
 
 def test_equal_outside_device_specific(steady):
+    """steady-state never dispatches to the device under the pin: the
+    whole report is the reference's."""
     (ref, _), (port, _) = steady
     assert port.digest == ref.digest
     assert port.log.to_jsonl() == ref.log.to_jsonl()
     assert harness.report_without(port.report) == harness.report_without(ref.report)
-    assert port.report != ref.report
+    assert port.report == ref.report
 
 
 def test_kernels_differ_by_the_host_route(steady):
-    """The reference's small row batches and sweeps go to its host twins
-    under the pinned RTT; the port launches every one."""
+    """The host route no longer sets the packages apart: under the pinned
+    RTT both send steady-state's small row batches and sweeps to their
+    host twins, under the same shape buckets, so the kernels section and
+    its digest are the reference's."""
     (ref, _), (port, _) = steady
     rk, pk = ref.report["kernels"]["kernels"], port.report["kernels"]["kernels"]
     for name in ("catalog.row_compat", "feasibility.cube"):
         assert rk[name]["dispatches"] == 0 and rk[name]["host_dispatches"] > 0, rk[name]
-        assert pk[name]["dispatches"] > 0 and pk[name]["host_dispatches"] == 0, pk[name]
-    assert ref.report["kernels"]["digest"] != port.report["kernels"]["digest"]
-    assert ref.report["kernels"]["efficiency"]["host_stall_fraction"] == 1.0
-    assert port.report["kernels"]["efficiency"]["device_batches"] >= 1
+    assert pk == rk
+    assert ref.report["kernels"]["digest"] == port.report["kernels"]["digest"]
+    assert ref.report["kernels"]["efficiency"] == port.report["kernels"]["efficiency"]
+    assert port.report["kernels"]["efficiency"]["host_stall_fraction"] == 1.0
 
 
 def test_kernels_dispatch_counts_match_the_reference_pinned_to_the_device():
-    """FORCE_BACKEND="device" overrides the reference's pin: its dispatch
-    counts are then the port's, through as_port_counts (one row dispatch a
-    batch where the reference makes two)."""
+    """FORCE_BACKEND="device" overrides the pin in both packages: the
+    dispatch counts are then the reference's through as_port_counts (one
+    row dispatch a batch where the reference makes two)."""
     (ref, _), (port, _) = _run_both("steady-state", force_device=True)
     assert port.digest == ref.digest
     want = as_port_counts({k: v["dispatches"] for k, v in ref.report["kernels"]["kernels"].items()})
     got = {k: v["dispatches"] for k, v in port.report["kernels"]["kernels"].items()}
     assert got == want and got["feasibility.cube"] > 0
+    assert all(v["host_dispatches"] == 0 for v in port.report["kernels"]["kernels"].values())
     assert ref.report["kernels"]["steady_recompiles"] == port.report["kernels"]["steady_recompiles"] == 0
 
 
 def test_last_batch_dispatches_differ_by_the_host_route(steady):
+    """The last batch's device dispatches: 0 in both packages, whose host
+    twins served it."""
     (ref, _), (port, _) = steady
     assert ref.report["solver"]["last_batch_dispatches"] == 0
-    assert port.report["solver"]["last_batch_dispatches"] > 0
+    assert port.report["solver"]["last_batch_dispatches"] == 0
 
 
 def test_device_appended_rows_differ_by_the_host_route():
-    """With delta solves on, the port's engine appends each pass's fresh
-    rows to its resident device matrices; the reference's holds none until
-    a device sweep runs, which the pin never lets happen here."""
+    """With delta solves on, neither package meters a device-appended row:
+    the reference's delta-warm exception asks for a resident copy its
+    cache never stores, and the port asks its cache the same question. The
+    port's resident matrices still hold every row (appended, unmetered)."""
     from karpenter_tpu.ops import delta as jdelta
     from karpenter_tpu_torch.ops import delta as tdelta
 
@@ -388,7 +415,8 @@ def test_device_appended_rows_differ_by_the_host_route():
             mod.configure(mode="off")
     assert port.digest == ref.digest
     assert "delta_rows_device_appended" not in ref.report["solver"]["delta"]
-    assert port.report["solver"]["delta"]["delta_rows_device_appended"] > 0
+    assert "delta_rows_device_appended" not in port.report["solver"]["delta"]
+    assert port.report["solver"]["delta"] == ref.report["solver"]["delta"]
     assert harness.report_without(port.report) == harness.report_without(ref.report)
 
 
@@ -402,35 +430,62 @@ def _without_kernels_source(frames):
 
 
 def test_flight_ring_digest_differs_by_the_kernels_source():
-    """tpu-training's ring still holds passes that dispatched (steady-state's
-    last 64 frames hold none, and its ring digests agree)."""
+    """tpu-training's ring holds every pass of its run; the kernels source
+    of each frame (the pass's dispatch deltas, host records included) is
+    the reference's now that both route alike, and so is the digest."""
     (ref, (ref_ring, _)), (port, (port_ring, _)) = _run_both("tpu-training")
     assert port.digest == ref.digest
-    assert ref.report["flight"]["ring_digest"] != port.report["flight"]["ring_digest"]
+    assert ref.report["flight"]["ring_digest"] == port.report["flight"]["ring_digest"]
     ref_frames, ref_kernels = _without_kernels_source(ref_ring)
     port_frames, port_kernels = _without_kernels_source(port_ring)
     assert ref_frames == port_frames and ref_frames
-    assert ref_kernels != port_kernels
+    assert ref_kernels == port_kernels and any(ref_kernels)
 
 
 def test_flight_bundle_sha256_differs_by_the_kernels_source():
+    """spot-interruption's bundles: digests over the same frames, equal."""
     (ref, (_, ref_bundles)), (port, (_, port_bundles)) = _run_both("spot-interruption")
     assert port.digest == ref.digest
     rb, pb = ref.report["flight"]["bundles"], port.report["flight"]["bundles"]
-    assert rb and len(rb) == len(pb)
-    for a, b in zip(rb, pb):
-        assert a["sha256"] != b["sha256"]
-        assert {k: v for k, v in a.items() if k != "sha256"} == \
-            {k: v for k, v in b.items() if k != "sha256"}
+    assert rb and rb == pb
     for a, b in zip(ref_bundles, port_bundles):
-        assert _without_kernels_source(a["_frames"])[0] == _without_kernels_source(b["_frames"])[0]
+        assert flightmod.scrub(copy.deepcopy(a["_frames"])) == \
+            flightmod.scrub(copy.deepcopy(b["_frames"]))
+
+
+@pytest.mark.parametrize("shards", [0, 2])
+def test_kernels_shapes_differ_by_the_device_sweep_bucket(shards):
+    """mesh-sweep's wide priming sweep goes to the device under the pin in
+    both packages (one dispatch each, unsharded or on a 2-shard mesh): the
+    counts agree, the sweep's shape bucket and so the digest differ, every
+    host record's bucket agrees, and nothing else of the report differs."""
+    from karpenter_tpu.operator.options import Options as JOptions
+    from karpenter_tpu_torch.operator.options import Options as TOptions
+
+    options = (JOptions(solver_pod_shard_axis=shards), TOptions(solver_pod_shard_axis=shards)) \
+        if shards else None
+    (ref, _), (port, _) = _run_both("mesh-sweep", options=options)
+    assert port.digest == ref.digest
+    name = "feasibility.cube_sharded" if shards else "feasibility.cube"
+    rk, pk = ref.report["kernels"]["kernels"], port.report["kernels"]["kernels"]
+    assert set(rk) == set(pk) and rk[name]["dispatches"] == pk[name]["dispatches"] > 0
+    for k in rk:
+        for field in ("dispatches", "host_dispatches", "phases"):
+            assert rk[k][field] == pk[k][field], (k, field)
+        host = lambda shapes: {s: ph for s, ph in shapes.items() if set(ph) == {"host"}}  # noqa: E731
+        assert host(rk[k]["shapes"]) == host(pk[k]["shapes"]), k
+    assert rk[name]["shapes"] != pk[name]["shapes"]
+    assert ref.report["kernels"]["digest"] != port.report["kernels"]["digest"]
+    assert harness.report_without(port.report, harness.DEVICE_SPECIFIC + harness.VOLATILE) == \
+        harness.report_without(ref.report, harness.DEVICE_SPECIFIC + harness.VOLATILE)
 
 
 def test_explain_fused_declines_differ_by_the_scan(monkeypatch):
     """The card's `auto` tries the scan on a batch of 64 pods or more; a CPU
     engine runs the walk. Forced on, the CPU engine stands in for the card:
     a zone-spread batch declines it (`topo`), the plain batch runs it, and
-    only the decline taxonomy tells the runs apart."""
+    only the decline taxonomy and the scan's dispatches (the kernels
+    section, the flight frames' kernels source) tell the runs apart."""
     trace = {
         "version": 1, "name": "explain-scan", "duration": 40.0, "tick": 2.0,
         "nodepools": [{"name": "workers"}],
@@ -461,23 +516,35 @@ def test_explain_fused_declines_differ_by_the_scan(monkeypatch):
     assert scan.report["explain"]["fused_declines"].get("topo", 0) >= 1
     assert scan.digest == walk.digest
     assert scan.report["explain"]["digest"] == walk.report["explain"]["digest"]
-    assert harness.report_without(scan.report) == harness.report_without(walk.report)
+    assert "packer.solve_scan" in scan.report["kernels"]["kernels"]
+    assert "packer.solve_scan" not in walk.report["kernels"]["kernels"]
+    no_kernels = harness.DEVICE_SPECIFIC + tuple(
+        (path, "the scan's dispatches") for path in
+        (("kernels",), ("flight", "ring_digest"), ("flight", "bundles", "*", "sha256")))
+    assert harness.report_without(scan.report, no_kernels) == \
+        harness.report_without(walk.report, no_kernels)
 
 
 def test_report_without_reaches_lists_and_tenants():
     report = {
-        "flight": {"ring_digest": "x", "bundles": [{"name": "a", "sha256": "1"}]},
+        "explain": {"fused_declines": {"topo": 1}, "digest": "e"},
         "solver": {"last_batch_dispatches": 3, "batches": 2},
-        "tenants": {"t": {"solver": {"last_batch_dispatches": 1, "batches": 1}}},
-        "kernels": {"efficiency": {"host_stall_fraction": 0.5, "steady_batches": 2}},
+        "tenants": {"t": {"explain": {"fused_declines": {}, "digest": "f"}}},
+        "kernels": {"efficiency": {"host_stall_fraction": 0.5, "steady_batches": 2},
+                    "digest": "d", "kernels": {"feasibility.cube": {"shapes": {}, "dispatches": 1}}},
     }
     assert harness.report_without(report) == {
-        "flight": {"bundles": [{"name": "a"}]},
-        "solver": {"batches": 2},
-        "tenants": {"t": {"solver": {"batches": 1}}},
+        "explain": {"digest": "e"},
+        "solver": {"last_batch_dispatches": 3, "batches": 2},
+        "tenants": {"t": {"explain": {"digest": "f"}}},
+        "kernels": {"efficiency": {"host_stall_fraction": 0.5, "steady_batches": 2},
+                    "kernels": {"feasibility.cube": {"dispatches": 1}}},
     }
     stable = harness.report_without(report, harness.VOLATILE)
-    assert stable["kernels"] == {"efficiency": {"steady_batches": 2}}
+    assert stable["kernels"]["efficiency"] == {"steady_batches": 2}
+    bundles = {"flight": {"ring_digest": "x", "bundles": [{"name": "a", "sha256": "1"}]}}
+    assert harness.report_without(bundles, ((("flight", "bundles", "*", "sha256"), "a list"),)) == \
+        {"flight": {"ring_digest": "x", "bundles": [{"name": "a"}]}}
     assert report["kernels"]["efficiency"]["host_stall_fraction"] == 0.5  # a copy
     assert all(reason for _path, reason in harness.DEVICE_SPECIFIC + harness.VOLATILE)
 

@@ -242,8 +242,25 @@ def spec_loading(p: Pkg, tmp_path):
     return [s.spec_to_dict(x) for x in s.default_specs()], [s.spec_to_dict(x) for x in specs]
 
 
+SLO_FAMILIES = ("karpenter_slo_compliance_ratio", "karpenter_slo_burn_rate",
+                "karpenter_slo_breaches_total", "karpenter_slo_breach_duration_seconds")
+
+
+def _expo_obj_samples(p: Pkg) -> dict:
+    """The expo-obj samples of the karpenter_slo_* families on the
+    package's global registry, with each family's type."""
+    fam = parse_exposition(p.metrics.expose())
+    return {name: (fam[name]["type"], {k: v for k, v in fam[name]["samples"].items()
+                                       if ("objective", "expo-obj") in k[1]})
+            for name in SLO_FAMILIES if name in fam}
+
+
 def slo_families_round_trip(p: Pkg):
-    """karpenter_slo_* on the package's own global registry."""
+    """karpenter_slo_* on the package's own global registry. Counters and
+    histograms are the process's: each is read as what this scenario added
+    to it (tests/test_slo.py drives the same objective in the reference's
+    registry, and a worker may have run it first)."""
+    before = _expo_obj_samples(p)
     clock = p.FakeClock()
     eng = p.slo.engine().configure(clock=clock, specs=[p.ratio_spec("expo-obj")])
     try:
@@ -254,15 +271,13 @@ def slo_families_round_trip(p: Pkg):
         clock.step(120.0)
         eng.record("expo-obj", good=100000)
         eng.evaluate()
-        fam = parse_exposition(p.metrics.expose())
         out = {}
-        for name in ("karpenter_slo_compliance_ratio", "karpenter_slo_burn_rate",
-                     "karpenter_slo_breaches_total", "karpenter_slo_breach_duration_seconds"):
-            out[name] = (fam[name]["type"], sorted(
-                (k, v) for k, v in fam[name]["samples"].items()
-                if ("objective", "expo-obj") in k[1]))
+        for name, (kind, samples) in _expo_obj_samples(p).items():
+            prior = before.get(name, (kind, {}))[1] if kind in ("counter", "histogram") else {}
+            out[name] = (kind, sorted((k, v - prior.get(k, 0.0)) for k, v in samples.items()))
+        assert sorted(out) == sorted(SLO_FAMILIES), sorted(out)
         nasty = tuple(sorted((("objective", "expo-obj"), ("tenant", 'ten"ant\\x'))))
-        assert ("karpenter_slo_compliance_ratio", nasty) in fam["karpenter_slo_compliance_ratio"]["samples"]
+        assert ("karpenter_slo_compliance_ratio", nasty) in dict(out["karpenter_slo_compliance_ratio"][1])
         return out
     finally:
         p.slo.engine().configure(specs=p.slo.default_specs())

@@ -223,6 +223,7 @@ def reference_config(monkeypatch):
     """The JAX package in the slice's configuration (device programs on,
     fused scan off), and fresh hostname counters in both packages."""
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     monkeypatch.setattr(jfused, "FUSED_MODE", "off")
     for mod in (jnodeclaim, tnodeclaim):
         monkeypatch.setattr(mod, "_hostname_counter", itertools.count(1))

@@ -217,6 +217,7 @@ def test_engine_after_vocabulary_growth_matches_jax(monkeypatch, seed, growth):
     from test_torch_catalog import engines
 
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     je, te, jq, tq = engines(seed)
     jq, tq = jq[:8], tq[:8]
     for q in jq:

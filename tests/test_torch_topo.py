@@ -69,6 +69,7 @@ def twin(monkeypatch):
     fresh hostname and placeholder counters; the port's attempts recorded:
     which driver class emitted the solve, and which declined a shape."""
     monkeypatch.setattr(jcatalog, "FORCE_BACKEND", "device")
+    monkeypatch.setattr("karpenter_tpu_torch.ops.catalog.FORCE_BACKEND", "device")
     monkeypatch.setattr(jffd, "STRICT", True)
     monkeypatch.setattr(jfused, "FUSED_MODE", "off")
     monkeypatch.setattr(tfused, "FUSED_MODE", "off")
